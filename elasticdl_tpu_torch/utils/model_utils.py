@@ -1,0 +1,119 @@
+"""Model-zoo module loading and spec resolution; the counterpart of
+``elasticdl_tpu/utils/model_utils.py``.
+
+The same ``model_def`` strings resolve to the port's modules: with an
+empty ``model_zoo`` the module is imported from the built-in
+``elasticdl_tpu_torch.models`` zoo, so a manifest the JAX package wrote
+(``long_seq_transformer.long_seq_transformer.custom_model``) builds the
+port's model.  ``custom_model`` returns a ``torch.nn.Module``;
+``optimizer`` returns a factory that takes the model's parameters.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import os
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+_BUILTIN_ZOO = "elasticdl_tpu_torch.models."
+
+
+def load_module_from_path(module_file: str):
+    """Import a python module from an absolute file path."""
+    spec = importlib.util.spec_from_file_location(module_file, module_file)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _split_model_def(model_def: str) -> tuple[str, str]:
+    """``pkg.module.func`` -> (``pkg/module.py`` relpath, ``func``)."""
+    parts = model_def.split(".")
+    if len(parts) < 2:
+        raise ValueError(
+            "model_def must be 'module_path.function_name', got %r"
+            % model_def
+        )
+    return os.path.join(*parts[:-1]) + ".py", parts[-1]
+
+
+def load_model_module(model_zoo: str, model_def: str):
+    """Load the model module named by ``model_def``: rooted at the
+    ``model_zoo`` directory when one is given, else from the built-in
+    ``elasticdl_tpu_torch.models`` package."""
+    rel_path, func_name = _split_model_def(model_def)
+    if model_zoo:
+        module_file = os.path.join(model_zoo, rel_path)
+        if not os.path.exists(module_file):
+            raise FileNotFoundError(module_file)
+        module = load_module_from_path(module_file)
+    else:
+        dotted = _BUILTIN_ZOO + model_def.rsplit(".", 1)[0]
+        # tolerate the dir/file repetition (long_seq_transformer.
+        # long_seq_transformer) by trying the full dotted path first,
+        # then the last component alone
+        try:
+            module = importlib.import_module(dotted)
+        except ModuleNotFoundError as e:
+            # fall back only when the named module itself is missing, not
+            # when a dependency imported inside it is
+            if e.name is None or not dotted.startswith(e.name):
+                raise
+            last = dotted.rsplit(".", 1)[-1]
+            module = importlib.import_module(_BUILTIN_ZOO + last)
+    return module, func_name
+
+
+@dataclass
+class ModelSpec:
+    """The resolved model-zoo contract (the part this slice serves)."""
+
+    model_fn: Callable[..., Any]
+    loss: Callable
+    optimizer: Callable
+    # optional device-side half of the parse, applied inside the predict
+    # step before the model.  Signature: features -> features
+    device_parse: Callable | None = None
+    model_params: dict = field(default_factory=dict)
+    module: Any = None
+
+    def build_model(self):
+        return self.model_fn(**self.model_params)
+
+
+def resolve_model_spec(module, entry_fn_name: str) -> ModelSpec:
+    """Resolve the spec functions from a loaded model module; ``loss``
+    and ``optimizer`` are required."""
+
+    def _get(name, required=False):
+        obj = getattr(module, name, None)
+        if obj is None and required:
+            raise AttributeError(
+                f"model module {module.__name__!r} must define {name!r}"
+            )
+        return obj
+
+    model_fn = _get(entry_fn_name)
+    if model_fn is None:
+        raise AttributeError(
+            f"model module {module.__name__!r} has no entry {entry_fn_name!r}"
+        )
+    return ModelSpec(
+        model_fn=model_fn,
+        loss=_get("loss", required=True),
+        optimizer=_get("optimizer", required=True),
+        device_parse=_get("device_parse"),
+        module=module,
+    )
+
+
+def get_model_spec(
+    model_zoo: str, model_def: str, model_params: dict | None = None
+) -> ModelSpec:
+    """One-call loader: module + spec + the model's constructor params."""
+    module, entry = load_model_module(model_zoo, model_def)
+    spec = resolve_model_spec(module, entry)
+    spec.model_params = dict(model_params or {})
+    return spec
