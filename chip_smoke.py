@@ -87,31 +87,45 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 
 # ---- phase 3: the flash forward against its plain version ------------------
 
-# (name, B, S, H, KVH, D, dtype, causal, out atol/rtol, lse atol).  bf16:
-# P is rounded to bf16 before the P.V product and the output is bf16, so
-# the output is held to 2e-2; the scores are exact bf16 products summed
-# in f32 on both sides, so the lse is held to 1e-3.  f32: both sides sum
-# in f32 in different orders, held to 1e-4.
+# (name, B, S, H, KVH, D, dtype, causal).  Outputs are held to atol +
+# rtol * |ref| elementwise, to a mean absolute error, and the lse to an
+# absolute error, per dtype in FLASH_TOLS.
 FLASH_CASES = (
-    ("served", 4, 2048, 12, 12, 64, "bfloat16", True, 2e-2, 1e-3),
-    ("gqa", 2, 1024, 8, 2, 64, "bfloat16", True, 2e-2, 1e-3),
-    ("ragged", 2, 1000, 4, 4, 64, "bfloat16", True, 2e-2, 1e-3),
-    ("noncausal", 2, 1024, 4, 4, 64, "bfloat16", False, 2e-2, 1e-3),
-    ("f32", 2, 1000, 4, 2, 64, "float32", True, 1e-4, 1e-4),
-    ("d128", 2, 1024, 4, 4, 128, "bfloat16", True, 2e-2, 1e-3),
-    ("d32_ragged", 2, 777, 4, 4, 32, "bfloat16", False, 2e-2, 1e-3),
-    ("f32_d128", 1, 300, 2, 2, 128, "float32", False, 1e-4, 1e-4),
+    ("served", 4, 2048, 12, 12, 64, "bfloat16", True),
+    ("gqa", 2, 1024, 8, 2, 64, "bfloat16", True),
+    ("ragged", 2, 1000, 4, 4, 64, "bfloat16", True),
+    ("noncausal", 2, 1024, 4, 4, 64, "bfloat16", False),
+    ("f32", 2, 1000, 4, 2, 64, "float32", True),
+    ("d128", 2, 1024, 4, 4, 128, "bfloat16", True),
+    ("d32_ragged", 2, 777, 4, 4, 32, "bfloat16", False),
+    ("f32_d128", 1, 300, 2, 2, 128, "float32", False),
 )
+# bf16: the kernel rounds P to bf16 before the P.V product (the plain
+# version keeps f32) and both round the output to bf16, so an element is
+# off by about one bf16 ulp of its own size: rtol 2e-2 covers 2**-7.
+# With N(0, 1) inputs an output element is ~0.05 in size at these
+# lengths, so atol is 4e-3, a tenth of that.  Beside that, the mean
+# absolute error over all elements is held to three to five times the
+# largest reading of an H100 run at these shapes (bf16 1.0e-4, f32
+# 4.4e-8).  The scores are
+# exact bf16 products summed in f32 on both sides, so the lse is held
+# to 1e-3.  f32: both sides sum in f32, in different orders.
+FLASH_TOLS = {
+    # dtype: (out atol, out rtol, out mean abs err, lse atol)
+    "bfloat16": (4e-3, 2e-2, 3e-4, 1e-3),
+    "float32": (1e-4, 1e-4, 2e-7, 1e-4),
+}
 
 
-def flash_bound(b, s, h, d, dtype, causal):
+def flash_bound(b, s, h, kvh, d, dtype, causal):
     """(bound_ms, bound_by) of one forward: the operations the function
     needs (two products over the live (q, k) pairs) at the type's peak,
-    against q, k, v, out and lse each moved once at the memory rate."""
+    against q and out (h heads), k and v (kvh heads) and the f32 lse
+    each moved once at the memory rate."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * d * pairs
     itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * b * s * h * d * itemsize + b * h * s * 4
+    nbytes = 2 * b * s * (h + kvh) * d * itemsize + b * h * s * 4
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -125,7 +139,8 @@ def check_flash_cases():
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, s, h, kvh, d, dtype, causal, tol, lse_tol in FLASH_CASES:
+    for name, b, s, h, kvh, d, dtype, causal in FLASH_CASES:
+        atol, rtol, mean_tol, lse_tol = FLASH_TOLS[dtype]
         dt = getattr(torch, dtype)
 
         def mk(heads):
@@ -137,11 +152,13 @@ def check_flash_cases():
         out, lse = attn.flash_forward(q, k, v, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = attn.flash_attention_reference(q, k, v, causal)
-        err = (out.float() - ref_out.float()).abs().max().item()
+        diff = (out.float() - ref_out.float()).abs()
+        err, mean_err = diff.max().item(), diff.mean().item()
         lse_err = (lse - ref_lse).abs().max().item()
         ok = bool(
             torch.isfinite(out.float()).all().item()
-            and torch.allclose(out.float(), ref_out.float(), atol=tol, rtol=tol)
+            and torch.allclose(out.float(), ref_out.float(), atol=atol, rtol=rtol)
+            and mean_err <= mean_tol
             and lse_err <= lse_tol
         )
         reps = 20 if name == "served" else 5
@@ -156,11 +173,12 @@ def check_flash_cases():
             ),
             reps,
         )
-        bound_ms, bound_by = flash_bound(b, s, h, d, dtype, causal)
+        bound_ms, bound_by = flash_bound(b, s, h, kvh, d, dtype, causal)
         row = {
             "case": name, "shape": [b, s, h, kvh, d], "dtype": dtype,
-            "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "tol": tol, "lse_tol": lse_tol, "ok": ok, "kernel_ms": kernel_ms,
+            "causal": causal, "max_abs_err": err, "mean_abs_err": mean_err,
+            "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol,
+            "mean_tol": mean_tol, "lse_tol": lse_tol, "ok": ok, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -266,6 +284,8 @@ def serve_lm(model_dir: str, device: str = "cuda"):
             raise AssertionError(f"request failed: {resp.error}")
         if resp.outputs.shape != (n, SEQ, GPT2S["vocab_size"]):
             raise AssertionError(f"bad output shape {resp.outputs.shape}")
+        if resp.outputs.dtype.name != "bfloat16":  # the model's, unwidened
+            raise AssertionError(f"served {resp.outputs.dtype}, not bfloat16")
         if not np.isfinite(resp.outputs).all():
             raise AssertionError("non-finite logits served")
     layers = GPT2S["num_layers"]

@@ -19,8 +19,10 @@ exact residual to its measured total).  ``device_compute`` ends at an
 explicit device synchronise, so the compute never lands in
 ``d2h_transfer``.
 
-Outputs come back as numpy arrays; a bf16 output is returned as float32
-(numpy has no bf16; the widening is exact).
+Outputs come back as numpy arrays in the model's output dtype, as the
+JAX engine's ``device_get`` returns them: numpy has no bf16 of its own,
+so a bf16 output is the same bits viewed as ``ml_dtypes.bfloat16``, the
+numpy type JAX itself returns (a view, no widening on the host).
 
 Not in this slice: hot swap (``swap_state_dicts``, ``swap_from_export``,
 the export-directory watcher), trace spans, the event log, the
@@ -32,6 +34,7 @@ from __future__ import annotations
 import threading
 import time
 
+import ml_dtypes
 import numpy as np
 import torch
 
@@ -91,7 +94,7 @@ def _map_tree(fn, tree):
 def _to_host(tensor: torch.Tensor) -> np.ndarray:
     host = tensor.detach().cpu()
     if host.dtype == torch.bfloat16:
-        host = host.float()
+        return host.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return host.numpy()
 
 

@@ -61,11 +61,9 @@ class ServingReplicaServicer:
     """Transport-agnostic servicer: tests and in-process callers call
     :meth:`predict` directly."""
 
-    def __init__(self, engine: ServingEngine, batcher: MicroBatcher,
-                 replica_id: int = 0):
+    def __init__(self, engine: ServingEngine, batcher: MicroBatcher):
         self.engine = engine
         self.batcher = batcher
-        self.replica_id = int(replica_id)
         self.rejected = 0
 
     def predict(self, request: PredictRequest) -> PredictResponse:
@@ -121,35 +119,24 @@ class ServingReplica:
         model_dir: str,
         canonical_rows: int,
         max_wait_secs: float = 0.002,
-        max_queue_rows: int | None = None,
-        replica_id: int = 0,
         device: str | torch.device = "cuda",
     ):
         self.engine = ServingEngine(
             model_dir, canonical_rows, device=device
         )
-        self.batcher = MicroBatcher(
-            canonical_rows,
-            max_wait_secs=max_wait_secs,
-            max_queue_rows=max_queue_rows,
-        )
-        self.servicer = ServingReplicaServicer(
-            self.engine, self.batcher, replica_id=replica_id
-        )
+        self.batcher = MicroBatcher(canonical_rows, max_wait_secs=max_wait_secs)
+        self.servicer = ServingReplicaServicer(self.engine, self.batcher)
         self._thread: threading.Thread | None = None
         self._stopping = threading.Event()
 
     def start(self):
         self._thread = threading.Thread(
             target=self._dispatch_loop,
-            name=f"serving-dispatch-{self.servicer.replica_id}",
+            name="serving-dispatch",
             daemon=True,
         )
         self._thread.start()
-        logger.info(
-            "Serving replica %d started on %s",
-            self.servicer.replica_id, self.engine.device,
-        )
+        logger.info("Serving replica started on %s", self.engine.device)
         return self
 
     def __enter__(self):

@@ -3,24 +3,24 @@ NVIDIA GPU.
 
 ::
 
-    python3 scripts/torch_serving_profile.py [--rows 4] [--seq 2048]
-        [--layers 12] [--dispatches 3]
+    python3 scripts/torch_serving_profile.py
 
-Builds the GPT-2-small-shaped ``TransformerLM`` of ``elasticdl_tpu_torch``
-(vocab 32768, embed 768, 12 heads, bf16; seeded random weights), writes
-it as an export in the JAX package's layout, loads it into a
-``ServingEngine`` on the card, warms up, and traces ``--dispatches``
-dispatches of ``--rows`` rows (``predict_rows``: pad, host to device,
-forward, device to host) under ``torch.profiler``.  Prints the card's
-name and power limit, the kernels with the most device time, and as its
-last line one JSON object: host wall time per dispatch, device busy time
-per dispatch split into the flash kernel, the dense products, copies
-and the rest, and the device's idle share.  Fails without CUDA.
+Builds the LM that ``chip_smoke.py`` serves (its ``GPT2S`` at ``SEQ``
+tokens, seeded random weights, written by its ``build_export``), loads it
+into a ``ServingEngine`` with ``SERVE_ROWS`` canonical rows on the card,
+warms up, and traces three dispatches (``predict_rows``: pad, host to
+device, forward, device to host) under ``torch.profiler``.  Then it
+times the copy of one dispatch's logits to the host as the engine makes
+it (into pageable memory) against the same copy into a pinned buffer, a
+yardstick the engine does not use yet.  Prints the card's name and power
+limit, the kernels with the most device time, and as its last line one
+JSON object: host wall time per dispatch, device busy time per dispatch
+split into the flash kernel, the dense products, copies and the rest,
+the device's idle share, and the two copy times.  Fails without CUDA.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -29,6 +29,10 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import GPT2S, SEQ, SERVE_ROWS, build_export, time_cuda  # noqa: E402
+
+DISPATCHES = 3
 
 
 def _category(name: str) -> str:
@@ -44,13 +48,6 @@ def _category(name: str) -> str:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--rows", type=int, default=4)
-    parser.add_argument("--seq", type=int, default=2048)
-    parser.add_argument("--layers", type=int, default=12)
-    parser.add_argument("--dispatches", type=int, default=3)
-    args = parser.parse_args()
-
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -60,42 +57,36 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from elasticdl_tpu_torch.models import long_seq_transformer as lm
     from elasticdl_tpu_torch.serving.engine import ServingEngine
-    from elasticdl_tpu_torch.utils.export_utils import export_model
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    params = dict(
-        vocab_size=32768, embed_dim=768, num_heads=12,
-        num_layers=args.layers, dtype="bfloat16",
-    )
     rng = np.random.RandomState(0)
     feats = {
-        "tokens": rng.randint(0, params["vocab_size"], (args.rows, args.seq))
+        "tokens": rng.randint(0, GPT2S["vocab_size"], (SERVE_ROWS, SEQ))
         .astype(np.int32)
     }
     with tempfile.TemporaryDirectory(prefix="serving_profile_") as model_dir:
-        model = lm.custom_model(**params)
-        lm.init_weights(model, torch.Generator().manual_seed(0))
-        export_model(
-            model_dir, model,
-            "long_seq_transformer.long_seq_transformer.custom_model",
-            model_params=params,
-        )
-        del model
-        engine = ServingEngine(model_dir, args.rows, device="cuda")
+        build_export(model_dir)
+        engine = ServingEngine(model_dir, SERVE_ROWS, device="cuda")
         for _ in range(2):
             engine.predict_rows(feats)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            for _ in range(args.dispatches):
+            for _ in range(DISPATCHES):
                 engine.predict_rows(feats)
             torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3 / args.dispatches
+            wall_ms = (time.monotonic() - t0) * 1e3 / DISPATCHES
+
+    logits = torch.empty(
+        (SERVE_ROWS, SEQ, GPT2S["vocab_size"]), dtype=torch.bfloat16, device="cuda"
+    )
+    pinned = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+    pageable_ms = time_cuda(logits.cpu, 3, 1)
+    pinned_ms = time_cuda(lambda: pinned.copy_(logits), 3, 1)
 
     by_category: dict[str, float] = {}
     kernels = []
@@ -105,8 +96,8 @@ def main() -> int:
         us = getattr(avg, "device_time_total", None)
         if us is None:
             us = avg.cuda_time_total
-        ms = us / 1e3 / args.dispatches
-        kernels.append((ms, avg.count // args.dispatches, avg.key))
+        ms = us / 1e3 / DISPATCHES
+        kernels.append((ms, avg.count // DISPATCHES, avg.key))
         cat = _category(avg.key)
         by_category[cat] = by_category.get(cat, 0.0) + ms
     kernels.sort(reverse=True)
@@ -115,11 +106,13 @@ def main() -> int:
     busy_ms = sum(by_category.values())
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "rows": args.rows, "seq": args.seq, "layers": args.layers,
+        "rows": SERVE_ROWS, "seq": SEQ, "layers": GPT2S["num_layers"],
         "wall_ms_per_dispatch": wall_ms,
         "device_busy_ms_per_dispatch": busy_ms,
         "device_ms_by_category": by_category,
         "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+        "logits_to_pageable_ms": pageable_ms,
+        "logits_to_pinned_ms": pinned_ms,
     }), flush=True)
     if not busy_ms:
         print("the profiler recorded no device time", file=sys.stderr)

@@ -28,18 +28,21 @@ def cuda():
     return torch.device("cuda")
 
 
-# (B, S, H, KVH, D, dtype, causal, tol): bf16 output and P rounded to
-# bf16 before P.V -> 2e-2; f32 end to end -> 1e-4
+# (B, S, H, KVH, D, dtype, causal, atol, rtol): bf16 output and P
+# rounded to bf16 before P.V -> about one bf16 ulp of each element
+# (rtol 2e-2) plus 4e-3; f32 end to end -> 1e-4
 KERNEL_CASES = [
-    (2, 256, 4, 4, 64, torch.bfloat16, True, 2e-2),
-    (2, 200, 8, 2, 64, torch.bfloat16, True, 2e-2),
-    (1, 130, 2, 2, 128, torch.bfloat16, False, 2e-2),
-    (1, 77, 2, 1, 32, torch.float32, True, 1e-4),
+    (2, 256, 4, 4, 64, torch.bfloat16, True, 4e-3, 2e-2),
+    (2, 200, 8, 2, 64, torch.bfloat16, True, 4e-3, 2e-2),
+    (1, 130, 2, 2, 128, torch.bfloat16, False, 4e-3, 2e-2),
+    (1, 77, 2, 1, 32, torch.float32, True, 1e-4, 1e-4),
 ]
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d,dtype,causal,tol", KERNEL_CASES)
-def test_flash_kernel_matches_plain_version(cuda, b, s, h, kvh, d, dtype, causal, tol):
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,causal,atol,rtol", KERNEL_CASES)
+def test_flash_kernel_matches_plain_version(
+    cuda, b, s, h, kvh, d, dtype, causal, atol, rtol
+):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, s, kvh, d), generator=gen, device=cuda).to(dtype)
@@ -49,7 +52,7 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, kvh, d, dtype, causal
     torch.cuda.synchronize()
     assert attn.launch_counts["flash_fwd"] == 1
     ref_out, ref_lse = attn.flash_attention_reference(q, k, v, causal)
-    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 

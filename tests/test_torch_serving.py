@@ -18,6 +18,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
+import ml_dtypes
 import numpy as np
 import optax
 import pytest
@@ -44,6 +45,7 @@ from elasticdl_tpu_torch.telemetry.anatomy import (
 from elasticdl_tpu_torch.trainer.stacking import canonical_batch_rows
 
 TOL = 1e-4
+BF16_TOL = 6e-2  # as tests/test_torch_transformer.py: a few bf16 roundings
 ROWS = 8  # the batcher tests' canonical shape, as in tests/test_serving.py
 SEQ = 32
 LM_DEF = "long_seq_transformer.long_seq_transformer.custom_model"
@@ -63,11 +65,9 @@ def _tokens(n: int, seed: int) -> dict:
     }
 
 
-@pytest.fixture(scope="module")
-def lm_export(tmp_path_factory):
+def _jax_export(out: str, model_params: dict) -> str:
     """A JAX-written export of the LM, with numpy-seeded weights."""
-    out = str(tmp_path_factory.mktemp("lm_export"))
-    spec = jax_get_model_spec("", LM_DEF, model_params=LM_KW)
+    spec = jax_get_model_spec("", LM_DEF, model_params=model_params)
     model = spec.build_model()
     params, model_state = init_model(model, _tokens(1, seed=0))
     rng = np.random.RandomState(11)
@@ -77,9 +77,14 @@ def lm_export(tmp_path_factory):
     state = TrainState.create(model.apply, params, optax.identity(), model_state)
     state = state.replace(step=np.int32(7))
     args = argparse.Namespace(
-        model_zoo="", model_def=LM_DEF, model_params_dict=LM_KW
+        model_zoo="", model_def=LM_DEF, model_params_dict=model_params
     )
     return jax_export_model(out, state, spec, args)
+
+
+@pytest.fixture(scope="module")
+def lm_export(tmp_path_factory):
+    return _jax_export(str(tmp_path_factory.mktemp("lm_export")), LM_KW)
 
 
 def _serve_jax(export_dir, requests):
@@ -115,6 +120,20 @@ def test_port_replica_serves_a_jax_export_like_the_jax_engine(lm_export):
     # 11 rows in groups of at most 4: at least 3 dispatches
     assert engine.dispatches >= 3 and engine.rows_served == sum(REQUEST_ROWS)
     assert port_attn.launch_counts["flash_fwd"] == 0  # CPU: the plain path
+
+
+def test_port_serves_bf16_logits_in_the_jax_engines_dtype(tmp_path):
+    """A bf16 LM's logits come back as bf16 numpy arrays
+    (``ml_dtypes.bfloat16``), as the JAX engine returns them, not widened."""
+    export = _jax_export(str(tmp_path), dict(LM_KW, dtype="bfloat16"))
+    feats = _tokens(3, seed=30)
+    (want,) = _serve_jax(export, [feats])
+    with ServingReplica(export, canonical_rows=4, device="cpu") as replica:
+        response = replica.predict(PredictRequest("a", feats, 3))
+    assert not response.error, response.error
+    assert response.outputs.dtype == want.dtype == ml_dtypes.bfloat16
+    got, want = (np.asarray(x, np.float32) for x in (response.outputs, want))
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
 def test_port_phases_are_sum_exact(lm_export):
