@@ -9,20 +9,29 @@ Phases, in order; any failure exits non-zero, and no result line is
 printed:
 
 1. device  — require CUDA; print ``nvidia-smi``'s name and power limit.
-2. build   — compile every kernel of the serving path from
+2. build   — compile every kernel of the serving and training paths from
    ``elasticdl_tpu_torch/ops/csrc/`` (one ``nvcc`` per source, started
    together) and print the build seconds.
-3. kernels — hold each kernel against its plain PyTorch version on the
-   card, at the served shape and at the edge cases (GQA, ragged length,
-   non-causal, f32, other head dims), with the tolerance stated per case;
-   time the kernel, the plain version and one PyTorch library call that
-   computes the same function (a yardstick only: the port never calls it).
+3. kernels — hold the flash forward against its plain PyTorch version on
+   the card, at the served and the training shapes and at the edge
+   cases (GQA, ragged length, non-causal, f32, other head dims), with
+   the tolerance stated per case; time the kernel, the plain version and one PyTorch library
+   call that computes the same function (a yardstick only: the port
+   never calls it).
+3b. backward — the same for the dQ and dK/dV kernels, at the training
+   shape and the same edge cases; the yardstick is the backward of
+   ``scaled_dot_product_attention``.
 4. serve   — build the GPT-2-small-shaped ``TransformerLM`` (vocab 32768,
    embed 768, 12 heads, 12 layers, bf16, sequence 2048) from a seeded
    generator, export it in the JAX package's layout, serve concurrent
    requests of 1, 2, 3 and 5 rows through ``ServingReplica`` with 4
    canonical rows, and check every delivered row against the model run
    directly, and that every attention call went through the kernel.
+5. train   — train the same LM through ``SPMDTrainer`` for 6 steps of 8
+   canonical rows (one step carries 2 zero-weight padding rows): every
+   step launches each kernel once per layer, losses are finite and fall
+   on the repeated batch, and on one row the model's gradients through
+   the kernels match those with the plain versions in their place.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -90,8 +99,7 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 # (name, B, S, H, KVH, D, dtype, causal).  Outputs are held to atol +
 # rtol * |ref| elementwise, to a mean absolute error, and the lse to an
 # absolute error, per dtype in FLASH_TOLS.
-FLASH_CASES = (
-    ("served", 4, 2048, 12, 12, 64, "bfloat16", True),
+EDGE_CASES = (
     ("gqa", 2, 1024, 8, 2, 64, "bfloat16", True),
     ("ragged", 2, 1000, 4, 4, 64, "bfloat16", True),
     ("noncausal", 2, 1024, 4, 4, 64, "bfloat16", False),
@@ -100,6 +108,10 @@ FLASH_CASES = (
     ("d32_ragged", 2, 777, 4, 4, 32, "bfloat16", False),
     ("f32_d128", 1, 300, 2, 2, 128, "float32", False),
 )
+# gpt2s at the served rows and at the training batch (8 canonical rows)
+SERVED_CASE = ("served", 4, 2048, 12, 12, 64, "bfloat16", True)
+TRAIN_CASE = ("train", 8, 2048, 12, 12, 64, "bfloat16", True)
+FLASH_CASES = (SERVED_CASE, TRAIN_CASE) + EDGE_CASES
 # bf16: the kernel rounds P to bf16 before the P.V product (the plain
 # version keeps f32) and both round the output to bf16, so an element is
 # off by about one bf16 ulp of its own size: rtol 2e-2 covers 2**-7.
@@ -161,7 +173,7 @@ def check_flash_cases():
             and mean_err <= mean_tol
             and lse_err <= lse_tol
         )
-        reps = 20 if name == "served" else 5
+        reps = 20 if name in ("served", "train") else 5
         kernel_ms = time_cuda(lambda: attn.flash_forward(q, k, v, causal), reps)
         plain_ms = time_cuda(
             lambda: attn.flash_attention_reference(q, k, v, causal), 3, 1
@@ -186,6 +198,151 @@ def check_flash_cases():
         if not ok:
             raise AssertionError(f"flash_fwd disagrees with its plain version: {row}")
         results[name] = row
+    return results
+
+
+# ---- phase 3b: the backward kernels against their plain versions ----------
+
+# the training shape and the forward's edge cases
+BWD_CASES = (TRAIN_CASE,) + EDGE_CASES
+# Gradients are held relative to their own size, since dQ, dK and dV
+# differ in scale from case to case: elementwise
+# |err| <= atol * max|ref| + rtol * |ref|, and the mean abs error
+# <= mean_tol * rms(ref).  bf16: the kernels round P and dS to bf16
+# (2**-9 relative) before their products, and both sides round the
+# gradient to bf16 once at the end.  Where one large term makes an
+# element (a dV row near the causal end is P ~ 1 times one dO row), the
+# rounding of P alone moves it by up to 2**-9 of that term, so an
+# element may be off by two bf16 roundings of the gradient's largest
+# element (atol 1e-2 > 2**-7) beside the rtol of the forward's checks.
+# The mean error read at most 1.3e-3 of the RMS on an H100: held to 3e-3.
+# f32: both sides sum in f32, in different orders.
+BWD_TOLS = {
+    # dtype: (atol relative to max|ref|, rtol, mean abs err relative to rms)
+    "bfloat16": (1e-2, 2e-2, 3e-3),
+    "float32": (1e-5, 1e-4, 1e-5),
+}
+
+
+def backward_bound(b, s, h, kvh, d, dtype, causal):
+    """(bound_ms, bound_by) of each backward kernel at one shape: dQ does
+    three products over the live (q, k) pairs and moves q, dO, dq (h
+    heads), k, v (kvh heads), lse and delta (f32); dK/dV does four and
+    moves the same inputs plus dk and dv (kvh heads)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    itemsize = 2 if dtype == "bfloat16" else 4
+    inputs = b * s * (2 * h + 2 * kvh) * d * itemsize + 2 * b * h * s * 4
+    out = {}
+    for name, products, out_bytes in (
+        ("flash_bwd_dq", 3, b * s * h * d * itemsize),
+        ("flash_bwd_dkv", 4, 2 * b * s * kvh * d * itemsize),
+    ):
+        t_ops = 2 * products * b * h * d * pairs / PEAK_FLOPS[dtype]
+        t_bytes = (inputs + out_bytes) / PEAK_BYTES_PER_S
+        out[name] = (
+            max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+        )
+    return out
+
+
+def grad_errors(got, ref):
+    """(max abs error, mean abs error, max abs and rms of the reference)."""
+    diff = (got.float() - ref.float()).abs()
+    ref = ref.float()
+    return (
+        diff.max().item(), diff.mean().item(), ref.abs().max().item(),
+        ref.pow(2).mean().sqrt().item(),
+    )
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_backward_cases():
+    import torch
+    import torch.nn.functional as F
+
+    from elasticdl_tpu_torch.ops import attention as attn
+
+    kernels = {
+        # name: (kernel wrapper, plain version, the gradients it returns)
+        "flash_bwd_dq": (attn.flash_bwd_dq, attn.flash_dq_reference, ("dq",)),
+        "flash_bwd_dkv": (
+            attn.flash_bwd_dkv, attn.flash_dkv_reference, ("dk", "dv"),
+        ),
+    }
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, b, s, h, kvh, d, dtype, causal in BWD_CASES:
+        atol, rtol, mean_tol = BWD_TOLS[dtype]
+        dt = getattr(torch, dtype)
+
+        def mk(heads):
+            return torch.randn(
+                (b, s, heads, d), generator=gen, device="cuda"
+            ).to(dt)
+
+        q, k, v, g = mk(h), mk(kvh), mk(kvh), mk(h)
+        out, lse = attn.flash_forward(q, k, v, causal)
+        args = (q, k, v, out, lse, g, causal)
+        grads = {n: _as_tuple(fns[0](*args)) for n, fns in kernels.items()}
+        torch.cuda.synchronize()
+        # the library's backward of the same attention (dq, dk, dv and
+        # delta together): a yardstick only, the port never calls it
+        qt, kt, vt = (
+            x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)
+        )
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=kvh != h
+        )
+        gt = g.transpose(1, 2)
+        reps = 10 if name == "train" else 3
+        library_ms = time_cuda(
+            lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), gt, retain_graph=True
+            ),
+            reps,
+        )
+        bounds = backward_bound(b, s, h, kvh, d, dtype, causal)
+        rows = {}
+        for kname, (kernel, plain, gnames) in kernels.items():
+            errs = {}
+            ok = True
+            for gname, got, ref in zip(gnames, grads[kname], _as_tuple(plain(*args))):
+                err, mean_err, ref_max, rms = grad_errors(got, ref)
+                ok = ok and bool(
+                    torch.isfinite(got.float()).all().item()
+                    and got.shape == ref.shape and got.dtype == ref.dtype
+                    and torch.allclose(
+                        got.float(), ref.float(), atol=atol * ref_max, rtol=rtol
+                    )
+                    and mean_err <= mean_tol * rms
+                )
+                errs[gname] = {
+                    "max_abs_err": err, "mean_abs_err": mean_err,
+                    "ref_max_abs": ref_max, "ref_rms": rms,
+                }
+            kernel_ms = time_cuda(lambda: kernel(*args), reps)
+            plain_ms = time_cuda(lambda: plain(*args), 2, 1)
+            bound_ms, bound_by = bounds[kname]
+            row = {
+                "kernel": kname, "case": name, "shape": [b, s, h, kvh, d],
+                "dtype": dtype, "causal": causal, "errors": errs,
+                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                "atol_rel_max": atol, "rtol": rtol, "mean_tol_rel_rms": mean_tol,
+                "ok": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            print(json.dumps(row), flush=True)
+            rows[kname] = row
+        del lib_out, qt, kt, vt
+        results[name] = rows
+    bad = [r for rows in results.values() for r in rows.values() if not r["ok"]]
+    if bad:  # after every case has printed its row
+        raise AssertionError(f"backward kernels disagree with plain: {bad}")
     return results
 
 
@@ -344,6 +501,137 @@ def serve_lm(model_dir: str, device: str = "cuda"):
     return launches
 
 
+# ---- phase 5: train the gpt2s-shaped LM ------------------------------------
+
+# bench.py's training batch for transformer_gpt2s_seq2048 on one chip
+TRAIN_ROWS = 8
+WARMUP_STEPS = 2
+TIMED_STEPS = 4
+PADDED_STEP = 3  # this step carries PADDED_REAL real rows + zero-weight pad
+PADDED_REAL = 6
+# the whole model's parameter gradients on one row, through the kernels
+# against the plain versions in their place: the kernels round P and dS
+# to bf16 where the plain versions keep f32, and the bf16 model rounds
+# its activations after every layer, so the two differ by a few bf16
+# roundings compounded over 12 blocks.  Held in relative norm, over all
+# parameters together and for the worst single tensor.  The key biases
+# sit out of the per-tensor check: their gradient is zero in exact
+# arithmetic (a key bias shifts a row's scores alike, which softmax
+# ignores), so each path's is rounding noise and their ratio means
+# nothing; they stay in the global norm.  An H100 run read 1.7e-3 over
+# all parameters: the global limit is about six times that.
+GRAD_REL_ERR = 1e-2
+GRAD_TENSOR_REL_ERR = 1.5e-1
+ZERO_GRAD_PARAMS = "attn.key.bias"
+
+
+def _one_row_grads(model, feats, labels):
+    """Parameter gradients of the mean loss on one row (dropout is 0)."""
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+
+    model.zero_grad(set_to_none=True)
+    loss = lm.loss(labels, model(feats, training=True))
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def train_lm(device: str = "cuda"):
+    """Phase 5.  Returns each kernel's launches over the training run
+    (``device="cpu"`` rehearses the phase at a small size)."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.step import resolve_optimizer
+
+    model = lm.custom_model(**GPT2S)
+    lm.init_weights(model, torch.Generator().manual_seed(0))
+    trainer = SPMDTrainer(
+        model, lm.loss, resolve_optimizer(lm.optimizer), device=device
+    )
+    tokens = np.random.RandomState(1).randint(
+        0, GPT2S["vocab_size"], (TRAIN_ROWS, SEQ + 1)
+    ).astype(np.int32)
+    full = (
+        trainer.place_batch({"tokens": tokens[:, :-1]}),
+        trainer.place_batch(tokens[:, 1:]),
+        trainer.place_mask(TRAIN_ROWS, TRAIN_ROWS),
+    )
+    padded = (
+        trainer.place_canonical({"tokens": tokens[:PADDED_REAL, :-1]}, TRAIN_ROWS),
+        trainer.place_canonical(tokens[:PADDED_REAL, 1:], TRAIN_ROWS),
+        trainer.place_mask(PADDED_REAL, TRAIN_ROWS),
+    )
+    layers = GPT2S["num_layers"]
+    per_step = layers if device == "cuda" else 0  # the CPU takes the plain path
+    totals = dict.fromkeys(attn.launch_counts, 0)
+    losses, step_ms = [], []
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        batch = padded if i == PADDED_STEP else full
+        attn.reset_launch_counts()
+        t0 = time.monotonic()
+        loss = float(trainer.train_step(*batch)["loss"])  # waits for the step
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        counts = dict(attn.launch_counts)
+        losses.append(loss)
+        if any(n != per_step for n in counts.values()):
+            raise AssertionError(
+                f"step {i} launched {counts}, not {per_step} of each kernel"
+            )
+        for name, n in counts.items():
+            totals[name] += n
+    peak_bytes = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:  # both on the full batch
+        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+
+    # one row through the kernels, then with the plain versions in their
+    # place (after the counts were read: these launches are checks)
+    feats, labels = {"tokens": full[0]["tokens"][:1]}, full[1][:1]
+    got = _one_row_grads(trainer.state.model, feats, labels)
+    with mock.patch.object(
+        attn, "flash_forward", attn.flash_attention_reference
+    ), mock.patch.object(attn, "flash_backward", attn.flash_backward_reference):
+        want = _one_row_grads(trainer.state.model, feats, labels)
+    diff_sq = sum((got[n] - want[n]).pow(2).sum().item() for n in want)
+    norm_sq = sum(want[n].pow(2).sum().item() for n in want)
+    rel = (diff_sq / norm_sq) ** 0.5
+    per_tensor = {
+        n: ((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)).item()
+        for n in want
+        if not n.endswith(ZERO_GRAD_PARAMS)
+    }
+    worst = max(per_tensor, key=per_tensor.get)
+    key_bias_sq = sum(
+        want[n].pow(2).sum().item() for n in want if n.endswith(ZERO_GRAD_PARAMS)
+    )
+    timed = step_ms[WARMUP_STEPS:]
+    median_ms = statistics.median(timed)
+    result = {
+        "train_losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_ms,
+        "tokens_per_s": TRAIN_ROWS * SEQ / (median_ms / 1e3),
+        "max_memory_allocated_bytes": peak_bytes,
+        "launches_per_step": per_step, "launches": totals,
+        "grad_rel_err": rel, "grad_worst_tensor": worst,
+        "grad_worst_tensor_rel_err": per_tensor[worst],
+        "key_bias_grad_share_of_norm": (key_bias_sq / norm_sq) ** 0.5,
+    }
+    print(json.dumps(result), flush=True)
+    if rel > GRAD_REL_ERR or per_tensor[worst] > GRAD_TENSOR_REL_ERR:
+        raise AssertionError(f"kernel gradients disagree with plain: {result}")
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -369,35 +657,50 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.monotonic()
-    _build.build(["flash_fwd"])
+    _build.build(["flash_fwd", "flash_bwd"])
     print(json.dumps({"build_secs": time.monotonic() - t0}), flush=True)
     for name, text in _build.build_logs.items():
         log(f"--- nvcc {name}.cu\n{text}")
 
     # ---- 3. kernels against their plain versions
     flash = check_flash_cases()
-    served = flash["served"]
+    backward = check_backward_cases()
 
-    # ---- 4. the main path: serve the LM
+    # ---- 4. the serving path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as model_dir:
         t0 = time.monotonic()
         build_export(model_dir)
         print(json.dumps({"export_secs": time.monotonic() - t0}), flush=True)
-        launches = serve_lm(model_dir)
+        serve_launches = serve_lm(model_dir)
 
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "elasticdl_tpu/ops/attention.py:182",
-        "launches": launches,
-        "max_abs_err": served["max_abs_err"],
-        "ms": served["kernel_ms"],
-        "plain_ms": served["plain_ms"],
-        "bound_ms": served["bound_ms"],
-        "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"],
-    }]
+    # ---- 5. the training path
+    train_launches = train_lm()
+    print(json.dumps({"launches_by_path": {
+        "serve": {"flash_fwd": serve_launches}, "train": train_launches,
+    }}), flush=True)
+
+    def row(name, source, replaces, measured):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"elasticdl_tpu_torch/ops/csrc/{source}",
+            "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
+            "launches": train_launches[name]
+            + (serve_launches if name == "flash_fwd" else 0),
+            "max_abs_err": measured["max_abs_err"],
+            "ms": measured["kernel_ms"],
+            "plain_ms": measured["plain_ms"],
+            "bound_ms": measured["bound_ms"],
+            "bound_by": measured["bound_by"],
+            "library_ms": measured["library_ms"],
+        }
+
+    train_case = backward["train"]
+    kernels = [
+        row("flash_fwd", "flash_fwd.cu", 182, flash["served"]),
+        row("flash_bwd_dq", "flash_bwd.cu", 261, train_case["flash_bwd_dq"]),
+        row("flash_bwd_dkv", "flash_bwd.cu", 335, train_case["flash_bwd_dkv"]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

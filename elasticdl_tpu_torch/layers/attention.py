@@ -12,6 +12,12 @@ LayerNorm reduces in f32 and casts its output to the compute dtype.
 Flax details the port matches: LayerNorm ``epsilon=1e-6`` (torch's
 default is 1e-5) and the tanh approximation of GELU.
 
+Dropout draws its mask from an explicit ``torch.Generator`` that the
+train step seeds from ``(seed, step)`` (:func:`dropout_generator`), the
+counterpart of the JAX package's ``fold_in(PRNGKey(0), step)``: a step's
+masks are the same whenever it is replayed and fresh at every step.  The
+bits differ from JAX's.
+
 Not in this slice: decode mode with a KV cache, and the MoE MLP
 (``num_experts > 0`` raises).
 """
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -61,6 +68,27 @@ def to_torch_dtype(dtype):
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     return getattr(torch, str(dtype))
+
+
+def dropout_generator(step: int, device, seed: int = 0) -> torch.Generator:
+    """The dropout generator of training step ``step``: seeded from
+    ``(seed, step)`` through numpy's ``SeedSequence``, so neighbouring
+    steps get unrelated streams."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]) & (2**63 - 1))
+    return gen
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
+    """flax ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``; the mask
+    comes from ``generator``.  ``generator=None`` means inference: ``x``
+    unchanged."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -110,8 +138,8 @@ class MultiHeadSelfAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: LayerNorm -> attention -> residual, LayerNorm ->
-    dense MLP (GELU, tanh form) -> residual.  Dropout is inactive in
-    serving (eval mode)."""
+    dense MLP (GELU, tanh form) -> residual.  Dropout applies only when
+    the caller passes a ``generator`` (training)."""
 
     def __init__(
         self,
@@ -138,15 +166,17 @@ class TransformerBlock(nn.Module):
         self.ln2 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
         self.mlp_up = nn.Linear(embed_dim, embed_dim * mlp_ratio)
         self.mlp_down = nn.Linear(embed_dim * mlp_ratio, embed_dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         y = self.attn(layer_norm(x, self.ln1, self.dtype))
-        x = x + self.dropout(y)
+        x = x + dropout(y, self.dropout_rate, generator)
         y = layer_norm(x, self.ln2, self.dtype)
         y = F.gelu(dense(y, self.mlp_up, self.dtype), approximate="tanh")
         y = dense(y, self.mlp_down, self.dtype)
-        return x + self.dropout(y)
+        return x + dropout(y, self.dropout_rate, generator)
 
 
 def sinusoidal_positions(

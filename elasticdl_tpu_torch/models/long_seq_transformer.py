@@ -4,10 +4,11 @@
 Spec contract: ``custom_model`` / ``loss`` / ``optimizer`` (the names
 ``utils.model_utils`` requires), so a manifest the JAX package wrote
 (``model_def: long_seq_transformer.long_seq_transformer.custom_model``)
-builds this model.  Its attention runs the flash kernel on CUDA.
+builds this model.  Its attention runs the flash kernels on CUDA, in
+both directions when it trains.
 
-Not in this slice: decode mode and ``generate``, ``dataset_fn`` and
-``eval_metrics_fn`` (training), MoE, sequence parallelism.
+Not in this slice: decode mode and ``generate``, ``dataset_fn`` (it
+comes with the data layer), MoE, sequence parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from elasticdl_tpu_torch.layers.attention import (
     sinusoidal_positions,
     to_torch_dtype,
 )
+from elasticdl_tpu_torch.trainer.metrics import Accuracy
 
 VOCAB = 256
 
@@ -76,6 +78,7 @@ class TransformerLM(nn.Module):
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.dtype = to_torch_dtype(dtype)
+        self.dropout_rate = dropout_rate
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
             TransformerBlock(
@@ -94,7 +97,17 @@ class TransformerLM(nn.Module):
         tokens = features["tokens"] if isinstance(features, dict) else features
         check_token_ids(tokens, self.vocab_size)
 
-    def forward(self, features) -> torch.Tensor:
+    def forward(
+        self, features, training: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Logits ``(batch, seq, vocab)``.  ``training=True`` turns dropout
+        on, with masks drawn from ``generator`` (the train step passes
+        ``layers.attention.dropout_generator(step, device)``)."""
+        if not training:
+            generator = None
+        elif self.dropout_rate and generator is None:
+            raise ValueError("training with dropout needs a generator")
         tokens = features["tokens"] if isinstance(features, dict) else features
         tokens = torch.as_tensor(tokens, device=self.lm_head.weight.device)
         check_token_ids(tokens, self.vocab_size)
@@ -104,7 +117,7 @@ class TransformerLM(nn.Module):
             tokens.shape[1], self.embed_dim, device=x.device
         )[None].to(x.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         x = layer_norm(x, self.ln_f, self.dtype)
         return dense(x, self.lm_head, self.dtype)
 
@@ -140,5 +153,11 @@ def loss(labels, logits):
 
 def optimizer(lr=3e-3):
     """A factory: ``optimizer()(model.parameters())`` is Adam at ``lr``
-    (torch optimizers take the parameters; optax's did not)."""
+    (torch optimizers take the parameters; optax's did not).  torch's
+    Adam and ``optax.adam`` make the same update (b1 0.9, b2 0.999, eps
+    1e-8 outside the square root)."""
     return functools.partial(torch.optim.Adam, lr=lr)
+
+
+def eval_metrics_fn():
+    return {"accuracy": Accuracy()}

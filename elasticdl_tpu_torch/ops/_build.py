@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes) and loaded with :mod:`ctypes`.  Libraries
-land in ``ops/build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the source and the flags, so an edited source is never
-served by a stale library.  :func:`build` starts one ``nvcc`` per source,
-all at once, and waits for them together.
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes) and loaded with :mod:`ctypes`.  Libraries land in
+``ops/build/`` (listed in ``.gitignore``) under a name that carries a
+hash of the source, the headers and the flags, so an edited source or
+header is never served by a stale library.  :func:`build` starts one
+``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module, on
 machines that have no ``nvcc``.
@@ -57,8 +58,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -35,28 +35,11 @@
 // ragged edge (S not a multiple of 64) is masked in the kernel, so any
 // S works.  Causal q tiles are issued longest first.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // q rows per block
-constexpr int kBlockN = 64;  // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWarpRows = kBlockM / kWarps;  // 16: one WMMA row tile
-constexpr float kNegInf = -1e30f;            // the TPU kernel's _NEG_INF
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace edl_flash;
 
 // Shared-memory carve-up (byte offsets; every piece is a multiple of
 // 128 bytes, so every WMMA pointer below stays 32-byte aligned).
@@ -68,148 +51,6 @@ template <typename T, int D> struct Smem {
   static constexpr size_t p = s + kBlockM * kBlockN * sizeof(float);  // T [M][N]
   static constexpr size_t o = p + kBlockM * kBlockN * sizeof(T);   // f32 [M][D]
   static constexpr size_t bytes = o + kBlockM * D * sizeof(float);
-};
-
-// Copy rows [row0, row0 + kRows) of one (b, head) sequence into a dense
-// [kRows][D] shared tile, 16 bytes per thread per step; rows at or past
-// n_valid are zero (the ragged edge).
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int n_valid, long row_stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecsPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kRows * kVecsPerRow; i += kThreads) {
-    const int r = i / kVecsPerRow;
-    const int c = (i % kVecsPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
-  }
-}
-
-// ---- the two products, per warp ------------------------------------------
-// qk: s[16][N] = q[16][D] . k[N][D]^T          (s: ld kBlockN)
-// pv: o[16][D] += p[16][N] . v[N][D]           (o: ld D)
-
-template <typename T, int D> struct WarpMma;
-
-template <int D> struct WarpMma<__nv_bfloat16, D> {
-  using bf16 = __nv_bfloat16;
-  using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                       bf16, nvcuda::wmma::row_major>;
-  using FragBCol = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                          bf16, nvcuda::wmma::col_major>;
-  using FragBRow = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                          bf16, nvcuda::wmma::row_major>;
-  using FragC =
-      nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-  static __device__ __forceinline__ void qk(const bf16* q, const bf16* k,
-                                            float* s) {
-    using namespace nvcuda;
-    FragC acc[kBlockN / 16];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, q + kk, D);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 16; ++n) {
-        // column-major B with ld D: B(k, n) = k_tile[n][k], i.e. K^T
-        FragBCol b;
-        wmma::load_matrix_sync(b, k + n * 16 * D + kk, D);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 16; ++n) {
-      wmma::store_matrix_sync(s + n * 16, acc[n], kBlockN,
-                              wmma::mem_row_major);
-    }
-  }
-
-  static __device__ __forceinline__ void pv(const bf16* p, const bf16* v,
-                                            float* o) {
-    using namespace nvcuda;
-    FragA a[kBlockN / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      wmma::load_matrix_sync(a[kk], p + kk * 16, kBlockN);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, o + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        FragBRow b;
-        wmma::load_matrix_sync(b, v + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc, a[kk], b, acc);
-      }
-      wmma::store_matrix_sync(o + n * 16, acc, D, wmma::mem_row_major);
-    }
-  }
-};
-
-template <int D> struct WarpMma<float, D> {
-  // CUDA-core FMAs in f32.  Lane l owns columns l and l + 32 of the qk
-  // product (all 16 rows) and columns l, l + 32, ... of the pv product.
-  // The reduction index is rotated by the lane so that lanes reading
-  // rows D floats apart hit different shared-memory banks.
-  static __device__ __forceinline__ void qk(const float* q, const float* k,
-                                            float* s) {
-    const int lane = threadIdx.x & 31;
-    float acc[kWarpRows][2];
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) acc[r][0] = acc[r][1] = 0.0f;
-    for (int i = 0; i < D; ++i) {
-      const int d = (i + lane) % D;
-      const float k0 = k[lane * D + d];
-      const float k1 = k[(lane + 32) * D + d];
-#pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
-        const float qv = q[r * D + d];
-        acc[r][0] = fmaf(qv, k0, acc[r][0]);
-        acc[r][1] = fmaf(qv, k1, acc[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-      s[r * kBlockN + lane] = acc[r][0];
-      s[r * kBlockN + lane + 32] = acc[r][1];
-    }
-  }
-
-  static __device__ __forceinline__ void pv(const float* p, const float* v,
-                                            float* o) {
-    const int lane = threadIdx.x & 31;
-    constexpr int kCols = D / 32;
-    float acc[kWarpRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] = o[r * D + lane + 32 * c];
-    }
-    for (int j = 0; j < kBlockN; ++j) {
-      float vv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = v[j * D + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
-        const float pr = p[r * kBlockN + j];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pr, vv[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) o[r * D + lane + 32 * c] = acc[r][c];
-    }
-  }
 };
 
 template <typename T, int D>
@@ -271,7 +112,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D, kBlockN>(v_s, v_seq, k0, seq_k, kv_stride);
     __syncthreads();
 
-    WarpMma<T, D>::qk(q_w, k_s, s_w);
+    WarpMma<T, D>::abt(q_w, k_s, s_w);
     __syncwarp();
 
     // online softmax over this tile, for row `row`, columns of `half`
@@ -307,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    WarpMma<T, D>::pv(p_w, v_s, o_w);
+    WarpMma<T, D>::ab(p_w, v_s, o_w);
     __syncwarp();
   }
 
@@ -320,43 +161,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int batch, int heads, int kv_heads, int seq_q,
-                   int seq_k, int causal, float sm_scale,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  const int smem = static_cast<int>(Smem<T, D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq_q + kBlockM - 1) / kBlockM, batch * heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, heads, kv_heads,
-      seq_q, seq_k, causal, sm_scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k,
-                       const void* v, void* out, float* lse, int batch,
-                       int heads, int kv_heads, int seq_q, int seq_k,
-                       int causal, float sm_scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, batch, heads, kv_heads, seq_q,
-                           seq_k, causal, sm_scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, heads, kv_heads, seq_q,
-                           seq_k, causal, sm_scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, heads, kv_heads, seq_q,
-                            seq_k, causal, sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <typename T, int D> struct Forward {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int batch, int heads,
+                         int kv_heads, int seq_q, int seq_k, int causal,
+                         float sm_scale, cudaStream_t stream) {
+    auto kernel = flash_fwd_kernel<T, D>;
+    const int smem = static_cast<int>(Smem<T, D>::bytes);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq_q + kBlockM - 1) / kBlockM, batch * heads);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, heads, kv_heads,
+        seq_q, seq_k, causal, sm_scale);
+    return cudaGetLastError();
   }
-}
+};
 
 }  // namespace
 
@@ -369,21 +191,9 @@ int edl_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   int seq_k, int head_dim, int causal, float sm_scale,
                   int dtype, void* stream) {
   if (kv_heads <= 0 || heads % kv_heads != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_dim<float>(head_dim, q, k, v, out, lse, batch, heads,
-                             kv_heads, seq_q, seq_k, causal, sm_scale, s);
-  }
-  if (dtype == 1) {
-    return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch,
-                                     heads, kv_heads, seq_q, seq_k, causal,
-                                     sm_scale, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-const char* edl_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return dispatch<Forward>(dtype, head_dim, q, k, v, out, lse, batch, heads,
+                           kv_heads, seq_q, seq_k, causal, sm_scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -34,7 +34,6 @@ from __future__ import annotations
 import threading
 import time
 
-import ml_dtypes
 import numpy as np
 import torch
 
@@ -60,6 +59,7 @@ from elasticdl_tpu_torch.utils.export_utils import (
 )
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+from elasticdl_tpu_torch.utils.tree_utils import map_tree, to_host
 
 
 def _pad_rows(tree, rows: int):
@@ -83,19 +83,6 @@ def _pad_rows(tree, rows: int):
     if isinstance(tree, dict):
         return {k: _pad(v) for k, v in tree.items()}
     return _pad(tree)
-
-
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: fn(v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _to_host(tensor: torch.Tensor) -> np.ndarray:
-    host = tensor.detach().cpu()
-    if host.dtype == torch.bfloat16:
-        return host.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return host.numpy()
 
 
 class ServingEngine:
@@ -220,7 +207,7 @@ class ServingEngine:
     # ---- the dispatch body -------------------------------------------------
 
     def _place(self, tree):
-        return _map_tree(
+        return map_tree(
             lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
             tree,
         )
@@ -252,7 +239,7 @@ class ServingEngine:
             outputs = self._predict_fn(model, placed)
             self._sync()
             t3 = time.monotonic()
-            host = _map_tree(_to_host, outputs)
+            host = map_tree(to_host, outputs)
             t4 = time.monotonic()
         except Exception as ex:  # noqa: BLE001 — a poisoned group must
             # fail ITS tickets, not the dispatch thread
@@ -271,7 +258,7 @@ class ServingEngine:
         offset = 0
         for ticket, lo, hi in group.segments:
             n = hi - lo
-            rows = _map_tree(lambda x: x[offset : offset + n], host)
+            rows = map_tree(lambda x: x[offset : offset + n], host)
             offset += n
             ticket.add_phases(phases)
             if ticket.deliver(rows, n, version):
@@ -307,4 +294,4 @@ class ServingEngine:
         n = tree_rows(features)
         placed = self._place(_pad_rows(features, self.canonical_rows))
         outputs = self._predict_fn(self._model, placed)
-        return _map_tree(lambda x: _to_host(x)[:n], outputs)
+        return map_tree(lambda x: to_host(x)[:n], outputs)

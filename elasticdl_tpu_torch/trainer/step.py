@@ -1,14 +1,114 @@
-"""Step builders; the counterpart of ``elasticdl_tpu/trainer/step.py``.
+"""Step builders: train / evaluate / predict; the counterpart of
+``elasticdl_tpu/trainer/step.py``.
 
-This slice has the predict step only.  PyTorch runs eagerly, so there
-is no ``jit``: the step is a plain function of ``(model, features)``.
+PyTorch runs eagerly, so there is no ``jit`` and no donation: a step is
+a plain function of ``(state, features, labels[, weights])`` that
+updates ``state`` in place (``TrainState.apply_gradients``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
+
+from elasticdl_tpu_torch.layers.attention import dropout_generator
+from elasticdl_tpu_torch.trainer.state import TrainState
+from elasticdl_tpu_torch.utils.tree_utils import map_tree
+
+
+def _cast_floats(tree, dtype):
+    if dtype is None:
+        return tree
+    return map_tree(
+        lambda x: x.to(dtype)
+        if isinstance(x, torch.Tensor) and x.is_floating_point()
+        else x,
+        tree,
+    )
+
+
+def _rows(tree, i: int):
+    return map_tree(lambda x: x[i : i + 1], tree)
+
+
+def weighted_mean_loss(loss_fn, labels, outputs, weights):
+    """``sum(w_i * loss_i) / max(sum(w_i), 1)`` with per-row losses from
+    ``loss_fn`` on singleton batches (the JAX package vmaps it).
+
+    THE mask semantics of shape-canonical batching: a row of weight 0
+    (padding ``pad_to`` appended) contributes exactly zero to this loss
+    and so exactly zero gradient.  For a ``loss_fn`` that is a mean of
+    per-row terms, all-ones weights give ``loss_fn(labels, outputs)`` up
+    to summation order."""
+    rows = weights.shape[0]
+    per_row = torch.stack(
+        [loss_fn(_rows(labels, i), _rows(outputs, i)) for i in range(rows)]
+    )
+    weights = weights.to(per_row.dtype)
+    # max(sum, 1) guards the (never-dispatched) all-zero mask
+    return (weights * per_row).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def build_train_step(loss_fn: Callable, compute_dtype=None) -> Callable:
+    """Build ``train_step(state, features, labels, weights=None) ->
+    (state, {"loss": loss})``.
+
+    weights: optional ``(batch,)`` per-row sample weights; the loss is
+        then :func:`weighted_mean_loss`, so zero-weight padding rows give
+        zero gradient.
+    compute_dtype: cast float features before the forward; parameters
+        and optimizer state stay f32 (the model casts inside its layers).
+
+    Dropout masks come from ``dropout_generator(state.step, device)``:
+    the same for a replayed step, fresh for every step.
+    """
+
+    def forward_loss(state: TrainState, features, labels, weights):
+        features = _cast_floats(features, compute_dtype)
+        device = next(state.model.parameters()).device
+        generator = dropout_generator(state.step, device)
+        outputs = state.model(features, training=True, generator=generator)
+        if weights is None:
+            loss = loss_fn(labels, outputs)
+        else:
+            loss = weighted_mean_loss(loss_fn, labels, outputs, weights)
+        # the JAX step adds losses sown by layers (MoE load balancing);
+        # no ported layer sows one yet
+        return loss.float()
+
+    def train_step(state: TrainState, features, labels, weights=None):
+        state.model.train()
+        loss = forward_loss(state, features, labels, weights)
+        named = [
+            (n, p) for n, p in state.model.named_parameters() if p.requires_grad
+        ]
+        grads = torch.autograd.grad(
+            loss, [p for _, p in named], allow_unused=True
+        )
+        state.apply_gradients({n: g for (n, _), g in zip(named, grads)})
+        return state, {"loss": loss.detach()}
+
+    return train_step
+
+
+def build_eval_step(loss_fn: Callable | None = None) -> Callable:
+    """Build ``eval_step(state, features, labels, weights=None) ->
+    outputs`` or ``(outputs, loss)``; with ``weights`` the loss is
+    :func:`weighted_mean_loss`, exact over the real rows."""
+
+    def eval_step(state: TrainState, features, labels, weights=None):
+        state.model.eval()
+        with torch.no_grad():
+            outputs = state.model(features)
+            if loss_fn is None:
+                return outputs
+            if weights is None:
+                return outputs, loss_fn(labels, outputs)
+            return outputs, weighted_mean_loss(loss_fn, labels, outputs, weights)
+
+    return eval_step
 
 
 def build_predict_step(device_parse: Callable | None = None) -> Callable:
@@ -24,3 +124,32 @@ def build_predict_step(device_parse: Callable | None = None) -> Callable:
             return model(features)
 
     return predict_step
+
+
+def _is_optimizer_factory(spec) -> bool:
+    """A torch optimizer class, or a ``functools.partial`` of one: it
+    takes the parameters and builds the optimizer."""
+    if isinstance(spec, functools.partial):
+        spec = spec.func
+    return isinstance(spec, type) and issubclass(spec, torch.optim.Optimizer)
+
+
+def resolve_optimizer(spec_optimizer, learning_rate: float | None = None):
+    """The model module's ``optimizer`` export is either a
+    ``params -> Optimizer`` factory (an optimizer class or a partial of
+    one, returned as it is, as the JAX package returns an optax
+    transformation) or a function ``(lr=...) -> factory`` (the zoo's
+    form, called with ``learning_rate`` when given)."""
+    if _is_optimizer_factory(spec_optimizer):
+        return spec_optimizer
+    if callable(spec_optimizer):
+        try:
+            if learning_rate is not None:
+                return spec_optimizer(lr=learning_rate)
+            return spec_optimizer()
+        except TypeError:
+            return spec_optimizer()
+    raise TypeError(
+        f"optimizer spec must be a torch optimizer factory or a function "
+        f"returning one, got {type(spec_optimizer)!r}"
+    )

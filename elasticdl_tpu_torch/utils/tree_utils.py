@@ -1,0 +1,27 @@
+"""Helpers over the feature and output trees the port passes around: a
+tensor, a numpy array, or a dict/list/tuple of them (the torch side of
+``elasticdl_tpu/utils/tree_utils.py``'s pytrees)."""
+
+from __future__ import annotations
+
+import ml_dtypes
+import numpy as np
+import torch
+
+
+def map_tree(fn, tree):
+    """``fn`` applied to every leaf of ``tree``, in the same structure."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_host(tensor: torch.Tensor) -> np.ndarray:
+    """A host numpy copy; bf16 keeps its bits as ``ml_dtypes.bfloat16``,
+    the dtype the JAX package's arrays come back in."""
+    host = tensor.detach().cpu()
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return host.numpy()

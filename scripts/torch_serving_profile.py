@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -31,20 +30,11 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import GPT2S, SEQ, SERVE_ROWS, build_export, time_cuda  # noqa: E402
+from torch_profile_split import card, device_split  # noqa: E402
 
 DISPATCHES = 3
-
-
-def _category(name: str) -> str:
-    low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd"
-    if "memcpy" in low or "memset" in low:
-        return "copy"
-    # cuBLAS's kernels: nvjet_* (CUDA 12.8+), *gemm*, *xmma*, cutlass_*
-    if any(tag in low for tag in ("nvjet", "gemm", "xmma", "cutlass")):
-        return "dense_products"
-    return "other"
+# the forward's kernels; the rest falls under "other"
+SERVE_CATEGORIES = ("flash_fwd", "copy", "dense_products")
 
 
 def main() -> int:
@@ -59,10 +49,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from elasticdl_tpu_torch.serving.engine import ServingEngine
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     rng = np.random.RandomState(0)
     feats = {
         "tokens": rng.randint(0, GPT2S["vocab_size"], (SERVE_ROWS, SEQ))
@@ -88,22 +75,9 @@ def main() -> int:
     pageable_ms = time_cuda(logits.cpu, 3, 1)
     pinned_ms = time_cuda(lambda: pinned.copy_(logits), 3, 1)
 
-    by_category: dict[str, float] = {}
-    kernels = []
-    for avg in prof.key_averages():
-        if avg.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(avg, "device_time_total", None)
-        if us is None:
-            us = avg.cuda_time_total
-        ms = us / 1e3 / DISPATCHES
-        kernels.append((ms, avg.count // DISPATCHES, avg.key))
-        cat = _category(avg.key)
-        by_category[cat] = by_category.get(cat, 0.0) + ms
-    kernels.sort(reverse=True)
-    for ms, count, name in kernels[:15]:
-        print(f"{ms:10.3f} ms/dispatch  x{count:<4d} {name[:110]}", flush=True)
-    busy_ms = sum(by_category.values())
+    busy_ms, by_category = device_split(
+        prof, DISPATCHES, SERVE_CATEGORIES, "dispatch", 15
+    )
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "rows": SERVE_ROWS, "seq": SEQ, "layers": GPT2S["num_layers"],

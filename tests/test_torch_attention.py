@@ -5,11 +5,15 @@ The JAX flash forward runs its Pallas kernel in interpret mode on the
 CPU, as ``tests/test_attention.py`` runs it; the port's CPU path is the
 plain version of its CUDA kernel.  Both ``out`` and the row logsumexp
 ``lse`` are compared, at 2e-5 in f32 (the JAX package's own forward
-tolerance).
+tolerance).  The backward (the plain versions of the dQ and dK/dV
+kernels, and autograd through the port's ``flash_attention``) is held to
+the JAX package's ``_flash_backward`` and ``jax.grad`` at 1e-4, its own
+gradient tolerance.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from elasticdl_tpu.ops import attention as jax_attn
 from elasticdl_tpu_torch.ops import attention as port_attn
 
 TOL = 2e-5
+GRAD_TOL = 1e-4
 
 
 def _qkv(b=2, s=64, h=2, kvh=None, d=16, seed=0):
@@ -112,7 +117,12 @@ def test_cpu_tensor_takes_the_plain_path_without_a_launch():
     ref_out, ref_lse = port_attn.flash_attention_reference(q, k, v, causal=True)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     assert torch.equal(port_attn.attention(q, k, v, causal=True), ref_out)
-    assert port_attn.launch_counts == {"flash_fwd": 0}
+    grads = port_attn.flash_backward(q, k, v, out, lse, q, causal=True)
+    ref = port_attn.flash_backward_reference(q, k, v, out, lse, q, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref))
+    assert port_attn.launch_counts == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    }
 
 
 def test_bf16_cpu_path_keeps_dtype_and_tracks_f32():
@@ -124,3 +134,72 @@ def test_bf16_cpu_path_keeps_dtype_and_tracks_f32():
     ref = port_attn.mha_reference(q, k, v, causal=True)
     # inputs rounded to bf16 (8 mantissa bits) and a bf16 output
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=3e-2)
+
+
+# ---- the backward -------------------------------------------------------
+
+
+def _backward_inputs(seq, heads, kv_heads, causal, seed=2):
+    """(q, k, v, out, lse, g) with out and lse from the JAX forward."""
+    q, k, v = _qkv(s=seq, h=heads, kvh=kv_heads, seed=seed)
+    g = np.random.RandomState(seed + 1).randn(*q.shape).astype(np.float32)
+    out, lse = jax_attn._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, 32, 32,
+        None,
+    )
+    return q, k, v, np.array(out), np.array(lse), g  # writable copies
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq,heads,kv_heads,block", FLASH_CASES)
+def test_backward_references_match_jax_kernels(seq, heads, kv_heads, block, causal):
+    inputs = _backward_inputs(seq, heads, kv_heads, causal)
+    want = jax_attn._flash_backward(
+        *(jnp.asarray(x) for x in inputs), causal, None, block, block, None
+    )
+    t = _t(*inputs)
+    dq = port_attn.flash_dq_reference(*t, causal)
+    dk, dv = port_attn.flash_dkv_reference(*t, causal)
+    assert dk.shape == (2, seq, kv_heads, 16)  # at the kv-head shape
+    for got, ref in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(ref), atol=GRAD_TOL, rtol=GRAD_TOL
+        )
+    both = port_attn.flash_backward_reference(*t, causal)
+    assert all(torch.equal(a, b) for a, b in zip(both, (dq, dk, dv)))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq,heads,kv_heads,block", FLASH_CASES)
+def test_autograd_matches_jax_grad(seq, heads, kv_heads, block, causal):
+    q, k, v = _qkv(s=seq, h=heads, kvh=kv_heads, seed=4)
+    g = np.random.RandomState(5).randn(*q.shape).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        out = jax_attn.flash_attention(
+            q, k, v, causal=causal, block_q=block, block_k=block
+        )
+        return (out * g).sum()
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = port_attn.flash_attention(tq, tk, tv, causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(
+            a.numpy(), np.asarray(b), atol=GRAD_TOL, rtol=GRAD_TOL
+        )
+
+
+def test_autograd_backward_is_the_plain_backward_not_autograd_of_forward():
+    """On CPU tensors the Function's backward calls the plain versions of
+    the backward kernels: the exact code the kernels are held to."""
+    q, k, v = _t(*_qkv(s=40, h=4, kvh=2))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = port_attn.attention(tq, tk, tv, causal=True)
+    got = torch.autograd.grad(out, (tq, tk, tv), g)
+    out, lse = port_attn.flash_attention_reference(q, k, v, causal=True)
+    want = port_attn.flash_backward_reference(q, k, v, out, lse, g, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

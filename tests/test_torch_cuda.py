@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernels against
-their plain versions, and the LM forward on the card against the same
-model on the CPU.  Marked ``cuda``; each skips (with its reason) where
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels (the
+flash forward, dQ and dK/dV) against their plain versions, and the LM's
+forward and train step on the card against the same model on the CPU.  Marked ``cuda``; each skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX; on a
 machine that has only PyTorch, skip ``tests/conftest.py`` (it sets JAX
 up)::
@@ -15,6 +15,7 @@ import torch
 
 from elasticdl_tpu_torch.models import long_seq_transformer as lm
 from elasticdl_tpu_torch.ops import attention as attn
+from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -63,9 +64,69 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         attn.flash_forward(q, q, q)
-    q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):  # backward kernels: later
-        attn.flash_forward(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    lse = torch.zeros((2, 8, 1), device=cuda)
+    with pytest.raises(TypeError):
+        attn.flash_backward(q, q, q, q, lse, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        attn.flash_backward(q, q, q, q, lse[:1], q)
+    with pytest.raises(ValueError):  # g of the wrong shape
+        attn.flash_backward(q, q, q, q, lse, q[:, :4])
+
+
+# the backward kernels, at the forward's cases.  Gradients are held
+# relative to their own size: atol is a fraction of max|ref| (bf16: the
+# kernels round P and dS to bf16, 2**-9 relative, before their products,
+# so an element built from one large term moves by up to two bf16
+# roundings of the largest element; f32: summation order only)
+BWD_TOLS = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-4)}
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,causal,_atol,_rtol", KERNEL_CASES)
+def test_backward_kernels_match_plain_versions(
+    cuda, b, s, h, kvh, d, dtype, causal, _atol, _rtol
+):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def mk(heads):
+        return torch.randn((b, s, heads, d), generator=gen, device=cuda).to(dtype)
+
+    q, k, v, g = mk(h), mk(kvh), mk(kvh), mk(h)
+    out, lse = attn.flash_forward(q, k, v, causal)
+    attn.reset_launch_counts()
+    got = attn.flash_backward(q, k, v, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert attn.launch_counts == {
+        "flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+    }
+    want = attn.flash_backward_reference(q, k, v, out, lse, g, causal)
+    atol, rtol = BWD_TOLS[dtype]
+    for a, r in zip(got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        torch.testing.assert_close(
+            a.float(), r.float(), atol=atol * r.float().abs().max().item(),
+            rtol=rtol,
+        )
+
+
+def test_autograd_through_the_kernels_matches_the_plain_path(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (
+        torch.randn((2, 130, heads, 64), generator=gen, device=cuda)
+        for heads in (4, 2, 2)
+    )
+    g = torch.randn(q.shape, generator=gen, device=cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attn.reset_launch_counts()
+    got = torch.autograd.grad(attn.attention(*leaves, causal=True), leaves, g)
+    assert attn.launch_counts == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+    }
+    out, lse = attn.flash_attention_reference(q, k, v, True)
+    want = attn.flash_backward_reference(q, k, v, out, lse, g, True)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
 
 
 # (dtype, tol): f32 runs the kernel's CUDA-core path and full-f32
@@ -88,3 +149,42 @@ def test_lm_forward_on_the_card_matches_the_cpu(cuda, dtype, tol):
         got = model.to(cuda)({"tokens": tokens.to(cuda)}).float().cpu()
     assert attn.launch_counts["flash_fwd"] == kw["num_layers"]
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 train step (TF32 off) of the same model on the card and on
+    the CPU: loss, every gradient and every updated parameter at 1e-4,
+    with one launch of each kernel per layer.  The key biases' gradient
+    is zero in exact arithmetic (softmax ignores a score shift shared by
+    a row) and rounding noise in floats, which Adam turns into steps of
+    up to lr either way: they are held to 2 lr."""
+    kw = dict(vocab_size=101, embed_dim=128, num_heads=2, num_layers=2)
+    lr = 1e-3
+    rng = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, kw["vocab_size"], (3, 201), generator=rng)
+    feats, labels = {"tokens": tokens[:, :-1]}, tokens[:, 1:]
+    weights = torch.tensor([1.0, 1.0, 0.0])
+    models, losses = [], []
+    for device in ("cpu", cuda):
+        model = lm.custom_model(**kw)
+        lm.init_weights(model, torch.Generator().manual_seed(0))
+        trainer = SPMDTrainer(model, lm.loss, lm.optimizer(lr), device=device)
+        place = trainer.place_batch
+        attn.reset_launch_counts()
+        metrics = trainer.train_step(place(feats), place(labels), place(weights))
+        losses.append(float(metrics["loss"]))
+        models.append(trainer.state.model)
+    assert attn.launch_counts == {
+        "flash_fwd": kw["num_layers"], "flash_bwd_dq": kw["num_layers"],
+        "flash_bwd_dkv": kw["num_layers"],
+    }
+    assert abs(losses[0] - losses[1]) < 1e-4
+    for (name, p_cpu), p_card in zip(
+        models[0].named_parameters(), models[1].parameters()
+    ):
+        got_grad, got = p_card.grad.cpu(), p_card.detach().cpu()
+        torch.testing.assert_close(got_grad, p_cpu.grad, atol=1e-4, rtol=1e-4)
+        if name.endswith("attn.key.bias"):
+            assert (got - p_cpu.detach()).abs().max() <= 2 * lr, name
+        else:
+            torch.testing.assert_close(got, p_cpu.detach(), atol=1e-4, rtol=1e-4)

@@ -1,7 +1,7 @@
 """The PyTorch port's import boundary: ``elasticdl_tpu_torch``,
-``chip_smoke.py`` and ``scripts/torch_serving_profile.py`` import torch
-and numpy, never JAX, flax, optax or any module of the JAX package
-``elasticdl_tpu``."""
+``chip_smoke.py`` and the port's scripts
+(``scripts/torch_*.py``) import torch and numpy, never JAX,
+flax, optax or any module of the JAX package ``elasticdl_tpu``."""
 
 from __future__ import annotations
 
@@ -55,7 +55,10 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "torch_serving_profile.py")
+    scripts = os.path.join(REPO, "scripts")
+    for name in os.listdir(scripts):
+        if name.startswith("torch_") and name.endswith(".py"):
+            yield os.path.join(scripts, name)
 
 
 def test_port_imports_with_jax_absent():

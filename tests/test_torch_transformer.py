@@ -262,6 +262,7 @@ def test_moe_block_is_refused_until_ported():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_asked(tmp_path, monkeypatch):
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
     from elasticdl_tpu_torch.serving.engine import ServingEngine
     from elasticdl_tpu_torch.serving.replica import ServingReplica
 
@@ -280,6 +281,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(tmp_path, monkeypatch)
         ServingEngine(str(tmp_path), 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingReplica(str(tmp_path), 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SPMDTrainer(pm, port_lm.loss, port_lm.optimizer())
     model, _, _ = export_utils.load_exported_model(str(tmp_path), device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert ServingEngine(str(tmp_path), 4, device="cpu").device.type == "cpu"
+    trainer = SPMDTrainer(pm, port_lm.loss, port_lm.optimizer(), device="cpu")
+    assert next(trainer.state.model.parameters()).device.type == "cpu"
