@@ -11,13 +11,19 @@ printed:
 1. device  — require CUDA; print ``nvidia-smi``'s name and power limit.
 2. build   — compile every kernel of the serving and training paths from
    ``elasticdl_tpu_torch/ops/csrc/`` (one ``nvcc`` per source, started
-   together) and print the build seconds.
+   together), print the build seconds and, per kernel, read from the
+   built library with ``cuobjdump``: its registers, stack frame, local
+   and shared memory, and the count of Hopper instructions in its SASS
+   (``HGMMA``, ``UTMALDG``); the bf16 forward must hold both and have no
+   stack frame (so nothing spills).
 3. kernels — hold the flash forward against its plain PyTorch version on
    the card, at the served and the training shapes and at the edge
-   cases (GQA, ragged length, non-causal, f32, other head dims), with
-   the tolerance stated per case; time the kernel, the plain version and one PyTorch library
-   call that computes the same function (a yardstick only: the port
-   never calls it).
+   cases (GQA, ragged length, non-causal, f32, other head dims, the
+   edges of the bf16 kernel's 128-row tile), with the tolerance stated
+   per case; time, on the device and back to back, the kernel, the
+   plain version and one PyTorch library call that computes the same
+   function (a yardstick only: the port never calls it), and print the
+   kernel's TFLOP/s and share of its bound.
 3b. backward — the same for the dQ and dK/dV kernels, at the training
    shape and the same edge cases; the yardstick is the backward of
    ``scaled_dot_product_attention``.
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,23 +82,136 @@ def fail(msg: str) -> int:
     return 1
 
 
-def time_cuda(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, each timed by a
-    pair of CUDA events."""
+def time_cuda(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: the median over ``rounds``
+    of the time between two CUDA events around ``reps`` back-to-back
+    calls.  Each round holds the stream on a spin kernel until every call
+    is queued, so the host's time per call is left out; a round whose
+    spin ended before the last call was queued is run again with a
+    longer spin."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    spin_cycles = 10_000_000  # about 5 ms
+    while len(times) < rounds:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
+        queued_in_time = not start.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        if queued_in_time:
+            times.append(start.elapsed_time(end) / reps)
+        elif spin_cycles < 2_000_000_000:
+            spin_cycles *= 4
+        else:
+            raise RuntimeError("the calls cannot be queued ahead of the device")
     return statistics.median(times)
+
+
+# ---- phase 2: what the compiler made of each kernel -------------------------
+
+# Hopper's instructions, counted in each kernel's SASS: the warpgroup
+# product and the TMA load
+SASS_OPS = ("HGMMA", "UTMALDG")
+# the kernel that must run on them (the bf16 forward, at every head dim)
+HOPPER_KERNEL = "flash_fwd_sm90_kernel"
+# per kernel, as ``cuobjdump -res-usage`` names them: registers, stack
+# frame and local memory per thread (a spill needs a stack frame) and
+# static shared memory per block
+RES_FIELDS = {"REG": "registers", "STACK": "stack", "LOCAL": "local", "SHARED": "shared"}
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_sm90_kernel<64,2>`` for a mangled kernel name."""
+    m = re.search(r"(flash_\w+?_kernel)I(.*?)Ev", mangled)
+    if m is None:
+        return mangled
+    args = [
+        num or ("bf16" if bf16 else "float")
+        for num, bf16, _f in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))
+    ]
+    name = m.group(1)[m.group(1).rfind("flash_"):]  # past the file's prefix
+    return f"{name}<{','.join(args)}>"
+
+
+def parse_res_usage(text: str) -> dict:
+    """Per kernel label, the resources of ``RES_FIELDS`` from the output
+    of ``cuobjdump -res-usage``."""
+    report, kernel = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function (\S+):\s*$", line)
+        if m:
+            kernel = report.setdefault(kernel_label(m.group(1)), {})
+        elif kernel is not None:
+            fields = dict(re.findall(r"(\w+):(\d+)", line))
+            for key, label in RES_FIELDS.items():
+                if key in fields:
+                    kernel[label] = int(fields[key])
+    return report
+
+
+def count_sass_ops(text: str) -> dict:
+    """Per kernel label, the count of each of ``SASS_OPS`` in the output
+    of ``cuobjdump -sass``."""
+    report, kernel = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = report.setdefault(kernel_label(m.group(1)), dict.fromkeys(SASS_OPS, 0))
+        elif kernel is not None:
+            for op in SASS_OPS:
+                kernel[op] += op in line
+    return report
+
+
+def check_hopper_kernels(report: dict) -> None:
+    """Raise unless there is a ``HOPPER_KERNEL`` and every one holds
+    both of ``SASS_OPS`` and has no stack frame and no local memory (so
+    nothing spills), each read as a number."""
+    hopper = {k: v for k, v in report.items() if k.startswith(HOPPER_KERNEL)}
+    if not hopper:
+        raise AssertionError(f"no {HOPPER_KERNEL} among {sorted(report)}")
+    for label, kernel in hopper.items():
+        fields = (*RES_FIELDS.values(), *SASS_OPS)
+        if (
+            any(not isinstance(kernel.get(f), int) for f in fields)
+            or 0 in (kernel["HGMMA"], kernel["UTMALDG"])
+            or kernel["stack"] or kernel["local"]
+        ):
+            raise AssertionError(f"{label} misses Hopper's units or spills: {kernel}")
+
+
+def kernel_build_report(_build, names):
+    """Per kernel of the named libraries, read from each built library
+    (so one built by an earlier run is checked alike): its resources
+    (``cuobjdump -res-usage``) and its count of each of ``SASS_OPS``
+    (``cuobjdump -sass``).  Raises as ``check_hopper_kernels`` does."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        raise RuntimeError(f"{cuobjdump} is missing: the kernels cannot be read")
+
+    def dump(flag, name):
+        return subprocess.run(
+            [cuobjdump, flag, str(_build._library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True,
+        ).stdout
+
+    report = {}
+    for name in names:
+        for label, fields in parse_res_usage(dump("-res-usage", name)).items():
+            report.setdefault(label, {}).update(fields)
+        for label, counts in count_sass_ops(dump("-sass", name)).items():
+            report.setdefault(label, {}).update(counts)
+    print(json.dumps({"kernel_build": report}), flush=True)
+    check_hopper_kernels(report)
+    return report
 
 
 # ---- phase 3: the flash forward against its plain version ------------------
@@ -107,6 +227,11 @@ EDGE_CASES = (
     ("d128", 2, 1024, 4, 4, 128, "bfloat16", True),
     ("d32_ragged", 2, 777, 4, 4, 32, "bfloat16", False),
     ("f32_d128", 1, 300, 2, 2, 128, "float32", False),
+    # the edges of the bf16 kernel's 128-row q and k/v tiles
+    ("one_tile", 2, 64, 4, 4, 64, "bfloat16", True),  # under one tile
+    ("past_tile", 1, 2049, 4, 4, 64, "bfloat16", True),  # one row past
+    ("gqa_d128", 2, 1024, 12, 4, 128, "bfloat16", True),
+    ("few_blocks", 1, 512, 2, 2, 64, "bfloat16", False),  # << 132 SMs
 )
 # gpt2s at the served rows and at the training batch (8 canonical rows)
 SERVED_CASE = ("served", 4, 2048, 12, 12, 64, "bfloat16", True)
@@ -129,13 +254,18 @@ FLASH_TOLS = {
 }
 
 
-def flash_bound(b, s, h, kvh, d, dtype, causal):
-    """(bound_ms, bound_by) of one forward: the operations the function
-    needs (two products over the live (q, k) pairs) at the type's peak,
-    against q and out (h heads), k and v (kvh heads) and the f32 lse
-    each moved once at the memory rate."""
+def flash_flops(b, s, h, d, causal):
+    """Operations of one forward: two products over the live (q, k)
+    pairs."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs
+    return 4 * b * h * d * pairs
+
+
+def flash_bound(b, s, h, kvh, d, dtype, causal):
+    """(bound_ms, bound_by) of one forward: its operations at the
+    type's peak, against q and out (h heads), k and v (kvh heads) and
+    the f32 lse each moved once at the memory rate."""
+    flops = flash_flops(b, s, h, d, causal)
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = 2 * b * s * (h + kvh) * d * itemsize + b * h * s * 4
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -186,13 +316,16 @@ def check_flash_cases():
             reps,
         )
         bound_ms, bound_by = flash_bound(b, s, h, kvh, d, dtype, causal)
+        tflops = flash_flops(b, s, h, d, causal) / (kernel_ms * 1e-3) / 1e12
         row = {
             "case": name, "shape": [b, s, h, kvh, d], "dtype": dtype,
             "causal": causal, "max_abs_err": err, "mean_abs_err": mean_err,
             "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol,
             "mean_tol": mean_tol, "lse_tol": lse_tol, "ok": ok, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops,
+            "bound_share": bound_ms / kernel_ms,
+            "kernel_over_library": kernel_ms / library_ms,
         }
         print(json.dumps(row), flush=True)
         if not ok:
@@ -661,6 +794,7 @@ def main() -> int:
     print(json.dumps({"build_secs": time.monotonic() - t0}), flush=True)
     for name, text in _build.build_logs.items():
         log(f"--- nvcc {name}.cu\n{text}")
+    kernel_build_report(_build, ["flash_fwd", "flash_bwd"])
 
     # ---- 3. kernels against their plain versions
     flash = check_flash_cases()

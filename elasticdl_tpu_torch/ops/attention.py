@@ -4,8 +4,9 @@ The counterpart of ``elasticdl_tpu/ops/attention.py``.  Layout
 convention everywhere: ``(batch, seq, heads, head_dim)``.
 
 - :func:`flash_forward` launches the hand-written CUDA kernel
-  (``csrc/flash_fwd.cu``, which replaces the TPU kernel ``_flash_kernel``)
-  on CUDA tensors and returns ``(out, lse)``; on CPU tensors it runs
+  (``csrc/flash_fwd.cu``, which replaces the TPU kernel ``_flash_kernel``:
+  ``wgmma`` and TMA for bf16, CUDA cores for f32) on CUDA tensors and
+  returns ``(out, lse)``; on CPU tensors it runs
   :func:`flash_attention_reference`, the plain PyTorch version of the
   same function.
 - :func:`flash_backward` launches the two backward kernels

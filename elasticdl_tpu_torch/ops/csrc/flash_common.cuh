@@ -1,6 +1,7 @@
 // Pieces shared by the flash-attention kernels for Hopper (sm_90a):
-// tile sizes, the tile loader and the two per-warp products every
-// kernel is built from.  Included by flash_fwd.cu and flash_bwd.cu.
+// tile sizes, the tile loader and the two per-warp products the backward
+// kernels and the f32 forward are built from (the bf16 forward's pieces
+// are in flash_sm90.cuh).  Included by flash_fwd.cu and flash_bwd.cu.
 //
 // Layout: (B, S, heads, D), contiguous; a (b, head) sequence has row
 // stride heads*D, which is how the kernels fold (B, S, H, D) into the TPU

@@ -23,18 +23,39 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import GPT2S, SEQ, SERVE_ROWS, build_export, time_cuda  # noqa: E402
+from chip_smoke import GPT2S, SEQ, SERVE_ROWS, build_export  # noqa: E402
 from torch_profile_split import card, device_split  # noqa: E402
 
 DISPATCHES = 3
 # the forward's kernels; the rest falls under "other"
 SERVE_CATEGORIES = ("flash_fwd", "copy", "dense_products")
+
+
+def copy_ms(fn, reps: int = 3) -> float:
+    """Median ms of the copy ``fn`` over ``reps`` calls after one
+    warm-up, each call between a pair of CUDA events (a copy into
+    pageable memory holds the host until it ends, so calls cannot be
+    queued back to back)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def main() -> int:
@@ -72,8 +93,8 @@ def main() -> int:
         (SERVE_ROWS, SEQ, GPT2S["vocab_size"]), dtype=torch.bfloat16, device="cuda"
     )
     pinned = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
-    pageable_ms = time_cuda(logits.cpu, 3, 1)
-    pinned_ms = time_cuda(lambda: pinned.copy_(logits), 3, 1)
+    pageable_ms = copy_ms(logits.cpu)
+    pinned_ms = copy_ms(lambda: pinned.copy_(logits))
 
     busy_ms, by_category = device_split(
         prof, DISPATCHES, SERVE_CATEGORIES, "dispatch", 15

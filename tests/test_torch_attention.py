@@ -46,10 +46,18 @@ FLASH_CASES = [
     pytest.param(64, 4, 2, 32, id="gqa"),
     pytest.param(72, 4, 1, 32, id="gqa_ragged"),
 ]
+# lengths that straddle the card's 128-row bf16 tile, where the plain
+# version the kernel is held to must still be _flash_forward: S=144 is
+# not a multiple of 32, so the JAX kernel takes 16-row blocks (as many
+# grid steps as S=72's 8-row ones); S=160 keeps 32-row blocks
+TILE_EDGE_CASES = [
+    pytest.param(144, 4, 2, 32, id="past_tile_gqa"),
+    pytest.param(160, 6, 2, 32, id="tile_and_a_quarter_gqa"),
+]
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("seq,heads,kv_heads,block", FLASH_CASES)
+@pytest.mark.parametrize("seq,heads,kv_heads,block", FLASH_CASES + TILE_EDGE_CASES)
 def test_flash_reference_matches_jax_kernel(seq, heads, kv_heads, block, causal):
     q, k, v = _qkv(s=seq, h=heads, kvh=kv_heads)
     j_out, j_lse = jax_attn._flash_forward(

@@ -37,6 +37,11 @@ KERNEL_CASES = [
     (2, 200, 8, 2, 64, torch.bfloat16, True, 4e-3, 2e-2),
     (1, 130, 2, 2, 128, torch.bfloat16, False, 4e-3, 2e-2),
     (1, 77, 2, 1, 32, torch.float32, True, 1e-4, 1e-4),
+    # the edges of the bf16 kernel's 128-row q and k/v tiles
+    (2, 64, 4, 4, 64, torch.bfloat16, True, 4e-3, 2e-2),
+    (1, 2049, 4, 4, 64, torch.bfloat16, True, 4e-3, 2e-2),
+    (2, 1024, 12, 4, 128, torch.bfloat16, True, 4e-3, 2e-2),
+    (1, 512, 2, 2, 64, torch.bfloat16, False, 4e-3, 2e-2),
 ]
 
 
@@ -55,6 +60,34 @@ def test_flash_kernel_matches_plain_version(
     ref_out, ref_lse = attn.flash_attention_reference(q, k, v, causal)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,kernel",
+    [(torch.bfloat16, "flash_fwd_sm90_kernel"),
+     (torch.float32, "flash_fwd_f32_kernel")],
+    ids=["bf16_wgmma", "f32_cuda_cores"],
+)
+def test_forward_launches_the_kernel_of_its_dtype(cuda, dtype, kernel):
+    """bf16 goes through the wgmma/TMA kernel and f32 through the
+    CUDA-core one (the device's own record of what ran), each counted
+    once in launch_counts["flash_fwd"]."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (
+        torch.randn((1, 200, 2, 64), generator=gen, device=cuda).to(dtype)
+        for _ in range(3)
+    )
+    attn.flash_forward(q, k, v, True)  # built and loaded before the trace
+    torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        attn.flash_forward(q, k, v, True)
+        torch.cuda.synchronize()
+    assert attn.launch_counts["flash_fwd"] == 1
+    ran = [e.key for e in prof.key_averages() if "flash_fwd" in e.key]
+    assert len(ran) == 1 and kernel in ran[0], ran
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
