@@ -14,8 +14,8 @@ printed:
    together), print the build seconds and, per kernel, read from the
    built library with ``cuobjdump``: its registers, stack frame, local
    and shared memory, and the count of Hopper instructions in its SASS
-   (``HGMMA``, ``UTMALDG``); the bf16 forward must hold both and have no
-   stack frame (so nothing spills).
+   (``HGMMA``, ``UTMALDG``); the bf16 forward, dQ and dK/dV kernels must
+   each hold both and have no stack frame (so nothing spills).
 3. kernels — hold the flash forward against its plain PyTorch version on
    the card, at the served and the training shapes and at the edge
    cases (GQA, ragged length, non-causal, f32, other head dims, the
@@ -25,8 +25,10 @@ printed:
    function (a yardstick only: the port never calls it), and print the
    kernel's TFLOP/s and share of its bound.
 3b. backward — the same for the dQ and dK/dV kernels, at the training
-   shape and the same edge cases; the yardstick is the backward of
-   ``scaled_dot_product_attention``.
+   shape and the same edge cases; each kernel is timed alone on inputs
+   prepared once, beside delta's own time and the whole backward
+   (``flash_backward``: inputs, delta and both kernels); the yardstick is
+   the backward of ``scaled_dot_product_attention``.
 4. serve   — build the GPT-2-small-shaped ``TransformerLM`` (vocab 32768,
    embed 768, 12 heads, 12 layers, bf16, sequence 2048) from a seeded
    generator, export it in the JAX package's layout, serve concurrent
@@ -120,8 +122,12 @@ def time_cuda(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
 # Hopper's instructions, counted in each kernel's SASS: the warpgroup
 # product and the TMA load
 SASS_OPS = ("HGMMA", "UTMALDG")
-# the kernel that must run on them (the bf16 forward, at every head dim)
-HOPPER_KERNEL = "flash_fwd_sm90_kernel"
+# the kernels that must run on them, at every head dim: the bf16 forward,
+# dQ and dK/dV
+HOPPER_KERNELS = (
+    "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+    "flash_bwd_dkv_sm90_kernel",
+)
 # per kernel, as ``cuobjdump -res-usage`` names them: registers, stack
 # frame and local memory per thread (a spill needs a stack frame) and
 # static shared memory per block
@@ -172,12 +178,13 @@ def count_sass_ops(text: str) -> dict:
 
 
 def check_hopper_kernels(report: dict) -> None:
-    """Raise unless there is a ``HOPPER_KERNEL`` and every one holds
-    both of ``SASS_OPS`` and has no stack frame and no local memory (so
-    nothing spills), each read as a number."""
-    hopper = {k: v for k, v in report.items() if k.startswith(HOPPER_KERNEL)}
-    if not hopper:
-        raise AssertionError(f"no {HOPPER_KERNEL} among {sorted(report)}")
+    """Raise unless each of ``HOPPER_KERNELS`` has at least one entry and
+    every entry holds both of ``SASS_OPS`` and has no stack frame and no
+    local memory (so nothing spills), each read as a number."""
+    hopper = {k: v for k, v in report.items() if k.startswith(HOPPER_KERNELS)}
+    for name in HOPPER_KERNELS:
+        if not any(label.startswith(name) for label in hopper):
+            raise AssertionError(f"no {name} among {sorted(report)}")
     for label, kernel in hopper.items():
         fields = (*RES_FIELDS.values(), *SASS_OPS)
         if (
@@ -357,20 +364,30 @@ BWD_TOLS = {
 }
 
 
-def backward_bound(b, s, h, kvh, d, dtype, causal):
-    """(bound_ms, bound_by) of each backward kernel at one shape: dQ does
-    three products over the live (q, k) pairs and moves q, dO, dq (h
-    heads), k, v (kvh heads), lse and delta (f32); dK/dV does four and
-    moves the same inputs plus dk and dv (kvh heads)."""
+# the products each backward kernel does over the live (q, k) pairs:
+# dQ makes S, dP and dQ; dK/dV makes S^T, dP^T, dV and dK
+BWD_PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def backward_flops(name, b, s, h, d, causal):
+    """Operations of one launch of backward kernel ``name``."""
     pairs = s * (s + 1) // 2 if causal else s * s
+    return 2 * BWD_PRODUCTS[name] * b * h * d * pairs
+
+
+def backward_bound(b, s, h, kvh, d, dtype, causal):
+    """(bound_ms, bound_by) of each backward kernel at one shape: its
+    operations at the type's peak, against what it moves at the memory
+    rate: q, dO (h heads), k, v (kvh heads), lse and delta (f32), and dq
+    (h heads) or dk and dv (kvh heads)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     inputs = b * s * (2 * h + 2 * kvh) * d * itemsize + 2 * b * h * s * 4
     out = {}
-    for name, products, out_bytes in (
-        ("flash_bwd_dq", 3, b * s * h * d * itemsize),
-        ("flash_bwd_dkv", 4, 2 * b * s * kvh * d * itemsize),
+    for name, out_bytes in (
+        ("flash_bwd_dq", b * s * h * d * itemsize),
+        ("flash_bwd_dkv", 2 * b * s * kvh * d * itemsize),
     ):
-        t_ops = 2 * products * b * h * d * pairs / PEAK_FLOPS[dtype]
+        t_ops = backward_flops(name, b, s, h, d, causal) / PEAK_FLOPS[dtype]
         t_bytes = (inputs + out_bytes) / PEAK_BYTES_PER_S
         out[name] = (
             max(t_ops, t_bytes) * 1e3,
@@ -400,10 +417,15 @@ def check_backward_cases():
     from elasticdl_tpu_torch.ops import attention as attn
 
     kernels = {
-        # name: (kernel wrapper, plain version, the gradients it returns)
-        "flash_bwd_dq": (attn.flash_bwd_dq, attn.flash_dq_reference, ("dq",)),
+        # name: (kernel wrapper, its launch alone, plain version, the
+        # gradients it returns)
+        "flash_bwd_dq": (
+            attn.flash_bwd_dq, attn._launch_bwd_dq, attn.flash_dq_reference,
+            ("dq",),
+        ),
         "flash_bwd_dkv": (
-            attn.flash_bwd_dkv, attn.flash_dkv_reference, ("dk", "dv"),
+            attn.flash_bwd_dkv, attn._launch_bwd_dkv, attn.flash_dkv_reference,
+            ("dk", "dv"),
         ),
     }
     results = {}
@@ -439,8 +461,15 @@ def check_backward_cases():
             reps,
         )
         bounds = backward_bound(b, s, h, kvh, d, dtype, causal)
+        # the kernels alone, on inputs prepared once; delta (a torch
+        # reduction) and the whole backward (inputs, delta and both
+        # kernels) beside them
+        inputs = attn._backward_inputs(q, k, v, out, lse, g)
+        sm_scale = 1.0 / d ** 0.5
+        delta_ms = time_cuda(lambda: attn._delta(inputs[3], out), reps)
+        backward_ms = time_cuda(lambda: attn.flash_backward(*args), reps)
         rows = {}
-        for kname, (kernel, plain, gnames) in kernels.items():
+        for kname, (kernel, launch, plain, gnames) in kernels.items():
             errs = {}
             ok = True
             for gname, got, ref in zip(gnames, grads[kname], _as_tuple(plain(*args))):
@@ -457,9 +486,12 @@ def check_backward_cases():
                     "max_abs_err": err, "mean_abs_err": mean_err,
                     "ref_max_abs": ref_max, "ref_rms": rms,
                 }
-            kernel_ms = time_cuda(lambda: kernel(*args), reps)
+            kernel_ms = time_cuda(
+                lambda: launch(*inputs, causal, sm_scale), reps
+            )
             plain_ms = time_cuda(lambda: plain(*args), 2, 1)
             bound_ms, bound_by = bounds[kname]
+            flops = backward_flops(kname, b, s, h, d, causal)
             row = {
                 "kernel": kname, "case": name, "shape": [b, s, h, kvh, d],
                 "dtype": dtype, "causal": causal, "errors": errs,
@@ -468,10 +500,15 @@ def check_backward_cases():
                 "ok": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+                "bound_share": bound_ms / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms,
+                "delta_ms": delta_ms, "backward_ms": backward_ms,
+                "backward_over_library": backward_ms / library_ms,
             }
             print(json.dumps(row), flush=True)
             rows[kname] = row
-        del lib_out, qt, kt, vt
+        del lib_out, qt, kt, vt, inputs
         results[name] = rows
     bad = [r for rows in results.values() for r in rows.values() if not r["ok"]]
     if bad:  # after every case has printed its row

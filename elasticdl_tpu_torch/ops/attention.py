@@ -296,9 +296,13 @@ def _backward_inputs(q, k, v, out, lse, g):
             f"{lse.dtype} {tuple(lse.shape)}"
         )
     g = g.to(q.dtype).contiguous()
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     q, k, v, lse = (t.contiguous() for t in (q, k, v, lse))
-    return q, k, v, g, lse, delta
+    return q, k, v, g, lse, _delta(g, out)
+
+
+def _delta(g, out):
+    """delta = rowsum(dO * O) in f32, (B*H, Sq) from (B, Sq, H, D)."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _launch_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale):

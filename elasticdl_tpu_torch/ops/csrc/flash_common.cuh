@@ -1,7 +1,7 @@
-// Pieces shared by the flash-attention kernels for Hopper (sm_90a):
-// tile sizes, the tile loader and the two per-warp products the backward
-// kernels and the f32 forward are built from (the bf16 forward's pieces
-// are in flash_sm90.cuh).  Included by flash_fwd.cu and flash_bwd.cu.
+// Pieces shared by the flash-attention kernels for Hopper (sm_90a): the
+// f32 kernels' tile sizes, tile loader and per-warp CUDA-core products
+// (the bf16 kernels' pieces are in flash_sm90.cuh), and the dispatch on
+// dtype and head dim.  Included by flash_fwd.cu and flash_bwd.cu.
 //
 // Layout: (B, S, heads, D), contiguous; a (b, head) sequence has row
 // stride heads*D, which is how the kernels fold (B, S, H, D) into the TPU
@@ -11,7 +11,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace edl_flash {
@@ -20,17 +19,8 @@ constexpr int kBlockM = 64;  // rows of the tile a block owns
 constexpr int kBlockN = 64;  // rows of each tile it loops over
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kWarpRows = kBlockM / kWarps;  // 16: one WMMA row tile
+constexpr int kWarpRows = kBlockM / kWarps;  // 16 rows per warp
 constexpr float kNegInf = -1e30f;            // the TPU kernel's _NEG_INF
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copy rows [row0, row0 + kRows) of one (b, head) sequence into a dense
 // [kRows][D] shared tile, 16 bytes per thread per step; rows at or past
@@ -51,73 +41,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
   }
 }
 
-// ---- the two products, per warp ------------------------------------------
+// ---- the two products, per warp (f32) ------------------------------------
 // abt: s[16][N] = a[16][D] . b[N][D]^T          (s: f32, ld kBlockN)
 // ab:  o[16][D] += p[16][N] . v[N][D]           (o: f32, ld D)
-// The forward uses them as S = Q K^T and O += P V; the backward as
-// S = Q K^T, dP = dO V^T, dQ += dS K (per q row) and S^T = K Q^T,
+// The f32 forward uses them as S = Q K^T and O += P V; the f32 backward
+// as S = Q K^T, dP = dO V^T, dQ += dS K (per q row) and S^T = K Q^T,
 // dP^T = V dO^T, dV += P^T dO, dK += dS^T Q (per k row).
 
 template <typename T, int D> struct WarpMma;
-
-template <int D> struct WarpMma<__nv_bfloat16, D> {
-  using bf16 = __nv_bfloat16;
-  using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                       bf16, nvcuda::wmma::row_major>;
-  using FragBCol = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                          bf16, nvcuda::wmma::col_major>;
-  using FragBRow = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                          bf16, nvcuda::wmma::row_major>;
-  using FragC =
-      nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-  static __device__ __forceinline__ void abt(const bf16* a, const bf16* b,
-                                             float* s) {
-    using namespace nvcuda;
-    FragC acc[kBlockN / 16];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + kk, D);
-#pragma unroll
-      for (int n = 0; n < kBlockN / 16; ++n) {
-        // column-major B with ld D: B(k, n) = b[n][k], i.e. b^T
-        FragBCol fb;
-        wmma::load_matrix_sync(fb, b + n * 16 * D + kk, D);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 16; ++n) {
-      wmma::store_matrix_sync(s + n * 16, acc[n], kBlockN,
-                              wmma::mem_row_major);
-    }
-  }
-
-  static __device__ __forceinline__ void ab(const bf16* p, const bf16* v,
-                                            float* o) {
-    using namespace nvcuda;
-    FragA fa[kBlockN / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      wmma::load_matrix_sync(fa[kk], p + kk * 16, kBlockN);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, o + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        FragBRow fb;
-        wmma::load_matrix_sync(fb, v + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc, fa[kk], fb, acc);
-      }
-      wmma::store_matrix_sync(o + n * 16, acc, D, wmma::mem_row_major);
-    }
-  }
-};
 
 template <int D> struct WarpMma<float, D> {
   // CUDA-core FMAs in f32.  Lane l owns columns l and l + 32 of the abt

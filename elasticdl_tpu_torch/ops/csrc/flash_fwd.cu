@@ -457,17 +457,6 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
-// the number of SMs of the current device: the persistent grid's size
-inline int sm_count() {
-  int device = 0, count = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  return count;
-}
-
 template <int D, int kStages> struct Sm90Forward {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          void* out, float* lse, int batch, int heads,

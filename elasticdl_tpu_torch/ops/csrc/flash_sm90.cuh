@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarrier
 // waits and arrivals, TMA tensor loads, the warpgroup matrix
 // multiply (wgmma) and its shared-memory descriptors, register
-// reallocation between warpgroups, and the host-side tensor-map encoder.
-// Included by flash_fwd.cu; meant to be shared by later kernels.
+// reallocation between warpgroups, the tile layout TMA writes and the
+// descriptors that read it, the bf16 epilogue from registers, and the
+// host-side tensor-map encoder.  Included by flash_fwd.cu and flash_bwd.cu.
 //
 // Conventions: shared-memory addresses are 32-bit offsets in the shared
 // window (smem_u32); a tile that TMA writes with a 128-byte (64-byte)
@@ -12,6 +13,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -294,7 +296,181 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "r"(scale_d));
 }
 
+// D[64][64] (+)= A[64][16] . B[16][64], A and B both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64][32] (+)= A[64][16] . B[16][32], A and B both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64][N] (+)= A . B, both K-major in shared memory (the first k-step
+// of a product passes scale_d 0 to overwrite D)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 32) wgmma_m64n32k16_ss(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+}
+
+// D[64][N] += A . B, A in registers, B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (N == 32) wgmma_m64n32k16_rs(d, a, desc_b, 1);
+  if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, desc_b, 1);
+  if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, desc_b, 1);
+}
+
+// The A fragments of k-steps [0, N / 16) packed from an f32 accumulator
+// over N columns (see the layout note above)
+template <int N>
+__device__ __forceinline__ void pack_a_fragments(const float (&acc)[N / 2],
+                                                 uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[kk][j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+    }
+  }
+}
+
+// ---- tiles in shared memory --------------------------------------------------
+
+// A bf16 tile of D columns as TMA writes it: D / kCols column chunks of
+// [rows][kCols], each swizzled (128-byte rows at D >= 64, 64-byte rows at
+// D = 32) and starting on a swizzle-atom boundary, one TMA box each.
+template <int D> struct ChunkedTile {
+  static constexpr int kCols = D == 32 ? 32 : 64;  // columns per chunk
+  static constexpr int kChunks = D / kCols;
+  static constexpr uint32_t kRowBytes = kCols * 2;
+  static constexpr Swizzle kSwizzle = D == 32 ? kSwizzle64B : kSwizzle128B;
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // 8 rows
+  static constexpr uint32_t bytes(int rows) { return rows * D * 2; }
+
+  // K-major operand (the reduction runs over the D columns), k-step kk:
+  // rows from `tile` on, in a tile of kRows rows (`tile` may point
+  // inside it, at a multiple of 8 rows)
+  template <int kRows>
+  static __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+    const uint32_t chunk = (kk * 16) / kCols;
+    const uint32_t within = ((kk * 16) % kCols) * 2;
+    return make_desc(tile + chunk * kRows * kRowBytes + within, 16, kSbo,
+                     kSwizzle);
+  }
+  // MN-major operand (the reduction runs over the rows, N = D; the
+  // transpose bit set), k-step kk: rows [16kk, 16kk + 16) of a kRows-row
+  // tile
+  template <int kRows>
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+    return make_desc(tile + kk * 16 * kRowBytes, kRows * kRowBytes, kSbo,
+                     kSwizzle);
+  }
+};
+
+// TMA of the D columns of kRows rows at (row, head, batch) into the
+// chunked tile at `dst`, one box per column chunk, counted on `bar`
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int head, int row,
+                                          int b) {
+  using Tile = ChunkedTile<D>;
+#pragma unroll
+  for (int c = 0; c < Tile::kChunks; ++c) {
+    tma_load_4d(dst + c * kRows * Tile::kRowBytes, map, bar, c * Tile::kCols,
+                head, row, b);
+  }
+}
+
+// ---- epilogue ----------------------------------------------------------------
+
+// Row r_wg + 8r (r = 0, 1) of this thread's m64nD f32 accumulator, times
+// `scale`, rounded to bf16 and stored to the D values at `dst`, 16 bytes
+// a store.  A quad holds a row's 8-column blocks two columns per thread;
+// four shuffles turn every 4 blocks around so that each thread holds one
+// whole.  Every lane of the warp calls it; only `live` rows are stored.
+template <int D>
+__device__ __forceinline__ void store_row_bf16(const float (&acc)[D / 2],
+                                               int r, float scale,
+                                               __nv_bfloat16* dst, bool live) {
+  const int lane = threadIdx.x % 32;
+  const int c = lane % 4;
+  uint32_t words[D / 8];  // block j: columns 8j + 2c, + 1
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    words[j] = pack_bf16(acc[4 * j + 2 * r] * scale,
+                         acc[4 * j + 2 * r + 1] * scale);
+  }
+  uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int g = 0; g < D / 32; ++g) {
+    uint32_t block[4];  // block 4g + c, from quad threads 0..3
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // send thread (c + k) % 4 its share of block 4g + (c + k) % 4;
+      // receive this thread's from thread (c - k) % 4
+      const int to = (c + k) & 3;
+      const int from = (c - k) & 3;
+      uint32_t send = words[4 * g];
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        if (to == i) send = words[4 * g + i];
+      }
+      const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (from == i) block[i] = got;
+      }
+    }
+    if (live) out[4 * g + c] = make_uint4(block[0], block[1], block[2], block[3]);
+  }
+}
+
 // ---- host --------------------------------------------------------------------
+
+// the number of SMs of the current device: a persistent grid's size
+inline int sm_count() {
+  int device = 0, count = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return count;
+}
 
 typedef CUresult (*TensorMapEncodeTiled)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

@@ -1,7 +1,7 @@
 """The build gate of ``chip_smoke.py`` (phase 2): how it reads
 ``cuobjdump``'s resource and SASS listings of the built kernels, and
-that it refuses a bf16 forward that misses Hopper's instructions, may
-spill, or cannot be read at all."""
+that it refuses a bf16 forward, dQ or dK/dV kernel that is missing,
+misses Hopper's instructions, may spill, or cannot be read at all."""
 
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ import chip_smoke  # noqa: E402
 SM90 = "_ZN12_GLOBAL__N_121flash_fwd_sm90_kernelILi64ELi4EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiiif"
 F32 = "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64EEEvPKfS2_S2_PfS3_iiiiif"
 DQ = "_ZN12_GLOBAL__N_118flash_bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiiif"
+DQ_SM90 = "_ZN45_GLOBAL__N__e43c1707_12_flash_bwd_cu_26940ad524flash_bwd_dq_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiiiiff"
+DKV_SM90 = "_ZN45_GLOBAL__N__e43c1707_12_flash_bwd_cu_26940ad525flash_bwd_dkv_sm90_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiiff"
 
 RES_USAGE = f"""
 Resource usage:
@@ -40,14 +42,32 @@ SASS = f"""
 """
 
 
+FWD, BWD_DQ, BWD_DKV = (
+    "flash_fwd_sm90_kernel<64,4>", "flash_bwd_dq_sm90_kernel<64>",
+    "flash_bwd_dkv_sm90_kernel<64>",
+)
+
+
 def good_report():
     return {
-        "flash_fwd_sm90_kernel<64,4>": {
+        FWD: {
             "registers": 168, "stack": 0, "local": 0, "shared": 0,
             "HGMMA": 24, "UTMALDG": 3,
         },
         "flash_fwd_f32_kernel<64>": {
             "registers": 128, "stack": 16, "local": 0, "shared": 0,
+            "HGMMA": 0, "UTMALDG": 0,
+        },
+        BWD_DQ: {
+            "registers": 168, "stack": 0, "local": 0, "shared": 1024,
+            "HGMMA": 12, "UTMALDG": 4,
+        },
+        BWD_DKV: {
+            "registers": 168, "stack": 0, "local": 0, "shared": 1024,
+            "HGMMA": 16, "UTMALDG": 4,
+        },
+        "flash_bwd_dq_f32_kernel<32>": {
+            "registers": 64, "stack": 8, "local": 0, "shared": 0,
             "HGMMA": 0, "UTMALDG": 0,
         },
     }
@@ -59,6 +79,8 @@ def good_report():
         (SM90, "flash_fwd_sm90_kernel<64,4>"),
         (F32, "flash_fwd_f32_kernel<64>"),
         (DQ, "flash_bwd_dq_kernel<bf16,64>"),
+        (DQ_SM90, "flash_bwd_dq_sm90_kernel<64>"),
+        (DKV_SM90, "flash_bwd_dkv_sm90_kernel<128>"),
         ("some_other_function", "some_other_function"),
     ],
 )
@@ -85,30 +107,32 @@ def test_count_sass_ops_counts_per_kernel():
 
 
 def test_check_hopper_kernels_passes_a_good_build():
-    # the f32 kernel's stack frame and missing Hopper units are allowed
+    # the f32 kernels' stack frames and missing Hopper units are allowed
     chip_smoke.check_hopper_kernels(good_report())
 
 
-def _drop_hopper(report):
-    report.pop("flash_fwd_sm90_kernel<64,4>")
-
-
-def _set(field, value):
+def _drop(kernel):
     def edit(report):
-        report["flash_fwd_sm90_kernel<64,4>"][field] = value
+        report.pop(kernel)
+    return edit
+
+
+def _set(field, value, kernel=FWD):
+    def edit(report):
+        report[kernel][field] = value
     return edit
 
 
 def _remove(field):
     def edit(report):
-        del report["flash_fwd_sm90_kernel<64,4>"][field]
+        del report[FWD][field]
     return edit
 
 
 @pytest.mark.parametrize(
     "edit",
     [
-        _drop_hopper,
+        _drop(FWD),
         _set("HGMMA", 0),
         _set("UTMALDG", 0),
         _set("stack", 8),
@@ -116,10 +140,18 @@ def _remove(field):
         _set("registers", "not measured"),
         _remove("stack"),
         _remove("UTMALDG"),
+        _drop(BWD_DQ),
+        _drop(BWD_DKV),
+        _set("HGMMA", 0, BWD_DQ),
+        _set("HGMMA", 0, BWD_DKV),
+        _set("stack", 8, BWD_DQ),
+        _set("stack", 8, BWD_DKV),
     ],
     ids=[
         "no_hopper_kernel", "no_hgmma", "no_utmaldg", "stack_frame",
         "local_memory", "unread_field", "missing_stack", "missing_utmaldg",
+        "no_dq_kernel", "no_dkv_kernel", "dq_no_hgmma", "dkv_no_hgmma",
+        "dq_stack_frame", "dkv_stack_frame",
     ],
 )
 def test_check_hopper_kernels_refuses(edit):
