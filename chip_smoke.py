@@ -40,6 +40,21 @@ printed:
    step launches each kernel once per layer, losses are finite and fall
    on the repeated batch, and on one row the model's gradients through
    the kernels match those with the plain versions in their place.
+6. local train — train the same LM through the port's CLI
+   (``elasticdl_tpu_torch.client.main(["train", ...])``, the Local
+   strategy) from EDLIO shards it writes first (60 training records in 4
+   shards, 8 validation records), warm-started from a checkpoint of the
+   same seeded weights, with periodic checkpoints, a final evaluation and
+   an export.  It checks that the dispatcher handed out 4 tasks and the
+   trainer took 8 steps over the 60 records, each once, with zero-weight
+   padding; that every step launched each kernel once per layer and the
+   evaluation batch only the forward; that losses and the evaluation are
+   finite; that the recorded batches replayed through a fresh trainer
+   give the same weights exactly; and that the checkpoints (versions 4
+   and 8) and the export hold the trained weights.  Then it times the
+   executor's steady tokens/s in two runs of 4 epochs with no checkpoint,
+   evaluation or export (the tasks after the first: 30 steps each), and
+   prints them beside phase 5's bare steps.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -48,6 +63,7 @@ and nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -799,7 +815,479 @@ def train_lm(device: str = "cuda"):
     print(json.dumps(result), flush=True)
     if rel > GRAD_REL_ERR or per_tensor[worst] > GRAD_TENSOR_REL_ERR:
         raise AssertionError(f"kernel gradients disagree with plain: {result}")
-    return totals
+    return totals, result["tokens_per_s"]
+
+
+# ---- phase 6: train the gpt2s-shaped LM through the train CLI --------------
+
+# 60 training records in 4 shards of 15, so with 16 records per task each
+# shard is one task: one full batch of 8 and one of 7 real rows (one
+# zero-weight padding row), 8 steps in all; 8 validation records are one
+# evaluation batch
+LOCAL_RECORDS, LOCAL_SHARDS, LOCAL_EVAL_RECORDS = 60, 4, 8
+LOCAL_RECORDS_PER_TASK, LOCAL_CHECKPOINT_STEPS = 16, 4
+LOCAL_TASKS = LOCAL_SHARDS
+LOCAL_STEPS = LOCAL_SHARDS * 2
+LM_DEF = "long_seq_transformer.long_seq_transformer.custom_model"
+# the executor's steady pace is timed in runs of their own: the same data
+# for 4 epochs (16 tasks, 32 steps) with no checkpoint, evaluation or
+# export, so that no milestone falls in the window of the tasks after the
+# first (30 steps); two runs, for their spread
+LOCAL_TIMED_EPOCHS = 4
+LOCAL_TIMED_RUNS = 2
+
+
+class _Recorder:
+    """What the executor's path did, gathered by wrapping its pieces:
+    the training tasks each dispatcher handed out and when each was
+    reported (after a device sync), every batch the trainer received
+    (device copies, read after the run) with each step's kernel
+    launches, the evaluation batches' launches, and the seconds spent in
+    evaluation, checkpoints and the export."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.tasks, self.report_times = [], []
+        self.batches, self.losses, self.step_launches = [], [], []
+        self.step_starts = []  # host clock at each train_step call
+        self.eval_launches, self.eval_step_secs = [], 0.0
+        # (start, end) of each call of the timed pieces
+        self.spans = {k: [] for k in (
+            "evaluate", "eval_metrics", "checkpoint", "checkpoint_flush", "export",
+        )}
+        self.executor = self.result = self.train_dispatcher = None
+
+    def sync(self):
+        import torch
+
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(self, key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.spans[key].append((t0, time.monotonic()))
+        return wrapper
+
+    def secs(self, key) -> float:
+        """Seconds spent in ``key``'s calls."""
+        return sum(t1 - t0 for t0, t1 in self.spans[key])
+
+    def patches(self):
+        """The ``mock.patch`` context managers that install the wrappers."""
+        from unittest import mock
+
+        from elasticdl_tpu_torch.ops import attention as attn
+        from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+        from elasticdl_tpu_torch.trainer import local_executor as le
+        from elasticdl_tpu_torch.trainer.checkpointing import PeriodicCheckpointer
+        from elasticdl_tpu_torch.utils.constants import TaskType
+
+        rec = self
+        train_step, eval_step = SPMDTrainer.train_step, SPMDTrainer.eval_step
+
+        class Dispatcher(le.TaskDispatcher):
+            def get(self, worker_id):
+                tid, task = super().get(worker_id)
+                if task is not None and task.type == TaskType.TRAINING:
+                    rec.tasks.append((tid, task))
+                    rec.train_dispatcher = self
+                return tid, task
+
+            def report(self, task_id, success, exec_counters=None):
+                if self is rec.train_dispatcher:
+                    rec.sync()
+                    rec.report_times.append(time.monotonic())
+                return super().report(task_id, success, exec_counters)
+
+        def recorded_train_step(trainer, features, labels, weights=None):
+            rec.step_starts.append(time.monotonic())
+            before = dict(attn.launch_counts)
+            metrics = train_step(trainer, features, labels, weights)
+            rec.step_launches.append(
+                {k: attn.launch_counts[k] - before[k] for k in before}
+            )
+            # device copies, read after the run: no sync inside the loop
+            rec.batches.append(
+                (features["tokens"].clone(), labels.clone(), weights.clone())
+            )
+            rec.losses.append(metrics["loss"])
+            return metrics
+
+        def recorded_eval_step(trainer, *args):
+            before = dict(attn.launch_counts)
+            rec.sync()
+            t0 = time.monotonic()
+            out = eval_step(trainer, *args)
+            rec.sync()
+            rec.eval_step_secs += time.monotonic() - t0
+            rec.eval_launches.append(
+                {k: attn.launch_counts[k] - before[k] for k in before}
+            )
+            return out
+
+        run = le.LocalExecutor.run
+
+        def recorded_run(executor):
+            rec.executor = executor
+            rec.result = run(executor)
+            return rec.result
+
+        return [
+            mock.patch.object(le, "TaskDispatcher", Dispatcher),
+            mock.patch.object(SPMDTrainer, "train_step", recorded_train_step),
+            mock.patch.object(SPMDTrainer, "eval_step", recorded_eval_step),
+            mock.patch.object(le.LocalExecutor, "run", recorded_run),
+            mock.patch.object(
+                le.LocalExecutor, "evaluate",
+                self.timed("evaluate", le.LocalExecutor.evaluate),
+            ),
+            mock.patch.object(
+                le.metrics_lib, "update_metric_tree",
+                self.timed("eval_metrics", le.metrics_lib.update_metric_tree),
+            ),
+            mock.patch.object(
+                PeriodicCheckpointer, "save_now",
+                self.timed("checkpoint", PeriodicCheckpointer.save_now),
+            ),
+            mock.patch.object(
+                PeriodicCheckpointer, "flush",
+                self.timed("checkpoint_flush", PeriodicCheckpointer.flush),
+            ),
+            mock.patch.object(le, "export_model", self.timed("export", le.export_model)),
+        ]
+
+
+def _record_rows(directory: str):
+    """Every record of ``directory``'s shards, as int64 token bytes, read
+    back with the port's reader."""
+    from elasticdl_tpu_torch.data.reader import decode_example
+    from elasticdl_tpu_torch.data.recordio_reader import RecordIODataReader
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    reader = RecordIODataReader(data_dir=directory)
+    rows = []
+    for shard, (start, n) in reader.create_shards().items():
+        task = Task(shard, start, start + n, TaskType.TRAINING)
+        for record in reader.read_records(task):
+            rows.append(decode_example(record)["tokens"].astype("int64").tobytes())
+    return rows
+
+
+def _local_data(work_dir: str) -> dict:
+    """The phase's EDLIO shards and its warm-start checkpoint of the
+    seeded weights."""
+    import torch
+
+    from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_sequence
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.flax_weights import flax_flat_from_torch
+
+    vocab = GPT2S["vocab_size"]
+    t0 = time.monotonic()
+    data = {
+        "train": gen_sequence(
+            os.path.join(work_dir, "train"), num_records=LOCAL_RECORDS,
+            num_shards=LOCAL_SHARDS, seed=0, seq_len=SEQ, vocab=vocab,
+        ),
+        "eval": gen_sequence(
+            os.path.join(work_dir, "eval"), num_records=LOCAL_EVAL_RECORDS,
+            num_shards=1, seed=1, seq_len=SEQ, vocab=vocab,
+        ),
+        "init": os.path.join(work_dir, "init"),
+    }
+    data["secs"] = time.monotonic() - t0
+    model = lm.custom_model(**GPT2S)
+    lm.init_weights(model, torch.Generator().manual_seed(0))
+    init = {f"params/{k}": v for k, v in flax_flat_from_torch(model).items()}
+    save_utils.CheckpointSaver(data["init"]).save(0, init, extra={"model_version": 0})
+    return data
+
+
+def _local_argv(data: dict, device: str, *extra) -> list:
+    """``train`` on the phase's shards, warm-started from its checkpoint."""
+    return [
+        "train", "--model_def", LM_DEF,
+        "--model_params", ";".join(f"{k}={v}" for k, v in GPT2S.items()),
+        "--training_data", data["train"],
+        "--records_per_task", str(LOCAL_RECORDS_PER_TASK),
+        "--minibatch_size", str(TRAIN_ROWS), "--shuffle_seed", "0",
+        "--checkpoint_dir_for_init", data["init"], "--device", device, *extra,
+    ]
+
+
+def _checked_local_run(work_dir: str, data: dict, device: str):
+    """One epoch through the train CLI with periodic checkpoints, a
+    final evaluation and an export, and checks (a) to (f) of the phase
+    on what it did.  Returns each kernel's launches in the run and the
+    run's row of the phase's JSON line."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.state import checkpoint_to_state
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.export_utils import load_exported_model
+    from elasticdl_tpu_torch.utils.flax_weights import flax_flat_from_torch
+
+    train_dir, init_dir = data["train"], data["init"]
+    ckpt_dir, out_dir = os.path.join(work_dir, "ckpt"), os.path.join(work_dir, "out")
+    argv = _local_argv(
+        data, device, "--num_epochs", "1", "--validation_data", data["eval"],
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(LOCAL_CHECKPOINT_STEPS), "--output", out_dir,
+    )
+    rec = _Recorder(device)
+    with contextlib.ExitStack() as stack:
+        for patch in rec.patches():
+            stack.enter_context(patch)
+        attn.reset_launch_counts()
+        run_start = time.monotonic()
+        rc = client.main(argv)
+        run_secs = time.monotonic() - run_start
+        launches = dict(attn.launch_counts)
+    if rc != 0:
+        raise AssertionError(f"train exited with {rc}")
+    executor, result = rec.executor, rec.result
+    trainer = executor.trainer
+    layers = GPT2S["num_layers"]
+    per_call = layers if device == "cuda" else 0  # the CPU takes the plain path
+
+    # (a) tasks, records and steps
+    tasks = [(t.shard_name, t.start, t.end) for _tid, t in rec.tasks]
+    batches = [tuple(x.cpu() for x in b) for b in rec.batches]
+    weights = [b[2] for b in batches]
+    trained = int(sum(float(w.sum()) for w in weights))
+    if (
+        len(tasks) != LOCAL_TASKS
+        or sum(end - start for _s, start, end in tasks) != LOCAL_RECORDS
+        or trained != LOCAL_RECORDS
+        or len(batches) != LOCAL_STEPS or trainer.step != LOCAL_STEPS
+    ):
+        raise AssertionError(
+            f"tasks {tasks}, {trained} records in {len(batches)} batches, "
+            f"trainer at step {trainer.step}"
+        )
+    # (b) the real rows are the training records, each once; padding rows
+    # weigh 0
+    got_rows = []
+    for tokens, labels, w in batches:
+        n = int(w.sum())
+        if not (torch.all(w[:n] == 1) and torch.all(w[n:] == 0)):
+            raise AssertionError(f"a batch's row weights are not 1s then 0s: {w}")
+        for i in range(n):
+            row = torch.cat([tokens[i], labels[i, -1:]]).to(torch.int64)
+            if not torch.equal(row[1:-1], labels[i, :-1].to(torch.int64)):
+                raise AssertionError("features and labels are not one shifted record")
+            got_rows.append(row.numpy().tobytes())
+    if sorted(got_rows) != sorted(_record_rows(train_dir)):
+        raise AssertionError("the trained rows are not the training records, once each")
+    # (c) kernel launches per training step and per evaluation batch
+    want_step = dict.fromkeys(attn.launch_counts, per_call)
+    want_eval = dict(dict.fromkeys(attn.launch_counts, 0), flash_fwd=per_call)
+    if any(s != want_step for s in rec.step_launches) or not rec.eval_launches or any(
+        e != want_eval for e in rec.eval_launches
+    ):
+        raise AssertionError(
+            f"launches per step {rec.step_launches}, per evaluation batch "
+            f"{rec.eval_launches}"
+        )
+    # (d) finite losses and evaluation
+    losses = [float(x) for x in rec.losses]
+    if not (
+        all(np.isfinite(losses)) and set(result) == {"accuracy", "loss"}
+        and all(np.isfinite(list(result.values())))
+    ):
+        raise AssertionError(f"losses {losses}, evaluation {result}")
+    # (e) the recorded batches replayed from the same checkpoint through a
+    # fresh trainer give the executor's weights exactly
+    replay_model = lm.custom_model(**GPT2S)
+    replay = SPMDTrainer(
+        replay_model, lm.loss, lm.optimizer(),
+        compute_dtype=torch.bfloat16, device=device,
+    )
+    checkpoint_to_state(replay.state, save_utils.restore_checkpoint(init_dir)[0])
+    for tokens, labels, w in rec.batches:
+        replay.train_step({"tokens": tokens}, labels, w)
+    trained_state = trainer.state.model.state_dict()
+    replay_diff = max(
+        (replay.state.model.state_dict()[k].float() - v.float()).abs().max().item()
+        for k, v in trained_state.items()
+    )
+    del replay, replay_model
+    # (f) the checkpoints and the export
+    versions = sorted(
+        int(n.split("-")[1]) for n in os.listdir(ckpt_dir) if n.startswith("version-")
+    )
+    exported, _flat, _state = load_exported_model(out_dir, device=device)
+    export_diff = max(
+        (exported.state_dict()[k] - v).abs().max().item()
+        for k, v in trained_state.items()
+    )
+    last = save_utils.restore_checkpoint(ckpt_dir)[0]
+    ckpt_flat = {f"params/{k}": v for k, v in flax_flat_from_torch(trainer.state.model).items()}
+    ckpt_exact = set(last) == set(ckpt_flat) and all(
+        np.array_equal(last[k], ckpt_flat[k]) for k in ckpt_flat
+    )
+    del exported
+
+    # the step gaps show what the milestones cost: a checkpoint's snapshot
+    # is taken on the training thread, between two steps
+    row = {
+        "tasks": len(tasks), "records": trained, "steps": len(batches),
+        "launches": launches, "launches_per_step": per_call,
+        "losses": losses, "evaluation": result,
+        "step_gaps_ms": [
+            (b - a) * 1e3 for a, b in zip(rec.step_starts, rec.step_starts[1:])
+        ],
+        # the first task also builds the trainer and restores the
+        # checkpoint
+        "first_task_secs": rec.report_times[0] - run_start,
+        "run_secs": run_secs, "data_secs": data["secs"],
+        "evaluate_secs": rec.secs("evaluate"),
+        "eval_step_secs": rec.eval_step_secs,
+        "eval_metrics_secs": rec.secs("eval_metrics"),
+        "checkpoint_secs": rec.secs("checkpoint"),
+        "checkpoint_flush_secs": rec.secs("checkpoint_flush"),
+        "export_secs": rec.secs("export"),
+        "checkpoint_versions": versions, "replay_max_abs_diff": replay_diff,
+        "export_max_abs_diff": export_diff, "last_checkpoint_exact": ckpt_exact,
+    }
+    if replay_diff != 0.0:
+        raise AssertionError(f"the replayed batches gave other weights: {row}")
+    if versions != [LOCAL_CHECKPOINT_STEPS, LOCAL_STEPS] or export_diff != 0.0 or not ckpt_exact:
+        raise AssertionError(f"checkpoints or export disagree with the state: {row}")
+    if device == "cuda" and (
+        torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+    ):
+        raise AssertionError("the train CLI turned TF32 on")
+    return launches, row
+
+
+def _timed_local_run(data: dict, device: str) -> dict:
+    """The train CLI over ``LOCAL_TIMED_EPOCHS`` epochs with nothing but
+    training in it.  The window is the tasks after the first (which also
+    builds the trainer and restores the checkpoint): from the device sync
+    that closes the first task's report to the one that closes the
+    last.  The only instruments are that sync (the step reads its tokens'
+    range on the host already, so the device is idle at a report anyway)
+    and a clock read at each ``train_step`` call."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer import local_executor as le
+
+    tasks, reports, step_starts = [], [], []
+    train_step = SPMDTrainer.train_step
+
+    class Dispatcher(le.TaskDispatcher):
+        def get(self, worker_id):
+            tid, task = super().get(worker_id)
+            if task is not None:
+                tasks.append(task)
+            return tid, task
+
+        def report(self, task_id, success, exec_counters=None):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            reports.append(time.monotonic())
+            return super().report(task_id, success, exec_counters)
+
+    def timed_train_step(trainer, *args):
+        step_starts.append(time.monotonic())
+        return train_step(trainer, *args)
+
+    argv = _local_argv(data, device, "--num_epochs", str(LOCAL_TIMED_EPOCHS))
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(le, "TaskDispatcher", Dispatcher))
+        stack.enter_context(
+            mock.patch.object(SPMDTrainer, "train_step", timed_train_step)
+        )
+        attn.reset_launch_counts()
+        run_start = time.monotonic()
+        rc = client.main(argv)
+        launches = dict(attn.launch_counts)
+    steps = len(step_starts)
+    want_steps = LOCAL_TIMED_EPOCHS * LOCAL_STEPS
+    per_call = GPT2S["num_layers"] if device == "cuda" else 0
+    if (
+        rc != 0 or len(tasks) != LOCAL_TIMED_EPOCHS * LOCAL_TASKS
+        or len(reports) != len(tasks) or steps != want_steps
+        or any(n != per_call * steps for n in launches.values())
+    ):
+        raise AssertionError(
+            f"timed run: rc {rc}, {len(tasks)} tasks, {len(reports)} reports, "
+            f"{steps} steps, launches {launches}"
+        )
+    steady = tasks[1:]
+    steady_steps = sum(-(-(t.end - t.start) // TRAIN_ROWS) for t in steady)
+    secs = reports[-1] - reports[0]
+    # the gaps between the window's steps (from the first step after the
+    # first report to the last step), inside a task and across a task
+    # boundary (a report falls between the two steps)
+    first = sum(1 for t0 in step_starts if t0 < reports[0])
+    inside, boundary = [], []
+    for a, b in zip(step_starts[first:], step_starts[first + 1:]):
+        crosses = any(a < t < b for t in reports)
+        (boundary if crosses else inside).append((b - a) * 1e3)
+    return {
+        "steady_tasks": len(steady), "steady_steps": steady_steps,
+        "steady_secs": secs,
+        "steady_tokens_per_s": sum(t.end - t.start for t in steady) * SEQ / secs,
+        "steady_canonical_tokens_per_s": steady_steps * TRAIN_ROWS * SEQ / secs,
+        "step_gap_ms_median": statistics.median(inside),
+        "step_gap_ms_max": max(inside),
+        "boundary_gap_ms_median": statistics.median(boundary),
+        "boundary_gap_ms_max": max(boundary),
+        "first_task_secs": reports[0] - run_start,
+    }
+
+
+def local_train_lm(work_dir: str, device: str = "cuda", bare_tokens_per_s=None):
+    """Phase 6: make EDLIO data, write a warm-start checkpoint, and train
+    the LM through ``elasticdl_tpu_torch.client.main(["train", ...])``:
+    once with checkpoints, an evaluation and an export, checked, then
+    timed (``device="cpu"`` rehearses the phase at a small size).
+    Returns each kernel's launches in the checked run."""
+    import torch
+
+    data = _local_data(work_dir)
+    launches, row = _checked_local_run(work_dir, data, device)
+    runs = []
+    for _ in range(LOCAL_TIMED_RUNS):
+        # the previous run's trainer and Adam state go first
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        runs.append(_timed_local_run(data, device))
+    pace = [r["steady_canonical_tokens_per_s"] for r in runs]
+    mean = statistics.mean(pace)
+    row["steady"] = {
+        "runs": runs, "epochs": LOCAL_TIMED_EPOCHS,
+        "canonical_tokens_per_s_mean": mean,
+        "canonical_tokens_per_s_spread": (max(pace) - min(pace)) / mean,
+        "bare_step_tokens_per_s": bare_tokens_per_s,
+        "canonical_over_bare": [
+            p / bare_tokens_per_s if bare_tokens_per_s else None for p in pace
+        ],
+    }
+    print(json.dumps({"local_train": row}), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -845,9 +1333,17 @@ def main() -> int:
         serve_launches = serve_lm(model_dir)
 
     # ---- 5. the training path
-    train_launches = train_lm()
+    train_launches, bare_tokens_per_s = train_lm()
+
+    # ---- 6. the train CLI (Local strategy), after phase 5's trainer and
+    # its Adam state are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_local_") as work_dir:
+        local_launches = local_train_lm(work_dir, bare_tokens_per_s=bare_tokens_per_s)
     print(json.dumps({"launches_by_path": {
         "serve": {"flash_fwd": serve_launches}, "train": train_launches,
+        "local_train": local_launches,
     }}), flush=True)
 
     def row(name, source, replaces, measured):
@@ -856,7 +1352,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"elasticdl_tpu_torch/ops/csrc/{source}",
             "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
-            "launches": train_launches[name]
+            "launches": train_launches[name] + local_launches[name]
             + (serve_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

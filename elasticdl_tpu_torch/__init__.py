@@ -17,6 +17,12 @@ counterpart at the same relative path:
 - ``utils.export_utils``    — the JAX package's export layout, both ways
 - ``utils.flax_weights``    — flax parameter names <-> torch state dicts
 - ``serving``               — micro-batcher, predict engine, replica
+- ``parallel.distributed``  — ``SPMDTrainer`` on one device
+- ``client``, ``api``       — the ``train|evaluate|predict`` CLI (Local)
+- ``trainer.local_executor`` — the Local strategy: tasks, batches,
+  steps, checkpoints (``trainer.checkpointing``), evaluation, export
+- ``master.task_dispatcher`` — dynamic data sharding into tasks
+- ``data``                  — the EDLIO codec, readers, ``Dataset``
 
 Entry points take ``device`` (default ``"cuda"``) and raise when CUDA is
 absent unless the caller asked for ``device="cpu"``.

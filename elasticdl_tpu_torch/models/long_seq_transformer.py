@@ -1,14 +1,16 @@
 """Long-context causal transformer LM, the port of
 ``elasticdl_tpu/models/long_seq_transformer.py``.
 
-Spec contract: ``custom_model`` / ``loss`` / ``optimizer`` (the names
-``utils.model_utils`` requires), so a manifest the JAX package wrote
+Spec contract: ``custom_model`` / ``dataset_fn`` / ``loss`` /
+``optimizer`` / ``eval_metrics_fn``, so a manifest the JAX package wrote
 (``model_def: long_seq_transformer.long_seq_transformer.custom_model``)
-builds this model.  Its attention runs the flash kernels on CUDA, in
-both directions when it trains.
+builds this model and the same ``train`` command line trains it: records
+are token sequences (``data/recordio_gen/synthetic.py::gen_sequence``),
+the task is next-token prediction.  Its attention runs the flash kernels
+on CUDA, in both directions when it trains.
 
-Not in this slice: decode mode and ``generate``, ``dataset_fn`` (it
-comes with the data layer), MoE, sequence parallelism.
+Not ported yet: decode mode and ``generate``, MoE, sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.data.reader import decode_example
 from elasticdl_tpu_torch.layers.attention import (
     LAYER_NORM_EPS,
     TransformerBlock,
@@ -157,6 +160,24 @@ def optimizer(lr=3e-3):
     Adam and ``optax.adam`` make the same update (b1 0.9, b2 0.999, eps
     1e-8 outside the square root)."""
     return functools.partial(torch.optim.Adam, lr=lr)
+
+
+def dataset_fn(dataset, mode, metadata):
+    """Records -> ``({"tokens": x[:-1]}, x[1:])`` int32 pairs (features
+    alone when predicting)."""
+    # imported here: trainer.state imports this module (through
+    # utils.flax_weights)
+    from elasticdl_tpu_torch.trainer.state import Modes
+
+    def _parse(record):
+        ex = decode_example(record)
+        tokens = ex["tokens"].astype(np.int32)
+        feats = {"tokens": tokens[:-1]}
+        if mode == Modes.PREDICTION:
+            return feats
+        return feats, tokens[1:]
+
+    return dataset.map(_parse)
 
 
 def eval_metrics_fn():

@@ -1,0 +1,566 @@
+"""The command-line flags; a copy of ``parse_master_args`` and its parser
+groups from ``elasticdl_tpu/utils/args.py``, so the port's CLI takes the
+JAX CLI's flags with the same types and defaults.
+
+``--device`` (``cuda`` unless the caller asks for ``cpu``) takes the
+place of the JAX CLI's ``--jax_platform``.  Every other flag is the JAX
+CLI's.  A flag whose feature the port does not have yet is parsed like
+any other, and :func:`check_ported_flags` (called when an executor is
+built) raises when it is set to anything but its default, naming the
+flag and the slice of ``ROADMAP.md`` queue 1 that brings it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import math
+
+from elasticdl_tpu_torch.utils.constants import (
+    MASTER_DEFAULT_PORT,
+    DistributionStrategy,
+)
+from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
+
+
+def pos_int(arg: str) -> int:
+    value = int(arg)
+    if value <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive integer: {arg}")
+    return value
+
+
+def non_neg_int(arg: str) -> int:
+    value = int(arg)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0: {arg}")
+    return value
+
+
+def non_neg_float(arg: str) -> float:
+    value = float(arg)
+    if value < 0:
+        raise argparse.ArgumentTypeError(
+            f"must be a non-negative float: {arg}"
+        )
+    return value
+
+
+def pos_float(arg: str) -> float:
+    value = float(arg)
+    if value <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive float: {arg}")
+    return value
+
+
+def parse_bool(arg) -> bool:
+    if isinstance(arg, bool):
+        return arg
+    lowered = str(arg).lower()
+    if lowered in ("true", "1", "yes"):
+        return True
+    if lowered in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {arg}")
+
+
+def parse_params_dict(arg: str | None) -> dict:
+    """Parse the ``k=v;k=v`` mini-DSL of ``--model_params`` /
+    ``--data_reader_params``: values through ``ast.literal_eval`` when
+    possible, else kept as strings."""
+    params: dict = {}
+    if not arg:
+        return params
+    for kv in arg.split(";"):
+        if not kv.strip():
+            continue
+        k, sep, v = kv.partition("=")
+        if not sep:
+            raise ValueError(f"malformed params entry (need k=v): {kv!r}")
+        k, v = k.strip(), v.strip()
+        try:
+            params[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            params[k] = v
+    return params
+
+
+def _add_job_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--job_name", default="elasticdl-job", help="Job name")
+    parser.add_argument(
+        "--log_level",
+        default="INFO",
+        choices=["DEBUG", "INFO", "WARNING", "ERROR"],
+        help="Logging level (DEBUG also turns on the timing buckets)",
+    )
+    parser.add_argument(
+        "--envs",
+        type=str,
+        default="",
+        help="Extra environment variables of worker processes, k=v,k=v",
+    )
+
+
+def _add_model_spec_params(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--model_zoo",
+        required=False,
+        default="",
+        help=(
+            "Directory that contains user-defined model modules; empty "
+            "means the built-in elasticdl_tpu_torch.models zoo"
+        ),
+    )
+    parser.add_argument(
+        "--model_def",
+        required=True,
+        help=(
+            "Model definition in module path form, e.g. "
+            "long_seq_transformer.long_seq_transformer.custom_model"
+        ),
+    )
+    parser.add_argument(
+        "--model_params",
+        default="",
+        help="Keyword args for custom_model(), 'k=v;k=v' form",
+    )
+    parser.add_argument("--dataset_fn", default="dataset_fn")
+    parser.add_argument("--loss", default="loss")
+    parser.add_argument("--optimizer", default="optimizer")
+    parser.add_argument("--eval_metrics_fn", default="eval_metrics_fn")
+    parser.add_argument("--custom_data_reader", default="custom_data_reader")
+    parser.add_argument(
+        "--prediction_outputs_processor",
+        default="PredictionOutputsProcessor",
+        help="Class in the model module that processes prediction outputs",
+    )
+
+
+def _add_data_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--training_data", default="")
+    parser.add_argument("--validation_data", default="")
+    parser.add_argument("--prediction_data", default="")
+    parser.add_argument(
+        "--records_per_task",
+        type=pos_int,
+        default=4096,
+        help="Records per dynamic-sharding task (the elasticity unit)",
+    )
+    parser.add_argument("--minibatch_size", type=pos_int, default=64)
+    parser.add_argument(
+        "--steps_per_dispatch",
+        type=lambda v: v if v == "auto" else pos_int(v),
+        default=1,
+        help="Optimizer steps fused into one device dispatch (not ported: 1)",
+    )
+    parser.add_argument("--num_epochs", type=pos_int, default=1)
+    parser.add_argument(
+        "--data_reader_params",
+        default="",
+        help="Keyword args for the data reader, 'k=v;k=v' form",
+    )
+    parser.add_argument(
+        "--shuffle_seed",
+        type=int,
+        default=None,
+        required=False,
+        help=(
+            "Seed for training-task shuffling; unset = nondeterministic "
+            "order (set it for reproducible runs and A/B comparisons)"
+        ),
+    )
+    parser.add_argument(
+        "--num_minibatches_per_task",
+        type=pos_int,
+        default=None,
+        required=False,
+        help="If set, records_per_task = minibatch_size * this",
+    )
+    parser.add_argument(
+        "--serving_addr",
+        default=None,
+        required=False,
+        help="predict only: a running serving endpoint (not ported)",
+    )
+
+
+def _add_train_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--evaluation_steps", type=non_neg_int, default=0)
+    parser.add_argument(
+        "--evaluation_start_delay_secs", type=non_neg_int, default=100
+    )
+    parser.add_argument(
+        "--evaluation_throttle_secs", type=non_neg_int, default=0
+    )
+    parser.add_argument("--checkpoint_steps", type=non_neg_int, default=0)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument(
+        "--checkpoint_dir_for_init",
+        default="",
+        help="Restore initial model state from this checkpoint directory",
+    )
+    parser.add_argument("--keep_checkpoint_max", type=non_neg_int, default=3)
+    parser.add_argument(
+        "--replication", type=parse_bool, default=None, required=False,
+        help="Replicate trainer state into peer host RAM (not ported)",
+    )
+    parser.add_argument(
+        "--replication_steps", type=non_neg_int, default=None,
+        required=False, help="Replicate every N steps (not ported)",
+    )
+    parser.add_argument(
+        "--output", default="", help="Directory for the exported model"
+    )
+    parser.add_argument("--tensorboard_log_dir", default="")
+    parser.add_argument(
+        "--telemetry_dir", default="",
+        help="Structured event log directory (not ported)",
+    )
+    parser.add_argument(
+        "--metrics_port", type=int, default=0,
+        help="Port of the master's /metrics endpoint (not ported)",
+    )
+    parser.add_argument(
+        "--metrics_host", default="127.0.0.1",
+        help="Bind address of /metrics (not ported)",
+    )
+    parser.add_argument(
+        "--trace_sample_rate", type=float, default=None, required=False,
+        help="Fraction of hot-path spans kept in the trace (not ported)",
+    )
+    parser.add_argument(
+        "--step_anatomy", type=parse_bool, default=None, required=False,
+        help="Per-dispatch time anatomy (not ported)",
+    )
+    parser.add_argument(
+        "--device_prefetch", type=parse_bool, default=None, required=False,
+        help="Device-path pipelining (not ported)",
+    )
+    parser.add_argument(
+        "--boundary_fusion", type=parse_bool, default=None, required=False,
+        help="Cross-task staging (not ported)",
+    )
+    parser.add_argument(
+        "--pipeline_depth", type=pos_int, default=None, required=False,
+        help="Device-pipeline depth (not ported)",
+    )
+    parser.add_argument(
+        "--profile_dir", default="",
+        help="Capture a profiler trace of a few steps here (not ported)",
+    )
+    parser.add_argument(
+        "--profile_steps", type=pos_int, default=5,
+        help="How many steps the profiler window covers (not ported)",
+    )
+    parser.add_argument(
+        "--get_model_steps",
+        type=pos_int,
+        default=1,
+        help=(
+            "Accepted for compatibility with the reference's local-SGD "
+            "mode; gradients sync every step (coerced to 1, with a warning)"
+        ),
+    )
+    parser.add_argument(
+        "--use_async",
+        type=parse_bool,
+        default=False,
+        help=(
+            "Accepted for compatibility with the reference's async-SGD "
+            "mode; training is synchronous (a warning when set)"
+        ),
+    )
+    parser.add_argument(
+        "--grads_to_wait",
+        type=pos_int,
+        default=1,
+        help="Compatibility flag from the sync-PS mode; unused",
+    )
+    parser.add_argument("--learning_rate", type=pos_float, default=None,
+                        required=False,
+                        help="Override the model module's learning rate")
+
+
+def _add_mesh_params(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--distribution_strategy",
+        default=DistributionStrategy.LOCAL,
+        choices=list(DistributionStrategy.ALL),
+    )
+    parser.add_argument(
+        "--num_workers", type=non_neg_int, default=1,
+        help="Number of worker processes (not ported: 1)",
+    )
+    parser.add_argument(
+        "--mesh_shape",
+        default="",
+        help=(
+            "Logical device mesh, e.g. 'dp=8'; the port runs on one "
+            "device, so '' or a mesh of size 1"
+        ),
+    )
+    parser.add_argument(
+        "--dcn_mesh_shape", default="",
+        help="Mesh axes that span slices (not ported)",
+    )
+    parser.add_argument(
+        "--compute_dtype",
+        default="bfloat16",
+        choices=["bfloat16", "float32"],
+        help="Dtype float features are cast to before the training forward",
+    )
+    parser.add_argument(
+        "--remat", type=parse_bool, default=False,
+        help="Recompute activations in the backward (not ported)",
+    )
+    parser.add_argument(
+        "--donate_state", type=parse_bool, default=True,
+        help=(
+            "Donate train-state buffers to the step: what eager PyTorch "
+            "does anyway (it updates the state in place)"
+        ),
+    )
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help=(
+            "The torch device the job runs on: 'cuda' (default; fails "
+            "without a card) or 'cpu' when asked for"
+        ),
+    )
+    parser.add_argument(
+        "--compilation_cache_dir", default="",
+        help="Persistent XLA compilation cache (no counterpart in the port)",
+    )
+
+
+def _add_master_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--port", type=non_neg_int, default=MASTER_DEFAULT_PORT)
+    parser.add_argument(
+        "--instance_backend", default="local", choices=["local", "k8s", "none"]
+    )
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--docker_image", default="")
+    parser.add_argument("--docker_image_repository", default="")
+    parser.add_argument("--docker_base_image", default="")
+    parser.add_argument(
+        "--worker_resource_request", default="cpu=1,memory=4096Mi"
+    )
+    parser.add_argument("--worker_resource_limit", default="")
+    parser.add_argument("--worker_pod_priority", default="")
+    parser.add_argument(
+        "--master_resource_request", default="cpu=1,memory=4096Mi"
+    )
+    parser.add_argument("--master_resource_limit", default="")
+    parser.add_argument("--master_pod_priority", default="")
+    parser.add_argument("--volume", default="")
+    parser.add_argument(
+        "--image_pull_policy",
+        default="Always",
+        choices=["Always", "IfNotPresent", "Never"],
+    )
+    parser.add_argument(
+        "--relaunch_on_worker_failure", type=non_neg_int, default=3
+    )
+    parser.add_argument(
+        "--heartbeat_timeout_secs", type=non_neg_float, default=30.0
+    )
+    parser.add_argument("--task_timeout_secs", type=non_neg_float, default=0.0)
+    parser.add_argument("--cluster_spec", default="")
+    parser.add_argument("--yaml", default="")
+    parser.add_argument("--master_journal_dir", default=None, required=False)
+    parser.add_argument(
+        "--rpc_retry_secs", type=non_neg_float, default=None, required=False
+    )
+    parser.add_argument(
+        "--rpc_deadline_secs", type=pos_float, default=None, required=False
+    )
+    parser.add_argument(
+        "--rehome_grace_secs", type=non_neg_float, default=None, required=False
+    )
+    parser.add_argument(
+        "--num_slices", type=pos_int, default=None, required=False
+    )
+    parser.add_argument(
+        "--min_slices", type=pos_int, default=None, required=False
+    )
+    parser.add_argument(
+        "--autoscale_p95_step_ms", type=pos_float, default=None,
+        required=False,
+    )
+    parser.add_argument(
+        "--autoscale_backlog_tasks", type=pos_int, default=None,
+        required=False,
+    )
+    parser.add_argument(
+        "--autoscale_cooldown_secs", type=non_neg_float, default=None,
+        required=False,
+    )
+    parser.add_argument(
+        "--autoscale_shrink", type=parse_bool, default=None, required=False
+    )
+    parser.add_argument("--slo_config", default=None, required=False)
+    parser.add_argument(
+        "--streaming", type=parse_bool, default=None, required=False
+    )
+    parser.add_argument(
+        "--stream_lag_tasks", type=pos_int, default=None, required=False
+    )
+    parser.add_argument("--live_push_addr", default=None, required=False)
+    parser.add_argument("--standby_workers", type=int, default=-1)
+
+
+_MASTER_GROUPS = (
+    _add_job_params,
+    _add_model_spec_params,
+    _add_data_params,
+    _add_train_params,
+    _add_mesh_params,
+    _add_master_params,
+)
+
+
+def _finalize(args: argparse.Namespace) -> argparse.Namespace:
+    """Validation and coercions, as the JAX CLI makes them."""
+    if getattr(args, "num_minibatches_per_task", None):
+        args.records_per_task = (
+            args.minibatch_size * args.num_minibatches_per_task
+        )
+    if getattr(args, "use_async", False):
+        args.grads_to_wait = 1
+        logger.warning(
+            "--use_async is accepted for compatibility but training is "
+            "synchronous; async staleness semantics do not apply"
+        )
+    if getattr(args, "get_model_steps", 1) > 1:
+        logger.warning(
+            "--get_model_steps=%d is accepted for compatibility but "
+            "gradients sync every step; local-SGD does not apply "
+            "(coerced to 1)",
+            args.get_model_steps,
+        )
+        args.get_model_steps = 1
+    args.model_params_dict = parse_params_dict(args.model_params)
+    args.data_reader_params_dict = parse_params_dict(args.data_reader_params)
+    return args
+
+
+def _master_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="ElasticDL (PyTorch) master")
+    for group in _MASTER_GROUPS:
+        group(parser)
+    return parser
+
+
+def parse_master_args(argv=None) -> argparse.Namespace:
+    args, unknown = _master_parser().parse_known_args(argv)
+    if unknown:
+        # surface typos, as the JAX CLI does
+        logger.warning("Unknown arguments: %s", unknown)
+    return _finalize(args)
+
+
+# Why each flag that the port parses cannot act yet: the slice of
+# ROADMAP.md queue 1 that brings its feature, or why none will
+def _comes_with(slice_name: str) -> str:
+    return f"it comes with {slice_name} (ROADMAP.md queue 1)"
+
+
+_ELASTIC = _comes_with("slice 6, data parallelism and elastic reform")
+_DEVICE_PIPELINE = _comes_with(
+    "slice 6, data parallelism and elastic reform (trainer/device_pipeline.py)"
+)
+_TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
+_TRAINING_REST = _comes_with("the rest of slice 5, the main training path")
+_K8S = _comes_with("slice 9, Kubernetes submission")
+_STREAMING = _comes_with("slice 9, streaming")
+UNPORTED_FLAGS = {
+    "distribution_strategy": _ELASTIC,
+    "num_workers": _ELASTIC,
+    "mesh_shape": _ELASTIC,
+    "dcn_mesh_shape": _ELASTIC,
+    "envs": _ELASTIC,
+    "evaluation_start_delay_secs": _ELASTIC,
+    "evaluation_throttle_secs": _ELASTIC,
+    "replication": _ELASTIC,
+    "replication_steps": _ELASTIC,
+    "port": _ELASTIC,
+    "relaunch_on_worker_failure": _ELASTIC,
+    "heartbeat_timeout_secs": _ELASTIC,
+    "task_timeout_secs": _ELASTIC,
+    "master_journal_dir": _ELASTIC,
+    "rpc_retry_secs": _ELASTIC,
+    "rpc_deadline_secs": _ELASTIC,
+    "rehome_grace_secs": _ELASTIC,
+    "num_slices": _ELASTIC,
+    "min_slices": _ELASTIC,
+    "autoscale_p95_step_ms": _ELASTIC,
+    "autoscale_backlog_tasks": _ELASTIC,
+    "autoscale_cooldown_secs": _ELASTIC,
+    "autoscale_shrink": _ELASTIC,
+    "standby_workers": _ELASTIC,
+    "device_prefetch": _DEVICE_PIPELINE,
+    "boundary_fusion": _DEVICE_PIPELINE,
+    "pipeline_depth": _DEVICE_PIPELINE,
+    "steps_per_dispatch": _TRAINING_REST,
+    "remat": _TRAINING_REST,
+    "telemetry_dir": _TELEMETRY,
+    "tensorboard_log_dir": _TELEMETRY,
+    "metrics_port": _TELEMETRY,
+    "metrics_host": _TELEMETRY,
+    "trace_sample_rate": _TELEMETRY,
+    "step_anatomy": _TELEMETRY,
+    "profile_dir": _TELEMETRY,
+    "profile_steps": _TELEMETRY,
+    "slo_config": _TELEMETRY,
+    "serving_addr": _comes_with("slice 4, the gRPC face of serving"),
+    "instance_backend": _K8S,
+    "namespace": _K8S,
+    "docker_image": _K8S,
+    "docker_image_repository": _K8S,
+    "docker_base_image": _K8S,
+    "worker_resource_request": _K8S,
+    "worker_resource_limit": _K8S,
+    "worker_pod_priority": _K8S,
+    "master_resource_request": _K8S,
+    "master_resource_limit": _K8S,
+    "master_pod_priority": _K8S,
+    "volume": _K8S,
+    "image_pull_policy": _K8S,
+    "cluster_spec": _K8S,
+    "yaml": _K8S,
+    "streaming": _STREAMING,
+    "stream_lag_tasks": _STREAMING,
+    "live_push_addr": _STREAMING,
+    "donate_state": (
+        "no slice will port it: eager PyTorch always updates the state "
+        "in place"
+    ),
+    "compilation_cache_dir": (
+        "no slice will port it: the port compiles no XLA programs"
+    ),
+}
+
+
+def _mesh_size(mesh_shape: str) -> int:
+    """Devices a ``--mesh_shape`` such as ``'dp=4,tp=2'`` spans."""
+    sizes = []
+    for part in mesh_shape.split(","):
+        if part.strip():
+            _name, _, size = part.partition("=")
+            sizes.append(int(size))
+    return math.prod(sizes)
+
+
+def check_ported_flags(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of
+    :data:`UNPORTED_FLAGS` set to anything but its default (a
+    ``--mesh_shape`` of one device is allowed)."""
+    parser = _master_parser()
+    for flag, reason in UNPORTED_FLAGS.items():
+        value = getattr(args, flag, parser.get_default(flag))
+        if value == parser.get_default(flag):
+            continue
+        if flag == "mesh_shape" and _mesh_size(value) == 1:
+            continue
+        raise NotImplementedError(f"--{flag}={value!r} is not ported: {reason}")

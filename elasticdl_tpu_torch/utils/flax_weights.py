@@ -137,11 +137,12 @@ def torch_state_from_flax(
 
 
 def flax_flat_from_torch(model: nn.Module) -> dict[str, np.ndarray]:
-    """The inverse: flat flax-named f32 arrays from ``model``'s weights."""
+    """The inverse: flat flax-named f32 arrays from ``model``'s weights,
+    each a host copy that no later update of the model changes."""
     state = model.state_dict()
     flat = {}
     for e in _entries(model):
-        arr = state[e.torch_key].detach().to("cpu", torch.float32).numpy()
+        arr = state[e.torch_key].detach().to("cpu", torch.float32, copy=True).numpy()
         if e.transpose:
             arr = arr.T
         flat[e.flax_key] = np.ascontiguousarray(arr.reshape(e.flax_shape))

@@ -68,14 +68,24 @@ def load_model_module(model_zoo: str, model_def: str):
 
 @dataclass
 class ModelSpec:
-    """The resolved model-zoo contract (the part this slice serves)."""
+    """The resolved model-zoo contract."""
 
     model_fn: Callable[..., Any]
     loss: Callable
     optimizer: Callable
+    dataset_fn: Callable | None = None
+    # optional batched alternative to dataset_fn:
+    # ``batch_parse(example_batch: dict[str, ndarray], mode)`` receives a
+    # whole decoded minibatch and returns the element dataset_fn's mapped
+    # elements would after batching
+    batch_parse: Callable | None = None
     # optional device-side half of the parse, applied inside the predict
     # step before the model.  Signature: features -> features
     device_parse: Callable | None = None
+    eval_metrics_fn: Callable | None = None
+    learning_rate_scheduler: Any | None = None
+    prediction_outputs_processor: Any | None = None
+    custom_data_reader: Callable | None = None
     model_params: dict = field(default_factory=dict)
     module: Any = None
 
@@ -83,9 +93,19 @@ class ModelSpec:
         return self.model_fn(**self.model_params)
 
 
-def resolve_model_spec(module, entry_fn_name: str) -> ModelSpec:
-    """Resolve the spec functions from a loaded model module; ``loss``
-    and ``optimizer`` are required."""
+def resolve_model_spec(
+    module,
+    entry_fn_name: str,
+    dataset_fn: str = "dataset_fn",
+    loss: str = "loss",
+    optimizer: str = "optimizer",
+    eval_metrics_fn: str = "eval_metrics_fn",
+    custom_data_reader: str = "custom_data_reader",
+    prediction_outputs_processor: str = "PredictionOutputsProcessor",
+) -> ModelSpec:
+    """Resolve the spec functions from a loaded model module, honoring
+    user-renamed spec functions; ``loss`` and ``optimizer`` are
+    required."""
 
     def _get(name, required=False):
         obj = getattr(module, name, None)
@@ -100,20 +120,54 @@ def resolve_model_spec(module, entry_fn_name: str) -> ModelSpec:
         raise AttributeError(
             f"model module {module.__name__!r} has no entry {entry_fn_name!r}"
         )
+    processor_cls = _get(prediction_outputs_processor)
     return ModelSpec(
         model_fn=model_fn,
-        loss=_get("loss", required=True),
-        optimizer=_get("optimizer", required=True),
-        device_parse=_get("device_parse"),
+        loss=_get(loss, required=True),
+        optimizer=_get(optimizer, required=True),
+        dataset_fn=_get(dataset_fn),
+        # the batched parse pairs with the default dataset_fn; a
+        # user-renamed --dataset_fn selects a different parse, which
+        # batch_parse must not bypass
+        batch_parse=(
+            _get("batch_parse") if dataset_fn == "dataset_fn" else None
+        ),
+        device_parse=(
+            _get("device_parse") if dataset_fn == "dataset_fn" else None
+        ),
+        eval_metrics_fn=_get(eval_metrics_fn),
+        learning_rate_scheduler=_get("learning_rate_scheduler"),
+        prediction_outputs_processor=(
+            processor_cls() if processor_cls is not None else None
+        ),
+        custom_data_reader=_get(custom_data_reader),
         module=module,
     )
 
 
 def get_model_spec(
-    model_zoo: str, model_def: str, model_params: dict | None = None
+    model_zoo: str,
+    model_def: str,
+    model_params: dict | None = None,
+    dataset_fn: str = "dataset_fn",
+    loss: str = "loss",
+    optimizer: str = "optimizer",
+    eval_metrics_fn: str = "eval_metrics_fn",
+    custom_data_reader: str = "custom_data_reader",
+    prediction_outputs_processor: str = "PredictionOutputsProcessor",
 ) -> ModelSpec:
-    """One-call loader: module + spec + the model's constructor params."""
+    """One-call loader: module + spec + the model's constructor params;
+    the spec names may be renamed as the JAX package's flags allow."""
     module, entry = load_model_module(model_zoo, model_def)
-    spec = resolve_model_spec(module, entry)
+    spec = resolve_model_spec(
+        module,
+        entry,
+        dataset_fn=dataset_fn,
+        loss=loss,
+        optimizer=optimizer,
+        eval_metrics_fn=eval_metrics_fn,
+        custom_data_reader=custom_data_reader,
+        prediction_outputs_processor=prediction_outputs_processor,
+    )
     spec.model_params = dict(model_params or {})
     return spec

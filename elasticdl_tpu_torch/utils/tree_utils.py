@@ -18,6 +18,19 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree``, in ``map_tree``'s order."""
+    leaves: list = []
+    map_tree(leaves.append, tree)
+    return leaves
+
+
+def batch_rows(tree) -> int:
+    """The leading (batch) dimension of ``tree``'s first leaf."""
+    leaf = tree_leaves(tree)[0]
+    return int(np.shape(leaf)[0]) if np.ndim(leaf) else 1
+
+
 def to_host(tensor: torch.Tensor) -> np.ndarray:
     """A host numpy copy; bf16 keeps its bits as ``ml_dtypes.bfloat16``,
     the dtype the JAX package's arrays come back in."""
