@@ -55,6 +55,30 @@ printed:
    executor's steady tokens/s in two runs of 4 epochs with no checkpoint,
    evaluation or export (the tasks after the first: 30 steps each), and
    prints them beside phase 5's bare steps.
+7. mnist    — train ``mnist_functional_api`` through the train CLI on
+   ``gen_mnist`` shards it writes (59 968 training records in 8 shards,
+   4096 validation records, 256 rows a step: bench.py's accuracy run at
+   bench.py's mnist step), with checkpoints every 100 steps, a final
+   evaluation and an export.  It checks the dispatcher's 16 tasks and the
+   trainer's 240 steps over the records, each once, with zero-weight
+   padding; that every batch came through the vectorized pipeline and
+   the native EDLIO codec (built from the checkout at first use; a
+   counter, not a log line) and reached the card as uint8; finite
+   losses; evaluation accuracy > 0.8; BatchNorm running statistics that
+   moved and are finite; and checkpoints and an export equal to the
+   trained state, statistics included.  Then it times the CLI over the
+   same data with nothing but training (the tasks after the first):
+   records/s, the median host time per step and the device time per
+   step (CUDA events), beside bare ``SPMDTrainer`` steps on one placed
+   256-row batch.
+8. deepfm   — the same checks for ``deepfm_edl_embedding`` on
+   bench.py's accuracy recipe (vocabulary 512, 131 072 training records,
+   8192 validation records, 512 rows a step; int16 ids on the card;
+   accuracy > 0.8), then the CLI timed at full width (input_dim 5383,
+   4096 rows a step, 35 steps in the window) beside bare steps, and ids
+   past the table or below 0 fed straight to the model on the card:
+   zero lookup rows, no table gradient, and the model's output and
+   gradients those of the padding id in their place.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -1290,6 +1314,530 @@ def local_train_lm(work_dir: str, device: str = "cuda", bare_tokens_per_s=None):
     return launches
 
 
+# ---- phases 7 and 8: mnist and DeepFM through the train CLI ---------------
+
+MNIST_DEF = "mnist_functional_api.mnist_functional_api.custom_model"
+DEEPFM_DEF = "deepfm_edl_embedding.deepfm_edl_embedding.custom_model"
+# bench.py's mnist accuracy run (bench.py:931-939) at bench.py's mnist
+# step of 256 rows (bench.py:175-180): about 60 000 training records in 8
+# shards, 4096 validation records, 16 batches a task.  Each shard is a
+# task of 4096 records and one of 3400 (13 full batches and one of 72
+# real rows and 184 zero-weight padding rows): 16 tasks, 240 steps
+MNIST = dict(
+    name="mnist", model_def=MNIST_DEF, gen="gen_mnist", gen_kwargs={},
+    model_params="", train_records=59968, eval_records=4096, shards=8,
+    batch=256, records_per_task=4096, checkpoint_steps=100,
+    wire=("image", "uint8"), accuracy_key="accuracy", min_accuracy=0.8,
+)
+# bench.py's DeepFM-frappe accuracy run (bench.py:961-969): vocabulary
+# 512 in data and model, 131 072 training records in 8 shards, 8192
+# validation records, 512 rows a step, 16 batches a task: 16 tasks, 256
+# steps
+DEEPFM_ACCURACY = dict(
+    name="deepfm_frappe", model_def=DEEPFM_DEF, gen="gen_frappe",
+    gen_kwargs={"vocab_size": 512}, model_params="input_dim=512",
+    train_records=131072, eval_records=8192, shards=8, batch=512,
+    records_per_task=8192, checkpoint_steps=100,
+    wire=("feature", "int16"), accuracy_key="accuracy_logits",
+    min_accuracy=0.8,
+)
+# DeepFM at its full width (input_dim 5383, bench.py:193-199) and
+# bench.py's CTR step of 4096 rows: 8 shards of one 5-step task each, so
+# the timed window (the tasks after the first) holds 35 steps
+DEEPFM_WIDE = dict(
+    name="deepfm_edl_embedding", model_def=DEEPFM_DEF, gen="gen_frappe",
+    gen_kwargs={}, model_params="", train_records=163840, eval_records=0,
+    shards=8, batch=4096, records_per_task=20480, wire=("feature", "int16"),
+)
+# steps of the bare loop, back-to-back steps per CUDA-event round (a step
+# is about a hundred launches; the launch queue must hold a round), and
+# steps in the profiled window that gives the device's busy time
+ZOO_BARE_STEPS, ZOO_DEVICE_REPS, ZOO_PROFILED_STEPS = 50, 4, 10
+
+
+def _device_busy_ms(fn, calls: int) -> float:
+    """Device busy milliseconds per call of ``fn``: the kernels' time in
+    a ``torch.profiler`` trace of ``calls`` calls, over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for avg in prof.key_averages():
+        # user annotations (Optimizer.step#...) are ranges over kernels
+        # already counted
+        if avg.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            avg, "is_user_annotation", False
+        ):
+            us += getattr(avg, "device_time_total", None) or avg.cuda_time_total
+    if not us:
+        raise AssertionError("the profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def _zoo_data(work_dir: str, cfg: dict) -> dict:
+    from elasticdl_tpu_torch.data.recordio_gen import synthetic
+
+    gen = getattr(synthetic, cfg["gen"])
+    t0 = time.monotonic()
+    data = {"train": gen(
+        os.path.join(work_dir, "train"), num_records=cfg["train_records"],
+        num_shards=cfg["shards"], seed=0, **cfg["gen_kwargs"],
+    )}
+    if cfg["eval_records"]:
+        data["eval"] = gen(
+            os.path.join(work_dir, "eval"), num_records=cfg["eval_records"],
+            num_shards=1, seed=1, **cfg["gen_kwargs"],
+        )
+    data["secs"] = time.monotonic() - t0
+    return data
+
+
+def _zoo_argv(cfg: dict, data: dict, device: str, *extra) -> list:
+    argv = [
+        "train", "--model_def", cfg["model_def"],
+        "--training_data", data["train"],
+        "--minibatch_size", str(cfg["batch"]),
+        "--records_per_task", str(cfg["records_per_task"]),
+        "--num_epochs", "1", "--shuffle_seed", "0", "--device", device, *extra,
+    ]
+    if cfg["model_params"]:
+        argv += ["--model_params", cfg["model_params"]]
+    return argv
+
+
+class _ZooRecorder:
+    """What a zoo model's train CLI run did: the training tasks and the
+    device-synced clock at each report, and per step its host clock,
+    wire features, labels and row weights (device copies, read after the
+    run), loss, and CUDA events around it."""
+
+    def __init__(self, device: str, wire_key: str, keep_batches: bool):
+        self.device, self.wire_key, self.keep_batches = device, wire_key, keep_batches
+        self.tasks, self.reports, self.step_starts = [], [], []
+        self.wire, self.batches, self.losses, self.events = [], [], [], []
+        self.executor = self.result = self.train_dispatcher = None
+
+    def patches(self):
+        from unittest import mock
+
+        import torch
+
+        from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+        from elasticdl_tpu_torch.trainer import local_executor as le
+        from elasticdl_tpu_torch.utils.constants import TaskType
+
+        rec, train_step, run = self, SPMDTrainer.train_step, le.LocalExecutor.run
+
+        class Dispatcher(le.TaskDispatcher):
+            def get(self, worker_id):
+                tid, task = super().get(worker_id)
+                if task is not None and task.type == TaskType.TRAINING:
+                    rec.tasks.append(task)
+                    rec.train_dispatcher = self
+                return tid, task
+
+            def report(self, task_id, success, exec_counters=None):
+                if self is rec.train_dispatcher:
+                    if rec.device == "cuda":
+                        torch.cuda.synchronize()
+                    rec.reports.append(time.monotonic())
+                return super().report(task_id, success, exec_counters)
+
+        def recorded_train_step(trainer, features, labels, weights=None):
+            rec.step_starts.append(time.monotonic())
+            wire = features[rec.wire_key]
+            rec.wire.append((wire.dtype, wire.device.type))
+            if rec.device == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            metrics = train_step(trainer, features, labels, weights)
+            if rec.device == "cuda":
+                end.record()
+                rec.events.append((start, end))
+            rec.losses.append(metrics["loss"])
+            if rec.keep_batches:
+                rec.batches.append((wire.clone(), labels.clone(), weights.clone()))
+            return metrics
+
+        def recorded_run(executor):
+            rec.executor = executor
+            rec.result = run(executor)
+            return rec.result
+
+        return [
+            mock.patch.object(le, "TaskDispatcher", Dispatcher),
+            mock.patch.object(SPMDTrainer, "train_step", recorded_train_step),
+            mock.patch.object(le.LocalExecutor, "run", recorded_run),
+        ]
+
+    def run(self, argv):
+        """``client.main(argv)`` with the recorders in place; returns the
+        attention kernels' and the pipeline paths' counts over the run."""
+        import contextlib
+
+        from elasticdl_tpu_torch import client
+        from elasticdl_tpu_torch.data import fast_pipeline
+        from elasticdl_tpu_torch.ops import attention as attn
+
+        with contextlib.ExitStack() as stack:
+            for patch in self.patches():
+                stack.enter_context(patch)
+            attn.reset_launch_counts()
+            fast_pipeline.reset_path_counts()
+            self.start = time.monotonic()
+            rc = client.main(argv)
+            counts = dict(attn.launch_counts), dict(fast_pipeline.path_counts)
+        if rc != 0:
+            raise AssertionError(f"train exited with {rc}")
+        return counts
+
+
+def _record_keys(directory: str, wire_key: str):
+    """Every record of ``directory``'s shards as :func:`_row_key`, read
+    back with the port's reader."""
+    from elasticdl_tpu_torch.data.reader import decode_example
+    from elasticdl_tpu_torch.data.recordio_reader import RecordIODataReader
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    reader = RecordIODataReader(data_dir=directory)
+    keys = []
+    for shard, (start, n) in reader.create_shards().items():
+        for record in reader.read_records(Task(shard, start, start + n, TaskType.TRAINING)):
+            ex = decode_example(record)
+            keys.append(_row_key(ex[wire_key], ex["label"]))
+    return keys
+
+
+def _row_key(wire, label) -> bytes:
+    """A record's identity whatever its wire dtype: a digest of its
+    features and label as int64."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(
+        np.asarray(wire, np.int64).tobytes() + np.asarray(label, np.int64).tobytes()
+    ).digest()
+
+
+def _checked_zoo_run(work_dir: str, cfg: dict, data: dict, device: str) -> dict:
+    """One epoch of ``cfg``'s model through the train CLI with periodic
+    checkpoints, a final evaluation and an export, and the phase's checks
+    (a) to (h) on what it did.  Returns the run's row of the phase's JSON
+    line."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.trainer.state import state_to_checkpoint
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.export_utils import load_exported_model
+    from elasticdl_tpu_torch.utils.flax_weights import (
+        flax_flat_from_torch,
+        flax_state_from_torch,
+    )
+
+    ckpt_dir, out_dir = os.path.join(work_dir, "ckpt"), os.path.join(work_dir, "out")
+    wire_key, wire_dtype = cfg["wire"]
+    rec = _ZooRecorder(device, wire_key, keep_batches=True)
+    launches, paths = rec.run(_zoo_argv(
+        cfg, data, device, "--validation_data", data["eval"],
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(cfg["checkpoint_steps"]), "--output", out_dir,
+    ))
+    run_secs = time.monotonic() - rec.start
+    trainer = rec.executor.trainer
+    model = trainer.state.model
+    steps = len(rec.batches)
+    per_shard = cfg["train_records"] // cfg["shards"]
+    rpt, batch = cfg["records_per_task"], cfg["batch"]
+    want_tasks = cfg["shards"] * -(-per_shard // rpt)
+    want_steps = cfg["shards"] * sum(
+        -(-min(rpt, per_shard - lo) // batch) for lo in range(0, per_shard, rpt)
+    )
+    eval_batches = -(-cfg["eval_records"] // batch)
+
+    # (a) tasks, records and steps
+    weights = [w.cpu() for _x, _l, w in rec.batches]
+    trained = int(sum(float(w.sum()) for w in weights))
+    if (
+        len(rec.tasks) != want_tasks
+        or sum(t.end - t.start for t in rec.tasks) != cfg["train_records"]
+        or trained != cfg["train_records"]
+        or steps != want_steps or trainer.step != want_steps
+    ):
+        raise AssertionError(
+            f"{len(rec.tasks)} tasks, {trained} records in {steps} batches, "
+            f"trainer at step {trainer.step}; want {want_tasks} tasks, "
+            f"{want_steps} steps"
+        )
+    # (b) the real rows are the training records, each once; padding rows
+    # weigh 0
+    got_keys = []
+    for (wire, labels, w), w_host in zip(rec.batches, weights):
+        n = int(w_host.sum())
+        if not (torch.all(w_host[:n] == 1) and torch.all(w_host[n:] == 0)):
+            raise AssertionError(f"a batch's row weights are not 1s then 0s: {w_host}")
+        wire, labels = wire[:n].cpu().numpy(), labels[:n].cpu().numpy()
+        got_keys += [_row_key(wire[i], labels[i]) for i in range(n)]
+    if sorted(got_keys) != sorted(_record_keys(data["train"], wire_key)):
+        raise AssertionError("the trained rows are not the training records, once each")
+    # (c) every batch through the vectorized path and the native codec,
+    # and no attention kernel on this path
+    if (
+        paths != {"vectorized": steps + eval_batches, "classic": 0}
+        or not recordio.native_available() or any(launches.values())
+    ):
+        raise AssertionError(
+            f"pipeline paths {paths} (want {steps + eval_batches} vectorized), "
+            f"native codec {recordio.native_available()}, launches {launches}"
+        )
+    # (d) the wire dtype on the device
+    want_wire = (getattr(torch, wire_dtype), device)
+    if any(w != want_wire for w in rec.wire):
+        raise AssertionError(f"features reached the trainer as {set(rec.wire)}, not {want_wire}")
+    # (e) finite losses, (f) the evaluation clears the accuracy bar
+    losses = [float(x) for x in rec.losses]
+    accuracy = rec.result.get(cfg["accuracy_key"], 0.0)
+    row = {
+        "tasks": len(rec.tasks), "records": trained, "steps": steps,
+        "evaluation": rec.result, "first_losses": losses[:3],
+        "last_losses": losses[-3:], "paths": paths,
+        "native_codec": recordio.native_available(),
+        "wire": f"{wire_dtype} on {device}",
+        "data_secs": data["secs"], "run_secs": run_secs,
+        "first_task_secs": rec.reports[0] - rec.start,
+    }
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses: {row}")
+    if not accuracy > cfg["min_accuracy"]:
+        raise AssertionError(f"evaluation {rec.result} below {cfg['min_accuracy']}")
+    # (g) the running statistics moved and are finite
+    stats = flax_state_from_torch(model)
+    if stats:
+        moved = {
+            k: float(np.abs(v - (0.0 if k.endswith("mean") else 1.0)).max())
+            for k, v in stats.items()
+        }
+        row["batch_stats_moved"] = moved
+        if not all(np.isfinite(v).all() for v in stats.values()) or not all(
+            m > 1e-3 for m in moved.values()
+        ):
+            raise AssertionError(f"running statistics did not move or are not finite: {row}")
+    # (h) the checkpoints and the export hold the trained state, its
+    # statistics included
+    versions = sorted(
+        int(n.split("-")[1]) for n in os.listdir(ckpt_dir) if n.startswith("version-")
+    )
+    want_versions = sorted({
+        *range(cfg["checkpoint_steps"], want_steps + 1, cfg["checkpoint_steps"]),
+        want_steps,
+    })[-3:]  # --keep_checkpoint_max 3
+    trained_flat = state_to_checkpoint(trainer.state)
+    last = save_utils.restore_checkpoint(ckpt_dir)[0]
+    exported, _flat, _state = load_exported_model(out_dir, device=device)
+    export_flat = {
+        **{f"params/{k}": v for k, v in flax_flat_from_torch(exported).items()},
+        **flax_state_from_torch(exported),
+    }
+    row.update(checkpoint_versions=versions, state_keys=len(trained_flat))
+    for what, flat in (("checkpoint", last), ("export", export_flat)):
+        if set(flat) != set(trained_flat) or not all(
+            np.array_equal(flat[k], trained_flat[k]) for k in trained_flat
+        ):
+            raise AssertionError(f"the {what} disagrees with the trained state: {row}")
+    if versions != want_versions:
+        raise AssertionError(f"checkpoint versions {versions}, want {want_versions}")
+    return row
+
+
+def _timed_zoo_run(cfg: dict, data: dict, device: str) -> dict:
+    """The train CLI over ``cfg``'s data with nothing but training in it.
+    The window is the tasks after the first: from the device sync that
+    closes the first task's report to the one that closes the last.
+    Host time per step is the gap between two ``train_step`` calls
+    inside a task; device time per step the CUDA events around one."""
+    rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
+    rec.run(_zoo_argv(cfg, data, device))
+    secs = rec.reports[-1] - rec.reports[0]
+    steady = rec.tasks[1:]
+    first = sum(1 for t0 in rec.step_starts if t0 < rec.reports[0])
+    inside = [
+        (b - a) * 1e3
+        for a, b in zip(rec.step_starts[first:], rec.step_starts[first + 1:])
+        if not any(a < t < b for t in rec.reports)
+    ]
+    device_ms = [s.elapsed_time(e) for s, e in rec.events[first:]]
+    return {
+        "steady_tasks": len(steady), "steady_steps": len(rec.step_starts) - first,
+        "steady_secs": secs,
+        "records_per_s": sum(t.end - t.start for t in steady) / secs,
+        "host_ms_per_step_median": statistics.median(inside),
+        "device_ms_per_step_median": statistics.median(device_ms) if device_ms else None,
+        "first_task_secs": rec.reports[0] - rec.start,
+    }
+
+
+def _bare_zoo_steps(cfg: dict, data: dict, device: str) -> dict:
+    """``SPMDTrainer`` steps on one placed canonical batch of the first
+    ``cfg["batch"]`` training records, as the CLI builds the trainer
+    (bf16 float features, the model's device parse): host time to issue
+    a step, wall time per step over a synced loop, device time per step
+    back to back (CUDA events, the stream held until a round is queued),
+    and the device's busy time per step in a profiled window, with the
+    idle share of the wall time it leaves."""
+    import torch
+
+    from elasticdl_tpu_torch.data.reader import decode_example_batch
+    from elasticdl_tpu_torch.data.recordio_reader import RecordIODataReader
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.state import Modes
+    from elasticdl_tpu_torch.utils.args import parse_params_dict
+    from elasticdl_tpu_torch.utils.constants import TaskType
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    spec = get_model_spec(
+        "", cfg["model_def"], model_params=parse_params_dict(cfg["model_params"])
+    )
+    torch.manual_seed(0)
+    model = spec.build_model()
+    reader = RecordIODataReader(data_dir=data["train"])
+    shard = sorted(reader.create_shards())[0]
+    records = list(reader.read_records(Task(shard, 0, cfg["batch"], TaskType.TRAINING)))
+    features, labels = spec.batch_parse(decode_example_batch(records), Modes.TRAINING)
+    trainer = SPMDTrainer(
+        model, spec.loss, spec.optimizer(), compute_dtype=torch.bfloat16,
+        device=device, device_parse=spec.device_parse,
+    )
+    rows = cfg["batch"]
+    batch = (
+        trainer.place_canonical(features, rows), trainer.place_canonical(labels, rows),
+        trainer.place_mask(rows, rows),
+    )
+
+    def step():
+        return trainer.train_step(*batch)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    for _ in range(3):
+        step()
+    sync()
+    host_ms = []
+    t0 = time.monotonic()
+    for _ in range(ZOO_BARE_STEPS):
+        t1 = time.monotonic()
+        loss = step()["loss"]
+        host_ms.append((time.monotonic() - t1) * 1e3)
+    sync()
+    wall_ms = (time.monotonic() - t0) * 1e3 / ZOO_BARE_STEPS
+    if not torch.isfinite(loss):
+        raise AssertionError(f"the bare loop's loss is {float(loss)}")
+    device_ms = busy_ms = None
+    if device == "cuda":
+        device_ms = time_cuda(step, reps=ZOO_DEVICE_REPS, rounds=5)
+        busy_ms = _device_busy_ms(step, ZOO_PROFILED_STEPS)
+    return {
+        "rows": rows, "host_ms_per_step_median": statistics.median(host_ms),
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "records_per_s": rows / (wall_ms / 1e3),
+    }
+
+
+def train_zoo_model(work_dir: str, cfg: dict, device: str = "cuda", timed=True) -> dict:
+    """Phase 7 or the first half of phase 8: ``cfg``'s model through the
+    train CLI, checked, then timed beside bare steps (``device="cpu"``
+    rehearses it at a small size).  Returns the phase's JSON row."""
+    import torch
+
+    data = _zoo_data(work_dir, cfg)
+    row = {"checked": _checked_zoo_run(work_dir, cfg, data, device)}
+    if timed:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        row["timed"] = _timed_zoo_run(cfg, data, device)
+        row["bare"] = _bare_zoo_steps(cfg, data, device)
+    return row
+
+
+def train_deepfm(work_dir: str, device: str = "cuda", accuracy_cfg=None, wide_cfg=None) -> dict:
+    """Phase 8: DeepFM through the train CLI, checked on bench.py's
+    accuracy recipe, then timed at its full width beside bare steps, and
+    out-of-vocab ids held on ``device``.  Returns the phase's JSON row."""
+    accuracy_cfg = accuracy_cfg or DEEPFM_ACCURACY
+    wide_cfg = wide_cfg or DEEPFM_WIDE
+    row = train_zoo_model(
+        os.path.join(work_dir, "accuracy"), accuracy_cfg, device, timed=False
+    )
+    data = _zoo_data(os.path.join(work_dir, "wide"), wide_cfg)
+    row["timed"] = _timed_zoo_run(wide_cfg, data, device)
+    row["bare"] = _bare_zoo_steps(wide_cfg, data, device)
+    row["out_of_vocab"] = _deepfm_out_of_vocab(device)
+    return row
+
+
+def _deepfm_out_of_vocab(device: str) -> dict:
+    """Ids past the padded table or below 0, fed straight to the model at
+    full width on ``device``: the table lookup gives zero rows and sends
+    no gradient to any row for them, and the model's output and
+    gradients are those of the padding id 0 in their place."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models import deepfm_functional_api as deepfm
+
+    torch.manual_seed(0)
+    model = deepfm.custom_model().to(device)
+    rows = model.embedding.padded_input_dim
+    ids = np.random.RandomState(2).randint(1, deepfm.DEFAULT_INPUT_DIM, (64, 10))
+    bad = [(0, 0, rows), (1, 3, 2**15 - 1), (2, 9, -1), (3, 5, -300)]
+    for r, c, v in bad:
+        ids[r, c] = v
+    oov = (ids < 0) | (ids >= rows)
+    table = model.embedding.embedding
+    lookup = model.embedding(torch.from_numpy(ids).to(device))
+    (grad,) = torch.autograd.grad(lookup.sum(), table)
+    counts = np.bincount(ids[~oov], minlength=rows).astype(np.float32)
+    zero_rows = bool((lookup[torch.from_numpy(oov).to(device)] == 0).all())
+    grad_is_counts = torch.equal(
+        grad, torch.from_numpy(counts)[:, None].expand_as(grad).to(device)
+    )
+    clean = ids.copy()
+    for r, c, _v in bad:
+        clean[r, c] = 0
+    out, grads = [], []
+    for x in (ids, clean):
+        model.zero_grad(set_to_none=True)
+        logits = model({"feature": torch.from_numpy(x).to(device)})["logits"]
+        logits.sum().backward()
+        out.append(logits.detach())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    same = torch.equal(out[0], out[1]) and all(
+        torch.equal(grads[0][n], grads[1][n]) for n in grads[0]
+    )
+    result = {
+        "oov_ids": int(oov.sum()), "zero_lookup_rows": zero_rows,
+        "table_grad_is_in_range_counts": grad_is_counts,
+        "model_same_as_padding_id": same,
+    }
+    if not (zero_rows and grad_is_counts and same):
+        raise AssertionError(f"out-of-vocab ids reached the tables: {result}")
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -1345,6 +1893,18 @@ def main() -> int:
         "serve": {"flash_fwd": serve_launches}, "train": train_launches,
         "local_train": local_launches,
     }}), flush=True)
+
+    # ---- 7. mnist through the train CLI, after phase 6's LM is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as work_dir:
+        print(json.dumps({"mnist_train": train_zoo_model(work_dir, MNIST)}), flush=True)
+
+    # ---- 8. DeepFM through the train CLI
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deepfm_") as work_dir:
+        print(json.dumps({"deepfm_train": train_deepfm(work_dir)}), flush=True)
 
     def row(name, source, replaces, measured):
         return {

@@ -178,8 +178,7 @@ def batched_model_pipeline(
     The one pipeline builder shared by every runtime.  When the model
     module defines the ``batch_parse(example_batch, mode)`` hook, records
     are grouped raw and decoded per minibatch by ``decode_example_batch``
-    (the JAX package's native codec does that in one call; the port
-    decodes record by record into the same arrays); otherwise the
+    (one call of the native codec when it is loaded); otherwise the
     per-record ``dataset_fn`` composes with ``batch``.
 
     ``shuffle_records`` applies only to the fast path — in the classic

@@ -1,19 +1,275 @@
 """EDLIO: the seekable record container of
-``elasticdl_tpu/data/recordio/``, with its ``Writer``,
-``Scanner(path, start, length)`` and ``num_records(path)`` face.
+``elasticdl_tpu/data/recordio/`` (format: that package's ``FORMAT.md``),
+with its ``Writer``, ``Scanner(path, start, length)`` and
+``num_records(path)`` face; a copy of its ``__init__.py``.
 
-The port has the pure-Python codec only; the JAX package's C++ codec
-(``_native.cc``) and the vectorized decode it enables come with a later
-slice.  Both write and read the same files.
+Backend selection: the C++ codec (``_native.cc``, built by ``build.py``
+into ``build/``) once it is built and loaded, otherwise the pure-Python
+codec.  Both write and read the same files, byte for byte.  The
+vectorized pipeline (``data/fast_pipeline.py``) needs the C++ codec's
+chunked scan and batch decode, and builds it at first use
+(:func:`ensure_native_codec`), raising if it cannot.
 """
 
 from __future__ import annotations
 
-from elasticdl_tpu_torch.data.recordio._pyimpl import (
-    CorruptFileError,
-    Scanner,
-    Writer,
-    num_records,
-)
+import ctypes
 
-__all__ = ["Writer", "Scanner", "num_records", "CorruptFileError"]
+import numpy as np
+
+from elasticdl_tpu_torch.data.recordio import _pyimpl
+from elasticdl_tpu_torch.data.recordio._pyimpl import CorruptFileError
+
+__all__ = [
+    "Writer",
+    "Scanner",
+    "num_records",
+    "CorruptFileError",
+    "native_available",
+    "ensure_native_codec",
+]
+
+_lib = None
+
+
+def _load_native():
+    global _lib
+    if _lib is not None:
+        return _lib
+    # imported here, so that ``python -m ...recordio.build`` runs the
+    # module it names rather than a copy this package imported first
+    from elasticdl_tpu_torch.data.recordio import build as build_mod
+
+    path = build_mod.library_path()
+    if not path.exists():
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.edlio_writer_open.restype = ctypes.c_void_p
+    lib.edlio_writer_open.argtypes = [ctypes.c_char_p]
+    lib.edlio_writer_write.restype = ctypes.c_int
+    lib.edlio_writer_write.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_char_p,
+        ctypes.c_uint64,
+    ]
+    lib.edlio_writer_close.restype = ctypes.c_int
+    lib.edlio_writer_close.argtypes = [ctypes.c_void_p]
+    lib.edlio_num_records.restype = ctypes.c_int64
+    lib.edlio_num_records.argtypes = [ctypes.c_char_p]
+    lib.edlio_scanner_open.restype = ctypes.c_void_p
+    lib.edlio_scanner_open.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.c_int64,
+    ]
+    lib.edlio_scanner_next_batch.restype = ctypes.c_int64
+    # buf is c_void_p (not c_char_p) so callers can pass a numpy buffer's
+    # .ctypes.data and read records into it with zero intermediate copies
+    lib.edlio_scanner_next_batch.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int64,
+    ]
+    lib.edlio_scanner_close.restype = None
+    lib.edlio_scanner_close.argtypes = [ctypes.c_void_p]
+    lib.edlio_last_error.restype = ctypes.c_char_p
+    _register_decode(lib.edl_decode_batch)
+    _lib = lib
+    return _lib
+
+
+def _register_decode(decode):
+    decode.restype = ctypes.c_int64
+    decode.argtypes = [
+        ctypes.c_void_p,                    # concatenated payloads
+        # (void* not char*: accepts both Python bytes and a numpy
+        # buffer's .ctypes.data, so the scanner's chunk buffer decodes
+        # with no intermediate copy)
+        ctypes.POINTER(ctypes.c_uint64),    # n+1 offsets
+        ctypes.c_int64,                     # n_records
+        ctypes.c_int32,                     # n_features
+        ctypes.POINTER(ctypes.c_char_p),    # names
+        ctypes.POINTER(ctypes.c_char_p),    # dtypes
+        ctypes.POINTER(ctypes.c_int64),     # flattened shapes
+        ctypes.POINTER(ctypes.c_int32),     # ndims
+        ctypes.POINTER(ctypes.c_uint64),    # row_bytes
+        ctypes.POINTER(ctypes.c_void_p),    # out base pointers
+    ]
+
+
+def native_available() -> bool:
+    """Whether the C++ codec is built and loaded (no build is tried)."""
+    return _load_native() is not None
+
+
+def ensure_native_codec() -> str:
+    """Make the native codec available, building it first if it is
+    missing; raise ``RuntimeError`` with the compiler's output if it
+    cannot be built.  Returns the library's path."""
+    from elasticdl_tpu_torch.data.recordio import build as build_mod
+
+    if not native_available():
+        build_mod.build()
+        _load_native()
+    return str(build_mod.library_path())
+
+
+def native_lib():
+    """The loaded C library (or None) — shared by the example batch
+    decoder (``data/reader.py``), which lives in the same .so."""
+    return _load_native()
+
+
+def _native_error(lib) -> str:
+    return lib.edlio_last_error().decode("utf-8", "replace")
+
+
+class _NativeWriter:
+    def __init__(self, path: str):
+        lib = _load_native()
+        self._lib = lib
+        self._h = lib.edlio_writer_open(path.encode())
+        if not self._h:
+            raise IOError(_native_error(lib))
+
+    def write(self, payload: bytes):
+        if isinstance(payload, str):
+            payload = payload.encode("utf-8")
+        if self._lib.edlio_writer_write(self._h, payload, len(payload)) != 0:
+            raise IOError(_native_error(self._lib))
+
+    def close(self):
+        if self._h:
+            rc = self._lib.edlio_writer_close(self._h)
+            self._h = None
+            if rc != 0:
+                raise IOError(_native_error(self._lib))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _NativeScanner:
+    """Batch-reading scanner over the C++ codec.
+
+    One FFI call fetches up to ``_BATCH_RECORDS`` payloads into a
+    reusable numpy buffer; ``record()``/iteration then slice bytes out of
+    it, and :meth:`next_chunk` exposes the raw ``(buffer, lengths)`` pair
+    directly — the zero-per-record-object input of ``edl_decode_batch``
+    (the fused scan+decode fast path, ``data/fast_pipeline.py``).
+    """
+
+    _BUF_CAP = 8 << 20  # 8 MiB
+    _BATCH_RECORDS = 4096
+
+    def __init__(self, path: str, start: int = 0, length: int = -1):
+        lib = _load_native()
+        self._lib = lib
+        self._h = lib.edlio_scanner_open(path.encode(), start, length)
+        if not self._h:
+            raise (
+                IndexError(_native_error(lib))
+                if "out of range" in _native_error(lib)
+                else CorruptFileError(_native_error(lib))
+            )
+        self._buf = np.empty(self._BUF_CAP, dtype=np.uint8)
+        self._lengths = np.empty(self._BATCH_RECORDS, dtype=np.uint64)
+        self._pending: list[bytes] = []
+        self._pending_idx = 0
+        self._exhausted = False
+
+    def next_chunk(self):
+        """Read the next chunk of records in ONE FFI call; returns
+        ``(buf, lengths)`` — numpy views of the concatenated payload
+        bytes and per-record lengths — or ``None`` at end of range.
+
+        The views alias a reusable buffer: they are valid only until the
+        next ``next_chunk``/``record`` call (callers decode immediately;
+        ``data/fast_pipeline.py`` does)."""
+        if self._exhausted:
+            return None
+        n = self._lib.edlio_scanner_next_batch(
+            self._h,
+            self._buf.ctypes.data,
+            self._BUF_CAP,
+            self._lengths.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint64)
+            ),
+            self._BATCH_RECORDS,
+        )
+        if n < 0:
+            raise CorruptFileError(_native_error(self._lib))
+        if n == 0:
+            self._exhausted = True
+            return None
+        used = int(self._lengths[:n].sum())
+        return self._buf[:used], self._lengths[:n]
+
+    def _refill(self) -> bool:
+        chunk = self.next_chunk()
+        if chunk is None:
+            return False
+        buf, lengths = chunk
+        # one copy, of the filled region only
+        raw = buf.tobytes()
+        out, off = [], 0
+        for ln in lengths:
+            ln = int(ln)
+            out.append(raw[off : off + ln])
+            off += ln
+        self._pending = out
+        self._pending_idx = 0
+        return True
+
+    def record(self) -> bytes | None:
+        if self._pending_idx >= len(self._pending):
+            if self._exhausted or not self._refill():
+                return None
+        rec = self._pending[self._pending_idx]
+        self._pending_idx += 1
+        return rec
+
+    def __iter__(self):
+        while True:
+            rec = self.record()
+            if rec is None:
+                return
+            yield rec
+
+    def close(self):
+        if self._h:
+            self._lib.edlio_scanner_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def Writer(path: str):
+    if native_available():
+        return _NativeWriter(path)
+    return _pyimpl.Writer(path)
+
+
+def Scanner(path: str, start: int = 0, length: int = -1):
+    if native_available():
+        return _NativeScanner(path, start, length)
+    return _pyimpl.Scanner(path, start, length)
+
+
+def num_records(path: str) -> int:
+    lib = _load_native()
+    if lib is not None:
+        n = lib.edlio_num_records(path.encode())
+        if n < 0:
+            raise CorruptFileError(_native_error(lib))
+        return n
+    return _pyimpl.num_records(path)

@@ -1,7 +1,14 @@
-"""Synthetic token sequences for the LM; a copy of ``gen_sequence`` and
-``_write_shards`` from ``elasticdl_tpu/data/recordio_gen/synthetic.py``,
-so that data can be made where JAX is absent.  The same ``RandomState``
-seeds give the same records, written in the same EDLIO shards.
+"""Learnable synthetic datasets; copies of ``gen_mnist``, ``gen_frappe``,
+``gen_sequence`` and their helpers from
+``elasticdl_tpu/data/recordio_gen/synthetic.py``, so that data can be
+made where JAX is absent.  The same arguments and ``RandomState`` seeds
+give the same records, written in byte-identical EDLIO shards.
+
+Schemas:
+
+- mnist:    image uint8 [28, 28], label int64
+- frappe:   feature int64 [10] ids, label int64
+- sequence: tokens int64 [seq_len + 1]
 """
 
 from __future__ import annotations
@@ -27,6 +34,61 @@ def _write_shards(out_dir, name, examples, num_shards):
             for ex in chunk:
                 w.write(encode_example(ex))
     return out_dir
+
+
+def _class_template_images(rng, num_classes, shape):
+    """One smooth random template per class; samples = template + noise."""
+    templates = rng.uniform(0, 255, size=(num_classes, *shape))
+    return templates
+
+
+def gen_mnist(
+    out_dir: str,
+    num_records: int = 2048,
+    num_shards: int = 4,
+    seed: int = 0,
+    image_shape=(28, 28),
+    num_classes: int = 10,
+):
+    # class templates come from a fixed RNG so train/eval/predict splits
+    # (different `seed`s) share one underlying distribution
+    templates = _class_template_images(
+        np.random.RandomState(1234), num_classes, image_shape
+    )
+    rng = np.random.RandomState(seed)
+    examples = []
+    for _ in range(num_records):
+        label = rng.randint(num_classes)
+        img = templates[label] + rng.normal(0, 32.0, size=image_shape)
+        examples.append(
+            {
+                "image": np.clip(img, 0, 255).astype(np.uint8),
+                "label": np.int64(label),
+            }
+        )
+    return _write_shards(out_dir, "mnist", examples, num_shards)
+
+
+def gen_frappe(
+    out_dir: str,
+    num_records: int = 4096,
+    num_shards: int = 4,
+    seed: int = 0,
+    num_features: int = 10,
+    vocab_size: int = 5383,
+):
+    """Sparse-id dataset for the DeepFM models: the label is a function of a
+    hidden per-id weight vector so factorization models can learn it."""
+    id_weights = np.random.RandomState(1234).normal(0, 1.0, size=vocab_size)
+    rng = np.random.RandomState(seed)
+    examples = []
+    for _ in range(num_records):
+        ids = rng.randint(0, vocab_size, size=num_features).astype(np.int64)
+        score = id_weights[ids].sum()
+        examples.append(
+            {"feature": ids, "label": np.int64(score > 0)}
+        )
+    return _write_shards(out_dir, "frappe", examples, num_shards)
 
 
 def gen_sequence(

@@ -1,6 +1,5 @@
 """EDLIO-backed data reader; the counterpart of
-``elasticdl_tpu/data/recordio_reader.py`` without its chunked reads
-(they feed the vectorized pipeline, which needs the native codec).
+``elasticdl_tpu/data/recordio_reader.py``.
 
 A scanner per task over the record range, and shard creation by walking
 a directory and reading each file's record count from its index.
@@ -25,6 +24,23 @@ class RecordIODataReader(AbstractDataReader):
             task.shard_name, task.start, task.end - task.start
         ) as scanner:
             yield from scanner
+
+    def read_record_chunks(self, task) -> Iterator:
+        """Yield ``(concat_buf, lengths)`` chunks of the task's range: the
+        raw-batch form of the fused scan+decode path
+        (``data/fast_pipeline.py``) through the native codec's scanner,
+        built here at first use (a failed build raises).  The views
+        alias the scanner's reusable buffer: consume each chunk before
+        advancing."""
+        recordio.ensure_native_codec()
+        with recordio.Scanner(
+            task.shard_name, task.start, task.end - task.start
+        ) as scanner:
+            while True:
+                chunk = scanner.next_chunk()
+                if chunk is None:
+                    return
+                yield chunk
 
     def create_shards(self) -> dict[str, tuple[int, int]]:
         if not self._data_dir:

@@ -33,17 +33,22 @@ class SPMDTrainer:
         tx: Callable,
         compute_dtype=None,
         device: str | torch.device = "cuda",
+        device_parse: Callable | None = None,
     ):
         """``model`` comes with its weights (torch modules initialise
         eagerly; the JAX trainer inits from a sample batch instead) and
         is moved to ``device``; ``tx`` builds the optimizer from the
         parameters (``resolve_optimizer``'s result).  ``device`` is CUDA
-        unless the caller asks for the CPU."""
+        unless the caller asks for the CPU.  ``device_parse`` (the
+        model's device-side half of its parse) runs in every step on the
+        placed features."""
         self.device = resolve_device(device)
         self.state = TrainState.create(model.to(self.device), tx)
-        self._train_step = build_train_step(loss_fn, compute_dtype=compute_dtype)
-        self._eval_step = build_eval_step(loss_fn)
-        self._predict_step = build_predict_step()
+        self._train_step = build_train_step(
+            loss_fn, compute_dtype=compute_dtype, device_parse=device_parse
+        )
+        self._eval_step = build_eval_step(loss_fn, device_parse=device_parse)
+        self._predict_step = build_predict_step(device_parse)
 
     # ---- batch placement --------------------------------------------------
 

@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.data.dataset import Dataset, batched_model_pipeline
 from elasticdl_tpu_torch.data.factory import create_data_reader
+from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
@@ -42,6 +42,13 @@ from elasticdl_tpu_torch.utils.tree_utils import batch_rows
 
 # the seed of the weights a run starts from when no checkpoint gives them
 INIT_SEED = 0
+
+# the model's hooks that the JAX package always looks up by their default
+# names, whatever its flags say: flag -> default name
+FIXED_HOOKS = {
+    "custom_data_reader": "custom_data_reader",
+    "prediction_outputs_processor": "PredictionOutputsProcessor",
+}
 
 
 def build_optimizer(spec, learning_rate=None):
@@ -85,14 +92,14 @@ class LocalExecutor:
             loss=args.loss,
             optimizer=args.optimizer,
             eval_metrics_fn=args.eval_metrics_fn,
-            custom_data_reader=args.custom_data_reader,
-            prediction_outputs_processor=args.prediction_outputs_processor,
         )
-        if self._spec.device_parse is not None:
-            raise NotImplementedError(
-                "a model's device_parse comes with mnist, in the rest of "
-                "slice 5, the main training path (ROADMAP.md queue 1)"
-            )
+        for flag, default in FIXED_HOOKS.items():
+            value = getattr(args, flag, default)
+            if value != default:
+                logger.warning(
+                    "--%s=%r is ignored: the model's %r hook is used, as "
+                    "the JAX package uses it", flag, value, default,
+                )
         # torch modules initialise eagerly; a fixed seed makes the start
         # of a run without a checkpoint reproducible, and the fork keeps
         # the caller's generator as it was
@@ -130,13 +137,11 @@ class LocalExecutor:
     def _task_dataset(self, reader, task, mode: Modes, prefetch: int = 2):
         # prefetch=0 on the training path: TaskPrefetcher's producer
         # thread is the overlap there; eval/predict (main-thread
-        # consumers) keep the in-dataset prefetch.  The JAX package's
-        # vectorized pipeline for batch_parse models needs its native
-        # codec, which is not ported: such models take the classic
-        # pipeline, as the JAX chooser falls back to without the codec.
-        # A Dataset, so a task can be re-iterated.
-        return batched_model_pipeline(
-            Dataset.from_generator(lambda: reader.read_records(task)),
+        # consumers) keep the in-dataset prefetch.  A Dataset, so a task
+        # can be re-iterated.
+        return build_task_batches(
+            reader,
+            task,
             self._spec,
             mode,
             reader.metadata,
@@ -161,6 +166,7 @@ class LocalExecutor:
                 else to_torch_dtype(compute_dtype)
             ),
             device=self._device,
+            device_parse=self._spec.device_parse,
         )
         version = restore_trainer_state(self._trainer, self._args)
         if version is not None:

@@ -8,9 +8,11 @@ the module and the optimizer, and
 :meth:`TrainState.apply_gradients` updates them in place.
 
 Checkpoints use the JAX package's flat layout: ``params/<flax name>``
-keys (``block_0/attn/query/kernel``, ...) with flax's array layouts, so
-either package loads the other's (``utils/flax_weights.py`` does the
-renaming and transposes).
+keys (``block_0/attn/query/kernel``, ...) with flax's array layouts, and
+the model's state beside its parameters under its collection's name
+(BatchNorm's running statistics, module buffers here:
+``batch_stats/BatchNorm_0/mean``), so either package loads the other's
+(``utils/flax_weights.py`` does the renaming and transposes).
 """
 
 from __future__ import annotations
@@ -58,25 +60,34 @@ class TrainState:
 
 def state_to_checkpoint(state: TrainState) -> dict[str, np.ndarray]:
     """The model's weights as one flat ``params/<flax name>`` dict of f32
-    arrays in flax's layouts: the JAX package's checkpoint layout."""
-    return {
+    arrays in flax's layouts, with its state beside the parameters under
+    its collection's name: the JAX package's checkpoint layout."""
+    out = {
         f"params/{k}": v
         for k, v in flax_weights.flax_flat_from_torch(state.model).items()
     }
+    out.update(flax_weights.flax_state_from_torch(state.model))
+    return out
 
 
 def checkpoint_to_state(state: TrainState, flat: dict) -> TrainState:
-    """Inverse of :func:`state_to_checkpoint`: load the ``params/`` keys
-    into ``state.model`` in place (missing, extra or misshaped names
-    raise).  The optimizer is left as it is, fresh for a new state, as
-    in the reference, which restores variables only."""
+    """Inverse of :func:`state_to_checkpoint`: load the ``params/`` keys,
+    and the state's keys when the checkpoint has any, into
+    ``state.model`` in place (missing, extra or misshaped names raise).
+    A checkpoint without state leaves the model's state as it is, as in
+    the reference.  The optimizer is left as it is, fresh for a new
+    state, as in the reference, which restores variables only."""
     params = {
         k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")
     }
-    weights = flax_weights.torch_state_from_flax(params, state.model)
+    rest = {k: v for k, v in flat.items() if not k.startswith("params/")}
+    weights = flax_weights.torch_state_from_flax(
+        params, state.model, rest or None
+    )
     with torch.no_grad():
         for name, tensor in state.model.state_dict().items():
-            tensor.copy_(weights[name])
+            if name in weights:
+                tensor.copy_(weights[name])
     return state
 
 

@@ -29,29 +29,35 @@ def _cast_floats(tree, dtype):
     )
 
 
-def _rows(tree, i: int):
-    return map_tree(lambda x: x[i : i + 1], tree)
-
-
 def weighted_mean_loss(loss_fn, labels, outputs, weights):
     """``sum(w_i * loss_i) / max(sum(w_i), 1)`` with per-row losses from
-    ``loss_fn`` on singleton batches (the JAX package vmaps it).
+    ``loss_fn`` on singleton batches, vmapped over the rows as the JAX
+    package vmaps them (``torch.func.vmap``: one batched call, not a
+    call per row).
 
     THE mask semantics of shape-canonical batching: a row of weight 0
     (padding ``pad_to`` appended) contributes exactly zero to this loss
     and so exactly zero gradient.  For a ``loss_fn`` that is a mean of
     per-row terms, all-ones weights give ``loss_fn(labels, outputs)`` up
     to summation order."""
-    rows = weights.shape[0]
-    per_row = torch.stack(
-        [loss_fn(_rows(labels, i), _rows(outputs, i)) for i in range(rows)]
-    )
+
+    def one_row(labels_row, outputs_row):
+        return loss_fn(
+            map_tree(lambda x: x.unsqueeze(0), labels_row),
+            map_tree(lambda x: x.unsqueeze(0), outputs_row),
+        )
+
+    per_row = torch.func.vmap(one_row)(labels, outputs)
     weights = weights.to(per_row.dtype)
     # max(sum, 1) guards the (never-dispatched) all-zero mask
     return (weights * per_row).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-def build_train_step(loss_fn: Callable, compute_dtype=None) -> Callable:
+def build_train_step(
+    loss_fn: Callable,
+    compute_dtype=None,
+    device_parse: Callable | None = None,
+) -> Callable:
     """Build ``train_step(state, features, labels, weights=None) ->
     (state, {"loss": loss})``.
 
@@ -60,12 +66,18 @@ def build_train_step(loss_fn: Callable, compute_dtype=None) -> Callable:
         zero gradient.
     compute_dtype: cast float features before the forward; parameters
         and optimizer state stay f32 (the model casts inside its layers).
+    device_parse: the model's optional device-side half of its parse,
+        run on the placed features before the forward (and before the
+        ``compute_dtype`` cast): compact wire dtypes cross to the device
+        and widen there (uint8 images to ``f32 / 255``).
 
     Dropout masks come from ``dropout_generator(state.step, device)``:
     the same for a replayed step, fresh for every step.
     """
 
     def forward_loss(state: TrainState, features, labels, weights):
+        if device_parse is not None:
+            features = device_parse(features)
         features = _cast_floats(features, compute_dtype)
         device = next(state.model.parameters()).device
         generator = dropout_generator(state.step, device)
@@ -93,14 +105,20 @@ def build_train_step(loss_fn: Callable, compute_dtype=None) -> Callable:
     return train_step
 
 
-def build_eval_step(loss_fn: Callable | None = None) -> Callable:
+def build_eval_step(
+    loss_fn: Callable | None = None,
+    device_parse: Callable | None = None,
+) -> Callable:
     """Build ``eval_step(state, features, labels, weights=None) ->
-    outputs`` or ``(outputs, loss)``; with ``weights`` the loss is
+    outputs`` or ``(outputs, loss)``, after the model's optional
+    device-side parse of the features; with ``weights`` the loss is
     :func:`weighted_mean_loss`, exact over the real rows."""
 
     def eval_step(state: TrainState, features, labels, weights=None):
         state.model.eval()
         with torch.no_grad():
+            if device_parse is not None:
+                features = device_parse(features)
             outputs = state.model(features)
             if loss_fn is None:
                 return outputs

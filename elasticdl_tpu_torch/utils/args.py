@@ -2,10 +2,12 @@
 groups from ``elasticdl_tpu/utils/args.py``, so the port's CLI takes the
 JAX CLI's flags with the same types and defaults.
 
-``--device`` (``cuda`` unless the caller asks for ``cpu``) takes the
-place of the JAX CLI's ``--jax_platform``.  Every other flag is the JAX
-CLI's.  A flag whose feature the port does not have yet is parsed like
-any other, and :func:`check_ported_flags` (called when an executor is
+``--device`` (``cuda`` unless the caller asks for ``cpu``) names the
+torch device a job runs on.  The JAX CLI's ``--jax_platform`` is taken
+too and mapped onto it (``cpu`` to ``cpu``, ``gpu`` to ``cuda``); any
+other platform is refused by name.  Every other flag is the JAX CLI's.
+A flag whose feature the port does not have yet is parsed like any
+other, and :func:`check_ported_flags` (called when an executor is
 built) raises when it is set to anything but its default, naming the
 flag and the slice of ``ROADMAP.md`` queue 1 that brings it.
 """
@@ -321,8 +323,16 @@ def _add_mesh_params(parser: argparse.ArgumentParser):
         ),
     )
     parser.add_argument(
+        "--jax_platform",
+        default="",
+        help=(
+            "The JAX CLI's platform pin, mapped onto --device: 'cpu' or "
+            "'gpu' (any other platform is refused)"
+        ),
+    )
+    parser.add_argument(
         "--device",
-        default="cuda",
+        default=None,
         help=(
             "The torch device the job runs on: 'cuda' (default; fails "
             "without a card) or 'cpu' when asked for"
@@ -442,7 +452,35 @@ def _finalize(args: argparse.Namespace) -> argparse.Namespace:
         args.get_model_steps = 1
     args.model_params_dict = parse_params_dict(args.model_params)
     args.data_reader_params_dict = parse_params_dict(args.data_reader_params)
+    args.device = resolve_device_flags(args.device, args.jax_platform)
     return args
+
+
+# the JAX platforms that have a torch device in the port
+JAX_PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda"}
+
+
+def resolve_device_flags(device: str | None, jax_platform: str) -> str:
+    """The torch device of ``--device`` and ``--jax_platform`` together:
+    ``--device`` when given (``cuda`` when neither is), else the
+    platform's device.  A platform the port has no device for, or one
+    that disagrees with ``--device``, raises ``ValueError``."""
+    if not jax_platform:
+        return device or "cuda"
+    mapped = JAX_PLATFORM_DEVICES.get(jax_platform)
+    if mapped is None:
+        raise ValueError(
+            f"--jax_platform={jax_platform!r} has no counterpart in the "
+            f"port, which runs on torch devices: pass --device cuda or "
+            f"--device cpu (--jax_platform takes "
+            f"{sorted(JAX_PLATFORM_DEVICES)})"
+        )
+    if device is not None and device != mapped:
+        raise ValueError(
+            f"--jax_platform={jax_platform!r} (device {mapped!r}) disagrees "
+            f"with --device={device!r}; pass one of them"
+        )
+    return mapped
 
 
 def _master_parser() -> argparse.ArgumentParser:
@@ -471,7 +509,9 @@ _DEVICE_PIPELINE = _comes_with(
     "slice 6, data parallelism and elastic reform (trainer/device_pipeline.py)"
 )
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
-_TRAINING_REST = _comes_with("the rest of slice 5, the main training path")
+_TRAINING_REST = _comes_with(
+    "stacked steps and remat, the last of slice 5"
+)
 _K8S = _comes_with("slice 9, Kubernetes submission")
 _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {

@@ -25,6 +25,7 @@ import elasticdl_tpu_torch
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.flax_weights import (
     flax_flat_from_torch,
+    flax_state_from_torch,
     torch_state_from_flax,
 )
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
@@ -46,6 +47,9 @@ def export_model(
     packages' zoos."""
     os.makedirs(output_dir, exist_ok=True)
     np.savez(os.path.join(output_dir, "params.npz"), **flax_flat_from_torch(model))
+    model_state = flax_state_from_torch(model)
+    if model_state:
+        np.savez(os.path.join(output_dir, "model_state.npz"), **model_state)
     manifest = {
         "framework": "elasticdl_tpu_torch",
         "version": elasticdl_tpu_torch.__version__,
@@ -81,16 +85,13 @@ def load_flats(output_dir: str) -> tuple[dict, dict]:
 def build_with_weights(spec, flat_params: dict, flat_state: dict,
                        device: torch.device) -> torch.nn.Module:
     """Build ``spec``'s model without initialising it (meta tensors),
-    give it the flat flax weights, and move it to ``device`` in eval
-    mode."""
-    if flat_state:
-        raise NotImplementedError(
-            f"model_state ({sorted(flat_state)[:3]}...) is not carried by "
-            "this slice of the port"
-        )
+    give it the flat flax weights and model state (BatchNorm's running
+    statistics), and move it to ``device`` in eval mode."""
     with torch.device("meta"):
         model = spec.build_model()
-    model.load_state_dict(torch_state_from_flax(flat_params, model), assign=True)
+    model.load_state_dict(
+        torch_state_from_flax(flat_params, model, flat_state), assign=True
+    )
     return model.to(device).eval()
 
 

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (the
-flash forward, dQ and dK/dV) against their plain versions, and the LM's
-forward and train step on the card against the same model on the CPU.  Marked ``cuda``; each skips (with its reason) where
+flash forward, dQ and dK/dV) against their plain versions, the LM's
+forward and train step, and mnist's and DeepFM's train steps, on the
+card against the same model on the CPU, and the native EDLIO codec
+built on the card's machine.  Marked ``cuda``; each skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX; on a
 machine that has only PyTorch, skip ``tests/conftest.py`` (it sets JAX
 up)::
@@ -224,3 +226,104 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
             assert (got - p_cpu.detach()).abs().max() <= 2 * lr, name
         else:
             torch.testing.assert_close(got, p_cpu.detach(), atol=1e-4, rtol=1e-4)
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _zoo_step_on_both(module, model_kw, features, labels, weights):
+    """One SGD train step of ``module``'s model, from the same seeded
+    weights, on the CPU and on the card (TF32 off, f32): returns
+    ``(losses, models)``."""
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+
+    losses, models = [], []
+    for device in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        model = module.custom_model(**model_kw)
+        trainer = SPMDTrainer(
+            model, module.loss, module.optimizer(), device=device,
+            device_parse=getattr(module, "device_parse", None),
+        )
+        place = trainer.place_batch
+        metrics = trainer.train_step(place(features), place(labels), place(weights))
+        losses.append(float(metrics["loss"]))
+        models.append(trainer.state.model)
+    return losses, models
+
+
+def _assert_steps_agree(losses, models, tol):
+    assert abs(losses[0] - losses[1]) <= tol * abs(losses[0])
+    (cpu, card) = (dict(m.named_parameters()) for m in models)
+    for name, p_cpu in cpu.items():
+        assert _rel(card[name].grad.cpu(), p_cpu.grad) < tol, name
+        assert _rel(card[name].detach().cpu(), p_cpu.detach()) < tol, name
+    for name, b_cpu in models[0].named_buffers():
+        got = dict(models[1].named_buffers())[name].cpu()
+        assert _rel(got, b_cpu) < tol, name
+
+
+def test_mnist_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One SGD step of mnist, uint8 images parsed on the device, with one
+    fixed dropout mask on both devices (their generators draw different
+    bits): loss, every gradient, parameter and running statistic within
+    1e-4 in relative norm (f32 convolutions on cuDNN against the CPU's,
+    TF32 off)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import mnist_functional_api as mnist
+
+    rng = np.random.RandomState(0)
+    keep = torch.from_numpy(rng.rand(32, 12, 12, 64) >= mnist.DROPOUT_RATE)
+
+    def fixed_dropout(x, rate, generator):
+        if generator is None:
+            return x
+        mask = keep.to(x.device)
+        return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+    monkeypatch.setattr(mnist, "dropout", fixed_dropout)
+    images = rng.randint(0, 256, (32, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, 32).astype(np.int32)
+    weights = np.array([1.0] * 28 + [0.0] * 4, np.float32)
+    losses, models = _zoo_step_on_both(mnist, {}, {"image": images}, labels, weights)
+    _assert_steps_agree(losses, models, 1e-4)
+
+
+def test_deepfm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One SGD step of DeepFM at full width on 512 rows of int16 ids
+    (padding ids and ids past the table among them): loss, every
+    gradient and parameter within 1e-5 in relative norm."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import deepfm_functional_api as deepfm
+
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 5383, (512, 10))
+    ids[:, -2:] = 0
+    ids[0, 0], ids[1, 1] = 5504, -1  # masked: no row, no gradient
+    labels = rng.randint(0, 2, 512).astype(np.int32)
+    weights = np.ones(512, np.float32)
+    losses, models = _zoo_step_on_both(
+        deepfm, {}, {"feature": ids.astype(np.int16)}, labels, weights
+    )
+    _assert_steps_agree(losses, models, 1e-5)
+
+
+def test_native_codec_builds_and_writes_the_python_codecs_bytes(cuda, tmp_path):
+    """On the card's machine the codec builds from the checkout (g++ and
+    zlib) and writes the files the pure-Python codec writes."""
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.data.recordio import _pyimpl
+
+    path = recordio.ensure_native_codec()
+    assert recordio.native_available() and path.endswith(".so")
+    payloads = [b"", b"x" * 1000, bytes(range(256))]
+    for name, writer in (("native", recordio.Writer), ("python", _pyimpl.Writer)):
+        with writer(str(tmp_path / name)) as w:
+            for p in payloads:
+                w.write(p)
+    assert (tmp_path / "native").read_bytes() == (tmp_path / "python").read_bytes()
+    with recordio.Scanner(str(tmp_path / "native")) as scanner:
+        assert list(scanner) == payloads

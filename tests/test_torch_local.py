@@ -490,3 +490,111 @@ def test_smoke_phase6_rehearsal_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "SEQ", SEQ)
     launches = chip_smoke.local_train_lm(str(tmp_path), device="cpu", bare_tokens_per_s=1.0)
     assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize(
+    "flags, device",
+    [
+        ([], "cuda"), (["--device", "cpu"], "cpu"),
+        (["--jax_platform", "cpu"], "cpu"), (["--jax_platform", "gpu"], "cuda"),
+        (["--jax_platform", "cpu", "--device", "cpu"], "cpu"),
+        (["--jax_platform", "gpu", "--device", "cuda"], "cuda"),
+    ],
+    ids=["default", "device-cpu", "jax-cpu", "jax-gpu", "both-cpu", "both-cuda"],
+)
+def test_jax_platform_maps_onto_the_device(flags, device):
+    args = port_args.parse_master_args(["--model_def", LM_DEF, *flags])
+    assert args.device == device
+
+
+@pytest.mark.parametrize(
+    "flags, match",
+    [
+        (["--jax_platform", "tpu"], r"--jax_platform='tpu' has no counterpart.*--device"),
+        (["--jax_platform", "cuda"], r"--jax_platform='cuda' has no counterpart"),
+        (["--jax_platform", "cpu,tpu"], r"--jax_platform='cpu,tpu' has no counterpart"),
+        (["--jax_platform", "cpu", "--device", "cuda"], "disagrees with --device='cuda'"),
+        (["--jax_platform", "gpu", "--device", "cpu"], "disagrees with --device='cpu'"),
+    ],
+    ids=["tpu", "cuda", "list", "cpu-vs-cuda", "gpu-vs-cpu"],
+)
+def test_jax_platform_refuses_what_the_port_cannot_run(flags, match):
+    with pytest.raises(ValueError, match=match):
+        port_args.parse_master_args(["--model_def", LM_DEF, *flags])
+
+
+def test_client_with_jax_platform_cpu_trains_on_the_cpu(runs, monkeypatch, tmp_path):
+    """A JAX command line that pins the CPU runs on the CPU, not on the
+    card (and needs none)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = runs["data"]
+    rc = client.main([
+        "train", *_argv(data, "--training_data", data["train"],
+                        "--checkpoint_dir_for_init", data["init"],
+                        "--output", str(tmp_path / "out"), "--jax_platform", "cpu"),
+    ])
+    assert rc == 0
+    _model, flat, _state = load_exported_model(str(tmp_path / "out"), device="cpu")
+    _assert_weights_close(flat, runs["jax"]["flat"], STEPS)
+
+
+_HOOKS_ZOO = '''
+from elasticdl_tpu_torch.models.long_seq_transformer import *  # noqa: F401,F403
+
+
+def custom_data_reader(data_origin, records_per_task=None, **kwargs):
+    from elasticdl_tpu_torch.data.recordio_reader import RecordIODataReader
+
+    return RecordIODataReader(data_dir=data_origin)
+
+
+def renamed_reader(data_origin, records_per_task=None, **kwargs):
+    raise AssertionError("the renamed reader hook was called")
+
+
+class PredictionOutputsProcessor:
+    def __init__(self):
+        self.rows = 0
+
+    def process(self, predictions, worker_id):
+        self.rows += len(predictions)
+
+
+class RenamedProcessor(PredictionOutputsProcessor):
+    pass
+'''
+
+
+def test_hook_flags_leave_the_default_hooks_in_place_and_say_so(
+    runs, tmp_path, monkeypatch
+):
+    """As in the JAX package, the model's ``custom_data_reader`` and
+    ``PredictionOutputsProcessor`` are looked up by their default names
+    whatever ``--custom_data_reader`` and ``--prediction_outputs_processor``
+    say; the port logs a warning that names each flag set."""
+    zoo = tmp_path / "zoo"
+    zoo.mkdir()
+    (zoo / "hooks_lm.py").write_text(_HOOKS_ZOO)
+    data = runs["data"]
+    argv = [
+        "--model_zoo", str(zoo), "--model_def", "hooks_lm.custom_model",
+        "--model_params", ";".join(f"{k}={v}" for k, v in LM_KW.items()),
+        "--prediction_data", data["eval"], "--checkpoint_dir_for_init", data["init"],
+        "--minibatch_size", "8", "--compute_dtype", "float32", "--device", "cpu",
+        "--custom_data_reader", "renamed_reader",
+        "--prediction_outputs_processor", "RenamedProcessor",
+    ]
+    warnings = []
+    monkeypatch.setattr(
+        port_le.logger, "warning", lambda msg, *a: warnings.append(msg % a)
+    )
+    executor = port_le.LocalExecutor(port_args.parse_master_args(argv))
+    spec = executor._spec
+    assert spec.custom_data_reader.__name__ == "custom_data_reader"
+    processor = spec.prediction_outputs_processor
+    assert type(processor).__name__ == "PredictionOutputsProcessor"
+    warned = " ".join(warnings)
+    assert "--custom_data_reader='renamed_reader' is ignored" in warned
+    assert "--prediction_outputs_processor='RenamedProcessor' is ignored" in warned
+    executor.predict()  # through the default reader hook and processor
+    assert processor.rows == 8

@@ -367,3 +367,59 @@ def test_modes_metrics_and_optimizer_resolution_match_jax():
     assert port_step.resolve_optimizer(torch.optim.SGD) is torch.optim.SGD
     with pytest.raises(TypeError):
         port_step.resolve_optimizer(3)
+
+
+def _loop_weighted_mean_loss(loss_fn, labels, outputs, weights):
+    """The per-row loop ``weighted_mean_loss`` replaced: one ``loss_fn``
+    call per singleton row."""
+    def rows(tree, i):
+        if isinstance(tree, dict):
+            return {k: v[i : i + 1] for k, v in tree.items()}
+        return tree[i : i + 1]
+
+    per_row = torch.stack(
+        [loss_fn(rows(labels, i), rows(outputs, i)) for i in range(weights.shape[0])]
+    )
+    weights = weights.to(per_row.dtype)
+    return (weights * per_row).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def _loss_cases():
+    from elasticdl_tpu_torch.models import deepfm_functional_api as deepfm
+    from elasticdl_tpu_torch.models import mnist_functional_api as mnist
+
+    gen = torch.Generator().manual_seed(0)
+    return {
+        "lm": (port_lm.loss, torch.randint(0, 11, (6, 5), generator=gen, dtype=torch.int32),
+               torch.randn(6, 5, 11, generator=gen)),
+        "mnist": (mnist.loss, torch.randint(0, 10, (6,), generator=gen, dtype=torch.int32),
+                  torch.randn(6, 10, generator=gen)),
+        "deepfm": (deepfm.loss, torch.randint(0, 2, (6,), generator=gen, dtype=torch.int32),
+                   {"logits": torch.randn(6, generator=gen),
+                    "probs": torch.rand(6, 1, generator=gen)}),
+    }
+
+
+@pytest.mark.parametrize("case", ["lm", "mnist", "deepfm"])
+def test_vmapped_weighted_mean_loss_matches_the_row_loop(case):
+    """``weighted_mean_loss`` vmaps ``loss_fn`` over singleton rows, as the
+    JAX step does; it gives the per-row loop's loss and gradients (1e-6:
+    the same f32 arithmetic, batched), and rows of weight 0 exactly zero
+    gradient."""
+    loss_fn, labels, outputs = _loss_cases()[case]
+    weights = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 1.0])
+    results = []
+    for fn in (port_step.weighted_mean_loss, _loop_weighted_mean_loss):
+        out = (
+            {k: v.clone().requires_grad_() for k, v in outputs.items()}
+            if isinstance(outputs, dict) else outputs.clone().requires_grad_()
+        )
+        loss = fn(loss_fn, labels, out, weights)
+        grad_of = out["logits"] if isinstance(out, dict) else out
+        (grad,) = torch.autograd.grad(loss, grad_of)
+        results.append((loss.detach(), grad))
+    (got, got_grad), (want, want_grad) = results
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(got_grad, want_grad, atol=1e-6, rtol=1e-6)
+    assert torch.count_nonzero(got_grad[weights == 0]) == 0
+    assert torch.count_nonzero(got_grad[weights == 1]) > 0
