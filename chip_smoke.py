@@ -79,6 +79,35 @@ printed:
    past the table or below 0 fed straight to the model on the card:
    zero lookup rows, no table gradient, and the model's output and
    gradients those of the padding id in their place.
+9. stacked — ``--steps_per_dispatch k`` through the train CLI, each full
+   group of k one CUDA graph replay (the first group of a shape eager,
+   the second captured): mnist on phase 7's data with 8 steps a dispatch
+   and ``--device_prefetch``, DeepFM on phase 8's accuracy recipe and at
+   full width on phase 8's timed data with ``--device_prefetch``,
+   ``--boundary_fusion`` and ``--pipeline_depth 3``, and the LM with 4
+   steps a dispatch and ``--remat`` on 304 records in tasks of 60 and
+   16.  Each run is checked as its single-step phase checks it (tasks,
+   every record once, finite losses, accuracy > 0.8 or a finite
+   evaluation, checkpoints at the crossed milestones and an export equal
+   to the trained state), and further: the trainer's counters show every
+   full group replayed and every trailing partial run as single steps;
+   the recorded batches replayed as single eager steps through a fresh
+   trainer give the same weights and statistics exactly (the zoo models'
+   checked runs hold cuDNN to its deterministic algorithms, on both
+   sides: its default convolution weight gradients are not); for the
+   LM, the flash kernels of every graph replay, read from the profiler's
+   device trace, are each kernel's launches per step times k (the
+   forward twice with remat), and the wrappers' counts those of the
+   eager steps and the evaluation.  mnist runs again, checked and timed,
+   with ``bench.py``'s e2e flags (``--steps_per_dispatch auto
+   --device_prefetch true``; ``auto`` gives k = 1 on the card, so every
+   step is single), and is timed with 8 steps a dispatch and no staging
+   as well, each timed run twice, in turn.  Then it times each model's
+   CLI (records/s or tokens/s, host ms per step, and the idle share its
+   window leaves beside the graph's or the single step's busy time) and
+   its graph replayed alone, prints the ``auto`` probe's dispatch
+   overhead and the k it resolves to, and the LM's peak memory with and
+   without remat.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -87,6 +116,7 @@ and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1002,7 +1032,9 @@ def _record_rows(directory: str):
     return rows
 
 
-def _local_data(work_dir: str) -> dict:
+def _local_data(
+    work_dir: str, records: int = LOCAL_RECORDS, shards: int = LOCAL_SHARDS
+) -> dict:
     """The phase's EDLIO shards and its warm-start checkpoint of the
     seeded weights."""
     import torch
@@ -1016,8 +1048,8 @@ def _local_data(work_dir: str) -> dict:
     t0 = time.monotonic()
     data = {
         "train": gen_sequence(
-            os.path.join(work_dir, "train"), num_records=LOCAL_RECORDS,
-            num_shards=LOCAL_SHARDS, seed=0, seq_len=SEQ, vocab=vocab,
+            os.path.join(work_dir, "train"), num_records=records,
+            num_shards=shards, seed=0, seq_len=SEQ, vocab=vocab,
         ),
         "eval": gen_sequence(
             os.path.join(work_dir, "eval"), num_records=LOCAL_EVAL_RECORDS,
@@ -1033,13 +1065,15 @@ def _local_data(work_dir: str) -> dict:
     return data
 
 
-def _local_argv(data: dict, device: str, *extra) -> list:
+def _local_argv(
+    data: dict, device: str, *extra, records_per_task: int = LOCAL_RECORDS_PER_TASK
+) -> list:
     """``train`` on the phase's shards, warm-started from its checkpoint."""
     return [
         "train", "--model_def", LM_DEF,
         "--model_params", ";".join(f"{k}={v}" for k, v in GPT2S.items()),
         "--training_data", data["train"],
-        "--records_per_task", str(LOCAL_RECORDS_PER_TASK),
+        "--records_per_task", str(records_per_task),
         "--minibatch_size", str(TRAIN_ROWS), "--shuffle_seed", "0",
         "--checkpoint_dir_for_init", data["init"], "--device", device, *extra,
     ]
@@ -1050,8 +1084,6 @@ def _checked_local_run(work_dir: str, data: dict, device: str):
     final evaluation and an export, and checks (a) to (f) of the phase
     on what it did.  Returns each kernel's launches in the run and the
     run's row of the phase's JSON line."""
-    import contextlib
-
     import numpy as np
     import torch
 
@@ -1206,7 +1238,6 @@ def _timed_local_run(data: dict, device: str) -> dict:
     last.  The only instruments are that sync (the step reads its tokens'
     range on the host already, so the device is idle at a report anyway)
     and a clock read at each ``train_step`` call."""
-    import contextlib
     from unittest import mock
 
     import torch
@@ -1412,13 +1443,15 @@ def _zoo_argv(cfg: dict, data: dict, device: str, *extra) -> list:
 
 class _ZooRecorder:
     """What a zoo model's train CLI run did: the training tasks and the
-    device-synced clock at each report, and per step its host clock,
-    wire features, labels and row weights (device copies, read after the
-    run), loss, and CUDA events around it."""
+    device-synced clock at each report, and per dispatch (one step, or a
+    stacked group of k) its host clock, step count, loss and CUDA events
+    around it, and per step its wire features, labels and row weights
+    (device copies, read after the run)."""
 
     def __init__(self, device: str, wire_key: str, keep_batches: bool):
         self.device, self.wire_key, self.keep_batches = device, wire_key, keep_batches
-        self.tasks, self.reports, self.step_starts = [], [], []
+        self.tasks, self.reports, self.step_starts, self.dispatch_steps = [], [], [], []
+        self.dispatch_host_secs = []
         self.wire, self.batches, self.losses, self.events = [], [], [], []
         self.executor = self.result = self.train_dispatcher = None
 
@@ -1431,7 +1464,7 @@ class _ZooRecorder:
         from elasticdl_tpu_torch.trainer import local_executor as le
         from elasticdl_tpu_torch.utils.constants import TaskType
 
-        rec, train_step, run = self, SPMDTrainer.train_step, le.LocalExecutor.run
+        rec, run = self, le.LocalExecutor.run
 
         class Dispatcher(le.TaskDispatcher):
             def get(self, worker_id):
@@ -1448,22 +1481,31 @@ class _ZooRecorder:
                     rec.reports.append(time.monotonic())
                 return super().report(task_id, success, exec_counters)
 
-        def recorded_train_step(trainer, features, labels, weights=None):
-            rec.step_starts.append(time.monotonic())
-            wire = features[rec.wire_key]
-            rec.wire.append((wire.dtype, wire.device.type))
-            if rec.device == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-            metrics = train_step(trainer, features, labels, weights)
-            if rec.device == "cuda":
-                end.record()
-                rec.events.append((start, end))
-            rec.losses.append(metrics["loss"])
-            if rec.keep_batches:
-                rec.batches.append((wire.clone(), labels.clone(), weights.clone()))
-            return metrics
+        def recording(dispatch, stacked):
+            def recorded(trainer, features, labels, weights=None):
+                rec.step_starts.append(time.monotonic())
+                wire = features[rec.wire_key]
+                rec.wire.append((wire.dtype, wire.device.type))
+                steps = wire.shape[0] if stacked else 1
+                rec.dispatch_steps.append(steps)
+                if rec.device == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                metrics = dispatch(trainer, features, labels, weights)
+                if rec.device == "cuda":
+                    end.record()
+                    rec.events.append((start, end))
+                rec.dispatch_host_secs.append(time.monotonic() - rec.step_starts[-1])
+                rec.losses.append(metrics["loss"])
+                if rec.keep_batches:
+                    parts = (wire, labels, weights)
+                    rec.batches += [
+                        tuple(x[j].clone() for x in parts) for j in range(steps)
+                    ] if stacked else [tuple(x.clone() for x in parts)]
+                return metrics
+
+            return recorded
 
         def recorded_run(executor):
             rec.executor = executor
@@ -1472,21 +1514,26 @@ class _ZooRecorder:
 
         return [
             mock.patch.object(le, "TaskDispatcher", Dispatcher),
-            mock.patch.object(SPMDTrainer, "train_step", recorded_train_step),
+            mock.patch.object(
+                SPMDTrainer, "train_step", recording(SPMDTrainer.train_step, False)
+            ),
+            mock.patch.object(
+                SPMDTrainer, "train_steps_stacked",
+                recording(SPMDTrainer.train_steps_stacked, True),
+            ),
             mock.patch.object(le.LocalExecutor, "run", recorded_run),
         ]
 
-    def run(self, argv):
-        """``client.main(argv)`` with the recorders in place; returns the
-        attention kernels' and the pipeline paths' counts over the run."""
-        import contextlib
-
+    def run(self, argv, extra=()):
+        """``client.main(argv)`` with the recorders and the ``extra``
+        patches in place; returns the attention kernels' and the pipeline
+        paths' counts over the run."""
         from elasticdl_tpu_torch import client
         from elasticdl_tpu_torch.data import fast_pipeline
         from elasticdl_tpu_torch.ops import attention as attn
 
         with contextlib.ExitStack() as stack:
-            for patch in self.patches():
+            for patch in (*self.patches(), *extra):
                 stack.enter_context(patch)
             attn.reset_launch_counts()
             fast_pipeline.reset_path_counts()
@@ -1496,6 +1543,18 @@ class _ZooRecorder:
         if rc != 0:
             raise AssertionError(f"train exited with {rc}")
         return counts
+
+
+def _milestone_versions(dispatch_steps, every: int, keep: int = 3) -> list:
+    """The versions a milestone-crossing checkpointer saves when the
+    dispatches take ``dispatch_steps`` steps each, and the final one, of
+    which the checkpoint directory keeps the last ``keep``."""
+    saved, version = set(), 0
+    for steps in dispatch_steps:
+        if (version + steps) // every > version // every:
+            saved.add(version + steps)
+        version += steps
+    return sorted(saved | {version})[-keep:]
 
 
 def _record_keys(directory: str, wire_key: str):
@@ -1527,11 +1586,14 @@ def _row_key(wire, label) -> bytes:
     ).digest()
 
 
-def _checked_zoo_run(work_dir: str, cfg: dict, data: dict, device: str) -> dict:
+def _checked_zoo_run(
+    work_dir: str, cfg: dict, data: dict, device: str, flags=(), rec=None
+) -> dict:
     """One epoch of ``cfg``'s model through the train CLI with periodic
-    checkpoints, a final evaluation and an export, and the phase's checks
-    (a) to (h) on what it did.  Returns the run's row of the phase's JSON
-    line."""
+    checkpoints, a final evaluation and an export (and ``flags``), and
+    the phase's checks (a) to (h) on what it did.  Returns the run's row
+    of the phase's JSON line; ``rec`` is the recorder to use (the caller
+    reads it after)."""
     import numpy as np
     import torch
 
@@ -1546,11 +1608,12 @@ def _checked_zoo_run(work_dir: str, cfg: dict, data: dict, device: str) -> dict:
 
     ckpt_dir, out_dir = os.path.join(work_dir, "ckpt"), os.path.join(work_dir, "out")
     wire_key, wire_dtype = cfg["wire"]
-    rec = _ZooRecorder(device, wire_key, keep_batches=True)
+    rec = rec or _ZooRecorder(device, wire_key, keep_batches=True)
     launches, paths = rec.run(_zoo_argv(
         cfg, data, device, "--validation_data", data["eval"],
         "--checkpoint_dir", ckpt_dir,
         "--checkpoint_steps", str(cfg["checkpoint_steps"]), "--output", out_dir,
+        *flags,
     ))
     run_secs = time.monotonic() - rec.start
     trainer = rec.executor.trainer
@@ -1636,10 +1699,8 @@ def _checked_zoo_run(work_dir: str, cfg: dict, data: dict, device: str) -> dict:
     versions = sorted(
         int(n.split("-")[1]) for n in os.listdir(ckpt_dir) if n.startswith("version-")
     )
-    want_versions = sorted({
-        *range(cfg["checkpoint_steps"], want_steps + 1, cfg["checkpoint_steps"]),
-        want_steps,
-    })[-3:]  # --keep_checkpoint_max 3
+    # --keep_checkpoint_max 3
+    want_versions = _milestone_versions(rec.dispatch_steps, cfg["checkpoint_steps"])
     trained_flat = state_to_checkpoint(trainer.state)
     last = save_utils.restore_checkpoint(ckpt_dir)[0]
     exported, _flat, _state = load_exported_model(out_dir, device=device)
@@ -1658,28 +1719,36 @@ def _checked_zoo_run(work_dir: str, cfg: dict, data: dict, device: str) -> dict:
     return row
 
 
-def _timed_zoo_run(cfg: dict, data: dict, device: str) -> dict:
-    """The train CLI over ``cfg``'s data with nothing but training in it.
-    The window is the tasks after the first: from the device sync that
-    closes the first task's report to the one that closes the last.
-    Host time per step is the gap between two ``train_step`` calls
-    inside a task; device time per step the CUDA events around one."""
-    rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
-    rec.run(_zoo_argv(cfg, data, device))
+def _timed_zoo_run(cfg: dict, data: dict, device: str, flags=(), rec=None) -> dict:
+    """The train CLI over ``cfg``'s data with nothing but training in it
+    (and ``flags``).  The window is the tasks after the first: from the
+    device sync that closes the first task's report to the one that
+    closes the last.  Host time per step is the gap between two
+    dispatches inside a task over the first one's steps (None where no
+    task has two), and the host time inside a dispatch call over its
+    steps; device time per step the CUDA events around a dispatch over
+    its steps."""
+    rec = rec or _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
+    rec.run(_zoo_argv(cfg, data, device, *flags))
     secs = rec.reports[-1] - rec.reports[0]
     steady = rec.tasks[1:]
     first = sum(1 for t0 in rec.step_starts if t0 < rec.reports[0])
+    starts, steps = rec.step_starts[first:], rec.dispatch_steps[first:]
     inside = [
-        (b - a) * 1e3
-        for a, b in zip(rec.step_starts[first:], rec.step_starts[first + 1:])
+        (b - a) * 1e3 / n
+        for a, b, n in zip(starts, starts[1:], steps)
         if not any(a < t < b for t in rec.reports)
     ]
-    device_ms = [s.elapsed_time(e) for s, e in rec.events[first:]]
+    device_ms = [
+        s.elapsed_time(e) / n for (s, e), n in zip(rec.events[first:], steps)
+    ]
+    issue_ms = [t * 1e3 / n for t, n in zip(rec.dispatch_host_secs[first:], steps)]
     return {
-        "steady_tasks": len(steady), "steady_steps": len(rec.step_starts) - first,
+        "steady_tasks": len(steady), "steady_steps": sum(steps),
         "steady_secs": secs,
         "records_per_s": sum(t.end - t.start for t in steady) / secs,
-        "host_ms_per_step_median": statistics.median(inside),
+        "host_ms_per_step_median": statistics.median(inside) if inside else None,
+        "dispatch_host_ms_per_step_median": statistics.median(issue_ms),
         "device_ms_per_step_median": statistics.median(device_ms) if device_ms else None,
         "first_task_secs": rec.reports[0] - rec.start,
     }
@@ -1838,6 +1907,491 @@ def _deepfm_out_of_vocab(device: str) -> dict:
     return result
 
 
+# ---- phase 9: stacked steps, remat and the device pipeline through the CLI --
+
+# mnist on phase 7's data, 8 steps a dispatch, staged: each shard's task
+# of 4096 records is two PreStacked groups of 8, and its task of 3400 one
+# group of 8 and 6 single steps (5 full batches and the padded one)
+STACKED_MNIST = dict(
+    flags=("--steps_per_dispatch", "8", "--device_prefetch", "true"),
+    group=8, groups=24, singles=48,
+)
+# mnist's other runs on the same data: bench.py's e2e flags
+# (bench.py:863-911), checked, whose k follows the auto probe (the
+# grouping is set from the k it resolves to), and 8 steps a dispatch
+# without staging, timed only
+STACKED_MNIST_VARIANTS = (
+    ("auto_staged", dict(flags=("--steps_per_dispatch", "auto", "--device_prefetch", "true"), auto=True), True),
+    ("k8_unstaged", dict(STACKED_MNIST, flags=("--steps_per_dispatch", "8")), False),
+)
+# timed runs of a model with variants: each flag set this many times, in
+# turn, for their spread
+STACKED_TIMED_ROUNDS = 2
+# DeepFM staged across task boundaries, 3 dispatches in flight: checked
+# on phase 8's accuracy recipe (16 tasks of 16 batches: two PreStacked
+# groups of 8 each), then at full width on phase 8's timed data, whose
+# one-task shards hold 5 full batches: one PreStacked group of 5 each (a
+# window of fewer than k full batches groups the ones it holds).  Forty
+# steps at full width are too few to learn the task, so its accuracy bar
+# is held on the recipe, as in phase 8
+STACKED_DEEPFM = dict(
+    flags=(
+        "--steps_per_dispatch", "8", "--device_prefetch", "true",
+        "--boundary_fusion", "true", "--pipeline_depth", "3",
+    ),
+    group=8, groups=32, singles=0,
+)
+STACKED_DEEPFM_WIDE = dict(STACKED_DEEPFM, group=5, groups=8)
+# the LM, 4 steps a dispatch with remat, on phase 6's kind of data: 4
+# shards of 76 records in tasks of 60 (8 steps: two groups of 4, the
+# second with 4 zero-weight padding rows) and of 16 (2 single steps)
+STACKED_LM = dict(flags=("--steps_per_dispatch", "4", "--remat", "true"), group=4, groups=8, singles=8)
+STACKED_LM_RECORDS, STACKED_LM_SHARDS, STACKED_LM_RECORDS_PER_TASK = 304, 4, 60
+STACKED_LM_STEPS, STACKED_LM_CHECKPOINT_STEPS = 40, 16
+# replays of a captured graph timed alone, and profiled for busy time
+GRAPH_BARE_REPLAYS, GRAPH_PROFILED_REPLAYS = 20, 4
+FLASH_NAMES = ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")
+
+
+def _check_dispatches(trainer, dispatch_steps, want: dict) -> dict:
+    """Every full group of the run went through the trainer's one graph
+    (the first group eager, the second captured, each one replayed) and
+    every trailing partial through single steps: the trainer's counters
+    against the dispatches recorded and the grouping ``want`` gives (no
+    group: every step single, and no graph)."""
+    counts = dict(trainer.dispatch_counts)
+    groups = [n for n in dispatch_steps if n > 1]
+    singles = sum(1 for n in dispatch_steps if n == 1)
+    grouped = want["groups"] > 0
+    want_counts = {
+        "single_steps": want["singles"], "eager_groups": int(grouped),
+        "graph_captures": int(grouped), "graph_replays": max(want["groups"] - 1, 0),
+    }
+    if (
+        counts != want_counts or len(trainer._graphs) != int(grouped)
+        or len(groups) != want["groups"] or singles != want["singles"]
+        or any(n != want["group"] for n in groups)
+    ):
+        raise AssertionError(
+            f"dispatch counts {counts}, want {want_counts}; groups {groups}, "
+            f"{singles} single steps"
+        )
+    return counts
+
+
+def _state_diff(a, b) -> float:
+    """The largest difference between two models' parameters and
+    buffers."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return max((sa[k].float() - v.float()).abs().max().item() for k, v in sb.items())
+
+
+def _replay_check(make_trainer, rec) -> dict:
+    """The batches ``rec`` recorded replayed as single eager steps through
+    a fresh trainer from ``make_trainer`` give the graph-replayed run's
+    weights and statistics exactly.  Where the run's first dispatch, a
+    stacked group, made its optimizer capturable, the fresh trainer's is
+    made so before its first step (capturable Adam computes its bias
+    correction on the card, in other roundings than on the host)."""
+    from elasticdl_tpu_torch.trainer.state import make_capturable
+
+    run = rec.executor.trainer
+    replay = make_trainer()
+    if run._graph_lr_ok is not None:
+        if rec.dispatch_steps[0] == 1:
+            raise AssertionError("the run's optimizer became capturable after a single step")
+        make_capturable(replay.state.optimizer, replay.device)
+    for wire, labels, weights in rec.batches:
+        replay.train_step({rec.wire_key: wire}, labels, weights)
+    row = {"replay_max_abs_diff": _state_diff(replay.state.model, run.state.model)}
+    if row["replay_max_abs_diff"] != 0.0:
+        raise AssertionError(f"graph replays disagree with eager steps: {row}")
+    return row
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms: its default
+    convolution weight gradients are not (two eager replays of phase 9's
+    mnist batches end apart), and a run checked bit for bit against
+    eager steps needs both sides deterministic."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _bare_graph(trainer) -> dict:
+    """The run's captured graph replayed alone on its static inputs:
+    host ms to issue a replay, wall ms per step over a synced loop, busy
+    ms per step in a profiled window, and the idle share it leaves."""
+    import torch
+
+    graph = next(g for g in trainer._graphs.values() if g is not None)
+
+    def replay():
+        return trainer.train_steps_stacked(*graph.static)
+
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    host_ms = []
+    t0 = time.monotonic()
+    for _ in range(GRAPH_BARE_REPLAYS):
+        t1 = time.monotonic()
+        replay()
+        host_ms.append((time.monotonic() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / GRAPH_BARE_REPLAYS / graph.k
+    busy_ms = _device_busy_ms(replay, GRAPH_PROFILED_REPLAYS) / graph.k
+    return {
+        "steps_per_replay": graph.k,
+        "host_ms_per_replay_median": statistics.median(host_ms),
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+    }
+
+
+def _auto_grouping(rec, device: str) -> dict:
+    """The grouping ``--steps_per_dispatch auto`` gives the run ``rec``
+    recorded: the k the sizing rule resolves to on ``device`` for the
+    run's first wire batch, which on a local card is 1 (a sub-ms
+    dispatch), so that every step is single."""
+    from elasticdl_tpu_torch.trainer import stacking
+
+    wire, labels, _weights = rec.batches[0]
+    batch = ({rec.wire_key: wire.cpu().numpy()}, labels.cpu().numpy())
+    k = stacking.resolve_steps_per_dispatch("auto", batch, device=device)
+    if k != 1:
+        raise AssertionError(f"auto resolved to k = {k} on {device}; the rule gives 1 for a sub-ms dispatch")
+    return dict(group=1, groups=0, singles=len(rec.batches))
+
+
+def _graph_checks(rec, cfg: dict, stacked: dict, device: str) -> dict:
+    """The dispatch counters of a recorded stacked run, and its batches
+    replayed as eager single steps through a fresh trainer built as the
+    executor builds it."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.utils.args import parse_params_dict
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    trainer = rec.executor.trainer
+    row = {}
+    if device == "cuda":
+        want = _auto_grouping(rec, device) if stacked.get("auto") else stacked
+        row["dispatch_counts"] = _check_dispatches(trainer, rec.dispatch_steps, want)
+    spec = get_model_spec("", cfg["model_def"], model_params=parse_params_dict(cfg["model_params"]))
+
+    def make_trainer():
+        # the executor's start: its seed, its bf16 features, its parse
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = spec.build_model()
+        return SPMDTrainer(
+            model, spec.loss, spec.optimizer(), compute_dtype=torch.bfloat16,
+            device=device, device_parse=spec.device_parse,
+        )
+
+    row.update(_replay_check(make_trainer, rec))
+    return row
+
+
+def _release_memory(device: str) -> None:
+    import torch
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def stacked_zoo_run(
+    work_dir: str, cfg: dict, stacked: dict, device: str = "cuda",
+    wide_cfg=None, wide_stacked=None, variants=(), single_busy_ms=None,
+) -> dict:
+    """Phase 9 for mnist or DeepFM: ``cfg``'s model through the train CLI
+    with ``stacked``'s flags, checked as phases 7 and 8 check it, its
+    graph replays held against eager steps; then (DeepFM) the same at
+    ``wide_cfg``; then timed at the widest, beside its graph replayed
+    alone (``device="cpu"`` rehearses it, without graphs).  ``variants``
+    (mnist): ``(name, flags, checked)`` runs on the same data with other
+    flags, checked as the first where ``checked``, and all timed, with
+    the first, ``STACKED_TIMED_ROUNDS`` times in turn; the idle share of
+    a run with no graph is taken against ``single_busy_ms``, the busy
+    time of a bare single step."""
+    data = _zoo_data(os.path.join(work_dir, "checked"), cfg)
+    with _deterministic_cudnn():
+        rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=True)
+        row = {"checked": _checked_zoo_run(work_dir, cfg, data, device, stacked["flags"], rec)}
+        row["checked"].update(_graph_checks(rec, cfg, stacked, device))
+        del rec
+        for name, spec, checked in variants:
+            if checked:
+                _release_memory(device)
+                rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=True)
+                row[f"checked_{name}"] = _checked_zoo_run(
+                    os.path.join(work_dir, name), cfg, data, device, spec["flags"], rec
+                )
+                row[f"checked_{name}"].update(_graph_checks(rec, cfg, spec, device))
+                del rec
+        if wide_cfg is not None:
+            cfg, stacked = wide_cfg, wide_stacked
+            data = _zoo_data(os.path.join(work_dir, "wide"), cfg)
+            _release_memory(device)
+            rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=True)
+            rec.run(_zoo_argv(cfg, data, device, *stacked["flags"]))
+            row["wide"] = {"steps": len(rec.batches), **_graph_checks(rec, cfg, stacked, device)}
+            del rec
+    runs = [("", stacked)] + [(name, spec) for name, spec, _checked in variants]
+    bare = None
+    for rounds in range(STACKED_TIMED_ROUNDS if variants else 1):
+        for name, spec in runs:
+            _release_memory(device)
+            timed_rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
+            timed = _timed_zoo_run(cfg, data, device, spec["flags"], timed_rec)
+            timed["flags"] = list(spec["flags"])
+            if device == "cuda":
+                graphs = timed_rec.executor.trainer._graphs
+                if bare is None and graphs:
+                    row["bare_graph"] = bare = _bare_graph(timed_rec.executor.trainer)
+                busy = bare["device_busy_ms_per_step"] if graphs else single_busy_ms
+                timed["idle_share"] = None if busy is None else 1.0 - (
+                    busy * timed["steady_steps"] / (timed["steady_secs"] * 1e3)
+                )
+            if not name and not rounds:
+                row["timed"] = timed
+            else:
+                row.setdefault("timed_runs", []).append(timed)
+            del timed_rec
+    return row
+
+
+class _FlashTrace:
+    """The flash kernels of every graph replay of a run, read from the
+    device trace (a replay runs no Python, so the wrappers do not count
+    it): each replay runs under ``torch.profiler``, and each kernel's
+    launches in it are kept."""
+
+    def __init__(self):
+        self.counts = []
+
+    def patch(self):
+        from unittest import mock
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from elasticdl_tpu_torch.parallel import distributed
+
+        trace, replay = self, distributed._StepsGraph.replay
+
+        def traced(graph, inputs):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = replay(graph, inputs)
+                torch.cuda.synchronize()
+            counts = dict.fromkeys(FLASH_NAMES, 0)
+            for avg in prof.key_averages():
+                name = next((f for f in FLASH_NAMES if f in avg.key), None)
+                if name is not None:
+                    counts[name] += avg.count
+            trace.counts.append(counts)
+            return out
+
+        return mock.patch.object(distributed._StepsGraph, "replay", traced)
+
+
+def _stacked_lm_checked(work_dir: str, data: dict, device: str) -> dict:
+    """The LM through the train CLI with ``STACKED_LM``'s flags,
+    periodic checkpoints, an evaluation and an export, checked."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.state import checkpoint_to_state
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.export_utils import load_exported_model
+    from elasticdl_tpu_torch.utils.flax_weights import flax_flat_from_torch
+
+    ckpt_dir, out_dir = os.path.join(work_dir, "ckpt"), os.path.join(work_dir, "out")
+    argv = _local_argv(
+        data, device, "--num_epochs", "1", "--validation_data", data["eval"],
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(STACKED_LM_CHECKPOINT_STEPS), "--output", out_dir,
+        *STACKED_LM["flags"], records_per_task=STACKED_LM_RECORDS_PER_TASK,
+    )
+    rec, trace = _ZooRecorder(device, "tokens", keep_batches=True), _FlashTrace()
+    launches, _paths = rec.run(argv, extra=[trace.patch()] if device == "cuda" else [])
+    trainer, result, batches = rec.executor.trainer, rec.result, rec.batches
+    row = {"run_secs": time.monotonic() - rec.start, "tasks": len(rec.tasks), "steps": len(batches)}
+
+    # (a) tasks, records, steps, and the route of every dispatch
+    trained = int(sum(float(w.sum()) for _t, _l, w in batches))
+    if (
+        len(rec.tasks) != 2 * STACKED_LM_SHARDS
+        or sum(t.end - t.start for t in rec.tasks) != STACKED_LM_RECORDS
+        or trained != STACKED_LM_RECORDS
+        or len(batches) != STACKED_LM_STEPS or trainer.step != STACKED_LM_STEPS
+    ):
+        raise AssertionError(f"{len(rec.tasks)} tasks, {trained} records, {len(batches)} steps")
+    if device == "cuda":
+        row["dispatch_counts"] = _check_dispatches(trainer, rec.dispatch_steps, STACKED_LM)
+    # (b) the real rows are the training records, each once
+    got_rows = []
+    for tokens, labels, w in batches:
+        n = int(w.sum())
+        for i in range(n):
+            row_tokens = torch.cat([tokens[i], labels[i, -1:]]).to(torch.int64)
+            got_rows.append(row_tokens.cpu().numpy().tobytes())
+    if sorted(got_rows) != sorted(_record_rows(data["train"])):
+        raise AssertionError("the trained rows are not the training records, once each")
+    # (c) kernel launches: each graph replay's from the device trace (k
+    # steps, the forward twice a step with remat); the wrappers count
+    # the eager steps (the first group and the singles) and the
+    # evaluation's forward, and nothing of the capture
+    layers, k = GPT2S["num_layers"], STACKED_LM["group"]
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    eval_batches = -(-LOCAL_EVAL_RECORDS // TRAIN_ROWS)
+    replays = trainer.dispatch_counts["graph_replays"]
+    eager_steps = STACKED_LM_STEPS - replays * k
+    if device == "cuda":
+        want_trace = [{n: c * k for n, c in per_step.items()}] * replays
+        want_wrappers = {
+            n: c * eager_steps + (n == "flash_fwd") * layers * eval_batches
+            for n, c in per_step.items()
+        }
+        row.update(replay_trace=trace.counts, wrapper_counts=launches)
+        if trace.counts != want_trace or launches != want_wrappers:
+            raise AssertionError(
+                f"flash launches: traced replays {trace.counts} (want {want_trace}), "
+                f"wrapper counts {launches} (want {want_wrappers})"
+            )
+        # what ran on the card: the eager launches and every traced replay
+        row["launches"] = {
+            n: launches[n] + sum(c[n] for c in trace.counts) for n in per_step
+        }
+    # (d) finite losses and evaluation
+    losses = [float(x) for x in rec.losses]
+    row.update(losses=losses, evaluation=result)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(list(result.values())))):
+        raise AssertionError(f"losses {losses}, evaluation {result}")
+
+    # (e) the batches replayed as single eager steps through a fresh
+    # trainer from the same checkpoint
+    def make_trainer():
+        replay = SPMDTrainer(
+            lm.custom_model(**GPT2S), lm.loss, lm.optimizer(),
+            compute_dtype=torch.bfloat16, device=device, remat=True,
+        )
+        checkpoint_to_state(replay.state, save_utils.restore_checkpoint(data["init"])[0])
+        return replay
+
+    row.update(_replay_check(make_trainer, rec))
+    # (f) the checkpoints and the export
+    versions = sorted(
+        int(n.split("-")[1]) for n in os.listdir(ckpt_dir) if n.startswith("version-")
+    )
+    want_versions = _milestone_versions(rec.dispatch_steps, STACKED_LM_CHECKPOINT_STEPS)
+    exported, _flat, _state = load_exported_model(out_dir, device=device)
+    export_diff = _state_diff(exported, trainer.state.model)
+    last = save_utils.restore_checkpoint(ckpt_dir)[0]
+    flat = {f"params/{k}": v for k, v in flax_flat_from_torch(trainer.state.model).items()}
+    exact = set(last) == set(flat) and all(np.array_equal(last[k], flat[k]) for k in flat)
+    row.update(checkpoint_versions=versions, export_max_abs_diff=export_diff)
+    if versions != want_versions or export_diff != 0.0 or not exact:
+        raise AssertionError(f"checkpoints {versions} (want {want_versions}) or export disagree: {row}")
+    return row
+
+
+def _stacked_lm_timed(data: dict, device: str, flags) -> dict:
+    """The LM's steady pace through the train CLI with ``flags`` over 2
+    epochs with nothing but training: the window is the second epoch
+    (the first holds the eager group and the capture), from the device
+    sync that closes the first epoch's last report to the one that closes
+    the run's; and the peak device memory of the run."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rec = _ZooRecorder(device, "tokens", keep_batches=False)
+    rec.run(_local_argv(
+        data, device, "--num_epochs", "2", *flags,
+        records_per_task=STACKED_LM_RECORDS_PER_TASK,
+    ))
+    tasks, reports = rec.tasks, rec.reports
+    if len(tasks) != 4 * STACKED_LM_SHARDS:
+        raise AssertionError(f"timed run: {len(tasks)} tasks")
+    epoch = len(tasks) // 2
+    t0, t1 = reports[epoch - 1], reports[-1]
+    window = [(a, n) for a, n in zip(rec.step_starts, rec.dispatch_steps) if t0 < a < t1]
+    inside = [
+        (b - a) * 1e3 / n for (a, n), (b, _m) in zip(window, window[1:])
+        if not any(a < t < b for t in reports)
+    ]
+    window_steps = sum(n for _a, n in window)
+    row = {
+        "flags": list(flags), "window_steps": window_steps, "window_secs": t1 - t0,
+        "tokens_per_s": sum(t.end - t.start for t in tasks[epoch:]) * SEQ / (t1 - t0),
+        "canonical_tokens_per_s": window_steps * TRAIN_ROWS * SEQ / (t1 - t0),
+        "host_ms_per_step_median": statistics.median(inside) if inside else None,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+    }
+    if device == "cuda":
+        bare = _bare_graph(rec.executor.trainer)
+        row["bare_graph"] = bare
+        row["idle_share"] = 1.0 - (
+            bare["device_busy_ms_per_step"] * window_steps / ((t1 - t0) * 1e3)
+        )
+    return row
+
+
+def stacked_lm_run(work_dir: str, device: str = "cuda", bare_tokens_per_s=None) -> dict:
+    """Phase 9 for the LM: its data and warm-start checkpoint, the checked
+    run with ``STACKED_LM``'s flags, then timed runs with and without
+    remat (4 steps a dispatch both), each with its peak memory
+    (``device="cpu"`` rehearses it at a small size, without graphs)."""
+    import torch
+
+    data = _local_data(work_dir, STACKED_LM_RECORDS, STACKED_LM_SHARDS)
+    row = {"checked": _stacked_lm_checked(work_dir, data, device)}
+    row["timed"] = []
+    for flags in (STACKED_LM["flags"], STACKED_LM["flags"][:2]):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        row["timed"].append(_stacked_lm_timed(data, device, flags))
+    row["bare_step_tokens_per_s"] = bare_tokens_per_s
+    return row
+
+
+def auto_probe() -> dict:
+    """The dispatch overhead the ``auto`` sizing measures on the card, and
+    the k it resolves to for phase 7's and phase 8's wire batches."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.trainer import stacking
+
+    overhead = stacking.measured_dispatch_overhead("cuda")
+    batches = {
+        "mnist_256_rows": ({"image": np.zeros((256, 28, 28), np.uint8)}, np.zeros(256, np.int32)),
+        "deepfm_4096_rows": ({"feature": np.zeros((4096, 10), np.int16)}, np.zeros(4096, np.int32)),
+    }
+    return {
+        "dispatch_overhead_secs": overhead,
+        "cheap_dispatch_secs": stacking.CHEAP_DISPATCH_SECS,
+        "auto_k": {
+            name: stacking.resolve_steps_per_dispatch("auto", batch, device="cuda")
+            for name, batch in batches.items()
+        },
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1898,13 +2452,37 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as work_dir:
-        print(json.dumps({"mnist_train": train_zoo_model(work_dir, MNIST)}), flush=True)
+        mnist_train = train_zoo_model(work_dir, MNIST)
+        print(json.dumps({"mnist_train": mnist_train}), flush=True)
 
     # ---- 8. DeepFM through the train CLI
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_deepfm_") as work_dir:
         print(json.dumps({"deepfm_train": train_deepfm(work_dir)}), flush=True)
+
+    # ---- 9. stacked steps (one CUDA graph replay per group), remat and
+    # the device pipeline through the train CLI
+    stacked = {"device": smi, "auto": auto_probe()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stacked_") as work_dir:
+        _release_memory("cuda")
+        stacked["mnist"] = stacked_zoo_run(
+            os.path.join(work_dir, "mnist"), MNIST, STACKED_MNIST,
+            variants=STACKED_MNIST_VARIANTS,
+            single_busy_ms=mnist_train["bare"]["device_busy_ms_per_step"],
+        )
+        _release_memory("cuda")
+        stacked["deepfm"] = stacked_zoo_run(
+            os.path.join(work_dir, "deepfm"), DEEPFM_ACCURACY, STACKED_DEEPFM,
+            wide_cfg=DEEPFM_WIDE, wide_stacked=STACKED_DEEPFM_WIDE,
+        )
+        gc.collect()
+        torch.cuda.empty_cache()
+        stacked["lm"] = stacked_lm_run(
+            os.path.join(work_dir, "lm"), bare_tokens_per_s=bare_tokens_per_s
+        )
+    stacked_launches = stacked["lm"]["checked"]["launches"]
+    print(json.dumps({"stacked": stacked}), flush=True)
 
     def row(name, source, replaces, measured):
         return {
@@ -1913,6 +2491,7 @@ def main() -> int:
             "source": f"elasticdl_tpu_torch/ops/csrc/{source}",
             "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
             "launches": train_launches[name] + local_launches[name]
+            + stacked_launches[name]
             + (serve_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

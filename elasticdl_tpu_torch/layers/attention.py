@@ -70,13 +70,19 @@ def to_torch_dtype(dtype):
     return getattr(torch, str(dtype))
 
 
-def dropout_generator(step: int, device, seed: int = 0) -> torch.Generator:
-    """The dropout generator of training step ``step``: seeded from
+def dropout_seed(step: int, seed: int = 0) -> int:
+    """The seed of training step ``step``'s dropout generator, from
     ``(seed, step)`` through numpy's ``SeedSequence``, so neighbouring
     steps get unrelated streams."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return int(state[0]) & (2**63 - 1)
+
+
+def dropout_generator(step: int, device, seed: int = 0) -> torch.Generator:
+    """The dropout generator of training step ``step``, seeded with
+    :func:`dropout_seed`."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) & (2**63 - 1))
+    gen.manual_seed(dropout_seed(step, seed))
     return gen
 
 

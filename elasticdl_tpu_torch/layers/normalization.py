@@ -15,9 +15,16 @@ does not follow.
 Parameter and statistic names are flax's (``scale``, ``bias``; the
 ``batch_stats`` collection's ``mean`` and ``var``), and all four stay
 f32; ``dtype`` is the compute dtype of the output.
+
+Under ``--remat`` the backward runs the forward a second time, and the
+running statistics must move once per step, as in the JAX package, whose
+BatchNorm returns them from the forward instead of writing them:
+:func:`frozen_statistics` holds them still for that second run.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -54,6 +61,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        # False while frozen_statistics holds the running statistics
+        self.update_statistics = True
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         axis = self.axis % x.ndim
@@ -64,13 +73,29 @@ class BatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(reduce)
             var = torch.clamp((xf * xf).mean(reduce) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if self.update_statistics:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (x - mean.reshape(feature_shape)) * mul.reshape(feature_shape)
         y = y + self.bias.reshape(feature_shape)
         return y.to(compute_dtype(self.dtype, x))
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: torch.nn.Module):
+    """Within: ``model``'s BatchNorm layers normalise training batches by
+    the batch's statistics as always, but leave the running statistics
+    as they are (the recompute of a rematerialized forward)."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for layer in layers:
+        layer.update_statistics = False
+    try:
+        yield
+    finally:
+        for layer in layers:
+            layer.update_statistics = True

@@ -41,9 +41,14 @@ def check_token_ids(tokens, vocab_size: int) -> None:
     """Raise on a token id outside ``[0, vocab_size)``.  The JAX model
     gathers with fill semantics (NaN rows); ``F.embedding`` on CUDA would
     hit a device assert that kills the process's CUDA context, so the
-    port refuses such ids before they reach the card."""
+    port refuses such ids before they reach the card.  A CUDA graph's
+    capture cannot read the card, so there the check is left to the
+    stacked path, which makes it on the host group before the copy in
+    (``SPMDTrainer.place_group``)."""
     if isinstance(tokens, torch.Tensor):
         if tokens.numel() == 0:
+            return
+        if tokens.is_cuda and torch.cuda.is_current_stream_capturing():
             return
         lo, hi = (int(x) for x in torch.aminmax(tokens))
     else:

@@ -36,7 +36,10 @@ _NEG_INF = -1e30
 
 # launches of each kernel wrapper, counted where the kernel is launched
 # and nowhere else (a run reads them to show its path went through the
-# kernel); reset with reset_launch_counts()
+# kernel); reset with reset_launch_counts().  A CUDA graph's capture
+# records the kernel without launching it, so it is not counted, and
+# its replays run no Python: a graph's launches are read from the
+# profiler's device trace
 launch_counts: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }
@@ -241,7 +244,8 @@ def _check_kernel_inputs(q, k, v):
 def _launch(name, library, tensors, q, k, causal, sm_scale):
     """Launch kernel ``name`` of ``csrc/<library>.cu`` on the current
     stream with ``tensors`` as its pointer arguments; raise if the launch
-    fails, else count it."""
+    fails, else count it (unless a CUDA graph is being captured, which
+    records the kernel and launches nothing)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} needs 16-byte aligned tensors")
@@ -260,7 +264,8 @@ def _launch(name, library, tensors, q, k, causal, sm_scale):
         raise RuntimeError(
             f"{name} launch failed: {error_string(err).decode()} ({err})"
         )
-    launch_counts[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launch_counts[name] += 1
 
 
 def _flash_forward_cuda(q, k, v, causal: bool, sm_scale: float):

@@ -6,23 +6,33 @@ the JAX trainer's mesh, and gradients need no all-reduce.  The data-
 parallel axis (``torch.distributed``) comes with a later slice; the
 shape-canonical batching below (``pad_to`` + ``row_mask``) is already
 the one every runtime uses, so padded rows carry zero weight.
+
+k optimizer steps in one dispatch (``train_steps_stacked``, JAX's
+jitted ``lax.scan``) are one CUDA graph replay on the card: the first
+group of a given ``(k, shapes)`` runs as k eager steps on a side stream
+(it also warms the optimizer's state, the allocator and the libraries),
+the second is captured into a graph of the k steps over static input
+buffers and replayed, and every later one is copied into those buffers
+and replayed.  On the CPU, which has no graphs, the k steps run eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.trainer.state import TrainState
+from elasticdl_tpu_torch.layers.attention import dropout_seed
+from elasticdl_tpu_torch.trainer.state import TrainState, make_capturable
 from elasticdl_tpu_torch.trainer.step import (
     build_eval_step,
     build_predict_step,
     build_train_step,
 )
 from elasticdl_tpu_torch.utils.device import resolve_device
-from elasticdl_tpu_torch.utils.tree_utils import map_tree, to_host
+from elasticdl_tpu_torch.utils.tree_utils import map_tree, to_host, tree_leaves
 
 
 class SPMDTrainer:
@@ -34,6 +44,7 @@ class SPMDTrainer:
         compute_dtype=None,
         device: str | torch.device = "cuda",
         device_parse: Callable | None = None,
+        remat: bool = False,
     ):
         """``model`` comes with its weights (torch modules initialise
         eagerly; the JAX trainer inits from a sample batch instead) and
@@ -41,14 +52,30 @@ class SPMDTrainer:
         parameters (``resolve_optimizer``'s result).  ``device`` is CUDA
         unless the caller asks for the CPU.  ``device_parse`` (the
         model's device-side half of its parse) runs in every step on the
-        placed features."""
+        placed features.  ``remat`` recomputes the forward in the
+        backward (``build_train_step``)."""
         self.device = resolve_device(device)
         self.state = TrainState.create(model.to(self.device), tx)
+        # set by the first stacked group on the card (make_capturable)
+        self._graph_lr_ok: bool | None = None
+        self._remat = remat
         self._train_step = build_train_step(
-            loss_fn, compute_dtype=compute_dtype, device_parse=device_parse
+            loss_fn, compute_dtype=compute_dtype, device_parse=device_parse,
+            remat=remat,
         )
         self._eval_step = build_eval_step(loss_fn, device_parse=device_parse)
         self._predict_step = build_predict_step(device_parse)
+        self._check_features = getattr(model, "validate_features", None)
+        # (k, shapes) -> None once its first group ran eagerly, then the
+        # captured _StepsGraph
+        self._graphs: dict = {}
+        # how each step was taken (read by the smoke and the tests):
+        # single_steps through train_step; groups of k as eager steps
+        # (the CPU, and a key's first group on the card), captures and
+        # graph replays
+        self.dispatch_counts = dict.fromkeys(
+            ("single_steps", "eager_groups", "graph_captures", "graph_replays"), 0
+        )
 
     # ---- batch placement --------------------------------------------------
 
@@ -62,6 +89,29 @@ class SPMDTrainer:
             return x.to(self.device)
 
         return map_tree(_place, tree)
+
+    def place_stacked(self, tree):
+        """A ``(k, rows, ...)`` host group on the trainer's device: on the
+        card through pinned memory, without blocking the host (the copy is
+        ordered on the current stream)."""
+        if self.device.type != "cuda":
+            return self.place_batch(tree)
+
+        def _place(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.pin_memory().to(self.device, non_blocking=True)
+
+        return map_tree(_place, tree)
+
+    def place_group(self, features, labels, weights):
+        """A stacked host group ``(features, labels, weights)`` placed
+        with :meth:`place_stacked`, after the model's host check of the
+        features (``validate_features``, where the model has one): a graph
+        replay runs no check of its own on the card."""
+        if self._check_features is not None:
+            self._check_features(features)
+        return tuple(self.place_stacked(x) for x in (features, labels, weights))
 
     def pad_to(self, tree, rows: int):
         """Pad the batch's leading dim to EXACTLY ``rows`` (repeating the
@@ -107,6 +157,51 @@ class SPMDTrainer:
         """One optimizer step; returns ``{"loss": 0-d f32 tensor}`` on
         the device (read it with ``float()``, which waits for the step)."""
         _state, metrics = self._train_step(self.state, features, labels, weights)
+        self.dispatch_counts["single_steps"] += 1
+        return metrics
+
+    def train_steps_stacked(self, features, labels, weights) -> dict:
+        """k optimizer steps on placed ``(k, rows, ...)`` groups and
+        ``(k, rows)`` row weights, the same as k :meth:`train_step` calls
+        on their slices; returns the last step's metrics.  On the card a
+        group of a ``(k, shapes)`` seen before is one CUDA graph replay
+        (module docstring); a capture that fails raises.  The first group
+        on the card moves the optimizer's step count (and a scheduled lr)
+        to the device (``make_capturable``), so that a graph replays its
+        update; single-step runs never get there and keep the optimizer
+        as built."""
+        k = int(tree_leaves(features)[0].shape[0])
+        if self.device.type != "cuda":
+            self.dispatch_counts["eager_groups"] += 1
+            return self._eager_steps(k, features, labels, weights)
+        if self._graph_lr_ok is None:
+            self._graph_lr_ok = make_capturable(self.state.optimizer, self.device)
+        inputs = (features, labels, weights)
+        key = (k, repr(map_tree(lambda x: (tuple(x.shape), x.dtype), inputs)))
+        if key not in self._graphs:
+            # torch's graph warm-up: real steps on a side stream
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                metrics = self._eager_steps(k, features, labels, weights)
+            current.wait_stream(side)
+            self._graphs[key] = None
+            self.dispatch_counts["eager_groups"] += 1
+            return metrics
+        graph = self._graphs[key]
+        if graph is None:
+            graph = self._graphs[key] = _StepsGraph(self, k, inputs)
+            self.dispatch_counts["graph_captures"] += 1
+        metrics = graph.replay(inputs)
+        self.dispatch_counts["graph_replays"] += 1
+        return metrics
+
+    def _eager_steps(self, k, features, labels, weights) -> dict:
+        for j in range(k):
+            _state, metrics = self._train_step(
+                self.state, *(map_tree(lambda x: x[j], t) for t in (features, labels, weights))
+            )
         return metrics
 
     def eval_step(self, features, labels, weights=None):
@@ -119,6 +214,80 @@ class SPMDTrainer:
     def step(self) -> int:
         """Model version: optimizer steps taken."""
         return self.state.step
+
+
+class _StepsGraph:
+    """A CUDA graph of k train steps over static ``(k, rows, ...)``
+    input buffers.
+
+    Each captured step draws its dropout masks from generators of its own
+    (two with remat: the forward and its recompute), registered with the
+    graph and seeded before each replay with ``dropout_seed`` of the
+    step it replays, so the replay reads that seed at offset 0: the masks
+    of ``dropout_generator(step)``, as in an eager step.  A scheduled lr
+    is read from a ``(k,)`` device tensor filled before each replay
+    (``LRSchedule.feeding``).  Parameters, buffers and optimizer state
+    are captured where they are: restores copy into them in place."""
+
+    def __init__(self, trainer: SPMDTrainer, k: int, inputs):
+        state = trainer.state
+        schedule = getattr(state.optimizer, "lr_schedule", None)
+        if schedule is not None and not trainer._graph_lr_ok:
+            raise NotImplementedError(
+                f"--steps_per_dispatch {k} on the card replays a CUDA graph, "
+                f"and {type(state.optimizer).__name__} reads its scheduled lr "
+                "on the host, which a graph would freeze: use an optimizer "
+                "with capturable=True (Adam, AdamW), or --steps_per_dispatch 1"
+            )
+        self.k, self.state, self.schedule = k, state, schedule
+        self.static = map_tree(torch.empty_like, inputs)
+        self._copy_in(inputs)
+        self.generators = [
+            [torch.Generator(device=trainer.device) for _ in range(2 if trainer._remat else 1)]
+            for _ in range(k)
+        ]
+        self.graph = torch.cuda.CUDAGraph()
+        for gens in self.generators:
+            for gen in gens:
+                self.graph.register_generator_state(gen)
+        self.feed = (
+            torch.zeros(k, dtype=torch.float32, device=trainer.device)
+            if schedule is not None else None
+        )
+        feeding = (
+            schedule.feeding(self.feed) if schedule is not None
+            else contextlib.nullcontext()
+        )
+        step0 = state.step
+        features, labels, weights = self.static
+        try:
+            with feeding, torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                for j in range(k):
+                    _state, metrics = trainer._train_step(
+                        state,
+                        *(map_tree(lambda x: x[j], t) for t in (features, labels, weights)),
+                        generators=self.generators[j],
+                    )
+        finally:
+            # the capture ran no step
+            state.step = step0
+        self.loss = metrics["loss"]
+
+    def _copy_in(self, inputs):
+        for dst, src in zip(tree_leaves(self.static), tree_leaves(inputs)):
+            dst.copy_(src, non_blocking=True)
+
+    def replay(self, inputs) -> dict:
+        self._copy_in(inputs)
+        for j, gens in enumerate(self.generators):
+            for gen in gens:
+                gen.manual_seed(dropout_seed(self.state.step + j))
+        if self.schedule is not None:
+            self.feed.copy_(torch.tensor(self.schedule.values(self.k)))
+            self.schedule.updates += self.k
+        self.graph.replay()
+        self.state.step += self.k
+        return {"loss": self.loss.clone()}
 
 
 def trim_pad(outputs, n: int):

@@ -5,9 +5,12 @@ No master process and no RPC, but the same task-based data traversal: a
 real in-process :class:`TaskDispatcher` hands out the tasks, a
 :class:`TaskPrefetcher` decodes them ahead on a host thread, every batch
 is padded to one canonical shape with a row mask, and the port's
-:class:`SPMDTrainer` takes one optimizer step per batch on the device
-``--device`` names.  Periodic checkpoints, a final evaluation and an
-export close the run.
+:class:`SPMDTrainer` takes the optimizer steps on the device
+``--device`` names: one per batch, or ``--steps_per_dispatch k`` per
+dispatch (one CUDA graph replay on the card), with ``--device_prefetch``
+staging the next group while the current one computes
+(``trainer/device_pipeline.py``).  Periodic checkpoints, a final
+evaluation and an export close the run.
 """
 
 from __future__ import annotations
@@ -25,12 +28,16 @@ from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
     restore_trainer_state,
 )
+from elasticdl_tpu_torch.trainer import device_pipeline
 from elasticdl_tpu_torch.trainer.host_pipeline import TaskPrefetcher
 from elasticdl_tpu_torch.trainer.stacking import (
+    MAX_AUTO_K,
     canonical_batch_rows,
+    choose_stack_k,
     run_stacked_steps,
+    warm_dispatch_overhead_async,
 )
-from elasticdl_tpu_torch.trainer.state import Modes, TrainState
+from elasticdl_tpu_torch.trainer.state import LRSchedule, Modes, TrainState
 from elasticdl_tpu_torch.trainer.step import resolve_optimizer
 from elasticdl_tpu_torch.utils.args import check_ported_flags
 from elasticdl_tpu_torch.utils.device import resolve_device
@@ -55,9 +62,10 @@ def build_optimizer(spec, learning_rate=None):
     """The optimizer factory, honoring ``learning_rate_scheduler``.
 
     The JAX package passes the scheduler to optax as a schedule of the
-    optimizer's update count; here a step pre-hook sets every parameter
-    group's lr to ``scheduler(count)`` before update ``count`` (0, 1,
-    ...), which is the same learning rate at the same update."""
+    optimizer's update count; here an :class:`LRSchedule` step pre-hook
+    sets every parameter group's lr to ``scheduler(count)`` before update
+    ``count`` (0, 1, ...), which is the same learning rate at the same
+    update.  The optimizer carries it as ``lr_schedule``."""
     factory = resolve_optimizer(spec.optimizer, learning_rate)
     if learning_rate is not None or spec.learning_rate_scheduler is None:
         return factory
@@ -65,15 +73,8 @@ def build_optimizer(spec, learning_rate=None):
 
     def build(params):
         opt = factory(params)
-        updates = 0
-
-        def set_lr(optimizer, _args, _kwargs):
-            nonlocal updates
-            for group in optimizer.param_groups:
-                group["lr"] = float(scheduler(updates))
-            updates += 1
-
-        opt.register_step_pre_hook(set_lr)
+        opt.lr_schedule = LRSchedule(scheduler)
+        opt.register_step_pre_hook(opt.lr_schedule)
         return opt
 
     return build
@@ -114,6 +115,23 @@ class LocalExecutor:
         # shape-canonical batching: every train/eval/predict batch is
         # padded to this row count (one device, so the divisor is 1)
         self._canonical_rows = canonical_batch_rows(args.minibatch_size, 1)
+        self._steps_per_dispatch = args.steps_per_dispatch or 1
+        if self._steps_per_dispatch == "auto":
+            # the auto sizing's probe, off the first dispatch's path
+            warm_dispatch_overhead_async(self._device)
+        # the device pipeline, resolved once: staging (--device_prefetch),
+        # cross-task staging (--boundary_fusion, which needs staging) and
+        # the retire window (--pipeline_depth)
+        self._device_prefetch = device_pipeline.resolve_device_prefetch(
+            args.device_prefetch
+        )
+        self._boundary_fusion = (
+            self._device_prefetch
+            and device_pipeline.resolve_boundary_fusion(args.boundary_fusion)
+        )
+        self._pipeline_depth = device_pipeline.resolve_pipeline_depth(
+            args.pipeline_depth
+        )
         self._checkpointer = PeriodicCheckpointer(
             args.checkpoint_dir,
             args.checkpoint_steps,
@@ -138,7 +156,9 @@ class LocalExecutor:
         # prefetch=0 on the training path: TaskPrefetcher's producer
         # thread is the overlap there; eval/predict (main-thread
         # consumers) keep the in-dataset prefetch.  A Dataset, so a task
-        # can be re-iterated.
+        # can be re-iterated.  Training batches of the vectorized path
+        # arrive as ready-made PreStacked groups under
+        # --steps_per_dispatch > 1, built on the producer thread.
         return build_task_batches(
             reader,
             task,
@@ -148,6 +168,10 @@ class LocalExecutor:
             self._args.minibatch_size,
             shuffle_records=mode == Modes.TRAINING,
             prefetch=prefetch,
+            stack_k=choose_stack_k(
+                self._steps_per_dispatch, mode == Modes.TRAINING
+            ),
+            dispatch_device=self._device,
         )
 
     def _ensure_trainer(self):
@@ -167,6 +191,7 @@ class LocalExecutor:
             ),
             device=self._device,
             device_parse=self._spec.device_parse,
+            remat=bool(self._args.remat),
         )
         version = restore_trainer_state(self._trainer, self._args)
         if version is not None:
@@ -188,17 +213,24 @@ class LocalExecutor:
     # ---- phases -----------------------------------------------------------
 
     def _train_task(self, batches) -> int:
+        """One task's batches through the shared grouping policy
+        (``trainer.stacking.run_stacked_steps``; k = 1 is a group of
+        one).  The milestone hooks run after each dispatch."""
         return run_stacked_steps(
             lambda: self._trainer,
             batches,
-            self._canonical_rows,
+            self._steps_per_dispatch,
             pre_batch=lambda _features: self._ensure_trainer(),
             post_group=self._post_step_hooks,
             dispatch_ctx=lambda: self._timing.record("batch_process"),
+            canonical_rows=self._canonical_rows,
+            device_prefetch=self._device_prefetch,
+            pipeline_depth=self._pipeline_depth,
         )
 
     def _post_step_hooks(self):
-        # milestone-crossing, not exact-multiple, as in the JAX package
+        # milestone-crossing, not exact-multiple, as in the JAX package:
+        # one dispatch may advance the version by k
         if self._args.evaluation_steps:
             milestone = self._version // self._args.evaluation_steps
             if milestone > self._last_eval_milestone:
@@ -293,20 +325,44 @@ class LocalExecutor:
         )
         total = 0
         ok = False
+        # decode-ahead bounded to about two dispatch groups of batches
+        # (an auto k is sized later: the largest it can be)
+        k = self._steps_per_dispatch
+        k = MAX_AUTO_K if k == "auto" else int(k)
         prefetcher = TaskPrefetcher(
             lambda: dispatcher.get(0),
             lambda task: self._task_dataset(
                 self._train_reader, task, Modes.TRAINING, prefetch=0
             ),
-            max_buffered_batches=4,
+            max_buffered_batches=max(4, 2 * k),
         )
         try:
-            for tid, task, batches in prefetcher:
-                with self._timing.record("task_process"):
-                    total += self._train_task(batches)
-                dispatcher.report(tid, True)
+            if self._boundary_fusion:
+                # one stager walks the whole task stream; a task is
+                # reported once its own dispatches retired
+                total = device_pipeline.run_pipelined_task_stream(
+                    lambda: self._trainer,
+                    iter(prefetcher),
+                    self._steps_per_dispatch,
+                    pre_batch=lambda _features: self._ensure_trainer(),
+                    post_group=self._post_step_hooks,
+                    dispatch_ctx=lambda: self._timing.record("batch_process"),
+                    canonical_rows=self._canonical_rows,
+                    task_done=lambda tid, _task, _n: dispatcher.report(tid, True),
+                    pipeline_depth=self._pipeline_depth,
+                )
+            else:
+                for tid, task, batches in prefetcher:
+                    with self._timing.record("task_process"):
+                        total += self._train_task(batches)
+                    # the task's window drained: the gap to the next
+                    # task's first dispatch is the boundary stall
+                    device_pipeline.note_task_boundary()
+                    dispatcher.report(tid, True)
             ok = True
         finally:
+            # a pending mark must not leak into a later run in this process
+            device_pipeline.clear_boundary_mark()
             prefetcher.close()
             # an in-flight async checkpoint must not be abandoned by a
             # mid-training exception, nor may a failed flush replace it

@@ -17,6 +17,7 @@ the model's state beside its parameters under its collection's name
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Callable
@@ -56,6 +57,84 @@ class TrainState:
         """A fresh state at step 0; ``tx`` builds the optimizer from the
         model's parameters."""
         return cls(step=0, model=model, optimizer=tx(model.parameters()))
+
+
+class LRSchedule:
+    """The model's ``learning_rate_scheduler`` as an optimizer step
+    pre-hook: before update ``count`` (0, 1, ...) every parameter group's
+    lr becomes ``scheduler(count)``, the learning rate optax's schedule
+    gives the same update.
+
+    The lr is a Python float, or a 0-d device tensor (on the card, for
+    an optimizer that reads it there: :func:`make_capturable`), which
+    the hook fills in place.  While a CUDA graph of k steps is captured
+    (:meth:`feeding`), update j copies its lr from slot j of a ``(k,)``
+    device tensor instead, which the trainer fills with the k scheduled
+    values before each replay: every replayed step gets its own lr."""
+
+    def __init__(self, scheduler: Callable):
+        self.scheduler = scheduler
+        self.updates = 0
+        self._feed: torch.Tensor | None = None
+        self._slot = 0
+
+    def values(self, k: int) -> list[float]:
+        """The lrs of the next ``k`` updates."""
+        return [float(self.scheduler(self.updates + j)) for j in range(k)]
+
+    def __call__(self, optimizer, _args, _kwargs):
+        if self._feed is not None:
+            value = self._feed[self._slot]
+            self._slot += 1
+            for group in optimizer.param_groups:
+                group["lr"].copy_(value)
+        else:
+            value = float(self.scheduler(self.updates))
+            for group in optimizer.param_groups:
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(value)
+                else:
+                    group["lr"] = value
+        self.updates += 1
+
+    @contextlib.contextmanager
+    def feeding(self, feed: torch.Tensor):
+        """Within: the updates read their lrs from ``feed`` in order, and
+        the update count is left as it was (a capture runs no update)."""
+        updates = self.updates
+        self._feed, self._slot = feed, 0
+        try:
+            yield
+        finally:
+            self._feed = None
+            self.updates = updates
+
+
+def make_capturable(optimizer: torch.optim.Optimizer, device) -> bool:
+    """Prepare ``optimizer`` for CUDA graphs on ``device``: every group
+    that can keep its update's state on the card (Adam and its kin, with
+    ``capturable``) does so, the step counts of updates it already made
+    included, and, for a scheduled lr (``optimizer.lr_schedule``), holds
+    its lr in a 0-d f32 tensor there.  Returns whether a graph can replay
+    the update with the lr it should have: False for a scheduled lr that
+    some group reads on the host (SGD turns a tensor lr into a host
+    number)."""
+    schedule = getattr(optimizer, "lr_schedule", None)
+    on_device = True
+    for group in optimizer.param_groups:
+        if "capturable" in group:
+            group["capturable"] = True
+            for param in group["params"]:
+                state = optimizer.state.get(param, {})
+                if isinstance(state.get("step"), torch.Tensor):
+                    state["step"] = state["step"].to(device)
+            if schedule is not None:
+                group["lr"] = torch.tensor(
+                    float(group["lr"]), dtype=torch.float32, device=device
+                )
+        elif schedule is not None:
+            on_device = False
+    return on_device
 
 
 def state_to_checkpoint(state: TrainState) -> dict[str, np.ndarray]:

@@ -3,17 +3,22 @@
 
 PyTorch runs eagerly, so there is no ``jit`` and no donation: a step is
 a plain function of ``(state, features, labels[, weights])`` that
-updates ``state`` in place (``TrainState.apply_gradients``).
+updates ``state`` in place (``TrainState.apply_gradients``).  The same
+function is what ``SPMDTrainer.train_steps_stacked`` captures into a
+CUDA graph, so nothing in it reads the device from the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.layers.attention import dropout_generator
+from elasticdl_tpu_torch.layers.normalization import frozen_statistics
 from elasticdl_tpu_torch.trainer.state import TrainState
 from elasticdl_tpu_torch.utils.tree_utils import map_tree
 
@@ -57,9 +62,10 @@ def build_train_step(
     loss_fn: Callable,
     compute_dtype=None,
     device_parse: Callable | None = None,
+    remat: bool = False,
 ) -> Callable:
-    """Build ``train_step(state, features, labels, weights=None) ->
-    (state, {"loss": loss})``.
+    """Build ``train_step(state, features, labels, weights=None,
+    generators=None) -> (state, {"loss": loss})``.
 
     weights: optional ``(batch,)`` per-row sample weights; the loss is
         then :func:`weighted_mean_loss`, so zero-weight padding rows give
@@ -70,18 +76,28 @@ def build_train_step(
         run on the placed features before the forward (and before the
         ``compute_dtype`` cast): compact wire dtypes cross to the device
         and widen there (uint8 images to ``f32 / 255``).
+    remat: run the whole forward and loss under
+        ``torch.utils.checkpoint`` (the JAX package wraps its whole
+        ``forward_loss`` in one ``jax.checkpoint``): only the inputs are
+        kept, and the backward runs the forward again.  That second run
+        draws the same dropout masks and leaves BatchNorm's running
+        statistics as the first run left them
+        (:func:`~elasticdl_tpu_torch.layers.normalization.frozen_statistics`),
+        so the step's gradients and statistics are those without remat.
 
     Dropout masks come from ``dropout_generator(state.step, device)``:
-    the same for a replayed step, fresh for every step.
+    the same for a replayed step, fresh for every step, and built anew
+    for each run of the forward.  ``generators`` replaces that: the
+    forward's runs take its generators in order (one per run; two with
+    remat), which a CUDA graph registers and seeds before each replay
+    with ``dropout_generator``'s seed of the step it replays.
     """
 
-    def forward_loss(state: TrainState, features, labels, weights):
+    def forward_loss(state: TrainState, features, labels, weights, next_generator):
         if device_parse is not None:
             features = device_parse(features)
         features = _cast_floats(features, compute_dtype)
-        device = next(state.model.parameters()).device
-        generator = dropout_generator(state.step, device)
-        outputs = state.model(features, training=True, generator=generator)
+        outputs = state.model(features, training=True, generator=next_generator())
         if weights is None:
             loss = loss_fn(labels, outputs)
         else:
@@ -90,9 +106,31 @@ def build_train_step(
         # no ported layer sows one yet
         return loss.float()
 
-    def train_step(state: TrainState, features, labels, weights=None):
+    if remat:
+        plain_forward_loss = forward_loss
+
+        def forward_loss(state, features, labels, weights, next_generator):
+            return checkpoint(
+                plain_forward_loss, state, features, labels, weights,
+                next_generator, use_reentrant=False,
+                # dropout draws from explicit generators, not the global
+                # RNG, whose state a CUDA graph capture cannot read
+                preserve_rng_state=False,
+                context_fn=lambda: (
+                    contextlib.nullcontext(), frozen_statistics(state.model)
+                ),
+            )
+
+    def train_step(state: TrainState, features, labels, weights=None, generators=None):
         state.model.train()
-        loss = forward_loss(state, features, labels, weights)
+        if generators is None:
+            device = next(state.model.parameters()).device
+
+            def next_generator():
+                return dropout_generator(state.step, device)
+        else:
+            next_generator = iter(generators).__next__
+        loss = forward_loss(state, features, labels, weights, next_generator)
         named = [
             (n, p) for n, p in state.model.named_parameters() if p.requires_grad
         ]

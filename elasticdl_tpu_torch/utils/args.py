@@ -153,7 +153,9 @@ def _add_data_params(parser: argparse.ArgumentParser):
         "--steps_per_dispatch",
         type=lambda v: v if v == "auto" else pos_int(v),
         default=1,
-        help="Optimizer steps fused into one device dispatch (not ported: 1)",
+        help="Optimizer steps in one device dispatch (one CUDA graph replay "
+        "on the card), or 'auto' to size them from the batch bytes and the "
+        "measured dispatch cost",
     )
     parser.add_argument("--num_epochs", type=pos_int, default=1)
     parser.add_argument(
@@ -236,15 +238,16 @@ def _add_train_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--device_prefetch", type=parse_bool, default=None, required=False,
-        help="Device-path pipelining (not ported)",
+        help="Stage the next dispatch group on the device while the "
+        "current one computes",
     )
     parser.add_argument(
         "--boundary_fusion", type=parse_bool, default=None, required=False,
-        help="Cross-task staging (not ported)",
+        help="Stage across task boundaries (needs --device_prefetch)",
     )
     parser.add_argument(
         "--pipeline_depth", type=pos_int, default=None, required=False,
-        help="Device-pipeline depth (not ported)",
+        help="Dispatch groups in flight before the host waits (default 2)",
     )
     parser.add_argument(
         "--profile_dir", default="",
@@ -313,7 +316,8 @@ def _add_mesh_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--remat", type=parse_bool, default=False,
-        help="Recompute activations in the backward (not ported)",
+        help="Recompute the forward in the backward instead of keeping "
+        "its activations",
     )
     parser.add_argument(
         "--donate_state", type=parse_bool, default=True,
@@ -505,13 +509,7 @@ def _comes_with(slice_name: str) -> str:
 
 
 _ELASTIC = _comes_with("slice 6, data parallelism and elastic reform")
-_DEVICE_PIPELINE = _comes_with(
-    "slice 6, data parallelism and elastic reform (trainer/device_pipeline.py)"
-)
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
-_TRAINING_REST = _comes_with(
-    "stacked steps and remat, the last of slice 5"
-)
 _K8S = _comes_with("slice 9, Kubernetes submission")
 _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
@@ -539,11 +537,6 @@ UNPORTED_FLAGS = {
     "autoscale_cooldown_secs": _ELASTIC,
     "autoscale_shrink": _ELASTIC,
     "standby_workers": _ELASTIC,
-    "device_prefetch": _DEVICE_PIPELINE,
-    "boundary_fusion": _DEVICE_PIPELINE,
-    "pipeline_depth": _DEVICE_PIPELINE,
-    "steps_per_dispatch": _TRAINING_REST,
-    "remat": _TRAINING_REST,
     "telemetry_dir": _TELEMETRY,
     "tensorboard_log_dir": _TELEMETRY,
     "metrics_port": _TELEMETRY,

@@ -327,3 +327,261 @@ def test_native_codec_builds_and_writes_the_python_codecs_bytes(cuda, tmp_path):
     assert (tmp_path / "native").read_bytes() == (tmp_path / "python").read_bytes()
     with recordio.Scanner(str(tmp_path / "native")) as scanner:
         assert list(scanner) == payloads
+
+
+# ---- k steps as one CUDA graph replay ---------------------------------------
+
+
+def _stacked_groups(make_features, rows, k, groups, seed=0):
+    """``groups`` host groups ``(features, labels, weights)`` of ``k``
+    canonical batches; the last step of the last group carries 3
+    zero-weight padding rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(groups):
+        features, labels = make_features(rng, k * rows)
+        weights = np.ones((k, rows), np.float32)
+        out.append((
+            {n: v.reshape((k, rows) + v.shape[1:]) for n, v in features.items()},
+            labels.reshape((k, rows) + labels.shape[1:]), weights,
+        ))
+    out[-1][2][-1, -3:] = 0.0
+    return out
+
+
+def _graph_against_eager(make_trainer, groups, k):
+    """The groups through ``train_steps_stacked`` on one trainer (the
+    first eager, the second captured, all replayed) and as single steps
+    on another from the same start: their states after each group.  The
+    eager trainer's optimizer is made capturable as the graph trainer's
+    first group makes its own (capturable Adam computes its bias
+    correction on the card, in other roundings than on the host)."""
+    from elasticdl_tpu_torch.trainer.state import make_capturable
+    from elasticdl_tpu_torch.utils.tree_utils import map_tree
+
+    graph, eager = make_trainer(), make_trainer()
+    make_capturable(eager.state.optimizer, eager.device)
+    for group in groups:
+        graph.train_steps_stacked(*graph.place_group(*group))
+        for j in range(k):
+            eager.train_step(*(eager.place_batch(map_tree(lambda x: x[j], t)) for t in group))
+    torch.cuda.synchronize()
+    assert graph.dispatch_counts == {
+        "single_steps": 0, "eager_groups": 1, "graph_captures": 1,
+        "graph_replays": len(groups) - 1,
+    }
+    assert graph.step == eager.step == k * len(groups)
+    return graph, eager
+
+
+def _assert_same_state(a, b):
+    sa, sb = a.state.model.state_dict(), b.state.model.state_dict()
+    for name, value in sb.items():
+        torch.testing.assert_close(sa[name], value, atol=0, rtol=0, msg=name)
+
+
+def test_mnist_graph_replays_equal_eager_steps_with_dropout(cuda, monkeypatch):
+    """mnist's dropout (drawn per step from the step's generator, which
+    the graph reseeds before each replay) and BatchNorm statistics: a
+    replayed group of 3 is 3 eager steps, bit for bit (cuDNN held to its
+    deterministic algorithms, on both sides)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import mnist_functional_api as mnist
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    def make_trainer():
+        torch.manual_seed(0)
+        return SPMDTrainer(
+            mnist.custom_model(), mnist.loss, mnist.optimizer(),
+            compute_dtype=torch.bfloat16, device="cuda", device_parse=mnist.device_parse,
+        )
+
+    def features(rng, n):
+        return (
+            {"image": rng.randint(0, 256, (n, 28, 28)).astype(np.uint8)},
+            rng.randint(0, 10, n).astype(np.int32),
+        )
+
+    groups = _stacked_groups(features, 32, 3, 4)
+    graph, eager = _graph_against_eager(make_trainer, groups, 3)
+    _assert_same_state(graph, eager)
+    # the replays drew their masks: a graph with a frozen seed would give
+    # the eager steps' first group's masks again, and other weights
+    assert not torch.equal(graph.state.model.dense.weight, make_trainer().state.model.dense.weight)
+
+
+def test_deepfm_graph_replays_equal_eager_steps(cuda):
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import deepfm_functional_api as deepfm
+
+    def make_trainer():
+        torch.manual_seed(0)
+        return SPMDTrainer(
+            deepfm.custom_model(), deepfm.loss, deepfm.optimizer(), device="cuda",
+        )
+
+    def features(rng, n):
+        ids = rng.randint(0, 5383, (n, 10))
+        ids[:, -2:] = 0
+        return {"feature": ids.astype(np.int16)}, rng.randint(0, 2, n).astype(np.int32)
+
+    graph, eager = _graph_against_eager(make_trainer, _stacked_groups(features, 256, 4, 4), 4)
+    _assert_same_state(graph, eager)
+
+
+def _lm_trainer(schedule=None, remat=False):
+    """A small bf16 LM through the flash kernels, Adam with
+    ``schedule`` as its learning_rate_scheduler (``build_optimizer``'s
+    hook, a tensor lr on the card)."""
+    import types
+
+    from elasticdl_tpu_torch.trainer.local_executor import build_optimizer
+
+    model = lm.custom_model(vocab_size=101, embed_dim=128, num_heads=2, num_layers=2, dtype="bfloat16")
+    lm.init_weights(model, torch.Generator().manual_seed(0))
+    spec = types.SimpleNamespace(optimizer=lm.optimizer, learning_rate_scheduler=schedule)
+    return SPMDTrainer(
+        model, lm.loss, build_optimizer(spec), compute_dtype=torch.bfloat16,
+        device="cuda", remat=remat,
+    )
+
+
+def _lm_features(rng, n):
+    tokens = rng.randint(0, 101, (n, 129)).astype("int32")
+    return {"tokens": tokens[:, :-1]}, tokens[:, 1:]
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_lm_graph_replays_equal_eager_steps_with_a_scheduled_lr(cuda, remat):
+    """Trap (c): every replayed step reads its own scheduled lr from the
+    card (Adam, capturable), so a group of 4 is 4 eager steps, bit for
+    bit, with the flash kernels in the graph (and their forward run
+    twice per step with remat)."""
+    def schedule(count):
+        return 1e-3 * (1 + count % 3)
+
+    groups = _stacked_groups(_lm_features, 4, 4, 3)
+    graph, eager = _graph_against_eager(lambda: _lm_trainer(schedule, remat), groups, 4)
+    _assert_same_state(graph, eager)
+    lr = graph.state.optimizer.param_groups[0]["lr"]
+    assert isinstance(lr, torch.Tensor) and float(lr) == pytest.approx(schedule(11))
+    assert graph.state.optimizer.lr_schedule.updates == 12
+
+
+def test_single_steps_keep_the_optimizer_until_the_first_group(cuda):
+    """A single step runs the optimizer as built (host lr, host step
+    counts); the first stacked group makes it capturable, its step counts
+    moved to the card, and the graph that follows equals eager steps.
+    The wrappers count the launches of eager steps only: the capture
+    launches nothing, and a replay runs no Python."""
+    from elasticdl_tpu_torch.trainer.state import make_capturable
+    from elasticdl_tpu_torch.utils.tree_utils import map_tree
+
+    def schedule(count):
+        return 1e-3 * (1 + count % 3)
+
+    groups = _stacked_groups(_lm_features, 4, 4, 3, seed=2)
+    graph, eager = _lm_trainer(schedule), _lm_trainer(schedule)
+    first = tuple(map_tree(lambda x: x[0], t) for t in groups[0])
+    for trainer in (graph, eager):
+        trainer.train_step(*(trainer.place_batch(x) for x in first))
+    group = graph.state.optimizer.param_groups[0]
+    assert group["capturable"] is False and not isinstance(group["lr"], torch.Tensor)
+    make_capturable(eager.state.optimizer, eager.device)
+    attn.reset_launch_counts()
+    for stacked in groups:
+        graph.train_steps_stacked(*graph.place_group(*stacked))
+    launches = dict(attn.launch_counts)
+    for stacked in groups:
+        for j in range(4):
+            eager.train_step(*(eager.place_batch(map_tree(lambda x: x[j], t)) for t in stacked))
+    torch.cuda.synchronize()
+    assert group["capturable"] is True and isinstance(group["lr"], torch.Tensor)
+    assert all(s["step"].is_cuda for s in graph.state.optimizer.state.values())
+    assert graph.dispatch_counts == {
+        "single_steps": 1, "eager_groups": 1, "graph_captures": 1, "graph_replays": 2,
+    }
+    _assert_same_state(graph, eager)
+    # 2 layers, 4 eager steps (the first group)
+    assert launches == {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+
+
+def test_restore_after_capture_is_what_the_next_replay_trains(cuda):
+    """Trap (e): a restore copies into the tensors the graph captured, so
+    the next replay trains the restored weights."""
+    from elasticdl_tpu_torch.trainer.state import checkpoint_to_state, state_to_checkpoint
+    from elasticdl_tpu_torch.utils.tree_utils import map_tree
+
+    groups = _stacked_groups(_lm_features, 4, 4, 4, seed=1)
+    start = state_to_checkpoint(_lm_trainer().state)
+    graph, eager = _graph_against_eager(_lm_trainer, groups[:3], 4)
+    for trainer in (graph, eager):
+        checkpoint_to_state(trainer.state, start)
+    graph.train_steps_stacked(*graph.place_group(*groups[3]))
+    for j in range(4):
+        eager.train_step(*(eager.place_batch(map_tree(lambda x: x[j], t)) for t in groups[3]))
+    assert graph.dispatch_counts["graph_replays"] == 3
+    # against a trainer with the same history (Adam's moments carry on),
+    # restored the same way: a graph still reading the tensors a restore
+    # replaced would leave the model's weights where the restore put them
+    _assert_same_state(graph, eager)
+
+
+def test_sgd_with_a_scheduled_lr_is_refused_on_the_graph_path(cuda):
+    """SGD reads its lr on the host, which a graph would freeze: the
+    capture refuses it, loudly."""
+    import types
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import deepfm_functional_api as deepfm
+    from elasticdl_tpu_torch.trainer.local_executor import build_optimizer
+
+    spec = types.SimpleNamespace(
+        optimizer=deepfm.optimizer, learning_rate_scheduler=lambda count: 0.1
+    )
+    trainer = SPMDTrainer(deepfm.custom_model(), deepfm.loss, build_optimizer(spec), device="cuda")
+    rng = np.random.RandomState(0)
+    group = (
+        {"feature": rng.randint(0, 5383, (2, 64, 10)).astype(np.int16)},
+        rng.randint(0, 2, (2, 64)).astype(np.int32), np.ones((2, 64), np.float32),
+    )
+    trainer.train_steps_stacked(*trainer.place_group(*group))
+    with pytest.raises(NotImplementedError, match="scheduled lr"):
+        trainer.train_steps_stacked(*trainer.place_group(*group))
+
+
+def test_a_failed_capture_raises_and_never_falls_back(cuda):
+    """A step that reads the card from the host cannot be captured: the
+    second group raises, and no eager step stands in for the graph."""
+    import numpy as np
+
+    class Syncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4))
+
+        def forward(self, features, training=False, generator=None):
+            x = features["x"]
+            if float(x.sum()) > 1e30:  # a host read of a device value
+                x = x * 0
+            return x * self.w
+
+    trainer = SPMDTrainer(
+        Syncing(), lambda labels, out: ((out - labels) ** 2).mean(),
+        lambda params: torch.optim.SGD(params, lr=0.1), device="cuda",
+    )
+    group = (
+        {"x": np.ones((2, 8, 4), np.float32)}, np.zeros((2, 8, 4), np.float32),
+        np.ones((2, 8), np.float32),
+    )
+    trainer.train_steps_stacked(*trainer.place_group(*group))
+    with pytest.raises(RuntimeError):
+        trainer.train_steps_stacked(*trainer.place_group(*group))
+    assert trainer.dispatch_counts["graph_replays"] == 0
+    assert trainer.step == 2  # the failed group took no step

@@ -50,6 +50,7 @@ def _port_task_batches(reader, task, spec, mode, batch_size):
     executor = type("Executor", (), {})()
     executor._spec = spec
     executor._args = type("Args", (), {"minibatch_size": batch_size})()
+    executor._steps_per_dispatch, executor._device = 1, "cpu"
     return LocalExecutor._task_dataset(executor, reader, task, mode)
 
 

@@ -320,9 +320,7 @@ UNPORTED_VALUES = {
     "rpc_deadline_secs": "1", "rehome_grace_secs": "1", "num_slices": "2",
     "min_slices": "2", "autoscale_p95_step_ms": "9", "autoscale_backlog_tasks": "2",
     "autoscale_cooldown_secs": "1", "autoscale_shrink": "true",
-    "standby_workers": "0", "device_prefetch": "true", "boundary_fusion": "true",
-    "pipeline_depth": "3", "steps_per_dispatch": "2", "remat": "true",
-    "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",
+    "standby_workers": "0", "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",
     "metrics_host": "0.0.0.0", "trace_sample_rate": "1.0", "step_anatomy": "true",
     "profile_dir": "/p", "profile_steps": "2", "slo_config": "default",
     "serving_addr": "localhost:1", "instance_backend": "k8s", "namespace": "ns",
@@ -341,8 +339,7 @@ def test_every_unported_flag_has_a_case():
     assert set(UNPORTED_VALUES) == set(port_args.UNPORTED_FLAGS)
 
 
-# and the other values the JAX package takes for such a flag
-UNPORTED_CASES = sorted(UNPORTED_VALUES.items()) + [("steps_per_dispatch", "auto")]
+UNPORTED_CASES = sorted(UNPORTED_VALUES.items())
 
 
 @pytest.mark.parametrize(
@@ -357,6 +354,27 @@ def test_unported_flag_raises_at_executor_build(runs, flag, value):
     ))
     with pytest.raises(NotImplementedError, match=f"--{flag}="):
         port_le.LocalExecutor(args)
+
+
+# the flags of stacked steps, remat and the device pipeline, ported
+PORTED_CASES = [
+    ("steps_per_dispatch", "2"), ("steps_per_dispatch", "auto"),
+    ("remat", "true"), ("device_prefetch", "true"),
+    ("boundary_fusion", "true"), ("pipeline_depth", "3"),
+]
+
+
+@pytest.mark.parametrize(
+    "flag, value", PORTED_CASES, ids=[f"{f}={v}" for f, v in PORTED_CASES]
+)
+def test_ported_training_flag_builds_an_executor(runs, flag, value):
+    data = runs["data"]
+    args = port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu",
+        f"--{flag}", value,
+    ))
+    assert flag not in port_args.UNPORTED_FLAGS
+    port_le.LocalExecutor(args)
 
 
 def test_one_device_mesh_and_defaults_build_an_executor(runs):
@@ -419,9 +437,10 @@ def test_run_stacked_steps_pads_every_batch_to_the_canonical_rows():
     ]
     seen, hooks = [], []
     processed = run_stacked_steps(
-        lambda: trainer, batches, 8,
+        lambda: trainer, batches, 1,
         pre_batch=lambda f: seen.append(len(f["tokens"])),
         post_group=lambda: hooks.append(len(trainer.calls)),
+        canonical_rows=8,
     )
     assert processed == 20 and seen == [8, 3, 8, 1] and hooks == [1, 2, 3, 4]
     assert [c[0] for c in trainer.calls] == [(8, SEQ)] * 4
