@@ -109,6 +109,27 @@ printed:
    overhead and the k it resolves to, and the LM's peak memory with and
    without remat.
 
+10. elastic — ``AllreduceStrategy`` through the train CLI: the port's
+   master in this process, two worker processes that form one
+   ``torch.distributed`` world (gloo on CUDA tensors: the two ranks share
+   the card, and NCCL refuses two ranks on one device).  (a) mnist at
+   bench.py's width and step, two epochs of 16 384 records, under the
+   ``preempt_one_worker`` plan (process 1 SIGKILLs itself at step 6): the
+   master fences the world, re-queues its tasks and relaunches it from
+   the newest checkpoint; gated on rc 0, one re-formation with a
+   latency, the dispatcher's records exactly epochs x records, no
+   invariant violation, the last world's two final states bitwise
+   equal, and accuracy > 0.8 from the evaluate CLI on the final
+   checkpoint.  (b) the same for DeepFM's accuracy recipe (one epoch),
+   then a fault-free two-rank mnist run against the Local run on the same
+   data (final parameters within ``PARITY_RTOL``/``PARITY_ATOL``).  (c)
+   the LM at full width in two ranks of 4 rows against one rank of 8 from
+   the same weights for 2 Adam steps: the step-1 gradient within phase
+   5's ``GRAD_REL_ERR``, the updates within ``DP_UPDATE_REL_ERR``, and 12
+   launches of each flash kernel per step on each rank.  It prints the
+   re-formation latency, the backend and each job's records/s (two
+   ranks on one card: no scaling number).
+
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
 and nothing of the JAX package.
@@ -2392,6 +2413,410 @@ def auto_probe() -> dict:
     }
 
 
+# ---- phase 10: AllreduceStrategy worlds, preemption and re-formation -------
+
+# mnist at bench.py's width and step (bench.py:175: 28x28, 256 rows), two
+# epochs of 16 384 records in 8 shards; tasks of 1024 records are 4 steps,
+# so with a checkpoint every 2 steps one exists by step 6, where the
+# preempt_one_worker plan kills process 1 (chaos/plan.py:243); 128 steps
+# in all, plus the steps the re-formed world takes again from its restore
+ELASTIC_MNIST = dict(
+    MNIST, name="mnist_elastic", train_records=16384, eval_records=4096,
+    shards=8, records_per_task=1024, checkpoint_steps=2, epochs=2,
+)
+# DeepFM on the accuracy recipe (bench.py:961-969, vocabulary 512, 512 rows
+# a step), one epoch, tasks of 2048 records (4 steps)
+ELASTIC_DEEPFM = dict(
+    DEEPFM_ACCURACY, name="deepfm_elastic", records_per_task=2048,
+    checkpoint_steps=2, epochs=1,
+)
+ELASTIC_WORKERS = 2
+# the fault-free two-rank world against the Local run on the same data:
+# tests/test_lockstep.py:131-139's tolerances (8-device against 2-device
+# reduction orders through BatchNorm there; here cuDNN's algorithms on
+# 128 against 256 rows, in bf16)
+PARITY_RTOL, PARITY_ATOL = 5e-3, 3e-2
+# the two-rank LM against one rank on the same 8 rows, 2 Adam steps:
+# the summed gradient of step 1 within phase 5's bf16 tolerance on
+# gradients (GRAD_REL_ERR); the parameters' two-step updates within
+# DP_UPDATE_REL_ERR of each other in relative norm (Adam's first update
+# is lr * sign(g) elementwise, so gradients that round differently near
+# 0 flip whole-lr steps, about 0.1 of the norm per percent flipped; a
+# world that trained each half apart flips about half of them); every
+# element within 2 * lr * steps (Adam's bound)
+DP_LM_ROWS, DP_LM_STEPS = 8, 2
+DP_UPDATE_REL_ERR = 0.25
+
+
+class _ReportClock:
+    """Dispatcher observer: the monotonic time and records of every
+    successful training report (the steady rate of a world)."""
+
+    def __init__(self):
+        self.reports: list = []
+
+    def on_task_reported(self, task_id, task, success, counted):
+        if success and counted:
+            self.reports.append((time.monotonic(), task.end - task.start))
+
+    def steady_records_per_s(self, after: float) -> float | None:
+        """Records over the reports after the first one past ``after``
+        (the tasks after the first of the last world), per second."""
+        window = [r for r in self.reports if r[0] > after]
+        if len(window) < 2:
+            return None
+        return sum(n for _t, n in window[1:]) / (window[-1][0] - window[0][0])
+
+
+def _master_recorder():
+    """Patches ``master.main.build_master`` so that the CLI's master gets
+    an invariant checker on its dispatcher, servicer and re-formations
+    and a clock of its reports, and is kept for the checks."""
+    from elasticdl_tpu_torch.chaos.invariants import InvariantChecker
+    from elasticdl_tpu_torch.master import main as master_main
+
+    built = {}
+    original = master_main.build_master
+
+    def build(args):
+        master = original(args)
+        checker = InvariantChecker(expected_records=built["expected_records"])
+        master.task_d.add_observer(checker)
+        built["clock"] = _ReportClock()
+        master.task_d.add_observer(built["clock"])
+        master.servicer.add_version_observer(checker.on_version_report)
+        master.reform_callbacks.append(checker.on_reform)
+        built.update(master=master, checker=checker)
+        return master
+
+    return built, build
+
+
+def _elastic_argv(cfg: dict, data: dict, device: str, work_dir: str, envs: dict, tag: str):
+    env = ",".join(f"{k}={v}" for k, v in envs.items())
+    return _zoo_argv(cfg, data, device) + [
+        "--num_epochs", str(cfg["epochs"]),
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", str(ELASTIC_WORKERS), "--port", "0",
+        "--checkpoint_dir", os.path.join(work_dir, f"ckpt_{tag}"),
+        "--checkpoint_steps", str(cfg["checkpoint_steps"]),
+        "--heartbeat_timeout_secs", "30", "--envs", env,
+    ]
+
+
+def _load_npz(path: str) -> dict:
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _distributed_run(
+    cfg: dict, data: dict, device: str, work_dir: str, tag: str, plan=None, extra=()
+) -> dict:
+    """One ``AllreduceStrategy`` job of ``cfg`` through the train CLI,
+    under ``plan`` (a chaos plan name) or none: returns its master, the
+    checker's violations, the processes' final state dumps and the wall
+    seconds of the job."""
+    from unittest import mock
+
+    import numpy as np
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.utils.constants import TaskType
+    from elasticdl_tpu_torch.worker.lockstep import DUMP_STATE_ENV
+
+    dump_dir = os.path.join(work_dir, f"dump_{tag}")
+    envs = {DUMP_STATE_ENV: dump_dir}
+    events = os.path.join(work_dir, f"events_{tag}.jsonl")
+    if plan is not None:
+        plan_path = os.path.join(work_dir, f"plan_{tag}.json")
+        builtin_plans(ELASTIC_WORKERS)[plan].save(plan_path)
+        envs.update({chaos_hooks.PLAN_ENV: plan_path, chaos_hooks.EVENTS_ENV: events})
+    built, build = _master_recorder()
+    built["expected_records"] = cfg["train_records"] * cfg["epochs"]
+    argv = _elastic_argv(cfg, data, device, work_dir, envs, tag) + list(extra)
+    t0 = time.monotonic()
+    with mock.patch.object(master_main, "build_master", build):
+        rc = client.main(argv)
+    secs = time.monotonic() - t0
+    master = built["master"]
+    counters = master.task_d.counters(TaskType.TRAINING)
+    dumps = [_load_npz(os.path.join(dump_dir, f"final_state_p{p}.npz")) for p in range(ELASTIC_WORKERS)]
+    fired = []
+    if os.path.exists(events):
+        with open(events) as f:
+            fired = [json.loads(line) for line in f if line.strip()]
+    row = {
+        "rc": rc, "job_secs": secs, "total_records": counters.total_records,
+        "failed_records": counters.failed_records,
+        "records_per_s_whole_job": counters.total_records / secs,
+        # the last world's pace, its first task left out (its processes'
+        # start and, after a re-formation, the restore)
+        "steady_records_per_s": built["clock"].steady_records_per_s(
+            master.reform_events[-1]["detected_at"] if master.reform_events else 0.0
+        ),
+        "reform_events": [
+            {k: v for k, v in e.items() if k != "detected_at"} for e in master.reform_events
+        ],
+        "violations": [v.as_dict() for v in built["checker"].check(counters)],
+        "fired": [e.get("fault_id") or e.get("observation") for e in fired],
+        "dumps_bitwise_equal": set(dumps[0]) == set(dumps[1]) and all(
+            np.array_equal(dumps[0][k], dumps[1][k]) for k in dumps[0]
+        ),
+    }
+    return {"row": row, "master": master, "dumps": dumps, "ckpt": os.path.join(work_dir, f"ckpt_{tag}")}
+
+
+def _evaluate_checkpoint(cfg: dict, data: dict, device: str, ckpt: str) -> dict:
+    """The port's Local evaluate CLI (``api.evaluate``, the CLI's
+    backend) on a checkpoint."""
+    from elasticdl_tpu_torch import api
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+
+    argv = [
+        "--model_def", cfg["model_def"], "--validation_data", data["eval"],
+        "--minibatch_size", str(cfg["batch"]), "--records_per_task",
+        str(cfg["records_per_task"]), "--checkpoint_dir_for_init", ckpt,
+        "--device", device,
+    ]
+    if cfg["model_params"]:
+        argv += ["--model_params", cfg["model_params"]]
+    return api.evaluate(parse_master_args(argv))
+
+
+def elastic_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """Phase 10a (mnist) or the first half of 10b (DeepFM): ``cfg``'s job
+    under ``preempt_one_worker``, with its gates: rc 0, one re-formation
+    with a latency, every record counted once (the dispatcher's total is
+    epochs x records, and the checker finds no violation), the last
+    world's two final states bitwise equal, and the evaluate CLI's
+    accuracy on the final checkpoint above ``cfg["min_accuracy"]``."""
+    from elasticdl_tpu_torch.parallel import elastic
+
+    data = _zoo_data(work_dir, cfg)
+    run = _distributed_run(cfg, data, device, work_dir, "preempt", plan="preempt_one_worker")
+    row = dict(run["row"], backend=elastic.choose_backend(device, ELASTIC_WORKERS))
+    results = _evaluate_checkpoint(cfg, data, device, run["ckpt"])
+    row["accuracy"] = results.get(cfg["accuracy_key"])
+    row["reform_latency_secs"] = (
+        row["reform_events"][0].get("latency_secs") if row["reform_events"] else None
+    )
+    print(json.dumps({f"{cfg['name']}_preempt": row}), flush=True)
+    want_records = cfg["train_records"] * cfg["epochs"]
+    if (
+        row["rc"] != 0 or len(row["reform_events"]) != 1
+        or not row["reform_latency_secs"] or row["reform_latency_secs"] <= 0
+        or row["total_records"] != want_records or row["violations"]
+        or not row["dumps_bitwise_equal"]
+        or row["accuracy"] is None or not row["accuracy"] > cfg["min_accuracy"]
+        or row["fired"][:1] != [f"preempt-p{ELASTIC_WORKERS - 1}"]
+    ):
+        raise AssertionError(f"{cfg['name']}: the preempted job failed its gates: {row}")
+    return {"row": row, "data": data, "ckpt": run["ckpt"]}
+
+
+def elastic_parity_run(
+    work_dir: str, cfg: dict, data: dict, init_ckpt: str, device: str = "cuda"
+) -> dict:
+    """The second half of phase 10b: a fault-free two-rank run of ``cfg``
+    (one epoch) against the Local run on the same data, task order and
+    global batch, both warm-started from ``init_ckpt`` (phase 10a's final
+    checkpoint: from flax's initial BatchNorm, mnist turns the two runs'
+    reduction-order noise of about 1e-7 a step into differences up to
+    O(1) within a few steps, a trained model does not): final parameters
+    and statistics within ``PARITY_RTOL``/``PARITY_ATOL``, and the two
+    ranks bitwise equal."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.utils import save_utils
+
+    cfg = dict(cfg, epochs=1)
+    init = ("--checkpoint_dir_for_init", init_ckpt)
+    run = _distributed_run(cfg, data, device, work_dir, "parity", extra=init)
+    local_ckpt = os.path.join(work_dir, "ckpt_local")
+    t0 = time.monotonic()
+    rc = client.main(_zoo_argv(cfg, data, device, *init) + ["--checkpoint_dir", local_ckpt])
+    local_secs = time.monotonic() - t0
+    local, _extra = save_utils.restore_checkpoint(local_ckpt)
+    world, _extra = save_utils.restore_checkpoint(run["ckpt"])
+    dump = run["dumps"][0]
+    worst = {}
+    for key, want in local.items():
+        got = dump[key]
+        worst[key] = float(np.max(np.abs(got.astype(np.float64) - want)))
+        np.testing.assert_allclose(
+            got.astype(np.float64), want.astype(np.float64),
+            rtol=PARITY_RTOL, atol=PARITY_ATOL, err_msg=key,
+        )
+        if not np.array_equal(world[key], got):
+            raise AssertionError(f"{key}: the world's final checkpoint is not its final state")
+    row = dict(
+        run["row"], local_rc=rc, local_secs=local_secs,
+        local_records_per_s_whole_job=cfg["train_records"] / local_secs,
+        max_abs_diff_to_local=max(worst.values()), worst_key=max(worst, key=worst.get),
+    )
+    print(json.dumps({f"{cfg['name']}_parity": row}), flush=True)
+    if rc != 0 or row["rc"] != 0 or row["reform_events"] or not row["dumps_bitwise_equal"] \
+            or row["total_records"] != cfg["train_records"]:
+        raise AssertionError(f"the fault-free two-rank run failed its gates: {row}")
+    return row
+
+
+def _grads_recorder(trainer, into: list):
+    """Wraps ``trainer.state.apply_gradients`` to keep a copy of each
+    step's gradients (the all-reduced ones in a world)."""
+    apply = trainer.state.apply_gradients
+
+    def recording(grads):
+        into.append({n: g.detach().clone() for n, g in grads.items() if g is not None})
+        return apply(grads)
+
+    trainer.state.apply_gradients = recording
+
+
+def _lm_trainer(cfg: dict, device, process_group=None):
+    import torch
+
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.step import resolve_optimizer
+
+    model = lm.custom_model(**cfg)
+    lm.init_weights(model, torch.Generator().manual_seed(0))
+    return SPMDTrainer(
+        model, lm.loss, resolve_optimizer(lm.optimizer), device=device,
+        process_group=process_group,
+    )
+
+
+def _lm_batch(cfg: dict, seq: int):
+    import numpy as np
+
+    tokens = np.random.RandomState(1).randint(
+        0, cfg["vocab_size"], (DP_LM_ROWS, seq + 1)
+    ).astype(np.int32)
+    return {"tokens": tokens[:, :-1]}, tokens[:, 1:], np.ones(DP_LM_ROWS, np.float32)
+
+
+def _dp_lm_child(rank, world_size, port, device, cfg, seq, out_dir):
+    """One rank of phase 10c (run by ``torch.multiprocessing``): two Adam
+    steps of its rows of the LM's batch, its kernel launches per step,
+    and on rank 0 the one-rank run on the whole batch it is held to.
+    ``cfg`` and ``seq``: the LM's config and sequence length (passed, as
+    a spawned process imports this module afresh)."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.parallel import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = elastic.initialize_world(f"localhost:{port}", world_size, rank, device=device)
+    out = {"rank": rank, "backend": world.backend, "device": str(world.device)}
+    trainer = _lm_trainer(cfg, world.device, world.group)
+    trainer.broadcast_state()
+    start = {n: p.detach().clone() for n, p in trainer.state.model.named_parameters()}
+    grads: list = []
+    _grads_recorder(trainer, grads)
+    batch = _lm_batch(cfg, seq)
+    out["losses"], out["launches_per_step"] = [], []
+    out["step_secs"] = []
+    for _ in range(DP_LM_STEPS):
+        attn.reset_launch_counts()
+        t0 = time.monotonic()
+        placed = trainer.place_step(*batch)
+        out["rows"] = int(placed[0]["tokens"].shape[0])
+        out["losses"].append(float(trainer.train_step(*placed)["loss"]))  # waits
+        out["step_secs"].append(time.monotonic() - t0)
+        out["launches_per_step"].append(dict(attn.launch_counts))
+    if rank == 0:
+        ref = _lm_trainer(cfg, world.device)
+        ref_grads: list = []
+        _grads_recorder(ref, ref_grads)
+        out["ref_losses"] = [
+            float(ref.train_step(*ref.place_step(*batch))["loss"]) for _ in range(DP_LM_STEPS)
+        ]
+        g, h = grads[0], ref_grads[0]
+        out["grad_rel_err"] = (
+            sum((g[n] - h[n]).double().pow(2).sum().item() for n in h)
+            / sum(h[n].double().pow(2).sum().item() for n in h)
+        ) ** 0.5
+        params = dict(trainer.state.model.named_parameters())
+        ref_params = dict(ref.state.model.named_parameters())
+        diff_sq = upd_sq = 0.0
+        max_abs = 0.0
+        for n, p0 in start.items():
+            d = (params[n] - ref_params[n]).double()
+            diff_sq += d.pow(2).sum().item()
+            upd_sq += (ref_params[n] - p0).double().pow(2).sum().item()
+            max_abs = max(max_abs, d.abs().max().item())
+        out["update_rel_err"] = (diff_sq / upd_sq) ** 0.5
+        out["param_max_abs_diff"] = max_abs
+        out["lr"] = trainer.state.optimizer.param_groups[0]["lr"]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    elastic.shutdown_world()
+
+
+def dp_lm_run(device: str = "cuda") -> dict:
+    """Phase 10c: the LM in a two-rank world (2 x 4 rows) against one
+    rank on the same 8 rows, from the same seeded weights, for 2 Adam
+    steps; each rank's wrappers count each flash kernel's launches per
+    step (``GPT2S["num_layers"]`` on the card; the CPU takes the plain
+    path).  Returns the phase's row, with both ranks' launches."""
+    import torch.multiprocessing as tmp
+
+    from elasticdl_tpu_torch.parallel import elastic
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_lm_") as out_dir:
+        t0 = time.monotonic()
+        tmp.spawn(
+            _dp_lm_child,
+            args=(ELASTIC_WORKERS, elastic.pick_coordinator_port(), device,
+                  dict(GPT2S), SEQ, out_dir),
+            nprocs=ELASTIC_WORKERS, join=True,
+        )
+        secs = time.monotonic() - t0
+        ranks = []
+        for rank in range(ELASTIC_WORKERS):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+    per_step = GPT2S["num_layers"] if device == "cuda" else 0
+    r0 = ranks[0]
+    world_losses = [sum(r["losses"][i] for r in ranks) for i in range(DP_LM_STEPS)]
+    launches = {
+        name: sum(c[name] for r in ranks for c in r["launches_per_step"])
+        for name in r0["launches_per_step"][0]
+    }
+    row = {
+        "secs": secs, "backend": r0["backend"], "rows_per_rank": [r["rows"] for r in ranks],
+        "world_losses": world_losses, "one_rank_losses": r0["ref_losses"],
+        "grad_rel_err": r0["grad_rel_err"], "update_rel_err": r0["update_rel_err"],
+        "param_max_abs_diff": r0["param_max_abs_diff"],
+        "step_secs_per_rank": [r["step_secs"] for r in ranks],
+        "launches_per_rank_step": [r["launches_per_step"] for r in ranks],
+        "launches": launches,
+    }
+    print(json.dumps({"dp_lm": row}), flush=True)
+    bound = 2 * r0["lr"] * DP_LM_STEPS
+    if (
+        any(n != per_step for r in ranks for c in r["launches_per_step"] for n in c.values())
+        or row["rows_per_rank"] != [DP_LM_ROWS // ELASTIC_WORKERS] * ELASTIC_WORKERS
+        or row["grad_rel_err"] > GRAD_REL_ERR
+        or row["update_rel_err"] > DP_UPDATE_REL_ERR
+        or not row["param_max_abs_diff"] <= bound
+        or abs(world_losses[0] - r0["ref_losses"][0]) > GRAD_REL_ERR * abs(r0["ref_losses"][0])
+        or len({r["backend"] for r in ranks}) != 1
+    ):
+        raise AssertionError(f"the two-rank LM disagrees with one rank: {row}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2484,6 +2909,26 @@ def main() -> int:
     stacked_launches = stacked["lm"]["checked"]["launches"]
     print(json.dumps({"stacked": stacked}), flush=True)
 
+    # ---- 10. AllreduceStrategy: two worker processes under the port's
+    # master, a preemption and the re-formed world, through the train CLI
+    elastic_rows = {"device": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as work_dir:
+        _release_memory("cuda")
+        mnist_dir = os.path.join(work_dir, "mnist")
+        mnist_run = elastic_preempt_run(mnist_dir, ELASTIC_MNIST)
+        elastic_rows["mnist_preempt"] = mnist_run["row"]
+        elastic_rows["deepfm_preempt"] = elastic_preempt_run(
+            os.path.join(work_dir, "deepfm"), ELASTIC_DEEPFM
+        )["row"]
+        elastic_rows["mnist_parity"] = elastic_parity_run(
+            os.path.join(work_dir, "parity"), ELASTIC_MNIST, mnist_run["data"],
+            mnist_run["ckpt"],
+        )
+    _release_memory("cuda")
+    dp_lm = dp_lm_run()
+    elastic_rows["dp_lm"] = dp_lm
+    print(json.dumps({"elastic": elastic_rows}), flush=True)
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -2491,7 +2936,7 @@ def main() -> int:
             "source": f"elasticdl_tpu_torch/ops/csrc/{source}",
             "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
             "launches": train_launches[name] + local_launches[name]
-            + stacked_launches[name]
+            + stacked_launches[name] + dp_lm["launches"][name]
             + (serve_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

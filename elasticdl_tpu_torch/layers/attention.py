@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.ops import attention as attention_ops
+from elasticdl_tpu_torch.parallel import elastic
 
 # flax nn.LayerNorm's default epsilon
 LAYER_NORM_EPS = 1e-6
@@ -90,10 +91,18 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
     """flax ``nn.Dropout``: keep each element with probability
     ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``; the mask
     comes from ``generator``.  ``generator=None`` means inference: ``x``
-    unchanged."""
+    unchanged.  In a data-parallel step (``parallel/elastic.py``) the mask
+    is the global batch's, cut to this process's rows."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rows = elastic.current_rows()
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        # a data-parallel step draws the global batch's mask and keeps its
+        # own rows, so the masks are those of one process on the batch
+        shape = (rows.total,) + tuple(x.shape[1:])
+        keep = torch.rand(shape, generator=generator, device=x.device)[rows.start:rows.stop] >= rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 

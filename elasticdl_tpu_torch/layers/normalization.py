@@ -11,6 +11,12 @@ does not follow.
 - ``epsilon`` defaults to flax's 1e-5.
 - Batch statistics cover every row the layer sees, the zero-weight
   padding rows of a canonical batch included, as in the JAX step.
+- In a data-parallel step (``parallel/elastic.py::current_rows``) they
+  cover the GLOBAL batch, as the JAX step's do over its sharded batch:
+  each process all-reduces its sums of x and x^2 in f32 over the group,
+  through an all-reduce autograd sees
+  (``torch.distributed.nn.functional.all_reduce``), so the backward
+  carries the statistics' cross-process terms.
 
 Parameter and statistic names are flax's (``scale``, ``bias``; the
 ``batch_stats`` collection's ``mean`` and ``var``), and all four stay
@@ -30,6 +36,7 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.layers.attention import compute_dtype
+from elasticdl_tpu_torch.parallel import elastic
 
 # flax nn.BatchNorm's defaults
 BATCH_NORM_EPS = 1e-5
@@ -71,8 +78,13 @@ class BatchNorm(nn.Module):
         if training:
             reduce = [d for d in range(x.ndim) if d != axis]
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(reduce)
-            var = torch.clamp((xf * xf).mean(reduce) - mean * mean, min=0.0)
+            rows = elastic.current_rows()
+            if rows is None:
+                mean = xf.mean(reduce)
+                mean_sq = (xf * xf).mean(reduce)
+            else:
+                mean, mean_sq = _global_means(xf, reduce, axis, rows)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.update_statistics:
                 with torch.no_grad():
                     m = self.momentum
@@ -84,6 +96,18 @@ class BatchNorm(nn.Module):
         y = (x - mean.reshape(feature_shape)) * mul.reshape(feature_shape)
         y = y + self.bias.reshape(feature_shape)
         return y.to(compute_dtype(self.dtype, x))
+
+
+def _global_means(xf: torch.Tensor, reduce: list, axis: int, rows) -> tuple:
+    """E[x] and E[x^2] over the global batch of a data-parallel step:
+    this process's sums all-reduced over the group (every process holds
+    the same number of rows)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    count = (xf.numel() // xf.shape[axis]) * rows.world_size
+    sums = torch.stack([xf.sum(reduce), (xf * xf).sum(reduce)])
+    sums = all_reduce(sums, group=rows.group)
+    return sums[0] / count, sums[1] / count
 
 
 @contextlib.contextmanager

@@ -1,0 +1,81 @@
+"""Master process entry; the counterpart of
+``elasticdl_tpu/master/main.py``.
+
+``python -m elasticdl_tpu_torch.master.main --model_def=... --training_data=...
+--distribution_strategy AllreduceStrategy --num_workers 2`` starts the
+control plane and spawns the workers as local subprocesses, wired back
+over ``rpc/service.py``; ``api.py`` runs it in the CLI's process.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from elasticdl_tpu_torch.master.master import LocalInstanceManager, Master
+from elasticdl_tpu_torch.utils.args import (
+    build_worker_arguments,
+    check_distributed_flags,
+    check_ported_flags,
+    parse_master_args,
+)
+from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
+
+
+def worker_envs(args) -> dict[str, str]:
+    """The environment the master adds to every worker's: ``--envs``,
+    and the RPC retry budget and deadlines, which travel by env (never
+    argv)."""
+    from elasticdl_tpu_torch.rpc.deadline import DEADLINE_SECS_ENV
+    from elasticdl_tpu_torch.rpc.retry import RETRY_SECS_ENV
+
+    envs = dict(args.envs_dict)
+    if args.rpc_retry_secs is not None:
+        envs.setdefault(RETRY_SECS_ENV, str(args.rpc_retry_secs))
+    if args.rpc_deadline_secs is not None:
+        envs.setdefault(DEADLINE_SECS_ENV, str(args.rpc_deadline_secs))
+    return envs
+
+
+def build_master(args) -> Master:
+    """A Master with its local instance manager (exposed so tests and
+    embedding callers can drive the lifecycle).  Refuses what the port
+    cannot run yet (``check_ported_flags``, ``check_distributed_flags``)."""
+    check_ported_flags(args)
+    check_distributed_flags(args)
+
+    def build_argv(worker_id, master_addr, **world_kwargs):
+        argv = [
+            "elasticdl_tpu_torch.worker.main",
+            *build_worker_arguments(args, worker_id, master_addr),
+        ]
+        # the world coordinates, per process and per generation
+        for key, value in world_kwargs.items():
+            argv.extend([f"--{key}", str(value)])
+        return argv
+
+    def im_factory(master):
+        return LocalInstanceManager(
+            master,
+            args.num_workers,
+            build_argv,
+            envs=worker_envs(args),
+            max_reforms=args.relaunch_on_worker_failure,
+        )
+
+    return Master(args, instance_manager_factory=im_factory)
+
+
+def main(argv=None) -> int:
+    args = parse_master_args(argv)
+    master = build_master(args)
+    master.prepare()
+    logger.info(
+        "Master ready on port %d (job type %s)", master.port, master.job_type.value
+    )
+    rc = master.run()
+    logger.info("Job summary: %s", master.job_summary())
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,15 @@
 """The trainer: device-side state plus the train/eval/predict steps; the
 counterpart of ``elasticdl_tpu/parallel/distributed.py::SPMDTrainer``.
 
-This slice runs on one device: an explicit ``device`` takes the place of
-the JAX trainer's mesh, and gradients need no all-reduce.  The data-
-parallel axis (``torch.distributed``) comes with a later slice; the
-shape-canonical batching below (``pad_to`` + ``row_mask``) is already
-the one every runtime uses, so padded rows carry zero weight.
+One trainer holds one device: an explicit ``device`` takes the place of
+the JAX trainer's mesh.  With a ``process_group`` it is one process of a
+data-parallel world (the mesh's dp axis across processes): it places
+only its own rows of each canonical batch (``place_step``,
+``place_group``; ``parallel/elastic.py::local_batch_ranges``) beside the
+whole row mask, and its step SUM-all-reduces the gradients over the
+group (``trainer/step.py``).  The shape-canonical batching below
+(``pad_to`` + ``row_mask``) is the one every runtime uses, so padded
+rows carry zero weight.
 
 k optimizer steps in one dispatch (``train_steps_stacked``, JAX's
 jitted ``lax.scan``) are one CUDA graph replay on the card: the first
@@ -13,7 +17,9 @@ group of a given ``(k, shapes)`` runs as k eager steps on a side stream
 (it also warms the optimizer's state, the allocator and the libraries),
 the second is captured into a graph of the k steps over static input
 buffers and replayed, and every later one is copied into those buffers
-and replayed.  On the CPU, which has no graphs, the k steps run eagerly.
+and replayed.  On the CPU, which has no graphs, and under a process
+group on any device, the k steps run eagerly: a capture of collectives
+waits for worlds of a card per process.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from elasticdl_tpu_torch.layers.attention import dropout_seed
+from elasticdl_tpu_torch.parallel.elastic import local_batch_ranges
 from elasticdl_tpu_torch.trainer.state import TrainState, make_capturable
 from elasticdl_tpu_torch.trainer.step import (
     build_eval_step,
@@ -45,6 +53,7 @@ class SPMDTrainer:
         device: str | torch.device = "cuda",
         device_parse: Callable | None = None,
         remat: bool = False,
+        process_group=None,
     ):
         """``model`` comes with its weights (torch modules initialise
         eagerly; the JAX trainer inits from a sample batch instead) and
@@ -53,15 +62,24 @@ class SPMDTrainer:
         unless the caller asks for the CPU.  ``device_parse`` (the
         model's device-side half of its parse) runs in every step on the
         placed features.  ``remat`` recomputes the forward in the
-        backward (``build_train_step``)."""
+        backward (``build_train_step``).  ``process_group``: this trainer
+        is one process of that data-parallel world (module docstring);
+        the caller restores every process from one checkpoint or calls
+        :meth:`broadcast_state`."""
         self.device = resolve_device(device)
         self.state = TrainState.create(model.to(self.device), tx)
+        self.process_group = process_group
+        if process_group is None:
+            self._rank, self._world_size = 0, 1
+        else:
+            self._rank = dist.get_rank(process_group)
+            self._world_size = dist.get_world_size(process_group)
         # set by the first stacked group on the card (make_capturable)
         self._graph_lr_ok: bool | None = None
         self._remat = remat
         self._train_step = build_train_step(
             loss_fn, compute_dtype=compute_dtype, device_parse=device_parse,
-            remat=remat,
+            remat=remat, process_group=process_group,
         )
         self._eval_step = build_eval_step(loss_fn, device_parse=device_parse)
         self._predict_step = build_predict_step(device_parse)
@@ -104,14 +122,42 @@ class SPMDTrainer:
 
         return map_tree(_place, tree)
 
+    def _local_rows(self, tree, rows: int, axis: int):
+        """This process's rows of a host batch tree, along ``axis`` (the
+        whole tree outside a data-parallel world)."""
+        if self.process_group is None:
+            return tree
+        (start, stop), = local_batch_ranges(rows, self._world_size, self._rank)
+        index = (slice(None),) * axis + (slice(start, stop),)
+        return map_tree(lambda x: x[index], tree)
+
+    def place_step(self, features, labels, weights):
+        """One canonical host batch ``(features, labels, weights)`` on the
+        device, for :meth:`train_step`: in a data-parallel world this
+        process's rows of the features and labels, beside the whole row
+        mask."""
+        rows = int(np.shape(weights)[0])
+        return (
+            self.place_batch(self._local_rows(features, rows, 0)),
+            self.place_batch(self._local_rows(labels, rows, 0)),
+            self.place_batch(weights),
+        )
+
     def place_group(self, features, labels, weights):
         """A stacked host group ``(features, labels, weights)`` placed
-        with :meth:`place_stacked`, after the model's host check of the
-        features (``validate_features``, where the model has one): a graph
-        replay runs no check of its own on the card."""
+        with :meth:`place_stacked` (this process's rows of the features
+        and labels in a data-parallel world, as :meth:`place_step`),
+        after the model's host check of the features
+        (``validate_features``, where the model has one): a graph replay
+        runs no check of its own on the card."""
         if self._check_features is not None:
             self._check_features(features)
-        return tuple(self.place_stacked(x) for x in (features, labels, weights))
+        rows = int(np.shape(weights)[1])
+        return (
+            self.place_stacked(self._local_rows(features, rows, 1)),
+            self.place_stacked(self._local_rows(labels, rows, 1)),
+            self.place_stacked(weights),
+        )
 
     def pad_to(self, tree, rows: int):
         """Pad the batch's leading dim to EXACTLY ``rows`` (repeating the
@@ -171,7 +217,7 @@ class SPMDTrainer:
         update; single-step runs never get there and keep the optimizer
         as built."""
         k = int(tree_leaves(features)[0].shape[0])
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.process_group is not None:
             self.dispatch_counts["eager_groups"] += 1
             return self._eager_steps(k, features, labels, weights)
         if self._graph_lr_ok is None:
@@ -203,6 +249,21 @@ class SPMDTrainer:
                 self.state, *(map_tree(lambda x: x[j], t) for t in (features, labels, weights))
             )
         return metrics
+
+    def broadcast_state(self) -> int:
+        """Give every process of the world process 0's parameters,
+        buffers and step count (the start of a world: process 0 alone
+        restores a checkpoint, or keeps its seeded weights); returns the
+        step.  The optimizer's state is fresh on every process."""
+        if self.process_group is None:
+            return self.state.step
+        src = dist.get_global_rank(self.process_group, 0)
+        step = torch.tensor([self.state.step], dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for tensor in [step, *self.state.model.parameters(), *self.state.model.buffers()]:
+                dist.broadcast(tensor.data, src, group=self.process_group)
+        self.state.step = int(step.item())
+        return self.state.step
 
     def eval_step(self, features, labels, weights=None):
         return self._eval_step(self.state, features, labels, weights)

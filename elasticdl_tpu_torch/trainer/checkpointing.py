@@ -1,6 +1,8 @@
 """Periodic checkpoints and resume; the counterpart of
-``elasticdl_tpu/trainer/checkpointing.py`` for one process and dense
-state.
+``elasticdl_tpu/trainer/checkpointing.py`` for dense state.  In a
+multi-process world process 0 writes every checkpoint as one part, and
+restores it for all (``worker/lockstep.py``).  Saves and restores call
+the chaos hooks (``chaos/hooks.py``), a no-op without a fault plan.
 
 The host snapshot of the weights (``state_to_checkpoint``: device to
 host copies, flax names and layouts) is taken on the training thread;
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import threading
 
+from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.trainer.state import checkpoint_to_state, state_to_checkpoint
 from elasticdl_tpu_torch.utils import save_utils
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
@@ -67,6 +70,7 @@ class PeriodicCheckpointer:
         version = trainer.step
         if skip_if_current and version == self._last_saved_version:
             return
+        chaos_hooks.notify_checkpoint_save(int(version))
         dense = state_to_checkpoint(trainer.state)  # host arrays, owned
         self._last_saved_version = version
         self.flush()
@@ -132,6 +136,7 @@ def restore_trainer_state(trainer, args) -> int | None:
     restored_step = version if resume else 0
     checkpoint_to_state(trainer.state, dense)
     trainer.state.step = restored_step
+    chaos_hooks.notify_checkpoint_restore(version)
     logger.info(
         "Restored state at version %d from %s%s",
         version,

@@ -324,7 +324,7 @@ def _assemble_prestacked(item: PreStacked):
 def _place_assembled(trainer, kind, assembled):
     if kind == StagedGroup.KIND_STACKED:
         return trainer.place_group(*assembled)
-    return [tuple(trainer.place_batch(x) for x in single) for single in assembled]
+    return [trainer.place_step(*single) for single in assembled]
 
 
 class TaskMark:

@@ -247,7 +247,7 @@ def run_stacked_steps(
         else:
             for placed in assembled:
                 with ctx():
-                    trainer.train_step(*(trainer.place_batch(x) for x in placed))
+                    trainer.train_step(*trainer.place_step(*placed))
         processed += sum(n for _f, _l, n in group)
         group.clear()
         if post_group is not None:

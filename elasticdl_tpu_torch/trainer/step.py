@@ -15,10 +15,12 @@ import functools
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.layers.attention import dropout_generator
 from elasticdl_tpu_torch.layers.normalization import frozen_statistics
+from elasticdl_tpu_torch.parallel import elastic
 from elasticdl_tpu_torch.trainer.state import TrainState
 from elasticdl_tpu_torch.utils.tree_utils import map_tree
 
@@ -34,8 +36,8 @@ def _cast_floats(tree, dtype):
     )
 
 
-def weighted_mean_loss(loss_fn, labels, outputs, weights):
-    """``sum(w_i * loss_i) / max(sum(w_i), 1)`` with per-row losses from
+def weighted_mean_loss(loss_fn, labels, outputs, weights, weight_total=None):
+    """``sum(w_i * loss_i) / max(W, 1)`` with per-row losses from
     ``loss_fn`` on singleton batches, vmapped over the rows as the JAX
     package vmaps them (``torch.func.vmap``: one batched call, not a
     call per row).
@@ -44,7 +46,12 @@ def weighted_mean_loss(loss_fn, labels, outputs, weights):
     (padding ``pad_to`` appended) contributes exactly zero to this loss
     and so exactly zero gradient.  For a ``loss_fn`` that is a mean of
     per-row terms, all-ones weights give ``loss_fn(labels, outputs)`` up
-    to summation order."""
+    to summation order.
+
+    ``W`` is ``sum(w_i)``, or ``weight_total`` when given: a process of a
+    data-parallel world holds some rows of the global batch and divides
+    by the GLOBAL weight sum, so that the processes' losses (and
+    gradients) sum to the global batch's."""
 
     def one_row(labels_row, outputs_row):
         return loss_fn(
@@ -54,8 +61,9 @@ def weighted_mean_loss(loss_fn, labels, outputs, weights):
 
     per_row = torch.func.vmap(one_row)(labels, outputs)
     weights = weights.to(per_row.dtype)
+    total = weights.sum() if weight_total is None else weight_total.to(per_row.dtype)
     # max(sum, 1) guards the (never-dispatched) all-zero mask
-    return (weights * per_row).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (weights * per_row).sum() / torch.clamp(total, min=1.0)
 
 
 def build_train_step(
@@ -63,6 +71,7 @@ def build_train_step(
     compute_dtype=None,
     device_parse: Callable | None = None,
     remat: bool = False,
+    process_group=None,
 ) -> Callable:
     """Build ``train_step(state, features, labels, weights=None,
     generators=None) -> (state, {"loss": loss})``.
@@ -85,6 +94,19 @@ def build_train_step(
         (:func:`~elasticdl_tpu_torch.layers.normalization.frozen_statistics`),
         so the step's gradients and statistics are those without remat.
 
+    process_group: a data-parallel step over the group's processes
+        (the dp axis of the JAX step).  ``features`` and ``labels`` are
+        this process's rows of the global batch
+        (``parallel/elastic.py::local_batch_ranges``), ``weights`` the
+        global batch's whole row mask (required).  The loss divides by
+        the global weight sum, which every process reads off the mask
+        with no communication; BatchNorm and dropout act on the global
+        batch (``elastic.current_rows``); the gradients are SUM-all-
+        reduced in f32 over the group before the update, so every
+        process applies the global batch's gradients to its copy of the
+        state.  The loss returned is this process's share of the global
+        loss.
+
     Dropout masks come from ``dropout_generator(state.step, device)``:
     the same for a replayed step, fresh for every step, and built anew
     for each run of the forward.  ``generators`` replaces that: the
@@ -93,7 +115,8 @@ def build_train_step(
     with ``dropout_generator``'s seed of the step it replays.
     """
 
-    def forward_loss(state: TrainState, features, labels, weights, next_generator):
+    def forward_loss(state: TrainState, features, labels, weights, next_generator,
+                     weight_total=None):
         if device_parse is not None:
             features = device_parse(features)
         features = _cast_floats(features, compute_dtype)
@@ -101,7 +124,7 @@ def build_train_step(
         if weights is None:
             loss = loss_fn(labels, outputs)
         else:
-            loss = weighted_mean_loss(loss_fn, labels, outputs, weights)
+            loss = weighted_mean_loss(loss_fn, labels, outputs, weights, weight_total)
         # the JAX step adds losses sown by layers (MoE load balancing);
         # no ported layer sows one yet
         return loss.float()
@@ -109,10 +132,11 @@ def build_train_step(
     if remat:
         plain_forward_loss = forward_loss
 
-        def forward_loss(state, features, labels, weights, next_generator):
+        def forward_loss(state, features, labels, weights, next_generator,
+                         weight_total=None):
             return checkpoint(
                 plain_forward_loss, state, features, labels, weights,
-                next_generator, use_reentrant=False,
+                next_generator, weight_total, use_reentrant=False,
                 # dropout draws from explicit generators, not the global
                 # RNG, whose state a CUDA graph capture cannot read
                 preserve_rng_state=False,
@@ -130,17 +154,58 @@ def build_train_step(
                 return dropout_generator(state.step, device)
         else:
             next_generator = iter(generators).__next__
-        loss = forward_loss(state, features, labels, weights, next_generator)
         named = [
             (n, p) for n, p in state.model.named_parameters() if p.requires_grad
         ]
-        grads = torch.autograd.grad(
-            loss, [p for _, p in named], allow_unused=True
-        )
+        if process_group is None:
+            loss = forward_loss(state, features, labels, weights, next_generator)
+            grads = torch.autograd.grad(
+                loss, [p for _, p in named], allow_unused=True
+            )
+        else:
+            if weights is None:
+                raise ValueError("a data-parallel step needs the batch's row mask")
+            world_size = dist.get_world_size(process_group)
+            (start, stop), = elastic.local_batch_ranges(
+                weights.shape[0], world_size, dist.get_rank(process_group)
+            )
+            rows = elastic.DataParallelRows(
+                process_group, start, stop, weights.shape[0], world_size
+            )
+            # the backward runs inside too: it all-reduces BatchNorm's
+            # statistics' gradients (and, with remat, reruns the forward)
+            with elastic.data_parallel_rows(rows):
+                loss = forward_loss(
+                    state, features, labels, weights[start:stop],
+                    next_generator, weight_total=weights.sum(),
+                )
+                grads = torch.autograd.grad(
+                    loss, [p for _, p in named], allow_unused=True
+                )
+            grads = all_reduce_gradients(grads, process_group)
         state.apply_gradients({n: g for (n, _), g in zip(named, grads)})
         return state, {"loss": loss.detach()}
 
     return train_step
+
+
+def all_reduce_gradients(grads, process_group) -> list:
+    """SUM-all-reduce ``grads`` (``None`` for unused parameters, the same
+    on every process) over ``process_group`` in f32, as one flat buffer:
+    one collective per step."""
+    present = [g for g in grads if g is not None]
+    if not present:
+        return list(grads)
+    flat = torch.cat([g.reshape(-1).float() for g in present])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=process_group)
+    out, offset = [], 0
+    for g in grads:
+        if g is None:
+            out.append(None)
+            continue
+        out.append(flat[offset:offset + g.numel()].view(g.shape).to(g.dtype))
+        offset += g.numel()
+    return out
 
 
 def build_eval_step(

@@ -7,9 +7,15 @@ torch device a job runs on.  The JAX CLI's ``--jax_platform`` is taken
 too and mapped onto it (``cpu`` to ``cpu``, ``gpu`` to ``cuda``); any
 other platform is refused by name.  Every other flag is the JAX CLI's.
 A flag whose feature the port does not have yet is parsed like any
-other, and :func:`check_ported_flags` (called when an executor is
-built) raises when it is set to anything but its default, naming the
-flag and the slice of ``ROADMAP.md`` queue 1 that brings it.
+other, and :func:`check_ported_flags` (called when an executor or a
+master is built) raises when it is set to anything but its default,
+naming the flag and the slice of ``ROADMAP.md`` queue 1 that brings it;
+:func:`check_distributed_flags` does the same for what a distributed
+job cannot do yet.
+
+The master assembles each worker's argv from its own flags
+(:func:`build_worker_arguments`), and the worker parses it with
+:func:`parse_worker_args`, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 from elasticdl_tpu_torch.utils.constants import (
     MASTER_DEFAULT_PORT,
     DistributionStrategy,
+    JobType,
 )
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
@@ -294,7 +301,8 @@ def _add_mesh_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--num_workers", type=non_neg_int, default=1,
-        help="Number of worker processes (not ported: 1)",
+        help="Worker processes of a distributed job; 2 or more form one "
+        "world that trains one model",
     )
     parser.add_argument(
         "--mesh_shape",
@@ -424,6 +432,30 @@ def _add_master_params(parser: argparse.ArgumentParser):
     parser.add_argument("--standby_workers", type=int, default=-1)
 
 
+def _add_worker_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--worker_id", type=non_neg_int, required=True)
+    parser.add_argument("--master_addr", required=True)
+    parser.add_argument(
+        "--coordinator_addr",
+        default="",
+        help="Address of the world's store (process 0 hosts it); "
+        "non-empty selects the lockstep runtime",
+    )
+    parser.add_argument(
+        "--num_processes", type=pos_int, default=1,
+        help="Processes in the distributed world this worker joins",
+    )
+    parser.add_argument(
+        "--process_id", type=non_neg_int, default=0,
+        help="This worker's process index in the distributed world",
+    )
+    parser.add_argument(
+        "--cluster_version", type=non_neg_int, default=0,
+        help="World generation assigned by the master; fences stale "
+        "workers after a re-formation",
+    )
+
+
 _MASTER_GROUPS = (
     _add_job_params,
     _add_model_spec_params,
@@ -431,6 +463,15 @@ _MASTER_GROUPS = (
     _add_train_params,
     _add_mesh_params,
     _add_master_params,
+)
+
+_WORKER_GROUPS = (
+    _add_job_params,
+    _add_model_spec_params,
+    _add_data_params,
+    _add_train_params,
+    _add_mesh_params,
+    _add_worker_params,
 )
 
 
@@ -456,8 +497,19 @@ def _finalize(args: argparse.Namespace) -> argparse.Namespace:
         args.get_model_steps = 1
     args.model_params_dict = parse_params_dict(args.model_params)
     args.data_reader_params_dict = parse_params_dict(args.data_reader_params)
+    args.envs_dict = parse_envs(args.envs)
     args.device = resolve_device_flags(args.device, args.jax_platform)
     return args
+
+
+def parse_envs(arg: str | None) -> dict[str, str]:
+    """``--envs k1=v1,k2=v2``: the extra environment of worker processes."""
+    envs: dict[str, str] = {}
+    for kv in (arg or "").split(","):
+        if kv:
+            k, _, v = kv.partition("=")
+            envs[k.strip()] = v.strip()
+    return envs
 
 
 # the JAX platforms that have a torch device in the port
@@ -494,12 +546,90 @@ def _master_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def parse_master_args(argv=None) -> argparse.Namespace:
-    args, unknown = _master_parser().parse_known_args(argv)
+def _parse_known(parser: argparse.ArgumentParser, argv) -> argparse.Namespace:
+    args, unknown = parser.parse_known_args(argv)
     if unknown:
         # surface typos, as the JAX CLI does
         logger.warning("Unknown arguments: %s", unknown)
     return _finalize(args)
+
+
+def parse_master_args(argv=None) -> argparse.Namespace:
+    return _parse_known(_master_parser(), argv)
+
+
+def parse_worker_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="ElasticDL (PyTorch) worker")
+    for group in _WORKER_GROUPS:
+        group(parser)
+    return _parse_known(parser, argv)
+
+
+# Flags that exist only on the master and are not forwarded to workers
+# (the JAX package's list, for the flags the port parses)
+_MASTER_ONLY_FLAGS = frozenset(
+    {
+        "port", "instance_backend", "namespace", "docker_image",
+        "docker_image_repository", "docker_base_image",
+        "worker_resource_request", "worker_resource_limit",
+        "worker_pod_priority", "master_resource_request",
+        "master_resource_limit", "master_pod_priority", "volume",
+        "image_pull_policy", "relaunch_on_worker_failure",
+        "heartbeat_timeout_secs", "task_timeout_secs", "standby_workers",
+        "num_slices", "min_slices", "autoscale_p95_step_ms",
+        "autoscale_backlog_tasks", "autoscale_cooldown_secs",
+        "autoscale_shrink", "yaml", "cluster_spec",
+        # workers get the retry budget and deadlines by env, never argv
+        "master_journal_dir", "rpc_retry_secs", "rpc_deadline_secs",
+        "rehome_grace_secs", "telemetry_dir", "metrics_port",
+        "metrics_host", "trace_sample_rate", "step_anatomy",
+        "device_prefetch", "boundary_fusion", "pipeline_depth",
+        "slo_config", "streaming", "stream_lag_tasks", "live_push_addr",
+    }
+)
+
+# namespace entries _finalize derives (not flags)
+_DERIVED_KEYS = frozenset({"model_params_dict", "data_reader_params_dict", "envs_dict"})
+
+
+def derive_job_type(args) -> JobType:
+    """The job type from which data flags are set, shared by master and
+    worker so they cannot disagree."""
+    training = bool(getattr(args, "training_data", ""))
+    evaluation = bool(getattr(args, "validation_data", ""))
+    prediction = bool(getattr(args, "prediction_data", ""))
+    if prediction and not training:
+        return JobType.PREDICTION_ONLY
+    if evaluation and not training:
+        return JobType.EVALUATION_ONLY
+    if training and evaluation:
+        return JobType.TRAINING_WITH_EVALUATION
+    return JobType.TRAINING_ONLY
+
+
+def build_arguments_from_parsed_result(
+    args: argparse.Namespace, filter_args: frozenset[str] | set[str] = frozenset()
+) -> list[str]:
+    """An argv list that parses back into ``args``: booleans as
+    ``true``/``false``, ``None`` values dropped, derived keys skipped."""
+    argv: list[str] = []
+    skip = set(filter_args) | _DERIVED_KEYS
+    for key, value in sorted(vars(args).items()):
+        if key in skip or value is None:
+            continue
+        if isinstance(value, bool):
+            value = "true" if value else "false"
+        argv.extend([f"--{key}", str(value)])
+    return argv
+
+
+def build_worker_arguments(
+    master_args: argparse.Namespace, worker_id: int, master_addr: str
+) -> list[str]:
+    """The master-to-worker argv round trip."""
+    argv = build_arguments_from_parsed_result(master_args, _MASTER_ONLY_FLAGS)
+    argv.extend(["--worker_id", str(worker_id), "--master_addr", master_addr])
+    return argv
 
 
 # Why each flag that the port parses cannot act yet: the slice of
@@ -508,27 +638,20 @@ def _comes_with(slice_name: str) -> str:
     return f"it comes with {slice_name} (ROADMAP.md queue 1)"
 
 
-_ELASTIC = _comes_with("slice 6, data parallelism and elastic reform")
+_ELASTIC = _comes_with(
+    "slice 6b, the rest of data parallelism and elastic reform"
+)
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
 _K8S = _comes_with("slice 9, Kubernetes submission")
 _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
-    "distribution_strategy": _ELASTIC,
-    "num_workers": _ELASTIC,
     "mesh_shape": _ELASTIC,
     "dcn_mesh_shape": _ELASTIC,
-    "envs": _ELASTIC,
     "evaluation_start_delay_secs": _ELASTIC,
     "evaluation_throttle_secs": _ELASTIC,
     "replication": _ELASTIC,
     "replication_steps": _ELASTIC,
-    "port": _ELASTIC,
-    "relaunch_on_worker_failure": _ELASTIC,
-    "heartbeat_timeout_secs": _ELASTIC,
-    "task_timeout_secs": _ELASTIC,
     "master_journal_dir": _ELASTIC,
-    "rpc_retry_secs": _ELASTIC,
-    "rpc_deadline_secs": _ELASTIC,
     "rehome_grace_secs": _ELASTIC,
     "num_slices": _ELASTIC,
     "min_slices": _ELASTIC,
@@ -597,3 +720,30 @@ def check_ported_flags(args: argparse.Namespace) -> None:
         if flag == "mesh_shape" and _mesh_size(value) == 1:
             continue
         raise NotImplementedError(f"--{flag}={value!r} is not ported: {reason}")
+
+
+def check_distributed_flags(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` for what a distributed job (a master
+    with workers) cannot do yet, naming slice 6b: a single worker (the
+    JAX package's task-stream worker), evaluation (the evaluation service
+    and the lockstep worker's evaluation tasks), prediction, and
+    ``--device_prefetch``."""
+    if args.num_workers < 2:
+        raise NotImplementedError(
+            f"--num_workers={args.num_workers} is not ported: a distributed "
+            "job of one worker runs the task-stream worker, which "
+            + _ELASTIC
+        )
+    for flag in ("validation_data", "prediction_data"):
+        if getattr(args, flag, ""):
+            raise NotImplementedError(
+                f"--{flag} under --distribution_strategy="
+                f"{args.distribution_strategy} is not ported: the lockstep "
+                "worker's evaluation and prediction tasks and the master's "
+                "evaluation service come with slice 6b (ROADMAP.md queue 1)"
+            )
+    if args.device_prefetch:
+        raise NotImplementedError(
+            "--device_prefetch under the lockstep worker is not ported: "
+            + _ELASTIC
+        )

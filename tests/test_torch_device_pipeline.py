@@ -336,6 +336,9 @@ class _FakeTrainer:
     def place_group(self, *trees):
         return trees
 
+    def place_step(self, *trees):
+        return trees
+
     def train_step(self, f, l, w=None):
         return {}
 

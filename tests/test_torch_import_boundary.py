@@ -1,7 +1,9 @@
 """The PyTorch port's import boundary: ``elasticdl_tpu_torch``,
 ``chip_smoke.py`` and the port's scripts
 (``scripts/torch_*.py``) import torch and numpy, never JAX,
-flax, optax or any module of the JAX package ``elasticdl_tpu``."""
+flax, optax or any module of the JAX package ``elasticdl_tpu``; nor
+``grpc`` or ``msgpack``, which the card's machine lacks (the port's
+control plane rides the standard library)."""
 
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ PORT = os.path.join(REPO, "elasticdl_tpu_torch")
 _PROBE = r"""
 import importlib, pkgutil, sys
 
-FORBIDDEN = ("jax", "flax", "optax", "elasticdl_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "elasticdl_tpu", "grpc", "msgpack")
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
@@ -41,8 +43,8 @@ sys.exit(1 if leaked else 0)
 """
 
 _FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(import\s+(jax|flax|optax)\b"
-    r"|from\s+(jax|flax|optax)\b"
+    r"^\s*(import\s+(jax|flax|optax|grpc|msgpack)\b"
+    r"|from\s+(jax|flax|optax|grpc|msgpack)\b"
     r"|from\s+elasticdl_tpu(\.|\s+import\b)"
     r"|import\s+elasticdl_tpu(\.|\s|,|$))",
     re.MULTILINE,
@@ -68,7 +70,7 @@ def test_port_imports_with_jax_absent():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, leaked = proc.stdout.split(" ", 1)
-    assert int(count) >= 59  # every module of the slices so far was imported
+    assert int(count) >= 77  # every module of the slices so far was imported
     assert leaked.strip() == "[]"
 
 
@@ -87,7 +89,8 @@ def test_forbidden_import_pattern_catches_each_form():
         "import jax", "import jax.numpy as jnp", "from flax import linen",
         "import optax", "from elasticdl_tpu.ops import attention",
         "from elasticdl_tpu import serving", "import elasticdl_tpu",
-        "    import elasticdl_tpu.layers",
+        "    import elasticdl_tpu.layers", "import grpc", "import msgpack",
+        "from grpc import aio",
     ):
         assert _FORBIDDEN_IMPORT.search(line), line
     for line in (

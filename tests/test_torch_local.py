@@ -311,13 +311,10 @@ def test_api_refuses_jobs_without_their_data():
 # a value other than the default for every flag the port parses but
 # cannot act on yet
 UNPORTED_VALUES = {
-    "distribution_strategy": "AllreduceStrategy", "num_workers": "2",
-    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "envs": "A=1",
+    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2",
     "evaluation_start_delay_secs": "5", "evaluation_throttle_secs": "5",
-    "replication": "true", "replication_steps": "3", "port": "1234",
-    "relaunch_on_worker_failure": "1", "heartbeat_timeout_secs": "3",
-    "task_timeout_secs": "9", "master_journal_dir": "/j", "rpc_retry_secs": "1",
-    "rpc_deadline_secs": "1", "rehome_grace_secs": "1", "num_slices": "2",
+    "replication": "true", "replication_steps": "3",
+    "master_journal_dir": "/j", "rehome_grace_secs": "1", "num_slices": "2",
     "min_slices": "2", "autoscale_p95_step_ms": "9", "autoscale_backlog_tasks": "2",
     "autoscale_cooldown_secs": "1", "autoscale_shrink": "true",
     "standby_workers": "0", "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",

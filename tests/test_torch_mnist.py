@@ -60,16 +60,19 @@ def _labels(rows, seed=0):
     return np.random.RandomState(seed + 100).randint(0, 10, rows).astype(np.int32)
 
 
-def _jax_variables(seed=0, dtype=None):
+def _jax_variables(seed=0, dtype=None, moved=True):
     """A JAX mnist model with its seeded parameters, and running
     statistics and a BatchNorm scale/bias moved off their initial values
-    (so that the eval-mode forward depends on each)."""
+    (so that the eval-mode forward depends on each); ``moved=False``
+    keeps flax's initial BatchNorm (scale 1, bias 0, mean 0, var 1)."""
     model = jax_mnist.custom_model(dtype=dtype)
-    params, _ = init_model(
+    params, stats = init_model(
         model, {"image": np.zeros((1, 28, 28), np.float32)}, rng_seed=seed
     )
-    rng = np.random.RandomState(seed + 1)
     params = jax.tree_util.tree_map(np.asarray, params)
+    if not moved:
+        return model, params, jax.tree_util.tree_map(np.asarray, stats)
+    rng = np.random.RandomState(seed + 1)
     params["BatchNorm_0"] = {
         "scale": rng.uniform(0.5, 1.5, 64).astype(np.float32),
         "bias": rng.normal(0, 0.1, 64).astype(np.float32),
@@ -156,27 +159,38 @@ def test_flax_weights_round_trip_with_batch_stats():
 
 def _jax_dropout_keep(model, variables, images, step):
     """The keep mask (NHWC) the JAX train step's dropout draws at
-    ``step``: the same rng, ``fold_in(PRNGKey(0), step)``, read off the
-    Dropout layer's output."""
-    _out, state = model.apply(
-        variables, _jax_parse(images), training=True,
-        rngs={"dropout": jax.random.fold_in(jax.random.PRNGKey(0), step)},
-        mutable=["batch_stats", "intermediates"],
-        capture_intermediates=lambda mdl, _name: isinstance(mdl, nn.Dropout),
-    )
-    dropped = np.asarray(state["intermediates"]["Dropout_0"]["__call__"][0])
-    return dropped != 0
+    ``step``: the same rng, ``fold_in(PRNGKey(0), step)``, read from the
+    Dropout itself by running it on ones (flax draws its mask from the
+    rng and the shape alone).  Its output on the real activations cannot
+    tell a kept exact zero (a dead channel) from a dropped element."""
+    keep = []
+
+    def on_ones(next_fun, args, kwargs, context):
+        if isinstance(context.module, nn.Dropout) and context.method_name == "__call__":
+            out = next_fun(jnp.ones_like(args[0]), *args[1:], **kwargs)
+            keep.append(np.asarray(out) != 0)
+            return out
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(on_ones):
+        model.apply(
+            variables, _jax_parse(images), training=True,
+            rngs={"dropout": jax.random.fold_in(jax.random.PRNGKey(0), step)},
+            mutable=["batch_stats"],
+        )
+    (mask,) = keep
+    return mask
 
 
 def _rel_norm(got, want):
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
 
 
-def _one_step(images, labels, weights, monkeypatch, seed=0):
+def _one_step(images, labels, weights, monkeypatch, seed=0, moved=True):
     """One SGD step of each package from the same weights, the port's
     dropout fed the JAX step's mask; returns ``(port flats, jax flats,
     port loss, jax loss)``, each flat being ``(params, stats)``."""
-    model, params, stats = _jax_variables(seed)
+    model, params, stats = _jax_variables(seed, moved=moved)
     keep = torch.from_numpy(
         _jax_dropout_keep(model, {"params": params, **stats}, images, 0)
     )
@@ -214,14 +228,19 @@ def _one_step(images, labels, weights, monkeypatch, seed=0):
     )
 
 
-def test_one_sgd_step_matches_jax_with_its_dropout_mask(monkeypatch):
+@pytest.mark.parametrize("moved", [True, False], ids=["moved", "initial"])
+def test_one_sgd_step_matches_jax_with_its_dropout_mask(monkeypatch, moved):
+    """From BatchNorm moved off its initial values, and from flax's
+    initial scale 1 and bias 0, where some channels are dead (ReLU zero
+    everywhere, so BatchNorm passes its bias alone) and their bias
+    gradient comes only through the elements dropout keeps."""
     images, labels = _images(ROWS, 5), _labels(ROWS, 5)
     weights = np.ones(ROWS, np.float32)
     (got, got_stats), (want, want_stats), port_loss, jax_loss = _one_step(
-        images, labels, weights, monkeypatch
+        images, labels, weights, monkeypatch, moved=moved
     )
     assert abs(port_loss - jax_loss) < LOGIT_TOL
-    _model, before, _stats = _jax_variables(0)
+    _model, before, _stats = _jax_variables(0, moved=moved)
     before = tree_utils.tree_to_dict(before)
     for name in want:
         assert _rel_norm(got[name], want[name]) < STEP_REL_TOL, name
