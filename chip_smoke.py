@@ -130,6 +130,35 @@ printed:
    re-formation latency, the backend and each job's records/s (two
    ranks on one card: no scaling number).
 
+11. evaluate and predict — the same jobs through the train, evaluate
+   and predict CLIs with validation or prediction data.  (a) mnist at
+   bench.py's width and step, one epoch of 16 384 records with 2 048
+   validation records and ``--evaluation_steps 16``, two ranks with
+   ``--device_prefetch true``, under ``preempt_one_worker``: the
+   master's evaluation service queues each milestone once, the lockstep
+   worker's evaluation batches run each rank's rows and gather them to
+   process 0, which reports them; gated on rc 0, one re-formation,
+   training records exact, every round's 2 048 records once, the rounds'
+   milestones, staged groups on each rank, and the final round within
+   one record of the Local evaluate CLI on the final checkpoint, > 0.8.
+   (b) two-worker ``evaluate`` (equal to (a)'s final round) and
+   ``predict`` (every record once, within ``PREDICT_MAX_ABS_ERR`` of the
+   Local predict CLI) on that checkpoint, the outputs saved by a
+   ``PredictionOutputsProcessor`` of a model zoo this script writes.  (c)
+   the task-stream worker (``--num_workers 1``): DeepFM's accuracy recipe
+   with its worker SIGKILLed at version 6 or later (one relaunch under a
+   new id, its leases re-queued, records exact, the master's accuracy >
+   0.8); the LM at full width warm-started from phase 6's weights,
+   bit for bit the Local run's, 12 launches of each kernel per step and
+   of the forward per evaluation batch (the workers dump their counts);
+   then the LM's two-worker ``predict`` (rows within phase 4's served
+   tolerance of Local's) and ``evaluate`` of one record a task (a
+   record's logits are 128 MiB, under the 256 MiB message cap), 12
+   forward launches per batch on each rank.  It prints the evaluation
+   rounds and their seconds, the largest evaluation report, the gather's
+   backend, the relaunch latency, each job's records/s and the LM's
+   seconds between its task reports.
+
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
 and nothing of the JAX package.
@@ -2450,13 +2479,17 @@ DP_UPDATE_REL_ERR = 0.25
 
 class _ReportClock:
     """Dispatcher observer: the monotonic time and records of every
-    successful training report (the steady rate of a world)."""
+    successful training report (the steady rate of a world), and the
+    count of failed reports (leases a recovery re-queued)."""
 
     def __init__(self):
         self.reports: list = []
+        self.failed_reports = 0
 
     def on_task_reported(self, task_id, task, success, counted):
-        if success and counted:
+        if counted and not success:
+            self.failed_reports += 1
+        elif counted and int(task.type) == 0:  # TaskType.TRAINING
             self.reports.append((time.monotonic(), task.end - task.start))
 
     def steady_records_per_s(self, after: float) -> float | None:
@@ -2468,28 +2501,102 @@ class _ReportClock:
         return sum(n for _t, n in window[1:]) / (window[-1][0] - window[0][0])
 
 
-def _master_recorder():
-    """Patches ``master.main.build_master`` so that the CLI's master gets
-    an invariant checker on its dispatcher, servicer and re-formations
-    and a clock of its reports, and is kept for the checks."""
+def _job_recorder(expected_records=None, kill_at_version=None):
+    """Patches ``master.main.build_master`` so that the CLI's master is
+    kept, with: an invariant checker (``expected_records``), a clock of
+    its task reports, every evaluation round
+    (its summary and the label rows accepted for it), the largest
+    evaluation report (bytes, and the seconds the master's handler took);
+    with ``kill_at_version``, a version observer that SIGKILLs the
+    reporting worker's process once, at the first version at or past it."""
+    import signal
+
     from elasticdl_tpu_torch.chaos.invariants import InvariantChecker
     from elasticdl_tpu_torch.master import main as master_main
 
-    built = {}
+    built = {"rounds": [], "largest_report": None, "killed": None}
     original = master_main.build_master
 
     def build(args):
         master = original(args)
-        checker = InvariantChecker(expected_records=built["expected_records"])
-        master.task_d.add_observer(checker)
+        built["master"] = master
+        if expected_records is not None:
+            checker = InvariantChecker(expected_records=expected_records)
+            master.task_d.add_observer(checker)
+            master.servicer.add_version_observer(checker.on_version_report)
+            master.reform_callbacks.append(checker.on_reform)
+            built["checker"] = checker
         built["clock"] = _ReportClock()
         master.task_d.add_observer(built["clock"])
-        master.servicer.add_version_observer(checker.on_version_report)
-        master.reform_callbacks.append(checker.on_reform)
-        built.update(master=master, checker=checker)
+        svc = master.evaluation_service
+        if svc is not None:
+            lock = threading.Lock()
+            rows = [0]
+            report, complete = svc.report_evaluation_metrics, svc.complete_task
+
+            def counted(model_outputs, labels, evaluated_version=-1):
+                ok = report(model_outputs, labels, evaluated_version=evaluated_version)
+                if ok:
+                    with lock:
+                        rows[0] += int(labels.values.shape[0])
+                return ok
+
+            def completed(eval_job_id=None):
+                # jobs run one at a time: the rows accepted since the last
+                # completion are this job's
+                with lock:
+                    n, rows[0] = rows[0], 0
+                summary = complete(eval_job_id=eval_job_id)
+                with lock:
+                    if summary is None:
+                        rows[0] += n
+                    else:
+                        built["rounds"].append(
+                            {"summary": summary, "rows": n, "at": time.monotonic()}
+                        )
+                return summary
+
+            svc.report_evaluation_metrics, svc.complete_task = counted, completed
+        serve = master.servicer.report_evaluation_metrics
+
+        def timed(request):
+            t0 = time.monotonic()
+            serve(request)
+            secs = time.monotonic() - t0
+            nbytes = sum(t.values.nbytes for t in request.model_outputs.values())
+            nbytes += request.labels.values.nbytes
+            largest = built["largest_report"]
+            if largest is None or nbytes > largest["bytes"]:
+                built["largest_report"] = {"bytes": nbytes, "handler_secs": secs}
+
+        master.servicer.report_evaluation_metrics = timed
+        if kill_at_version is not None:
+            def kill(worker_id, version):
+                if built["killed"] is None and version >= kill_at_version:
+                    pid = master.instance_manager.worker_pid(worker_id)
+                    built["killed"] = {
+                        "worker_id": worker_id, "version": version, "at": time.monotonic(),
+                    }
+                    os.kill(pid, signal.SIGKILL)
+
+            master.servicer.add_version_observer(kill)
         return master
 
     return built, build
+
+
+def _cli_job(argv: list, build) -> tuple:
+    """``client.main(argv)`` with the master built by ``build``; returns
+    its exit code and wall seconds."""
+    from unittest import mock
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.master import main as master_main
+
+    t0 = time.monotonic()
+    with mock.patch.object(master_main, "build_master", build):
+        rc = client.main(argv)
+    return rc, time.monotonic() - t0
 
 
 def _elastic_argv(cfg: dict, data: dict, device: str, work_dir: str, envs: dict, tag: str):
@@ -2518,14 +2625,10 @@ def _distributed_run(
     under ``plan`` (a chaos plan name) or none: returns its master, the
     checker's violations, the processes' final state dumps and the wall
     seconds of the job."""
-    from unittest import mock
-
     import numpy as np
 
-    from elasticdl_tpu_torch import client
     from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
     from elasticdl_tpu_torch.chaos.plan import builtin_plans
-    from elasticdl_tpu_torch.master import main as master_main
     from elasticdl_tpu_torch.utils.constants import TaskType
     from elasticdl_tpu_torch.worker.lockstep import DUMP_STATE_ENV
 
@@ -2536,13 +2639,9 @@ def _distributed_run(
         plan_path = os.path.join(work_dir, f"plan_{tag}.json")
         builtin_plans(ELASTIC_WORKERS)[plan].save(plan_path)
         envs.update({chaos_hooks.PLAN_ENV: plan_path, chaos_hooks.EVENTS_ENV: events})
-    built, build = _master_recorder()
-    built["expected_records"] = cfg["train_records"] * cfg["epochs"]
+    built, build = _job_recorder(expected_records=cfg["train_records"] * cfg["epochs"])
     argv = _elastic_argv(cfg, data, device, work_dir, envs, tag) + list(extra)
-    t0 = time.monotonic()
-    with mock.patch.object(master_main, "build_master", build):
-        rc = client.main(argv)
-    secs = time.monotonic() - t0
+    rc, secs = _cli_job(argv, build)
     master = built["master"]
     counters = master.task_d.counters(TaskType.TRAINING)
     dumps = [_load_npz(os.path.join(dump_dir, f"final_state_p{p}.npz")) for p in range(ELASTIC_WORKERS)]
@@ -2817,6 +2916,507 @@ def dp_lm_run(device: str = "cuda") -> dict:
     return row
 
 
+# ---- phase 11: evaluate and predict in distributed jobs --------------------
+
+# mnist at bench.py's width and step, one epoch of phase 10a's 16 384
+# records (tasks of 4 steps, a checkpoint every 2), 2 048 validation
+# records and an evaluation every 16 steps: milestones 16, 32, 48 and 64,
+# under preempt_one_worker (process 1 SIGKILLs itself at step 6, the
+# world restores version 4), with the device pipeline on
+EVAL_MNIST = dict(
+    MNIST, name="mnist_eval", train_records=16384, eval_records=2048, shards=8,
+    records_per_task=1024, checkpoint_steps=2, epochs=1, evaluation_steps=16,
+)
+# DeepFM's accuracy recipe (bench.py:961-969) under one task-stream
+# worker, tasks of 2048 records (4 steps); the smoke SIGKILLs the worker
+# once the master has seen a version of 6 or more
+TS_DEEPFM = dict(
+    DEEPFM_ACCURACY, name="deepfm_task_stream", records_per_task=2048,
+    checkpoint_steps=2, epochs=1, kill_at_version=6,
+)
+# the LM under the task-stream worker: 16 training records in 2 shards
+# (tasks of 8 records, one step of 8 rows each) and 2 validation records
+# in 2 shards, so that each evaluation task holds one record: one
+# record's bf16 logits are 2048 x 32768 x 2 B = 128 MiB, and two would be
+# over the transport's 256 MiB message cap
+TS_LM_RECORDS, TS_LM_SHARDS, TS_LM_EVAL_RECORDS = 16, 2, 2
+TS_LM_RECORDS_PER_TASK = 8
+# the LM's two-worker prediction (8 records at 4 rows, 2 a rank) and
+# evaluation (1 record a task at 2 rows, the second rank's row padding)
+LM_PREDICT_RECORDS, LM_PREDICT_ROWS, LM_EVAL_ROWS = 8, 4, 2
+# where the prediction zoo's processor saves each batch
+PREDICTIONS_ENV = "CHIP_SMOKE_PREDICTIONS_DIR"
+# full f32 convolutions and products in the worker processes, as this
+# process sets them (torch.backends.*.allow_tf32): the libraries read it
+TF32_OFF = {"NVIDIA_TF32_OVERRIDE": "0"}
+PREDICT_MAX_ABS_ERR = 1e-5
+
+PREDICTION_ZOO = '''"""The port's {base} with a PredictionOutputsProcessor that saves
+each batch it is given as .npy under ${env} (bf16 as uint16)."""
+
+import os
+
+import numpy as np
+
+from elasticdl_tpu_torch.models.{base} import *  # noqa: F401,F403
+from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+    BasePredictionOutputsProcessor,
+)
+
+
+class PredictionOutputsProcessor(BasePredictionOutputsProcessor):
+    def __init__(self):
+        self.batches = 0
+
+    def process(self, predictions, worker_id):
+        out = np.asarray(predictions)
+        bf16 = out.dtype.name == "bfloat16"
+        name = f"{{self.batches:06d}}" + (".bf16" if bf16 else "") + ".npy"
+        np.save(os.path.join(os.environ["{env}"], name), out.view(np.uint16) if bf16 else out)
+        self.batches += 1
+'''
+
+
+def write_prediction_zoo(zoo_dir: str, base: str) -> str:
+    """A model zoo of one module, ``<base>_predict.py``: the port's
+    ``base`` model with a processor that saves every prediction batch;
+    returns the ``--model_def`` that names it."""
+    os.makedirs(zoo_dir, exist_ok=True)
+    with open(os.path.join(zoo_dir, f"{base}_predict.py"), "w") as f:
+        f.write(PREDICTION_ZOO.format(base=base, env=PREDICTIONS_ENV))
+    return f"{base}_predict.custom_model"
+
+
+def load_predictions(out_dir: str) -> list:
+    """The batches a prediction processor saved, in order."""
+    import ml_dtypes
+    import numpy as np
+
+    out = []
+    for name in sorted(os.listdir(out_dir)):
+        arr = np.load(os.path.join(out_dir, name))
+        out.append(arr.view(ml_dtypes.bfloat16) if name.endswith(".bf16.npy") else arr)
+    return out
+
+
+def eval_milestones(cfg: dict) -> list:
+    """The versions at which ``cfg``'s job queues an evaluation: each
+    crossing of an ``evaluation_steps`` milestone by the versions its
+    task boundaries report (a task is a whole number of steps)."""
+    steps = cfg["train_records"] * cfg["epochs"] // cfg["batch"]
+    return list(range(cfg["evaluation_steps"], steps + 1, cfg["evaluation_steps"]))
+
+
+def _dist_flags(num_workers: int, envs: dict) -> list:
+    return [
+        "--distribution_strategy", "AllreduceStrategy", "--num_workers", str(num_workers),
+        "--port", "0", "--heartbeat_timeout_secs", "30",
+        "--envs", ",".join(f"{k}={v}" for k, v in envs.items()),
+    ]
+
+
+def _launches(out_dir: str) -> dict:
+    """Each worker's kernel launches, as its launch dump holds them."""
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("launches_"):
+            with open(os.path.join(out_dir, name)) as f:
+                out[name[len("launches_"):-len(".json")]] = json.load(f)
+    return out
+
+
+def eval_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """Phase 11a: ``cfg``'s two-rank job with validation data, the
+    device pipeline on and ``preempt_one_worker``.  Gates: rc 0, one
+    re-formation, training records exactly epochs x records, no invariant
+    violation, the last world's ranks bitwise equal and each with staged
+    groups, every evaluation round's rows exactly the validation set's,
+    the rounds' milestones those of :func:`eval_milestones`, and the
+    final round, at the final checkpoint's version, within one record of
+    the Local evaluate CLI on that checkpoint and above
+    ``cfg["min_accuracy"]``."""
+    from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.parallel import elastic
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.constants import TaskType
+    from elasticdl_tpu_torch.worker.lockstep import DUMP_STATE_ENV
+
+    import numpy as np
+
+    os.makedirs(work_dir, exist_ok=True)
+    data = _zoo_data(work_dir, cfg)
+    plan_path = os.path.join(work_dir, "plan.json")
+    builtin_plans(ELASTIC_WORKERS)["preempt_one_worker"].save(plan_path)
+    dump_dir = os.path.join(work_dir, "dump")
+    envs = {
+        DUMP_STATE_ENV: dump_dir, chaos_hooks.PLAN_ENV: plan_path,
+        chaos_hooks.EVENTS_ENV: os.path.join(work_dir, "events.jsonl"), **TF32_OFF,
+    }
+    expected = cfg["train_records"] * cfg["epochs"]
+    built, build = _job_recorder(expected_records=expected)
+    argv = _elastic_argv(cfg, data, device, work_dir, envs, "eval") + [
+        "--validation_data", data["eval"],
+        "--evaluation_steps", str(cfg["evaluation_steps"]), "--device_prefetch", "true",
+    ]
+    rc, secs = _cli_job(argv, build)
+    master = built["master"]
+    ckpt = os.path.join(work_dir, "ckpt_eval")
+    _state, extra = save_utils.restore_checkpoint(ckpt)
+    dumps = [_load_npz(os.path.join(dump_dir, f"final_state_p{p}.npz")) for p in range(ELASTIC_WORKERS)]
+    # worker ids are claimed in order: the last world's are the last ones
+    first_id = ELASTIC_WORKERS * len(master.reform_events)
+    prefetch = master.servicer.prefetch_stats()
+    staged = [prefetch.get(w, {}).get("groups", 0) for w in range(first_id, first_id + ELASTIC_WORKERS)]
+    rounds = built["rounds"]
+    final = master.job_summary().get("evaluation_metrics", {})
+    local = _evaluate_checkpoint(cfg, data, device, ckpt)
+    key = cfg["accuracy_key"]
+    row = {
+        "rc": rc, "job_secs": secs, "backend": elastic.choose_backend(device, ELASTIC_WORKERS),
+        "total_records": master.task_d.counters(TaskType.TRAINING).total_records,
+        "eval_records": master.task_d.counters(TaskType.EVALUATION).total_records,
+        "records_per_s_whole_job": expected / secs,
+        "reforms": len(master.reform_events),
+        "reform_latency_secs": master.reform_events[0].get("latency_secs") if master.reform_events else None,
+        "violations": [v.as_dict() for v in built["checker"].check(master.task_d.counters(TaskType.TRAINING))],
+        "dumps_bitwise_equal": all(np.array_equal(dumps[0][k], dumps[1][k]) for k in dumps[0]),
+        "staged_groups_last_world": staged,
+        "rounds": [
+            {"milestone": r["summary"].get("model_version"),
+             "evaluated_version": r["summary"].get("evaluated_version"),
+             "accuracy": r["summary"].get(key), "rows": r["rows"]} for r in rounds
+        ],
+        "round_secs": [b["at"] - a["at"] for a, b in zip(rounds, rounds[1:])],
+        "largest_report": built["largest_report"],
+        "final": final, "final_checkpoint_version": extra.get("model_version"),
+        "local_accuracy": local.get(key),
+    }
+    print(json.dumps({f"{cfg['name']}_preempt": row}), flush=True)
+    if (
+        rc != 0 or row["reforms"] != 1 or row["total_records"] != expected or row["violations"]
+        or not row["dumps_bitwise_equal"] or not all(n > 0 for n in staged)
+        or any(r["rows"] != cfg["eval_records"] for r in row["rounds"])
+        or row["eval_records"] != cfg["eval_records"] * len(rounds)
+        or sorted(r["milestone"] for r in row["rounds"]) != eval_milestones(cfg)
+        or final.get("evaluated_version") != row["final_checkpoint_version"]
+        or final.get(key) is None or row["local_accuracy"] is None
+        or abs(final[key] - row["local_accuracy"]) > 1.0 / cfg["eval_records"] + 1e-12
+        or not final[key] > cfg["min_accuracy"]
+    ):
+        raise AssertionError(f"{cfg['name']}: the evaluating job failed its gates: {row}")
+    return {"row": row, "data": data, "ckpt": ckpt, "final": final}
+
+
+def eval_predict_run(
+    work_dir: str, cfg: dict, data: dict, ckpt: str, final: dict, device: str = "cuda"
+) -> dict:
+    """Phase 11b: two-worker ``evaluate`` and ``predict`` of ``cfg`` on
+    phase 11a's final checkpoint.  The evaluation equals 11a's final round
+    (the same world layout on the same weights); every prediction record
+    comes back once, within ``PREDICT_MAX_ABS_ERR`` of the Local predict
+    CLI at the rows a rank holds."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import api
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    key = cfg["accuracy_key"]
+    common = [
+        "--validation_data", data["eval"], "--minibatch_size", str(cfg["batch"]),
+        "--records_per_task", str(cfg["records_per_task"]),
+        "--checkpoint_dir_for_init", ckpt, "--device", device,
+    ]
+    built, build = _job_recorder()
+    rc_eval, eval_secs = _cli_job(
+        ["evaluate", "--model_def", cfg["model_def"], *common,
+         *_dist_flags(ELASTIC_WORKERS, TF32_OFF)], build,
+    )
+    summary = built["master"].job_summary().get("evaluation_metrics", {})
+    zoo = os.path.join(work_dir, "zoo")
+    model_def = write_prediction_zoo(zoo, "mnist_functional_api")
+    world_out, local_out = os.path.join(work_dir, "pred_world"), os.path.join(work_dir, "pred_local")
+    os.makedirs(world_out)
+    os.makedirs(local_out)
+    pred = [
+        "--model_zoo", zoo, "--model_def", model_def, "--prediction_data", data["eval"],
+        "--records_per_task", str(cfg["records_per_task"]),
+        "--checkpoint_dir_for_init", ckpt, "--device", device,
+    ]
+    built_p, build_p = _job_recorder()
+    rc_pred, pred_secs = _cli_job(
+        ["predict", *pred, "--minibatch_size", str(cfg["batch"]),
+         *_dist_flags(ELASTIC_WORKERS, {PREDICTIONS_ENV: world_out, **TF32_OFF})], build_p,
+    )
+    os.environ[PREDICTIONS_ENV] = local_out
+    try:
+        # a rank's rows a call, so that each convolution sees the shapes
+        # a rank's did
+        api.predict(parse_master_args(
+            [*pred, "--minibatch_size", str(cfg["batch"] // ELASTIC_WORKERS)]
+        ))
+    finally:
+        del os.environ[PREDICTIONS_ENV]
+    world = np.concatenate(load_predictions(world_out))
+    local = np.concatenate(load_predictions(local_out))
+    row = {
+        "rc_evaluate": rc_eval, "evaluate_secs": eval_secs, "evaluation": summary,
+        "evaluate_records_per_s": cfg["eval_records"] / eval_secs,
+        "rc_predict": rc_pred, "predict_secs": pred_secs,
+        "predict_records_per_s": cfg["eval_records"] / pred_secs,
+        "predicted_rows": int(world.shape[0]),
+        "prediction_records": built_p["master"].task_d.counters(TaskType.PREDICTION).total_records,
+        "max_abs_err_to_local": float(np.max(np.abs(world - local))) if world.shape == local.shape else None,
+    }
+    print(json.dumps({f"{cfg['name']}_evaluate_predict": row}), flush=True)
+    if (
+        rc_eval != 0 or rc_pred != 0 or summary.get(key) != final[key]
+        or row["predicted_rows"] != cfg["eval_records"]
+        or row["prediction_records"] != cfg["eval_records"]
+        or row["max_abs_err_to_local"] is None
+        or row["max_abs_err_to_local"] > PREDICT_MAX_ABS_ERR
+    ):
+        raise AssertionError(f"{cfg['name']}: evaluate or predict failed its gates: {row}")
+    return row
+
+
+def task_stream_zoo_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """Phase 11c, first job: ``cfg`` under one task-stream worker with
+    validation data, its process SIGKILLed at the first version report at
+    or past ``cfg["kill_at_version"]``.  Gates: rc 0, exactly one
+    relaunch under a new worker id, the dead worker's leases re-queued,
+    training records exactly epochs x records (each task once), and the
+    master's final evaluation above ``cfg["min_accuracy"]``."""
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    data = _zoo_data(work_dir, cfg)
+    expected = cfg["train_records"] * cfg["epochs"]
+    built, build = _job_recorder(expected_records=expected, kill_at_version=cfg["kill_at_version"])
+    argv = _zoo_argv(cfg, data, device) + [
+        "--num_epochs", str(cfg["epochs"]), "--validation_data", data["eval"],
+        "--checkpoint_dir", os.path.join(work_dir, "ckpt"),
+        "--checkpoint_steps", str(cfg["checkpoint_steps"]), *_dist_flags(1, TF32_OFF),
+    ]
+    rc, secs = _cli_job(argv, build)
+    master = built["master"]
+    relaunches = master.relaunch_events
+    final = master.job_summary().get("evaluation_metrics", {})
+    row = {
+        "rc": rc, "job_secs": secs, "records_per_s_whole_job": expected / secs,
+        "killed": {k: v for k, v in (built["killed"] or {}).items() if k != "at"},
+        "relaunches": [{k: v for k, v in e.items() if k != "detected_at"} for e in relaunches],
+        "requeued_leases": built["clock"].failed_reports,
+        "total_records": master.task_d.counters(TaskType.TRAINING).total_records,
+        "violations": [v.as_dict() for v in built["checker"].check(master.task_d.counters(TaskType.TRAINING))],
+        "rounds": [r["rows"] for r in built["rounds"]], "final": final,
+    }
+    print(json.dumps({f"{cfg['name']}_killed": row}), flush=True)
+    killed = built["killed"]
+    if (
+        rc != 0 or killed is None or len(relaunches) != 1
+        or relaunches[0]["dead_worker"] != killed["worker_id"]
+        or relaunches[0]["worker_id"] == killed["worker_id"]
+        or relaunches[0].get("latency_secs") is None
+        or row["requeued_leases"] < 1 or row["total_records"] != expected or row["violations"]
+        or row["rounds"] != [cfg["eval_records"]]
+        or not final.get(cfg["accuracy_key"], 0.0) > cfg["min_accuracy"]
+    ):
+        raise AssertionError(f"{cfg['name']}: the task-stream job failed its gates: {row}")
+    return row
+
+
+def _lm_data_11(work_dir: str) -> dict:
+    """Phase 6's kind of shards and warm start, at phase 11's counts."""
+    from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_sequence
+
+    data = _local_data(work_dir, records=TS_LM_RECORDS, shards=TS_LM_SHARDS)
+    vocab = GPT2S["vocab_size"]
+    data["eval"] = gen_sequence(
+        os.path.join(work_dir, "eval_one"), num_records=TS_LM_EVAL_RECORDS,
+        num_shards=TS_LM_EVAL_RECORDS, seed=1, seq_len=SEQ, vocab=vocab,
+    )
+    data["predict"] = gen_sequence(
+        os.path.join(work_dir, "predict"), num_records=LM_PREDICT_RECORDS,
+        num_shards=1, seed=2, seq_len=SEQ, vocab=vocab,
+    )
+    return data
+
+
+def _lm_flags(data: dict, device: str) -> list:
+    return [
+        "--model_params", ";".join(f"{k}={v}" for k, v in GPT2S.items()),
+        "--records_per_task", str(TS_LM_RECORDS_PER_TASK), "--device", device,
+    ]
+
+
+def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 11c, the LM: ``train --num_workers 1`` with validation data,
+    warm-started from phase 6's seeded weights, against the Local run of
+    the same data and flags: the final weights bit for bit, and the
+    worker's launches 12 per step of each kernel and 12 of the forward
+    per evaluation batch (``GPT2S["num_layers"]``; 0 on the CPU).  Then
+    two-worker ``predict`` (rows within phase 4's served tolerance of
+    Local's) and ``evaluate`` (accuracy within 1e-3 of Local's) from the
+    worker's final checkpoint, 12 forward launches per batch on each
+    rank.  Returns the phase's row, with every worker's launches."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import api, client
+    from elasticdl_tpu_torch.ops.attention import LAUNCH_DUMP_ENV
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    per = GPT2S["num_layers"] if device == "cuda" else 0
+    data = _lm_data_11(work_dir)
+    steps = TS_LM_RECORDS // TRAIN_ROWS
+    # (a) one task-stream worker against Local
+    launch_dir = os.path.join(work_dir, "launches_train")
+    ts_ckpt, local_ckpt = os.path.join(work_dir, "ckpt_ts"), os.path.join(work_dir, "ckpt_local")
+    built, build = _job_recorder(expected_records=TS_LM_RECORDS)
+    rc, secs = _cli_job(
+        _local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK) + [
+            "--validation_data", data["eval"], "--checkpoint_dir", ts_ckpt,
+            *_dist_flags(1, {LAUNCH_DUMP_ENV: launch_dir}),
+        ], build,
+    )
+    master = built["master"]
+    reports = [t for t, _n in built["clock"].reports]
+    t0 = time.monotonic()
+    rc_local = client.main(_local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK) + [
+        "--validation_data", data["eval"], "--checkpoint_dir", local_ckpt,
+    ])
+    local_secs = time.monotonic() - t0
+    got, got_extra = save_utils.restore_checkpoint(ts_ckpt)
+    want, want_extra = save_utils.restore_checkpoint(local_ckpt)
+    differing = sorted(k for k in want if k not in got or not np.array_equal(got[k], want[k]))
+    train_launches = _launches(launch_dir)
+    ts_row = {
+        "rc": rc, "job_secs": secs, "local_rc": rc_local, "local_secs": local_secs,
+        "tokens_per_s_whole_job": TS_LM_RECORDS * SEQ / secs,
+        # a task is one step: the seconds between its reports are a step's
+        # and a task's bookkeeping
+        "secs_between_task_reports": [b - a for a, b in zip(reports, reports[1:])],
+        "versions": [got_extra.get("model_version"), want_extra.get("model_version")],
+        "total_records": master.task_d.counters(TaskType.TRAINING).total_records,
+        "violations": [v.as_dict() for v in built["checker"].check(master.task_d.counters(TaskType.TRAINING))],
+        "eval_rounds": [r["rows"] for r in built["rounds"]],
+        "largest_report": built["largest_report"],
+        "weights_differing": differing, "launches": train_launches,
+    }
+    print(json.dumps({"lm_task_stream": ts_row}), flush=True)
+    want_launches = {
+        "flash_fwd": per * (steps + TS_LM_EVAL_RECORDS),
+        "flash_bwd_dq": per * steps, "flash_bwd_dkv": per * steps,
+    }
+    if (
+        rc != 0 or rc_local != 0 or differing or set(got) != set(want)
+        or ts_row["versions"] != [steps, steps] or ts_row["total_records"] != TS_LM_RECORDS
+        or ts_row["violations"] or ts_row["eval_rounds"] != [TS_LM_EVAL_RECORDS]
+        or list(train_launches.values()) != [want_launches]
+    ):
+        raise AssertionError(f"the task-stream LM failed its gates: {ts_row}")
+    del got, want
+    gc.collect()
+
+    # (b) two-worker prediction against Local, from the worker's checkpoint
+    zoo = os.path.join(work_dir, "zoo")
+    model_def = write_prediction_zoo(zoo, "long_seq_transformer")
+    world_out, local_out = os.path.join(work_dir, "pred_world"), os.path.join(work_dir, "pred_local")
+    os.makedirs(world_out)
+    os.makedirs(local_out)
+    predict_launches_dir = os.path.join(work_dir, "launches_predict")
+    pred = [
+        "--model_zoo", zoo, "--model_def", model_def, "--prediction_data", data["predict"],
+        "--minibatch_size", str(LM_PREDICT_ROWS), "--checkpoint_dir_for_init", ts_ckpt,
+        *_lm_flags(data, device),
+    ]
+    built_p, build_p = _job_recorder()
+    rc_pred, pred_secs = _cli_job(
+        ["predict", *pred, *_dist_flags(ELASTIC_WORKERS, {
+            PREDICTIONS_ENV: world_out, LAUNCH_DUMP_ENV: predict_launches_dir,
+        })], build_p,
+    )
+    os.environ[PREDICTIONS_ENV] = local_out
+    try:
+        api.predict(parse_master_args(pred))
+    finally:
+        del os.environ[PREDICTIONS_ENV]
+    worst_max, worst_mean, rows = 0.0, 0.0, 0
+    world_batches, local_batches = load_predictions(world_out), load_predictions(local_out)
+    dev = torch.device(device)
+    for a, b in zip(world_batches, local_batches):
+        if a.shape != b.shape:
+            raise AssertionError(f"prediction batches of {a.shape} and {b.shape}")
+        ta = torch.from_numpy(a.astype(np.float32)).to(dev)
+        tb = torch.from_numpy(b.astype(np.float32)).to(dev)
+        err = (ta - tb).abs()
+        worst_max = max(worst_max, float(err.max()))
+        worst_mean = max(worst_mean, float(err.mean()))
+        rows += a.shape[0]
+        del ta, tb, err
+    predict_launches = _launches(predict_launches_dir)
+    batches = LM_PREDICT_RECORDS // LM_PREDICT_ROWS
+    pred_row = {
+        "rc": rc_pred, "job_secs": pred_secs, "records_per_s": LM_PREDICT_RECORDS / pred_secs,
+        "rows": rows, "batches": [len(world_batches), len(local_batches)],
+        "prediction_records": built_p["master"].task_d.counters(TaskType.PREDICTION).total_records,
+        "max_err": worst_max, "mean_err": worst_mean, "launches": predict_launches,
+    }
+    print(json.dumps({"lm_predict_two_workers": pred_row}), flush=True)
+    if (
+        rc_pred != 0 or rows != LM_PREDICT_RECORDS or pred_row["batches"] != [batches, batches]
+        or pred_row["prediction_records"] != LM_PREDICT_RECORDS
+        or worst_max > ROW_MAX_ERR or worst_mean > ROW_MEAN_ERR
+        or len(predict_launches) != ELASTIC_WORKERS
+        or any(c != {"flash_fwd": per * batches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+               for c in predict_launches.values())
+    ):
+        raise AssertionError(f"the two-worker LM prediction failed its gates: {pred_row}")
+    del world_batches, local_batches
+    gc.collect()
+
+    # (c) two-worker evaluation against Local, one record a task
+    eval_launches_dir = os.path.join(work_dir, "launches_eval")
+    ev = [
+        "--model_def", LM_DEF, "--validation_data", data["eval"],
+        "--minibatch_size", str(LM_EVAL_ROWS), "--checkpoint_dir_for_init", ts_ckpt,
+        *_lm_flags(data, device),
+    ]
+    built_e, build_e = _job_recorder()
+    rc_eval, eval_secs = _cli_job(
+        ["evaluate", *ev, *_dist_flags(ELASTIC_WORKERS, {LAUNCH_DUMP_ENV: eval_launches_dir})],
+        build_e,
+    )
+    summary = built_e["master"].job_summary().get("evaluation_metrics", {})
+    local = api.evaluate(parse_master_args(ev))
+    eval_launches = _launches(eval_launches_dir)
+    eval_row = {
+        "rc": rc_eval, "job_secs": eval_secs, "records_per_s": TS_LM_EVAL_RECORDS / eval_secs,
+        "accuracy": summary.get("accuracy"), "local_accuracy": local.get("accuracy"),
+        "rounds": [r["rows"] for r in built_e["rounds"]],
+        "largest_report": built_e["largest_report"], "launches": eval_launches,
+    }
+    print(json.dumps({"lm_evaluate_two_workers": eval_row}), flush=True)
+    if (
+        rc_eval != 0 or eval_row["accuracy"] is None or eval_row["local_accuracy"] is None
+        or abs(eval_row["accuracy"] - eval_row["local_accuracy"]) > 1e-3
+        or eval_row["rounds"] != [TS_LM_EVAL_RECORDS]
+        or len(eval_launches) != ELASTIC_WORKERS
+        or any(c != {"flash_fwd": per * TS_LM_EVAL_RECORDS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+               for c in eval_launches.values())
+    ):
+        raise AssertionError(f"the two-worker LM evaluation failed its gates: {eval_row}")
+    launches = {
+        name: sum(c[name] for part in (train_launches, predict_launches, eval_launches)
+                  for c in part.values())
+        for name in want_launches
+    }
+    return {"task_stream": ts_row, "predict": pred_row, "evaluate": eval_row, "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2929,6 +3529,26 @@ def main() -> int:
     elastic_rows["dp_lm"] = dp_lm
     print(json.dumps({"elastic": elastic_rows}), flush=True)
 
+    # ---- 11. evaluate and predict in distributed jobs: the master's
+    # evaluation service, the lockstep worker's evaluation and prediction
+    # tasks, the task-stream worker, the device pipeline under lockstep
+    eval_rows = {"device": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work_dir:
+        _release_memory("cuda")
+        mnist_eval = eval_preempt_run(os.path.join(work_dir, "mnist"), EVAL_MNIST)
+        eval_rows["mnist_eval_preempt"] = mnist_eval["row"]
+        eval_rows["mnist_evaluate_predict"] = eval_predict_run(
+            os.path.join(work_dir, "mnist_ep"), EVAL_MNIST, mnist_eval["data"],
+            mnist_eval["ckpt"], mnist_eval["final"],
+        )
+        eval_rows["deepfm_task_stream"] = task_stream_zoo_run(
+            os.path.join(work_dir, "deepfm"), TS_DEEPFM
+        )
+        _release_memory("cuda")
+        eval_lm = task_stream_lm_run(os.path.join(work_dir, "lm"))
+        eval_rows["lm"] = eval_lm
+    print(json.dumps({"evaluate_predict": eval_rows}), flush=True)
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -2937,6 +3557,7 @@ def main() -> int:
             "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
             "launches": train_launches[name] + local_launches[name]
             + stacked_launches[name] + dp_lm["launches"][name]
+            + eval_lm["launches"][name]
             + (serve_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

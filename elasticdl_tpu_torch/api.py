@@ -5,13 +5,16 @@ The strategies map as in the JAX package:
 
 - ``Local``: a :class:`LocalExecutor` in this process.
 - ``AllreduceStrategy`` / ``ParameterServerStrategy``: a master control
-  plane in this process with the workers as local subprocesses, which
-  form one ``torch.distributed`` world (``master/main.py``).
+  plane in this process with the workers as local subprocesses
+  (``master/main.py``): two or more form one ``torch.distributed``
+  world, one is the task-stream worker.
 
-Kubernetes submission and predicting through a running serving endpoint
-(``--serving_addr``) raise, naming the slice of ``ROADMAP.md`` queue 1
-that brings them (``utils/args.py::check_ported_flags``), and so does
-what a distributed job cannot do yet (``check_distributed_flags``).
+Each runs every job type: ``train`` (with ``--validation_data`` the
+job also evaluates), ``evaluate`` and ``predict``.  Kubernetes
+submission, predicting through a running serving endpoint
+(``--serving_addr``) and the flags of the slices still to come raise,
+naming the slice of ``ROADMAP.md`` queue 1 that brings them
+(``utils/args.py::check_ported_flags``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@
 ``python -m elasticdl_tpu_torch.master.main --model_def=... --training_data=...
 --distribution_strategy AllreduceStrategy --num_workers 2`` starts the
 control plane and spawns the workers as local subprocesses, wired back
-over ``rpc/service.py``; ``api.py`` runs it in the CLI's process.
+over ``rpc/service.py``; ``api.py`` runs it in the CLI's process, for
+every job type: training, training with evaluation
+(``--validation_data``), evaluation only and prediction only.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import sys
 from elasticdl_tpu_torch.master.master import LocalInstanceManager, Master
 from elasticdl_tpu_torch.utils.args import (
     build_worker_arguments,
-    check_distributed_flags,
     check_ported_flags,
     parse_master_args,
 )
@@ -23,12 +24,21 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
 def worker_envs(args) -> dict[str, str]:
     """The environment the master adds to every worker's: ``--envs``,
-    and the RPC retry budget and deadlines, which travel by env (never
-    argv)."""
+    the RPC retry budget and deadlines, and the device pipeline's flags
+    (``--device_prefetch``, ``--boundary_fusion``, ``--pipeline_depth``),
+    which travel by env, never argv, so that every process of a world
+    resolves them alike."""
     from elasticdl_tpu_torch.rpc.deadline import DEADLINE_SECS_ENV
     from elasticdl_tpu_torch.rpc.retry import RETRY_SECS_ENV
+    from elasticdl_tpu_torch.trainer import device_pipeline as dp
 
     envs = dict(args.envs_dict)
+    if args.device_prefetch:
+        envs.setdefault(dp.DEVICE_PREFETCH_ENV, "1")
+    if args.boundary_fusion:
+        envs.setdefault(dp.BOUNDARY_FUSION_ENV, "1")
+    if args.pipeline_depth is not None:
+        envs.setdefault(dp.PIPELINE_DEPTH_ENV, str(args.pipeline_depth))
     if args.rpc_retry_secs is not None:
         envs.setdefault(RETRY_SECS_ENV, str(args.rpc_retry_secs))
     if args.rpc_deadline_secs is not None:
@@ -38,10 +48,10 @@ def worker_envs(args) -> dict[str, str]:
 
 def build_master(args) -> Master:
     """A Master with its local instance manager (exposed so tests and
-    embedding callers can drive the lifecycle).  Refuses what the port
-    cannot run yet (``check_ported_flags``, ``check_distributed_flags``)."""
+    embedding callers can drive the lifecycle); with ``--num_workers 0``
+    none, and the workers are started elsewhere.  Refuses what the port
+    cannot run yet (``check_ported_flags``)."""
     check_ported_flags(args)
-    check_distributed_flags(args)
 
     def build_argv(worker_id, master_addr, **world_kwargs):
         argv = [
@@ -54,11 +64,16 @@ def build_master(args) -> Master:
         return argv
 
     def im_factory(master):
+        if args.num_workers <= 0:
+            return None
         return LocalInstanceManager(
             master,
             args.num_workers,
             build_argv,
             envs=worker_envs(args),
+            # two or more workers train one model as one world; one is
+            # the task-stream worker
+            lockstep=args.num_workers > 1,
             max_reforms=args.relaunch_on_worker_failure,
         )
 

@@ -1,24 +1,32 @@
 """The master: job orchestrator and control plane; the counterpart of
-``elasticdl_tpu/master/master.py`` for the lockstep path.
+``elasticdl_tpu/master/master.py``.
 
-It builds the task dispatcher over the training shards (with the
-SAVE_MODEL deferred task when ``--output`` is set), serves the servicer
-over ``rpc/service.py``, starts the workers through an instance manager
-(:class:`LocalInstanceManager`: local subprocesses forming one
-``torch.distributed`` world), and polls until the dispatcher is done.
+It builds the task dispatcher over the training, validation and
+prediction shards (with the SAVE_MODEL deferred task when ``--output``
+is set), the evaluation service for jobs that evaluate, serves the
+servicer over ``rpc/service.py``, starts the workers through an instance
+manager (:class:`LocalInstanceManager`: local subprocesses), and polls
+until the dispatcher is done.
 
-A lockstep world is one program: losing any process stalls every
-collective, so a worker failure (a non-zero process exit, or a heartbeat
-older than ``--heartbeat_timeout_secs``) re-forms the whole world
-(:meth:`Master._reform_lockstep`): fence the old generation, re-queue
-every leased task, reset the step stream and relaunch a fresh world
-(new cluster version, new coordinator port) that resumes from the newest
-checkpoint, within the ``--relaunch_on_worker_failure`` budget.
+Two kinds of worker, as in the JAX package:
 
-Left out until the next part of the slice: hot standbys, slices and
+- two or more workers form one ``torch.distributed`` world (the
+  lockstep worker).  A world is one program: losing any process stalls
+  every collective, so a worker failure (a non-zero process exit, or a
+  heartbeat older than ``--heartbeat_timeout_secs``) re-forms the whole
+  world (:meth:`Master._reform_lockstep`): fence the old generation,
+  re-queue every leased task, reset the step stream and relaunch a fresh
+  world (new cluster version, new coordinator port) that resumes from
+  the newest checkpoint, within the ``--relaunch_on_worker_failure``
+  budget;
+- one worker runs the task-stream worker, which leases its own tasks:
+  a failure re-queues the dead worker's leases and relaunches it under a
+  new worker id.
+
+Left out until the slices that bring them: hot standbys, slices and
 parking, the autoscaler, SLOs, streaming and live push, peer
-replication, the journal (master high availability), the evaluation
-and TensorBoard services, and telemetry.
+replication, the journal (master high availability), the TensorBoard
+service, and telemetry.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import threading
 import time
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.utils.args import derive_job_type
@@ -46,6 +55,8 @@ class Master:
         self._job_failed = False
         self._heartbeat_timeout_secs = args.heartbeat_timeout_secs or 0.0
         self.reform_events: list[dict] = []
+        # task-stream relaunches: {"detected_at", "dead_worker", "worker_id"}
+        self.relaunch_events: list[dict] = []
         # callbacks(cluster_version, dead_workers, reason) invoked on
         # every re-formation — chaos invariant checking
         self.reform_callbacks: list = []
@@ -77,12 +88,42 @@ class Master:
             task_timeout_secs=args.task_timeout_secs,
             shuffle_seed=args.shuffle_seed,
         )
+        self.evaluation_service = None
+        if (
+            self.job_type
+            in (JobType.TRAINING_WITH_EVALUATION, JobType.EVALUATION_ONLY)
+            and self._spec.eval_metrics_fn is not None
+        ):
+            eval_only = self.job_type == JobType.EVALUATION_ONLY
+            self.evaluation_service = EvaluationService(
+                None,  # the TensorBoard service comes with slice 10
+                self.task_d,
+                self._spec.eval_metrics_fn,
+                start_delay_secs=args.evaluation_start_delay_secs,
+                # the time-based trigger is for a job that trains; an
+                # eval-only job evaluates once
+                throttle_secs=0 if eval_only else args.evaluation_throttle_secs,
+                evaluation_steps=args.evaluation_steps,
+                eval_only=eval_only,
+            )
+            if (
+                self.job_type == JobType.TRAINING_WITH_EVALUATION
+                and not args.evaluation_steps
+                and not args.evaluation_throttle_secs
+            ):
+                # neither trigger: one final evaluation when training
+                # drains, before the SAVE_MODEL callback below
+                self.task_d.add_deferred_callback(
+                    lambda: self.evaluation_service.add_evaluation_task()
+                )
         if args.output and self.job_type in (
             JobType.TRAINING_ONLY,
             JobType.TRAINING_WITH_EVALUATION,
         ):
             self.task_d.add_deferred_callback_create_save_model_task(args.output)
-        self.servicer = MasterServicer(args.minibatch_size, self.task_d)
+        self.servicer = MasterServicer(
+            args.minibatch_size, self.task_d, evaluation_service=self.evaluation_service
+        )
         self._server = None
         self._port = None
         self.instance_manager = (
@@ -97,6 +138,8 @@ class Master:
         """Start the control-plane server, then the workers."""
         from elasticdl_tpu_torch.rpc.service import create_server
 
+        if self.evaluation_service is not None:
+            self.evaluation_service.start()
         port = port if port is not None else self._args.port
         self._server = create_server(self.servicer, port)
         self._server.start()
@@ -135,6 +178,13 @@ class Master:
                     with self._reform_request_lock:
                         reason, self._reform_requested = self._reform_requested, None
                     self._reform_lockstep([], reason=reason)
+                if self.relaunch_events and "latency_secs" not in self.relaunch_events[-1]:
+                    # relaunch latency: detection to the new worker's
+                    # first task lease
+                    event = self.relaunch_events[-1]
+                    lease_at = self.servicer.first_lease_at(event["worker_id"])
+                    if lease_at is not None:
+                        event["latency_secs"] = lease_at - event["detected_at"]
                 if (
                     self.reform_events
                     and "latency_secs" not in self.reform_events[-1]
@@ -156,8 +206,30 @@ class Master:
         return 1 if self._job_failed else 0
 
     def _handle_dead_workers(self, dead: list[int]):
-        """A lockstep world is one program: any death re-forms it whole."""
-        self._reform_lockstep(dead, reason="worker_failure")
+        """A lockstep world is one program: any death re-forms it whole.
+        Task-stream workers are independent: re-queue the dead worker's
+        leases and relaunch it under a new id."""
+        im = self.instance_manager
+        if im is not None and im.lockstep:
+            self._reform_lockstep(dead, reason="worker_failure")
+            return
+        for worker_id in dead:
+            detected_at = time.monotonic()
+            logger.warning("Worker %d died; recovering its tasks", worker_id)
+            self.task_d.recover_tasks(worker_id)
+            self.servicer.forget_worker(worker_id)
+            if im is None:
+                continue
+            try:
+                new_id = im.restart_worker(worker_id)
+            except RuntimeError as ex:
+                logger.error("Giving up on the job: %s", ex)
+                self._job_failed = True
+                self.request_stop()
+                return
+            self.relaunch_events.append(
+                {"detected_at": detected_at, "dead_worker": worker_id, "worker_id": new_id}
+            )
 
     def _reform_lockstep(self, dead: list[int], reason: str):
         """Fence, recover, relaunch: the whole-world re-formation.
@@ -213,6 +285,8 @@ class Master:
         self._stop_requested = True
 
     def stop(self):
+        if self.evaluation_service is not None:
+            self.evaluation_service.stop()
         if self.instance_manager is not None:
             # the voluntary-exit grace only when the queue drained: on
             # failure the world hangs in collectives
@@ -235,6 +309,9 @@ class Master:
                 }
                 if c.exec_metrics:
                     out[tt.name.lower()]["exec_metrics"] = dict(c.exec_metrics)
+        summary = getattr(self.evaluation_service, "latest_summary", None)
+        if summary:
+            out["evaluation_metrics"] = summary
         if self.reform_events:
             keep = ("cluster_version", "dead_workers", "latency_secs", "reason")
             out["reforms"] = [
@@ -245,17 +322,25 @@ class Master:
 
 
 class LocalInstanceManager:
-    """Workers as local subprocesses that form one ``torch.distributed``
-    world: this manager picks the coordinator port, assigns process ids
-    0..N-1 and re-forms the whole world on failure
-    (:meth:`reform_world`)."""
+    """Workers as local subprocesses.  With ``lockstep`` (and two or more
+    workers) they form one ``torch.distributed`` world: this manager
+    picks the coordinator port, assigns process ids 0..N-1 and re-forms
+    the whole world on failure (:meth:`reform_world`).  Otherwise each is
+    a task-stream worker, relaunched alone under a new id
+    (:meth:`restart_worker`).  Either way ``max_reforms``
+    (``--relaunch_on_worker_failure``) bounds the relaunches a failure
+    may cost."""
 
-    def __init__(self, master, num_workers: int, build_argv, envs=None, max_reforms: int = 3):
+    def __init__(
+        self, master, num_workers: int, build_argv, envs=None,
+        lockstep: bool = True, max_reforms: int = 3,
+    ):
         self._master = master
         self._num_workers = num_workers
         # (worker_id, master_addr, **world_kwargs) -> argv
         self._build_argv = build_argv
         self._envs = dict(envs or {})
+        self.lockstep = lockstep and num_workers > 1
         self._max_reforms = max_reforms
         self._reforms = 0
         self._procs: dict[int, subprocess.Popen] = {}
@@ -270,8 +355,17 @@ class LocalInstanceManager:
         with self._lock:
             return list(self._procs)
 
+    def worker_pid(self, worker_id: int) -> int | None:
+        with self._lock:
+            proc = self._procs.get(worker_id)
+        return proc.pid if proc is not None else None
+
     def start_workers(self):
-        self._start_world(cluster_version=0)
+        if self.lockstep:
+            self._start_world(cluster_version=0)
+        else:
+            for _ in range(self._num_workers):
+                self._start(self._claim_worker_id())
 
     def _claim_worker_id(self) -> int:
         with self._lock:
@@ -333,6 +427,24 @@ class LocalInstanceManager:
             except subprocess.TimeoutExpired:
                 logger.error("Worker pid %d survived SIGKILL for 10 s", proc.pid)
         return procs
+
+    def restart_worker(self, worker_id: int) -> int:
+        """Relaunch a task-stream worker under a NEW id (a lockstep worker
+        is never replaced alone: :meth:`reform_world`); returns the new
+        id.  Raises ``RuntimeError`` past the relaunch budget."""
+        with self._lock:
+            proc = self._procs.pop(worker_id, None)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+        self._reforms += 1
+        if self._reforms > self._max_reforms:
+            raise RuntimeError(
+                f"workers relaunched {self._reforms - 1} times "
+                f"(--relaunch_on_worker_failure limit); giving up"
+            )
+        new_id = self._claim_worker_id()
+        self._start(new_id)
+        return new_id
 
     def reform_world(self, cluster_version: int, count_against_budget: bool = True):
         """Kill the old world and launch a new one.  Survivors may be

@@ -1,10 +1,14 @@
 """The master's service logic, transport-agnostic; the counterpart of
-``elasticdl_tpu/master/servicer.py`` for the lockstep path.
+``elasticdl_tpu/master/servicer.py``.
 
 It wraps the task dispatcher (``master/task_dispatcher.py``) and serves
-``get_task``, the memoized lockstep step stream (``get_step_task``, with
-its two cluster-version fences), task and version reports and
-heartbeats; the master's run loop reads liveness from it
+``get_task`` (the task-stream worker's leases of training, evaluation
+and prediction tasks), the memoized lockstep step stream
+(``get_step_task``, with its two cluster-version fences), task and
+version reports (a version report may queue a step-based evaluation),
+evaluation metrics (lease-guarded and deduplicated by task id, then
+accumulated by the evaluation service) and heartbeats; the master's run
+loop reads liveness from it
 (``dead_workers``) and fences a world with ``bump_cluster_version`` and
 ``reset_step_stream``.  Requests and responses are the dataclasses of
 ``rpc/messages.py``; ``rpc/service.py`` only moves them.
@@ -12,8 +16,9 @@ heartbeats; the master's run loop reads liveness from it
 Left out until the slices that need them: the journal (master high
 availability), the replica directory and restore stage, re-homing, the
 profiler command, the quiesce flag, and the telemetry fan-in of step
-phases, prefetch and memory.  Heartbeats are applied under one lock
-(the JAX package coalesces them for fleets of thousands).
+phases and memory (the device pipeline's staging totals are kept, per
+worker).  Heartbeats are applied under one lock (the JAX package
+coalesces them for fleets of thousands).
 """
 
 from __future__ import annotations
@@ -33,9 +38,16 @@ class MasterServicer:
     # slack is unreachable
     STREAM_MEMO_KEEP = 512
 
-    def __init__(self, minibatch_size: int, task_dispatcher, clock=time.monotonic):
+    def __init__(
+        self,
+        minibatch_size: int,
+        task_dispatcher,
+        evaluation_service=None,
+        clock=time.monotonic,
+    ):
         self._task_d = task_dispatcher
         self._minibatch_size = minibatch_size
+        self._evaluation_service = evaluation_service
         self._clock = clock
         self._lock = threading.Lock()
         # GIL-atomic ints: unlocked reads are the documented pattern;
@@ -51,6 +63,15 @@ class MasterServicer:
         # summed across workers (rpc/stats.py)
         self._worker_rpc_stats: dict[int, dict[str, int]] = {}  # guarded-by: _lock
         self._rpc_totals: dict[str, int] = {}  # guarded-by: _lock
+        # the device pipeline's staging totals, max-merged per worker
+        self._worker_prefetch_stats: dict[int, dict[str, int]] = {}  # guarded-by: _lock
+        # task ids whose evaluation metrics were accumulated: a second
+        # report for a lease still active (a lost reply, a client retry)
+        # is dropped
+        self._eval_metrics_seen: set[int] = set()  # guarded-by: _lock
+        # worker_id -> monotonic time of its first get_task lease (a
+        # relaunched worker's is the end of the relaunch latency)
+        self._first_lease_at: dict[int, float] = {}  # guarded-by: _lock
         # lockstep step stream: seq -> memoized TaskResponse.  Every
         # process of a world pulls the same seq and must see the same
         # answer; WAIT is the only non-final answer and is never memoized
@@ -59,6 +80,8 @@ class MasterServicer:
         self._first_stream_pull_at: float | None = None  # guarded-by: _stream_lock
         # (worker_id, model_version) observers — chaos invariant checking
         self._version_observers: list = []
+        if evaluation_service is not None:
+            evaluation_service.set_master_servicer(self)
 
     def add_version_observer(self, callback):
         """``callback(worker_id, model_version)`` on every version
@@ -81,6 +104,8 @@ class MasterServicer:
         else:
             task_id, task = self._task_d.get(request.worker_id)
         if task is not None:
+            with self._lock:
+                self._first_lease_at.setdefault(request.worker_id, self._clock())
             return msg.task_to_response(
                 task_id, task, self._version, self._minibatch_size
             )
@@ -181,7 +206,8 @@ class MasterServicer:
         )
 
     def report_version(self, request: msg.ReportVersionRequest):
-        """Workers report their step count (the model version)."""
+        """Workers report their step count (the model version), which
+        drives the step-based evaluation trigger."""
         with self._lock:
             self._version = max(self._version, request.model_version)
         for callback in self._version_observers:
@@ -189,6 +215,38 @@ class MasterServicer:
                 callback(request.worker_id, request.model_version)
             except Exception:  # noqa: BLE001 — observers never break RPCs
                 logger.exception("Version observer failed")
+        if self._evaluation_service is not None:
+            self._evaluation_service.add_evaluation_task_if_needed(
+                master_locking=False, model_version=request.model_version
+            )
+
+    def report_evaluation_metrics(
+        self, request: msg.ReportEvaluationMetricsRequest
+    ):
+        """Accumulate an evaluation task's outputs and labels, unless its
+        lease is no longer active (reclaimed or re-queued: the re-run
+        reports) or this lease already reported (a re-delivery)."""
+        if request.task_id >= 0 and not self._task_d.is_active(request.task_id):
+            logger.warning(
+                "Dropping eval metrics for inactive task %d", request.task_id
+            )
+            return
+        if request.task_id >= 0:
+            with self._lock:
+                duplicate = request.task_id in self._eval_metrics_seen
+                self._eval_metrics_seen.add(request.task_id)
+            if duplicate:
+                logger.warning(
+                    "Dropping duplicate eval metrics for task %d "
+                    "(re-delivered report)", request.task_id,
+                )
+                return
+        if self._evaluation_service is not None:
+            self._evaluation_service.report_evaluation_metrics(
+                request.model_outputs,
+                request.labels,
+                evaluated_version=request.evaluated_version,
+            )
 
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
         with self._lock:
@@ -198,6 +256,11 @@ class MasterServicer:
                     self._worker_rpc_stats.setdefault(request.worker_id, {}),
                     request.rpc,
                     totals=self._rpc_totals,
+                )
+            if request.prefetch:
+                max_merge_counters(
+                    self._worker_prefetch_stats.setdefault(request.worker_id, {}),
+                    request.prefetch,
                 )
         return msg.HeartbeatResponse(cluster_version=self._cluster_version)
 
@@ -231,6 +294,18 @@ class MasterServicer:
     def live_workers(self) -> list[int]:
         with self._lock:
             return sorted(set(self._heartbeats) - self._marked_dead)
+
+    def first_lease_at(self, worker_id: int) -> float | None:
+        """Monotonic time of ``worker_id``'s first ``get_task`` lease."""
+        with self._lock:
+            return self._first_lease_at.get(worker_id)
+
+    def prefetch_stats(self) -> dict[int, dict[str, int]]:
+        """Each worker's device-pipeline staging totals (groups staged,
+        stall and staging ms, boundaries), as its heartbeats carried
+        them."""
+        with self._lock:
+            return {wid: dict(stats) for wid, stats in self._worker_prefetch_stats.items()}
 
     def rpc_stats_totals(self) -> dict[str, int]:
         """Fleet-wide RPC outcome totals: per-worker maxima summed."""

@@ -28,7 +28,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import json
 import math
+import os
 
 import torch
 
@@ -48,6 +50,21 @@ launch_counts: dict[str, int] = {
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# Debug hook: when set, a worker process writes its launch counts (from
+# the process's start) to $ELASTICDL_TPU_DUMP_LAUNCHES/launches_<tag>.json
+# as its run ends, since a job's workers are processes of their own
+LAUNCH_DUMP_ENV = "ELASTICDL_TPU_DUMP_LAUNCHES"
+
+
+def dump_launch_counts_if_requested(tag: str) -> None:
+    out_dir = os.environ.get(LAUNCH_DUMP_ENV, "")
+    if not out_dir:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"launches_{tag}.json"), "w") as f:
+        json.dump(launch_counts, f)
 
 
 # ---- reference (plain PyTorch) ---------------------------------------------

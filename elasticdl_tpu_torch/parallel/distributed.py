@@ -131,6 +131,14 @@ class SPMDTrainer:
         index = (slice(None),) * axis + (slice(start, stop),)
         return map_tree(lambda x: x[index], tree)
 
+    def place_local(self, tree):
+        """A canonical host batch tree on the device: in a data-parallel
+        world this process's rows of it (an evaluation or prediction
+        batch; ``parallel/elastic.py::gather_rows_to_chief`` brings the
+        outputs back together)."""
+        rows = int(np.shape(tree_leaves(tree)[0])[0])
+        return self.place_batch(self._local_rows(tree, rows, 0))
+
     def place_step(self, features, labels, weights):
         """One canonical host batch ``(features, labels, weights)`` on the
         device, for :meth:`train_step`: in a data-parallel world this

@@ -22,6 +22,9 @@ The data-parallel axis: each process trains the rows
 :func:`local_batch_ranges` gives it of every canonical batch, and the
 layers that mix rows (BatchNorm's statistics, dropout's mask) read
 :func:`current_rows` to act on the global batch as one process would.
+An evaluation or prediction batch runs the same split, and
+:func:`gather_rows_to_chief` brings every process's output rows to
+process 0, in global batch order.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
+from elasticdl_tpu_torch.utils.tree_utils import map_tree
 
 BACKEND_NCCL = "nccl"
 BACKEND_GLOO = "gloo"
@@ -139,6 +143,38 @@ def local_batch_ranges(
         )
     per = global_rows // num_processes
     return [(process_index * per, (process_index + 1) * per)]
+
+
+def gather_rows_to_chief(tree, group):
+    """Every process's rows of a batch tree (tensors of one row count on
+    every process: its block of the global batch), concatenated in
+    process order, which is global batch order, on process 0 of
+    ``group``; None on the others.  The counterpart of the JAX package's
+    ``replicate_to_hosts`` (:306), which gathers to every process: only
+    process 0 reports or processes the rows, so the others would discard
+    them.
+
+    The rows travel as raw bytes (any dtype, bf16 included).  On gloo
+    they pass through host memory, since gloo gathers CPU tensors only;
+    on NCCL they stay on the card."""
+    world = dist.get_world_size(group)
+    chief = dist.get_rank(group) == 0
+    dst = dist.get_global_rank(group, 0)
+    on_host = dist.get_backend(group) == BACKEND_GLOO
+
+    def gather(x):
+        x = x.detach()
+        if on_host:
+            x = x.cpu()
+        raw = x.contiguous().reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(world)] if chief else None
+        dist.gather(raw, parts, dst=dst, group=group)
+        if not chief:
+            return None
+        return torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts], 0)
+
+    out = map_tree(gather, tree)
+    return out if chief else None
 
 
 def batch_divisor(num_processes: int) -> int:

@@ -1,6 +1,6 @@
 """Control-plane message types; the dataclasses of
-``elasticdl_tpu/rpc/messages.py`` that the lockstep path uses, with the
-same field names and defaults.
+``elasticdl_tpu/rpc/messages.py`` that the lockstep and task-stream
+workers use, with the same field names and defaults.
 
 The JAX package serializes them with msgpack.  The port's codec is the
 standard library's: one frame is
@@ -89,12 +89,28 @@ class ReportVersionRequest:
 
 
 @dataclass
+class ReportEvaluationMetricsRequest:
+    """An evaluation task's outputs and labels, for the master to
+    accumulate its metrics.  ``task_id`` is the lease guard: the master
+    drops a report whose lease is no longer active, and a second report
+    for the same lease.  ``evaluated_version``: the step of the state
+    the worker evaluated with."""
+
+    model_outputs: dict = field(default_factory=dict)  # name -> Tensor
+    labels: Tensor | None = None
+    model_version: int = -1
+    task_id: int = -1
+    evaluated_version: int = -1
+
+
+@dataclass
 class HeartbeatRequest:
     """The JAX package's heartbeat, every field kept.  The port's workers
-    fill ``worker_id``, ``step``, ``timestamp`` and ``rpc`` (the client's
-    outcome totals, ``rpc/stats.py``); ``replica``, ``phases``,
-    ``prefetch`` and ``memory`` come with the slices that port
-    replication and telemetry, and stay empty."""
+    fill ``worker_id``, ``step``, ``timestamp``, ``rpc`` (the client's
+    outcome totals, ``rpc/stats.py``) and ``prefetch`` (the device
+    pipeline's staging totals); ``replica``, ``phases`` and ``memory``
+    come with the slices that port replication and telemetry, and stay
+    empty."""
 
     worker_id: int
     step: int = 0
@@ -124,6 +140,7 @@ MESSAGE_TYPES = {
         GetStepTaskRequest,
         ReportTaskResultRequest,
         ReportVersionRequest,
+        ReportEvaluationMetricsRequest,
         HeartbeatRequest,
         HeartbeatResponse,
     )

@@ -13,8 +13,10 @@ means ``None``.  Handlers delegate to a transport-agnostic servicer
 (``master/servicer.py``), the same object tests call directly.  Status
 codes keep gRPC's names: a refused or dropped connection is
 ``UNAVAILABLE``, a timed-out call ``DEADLINE_EXCEEDED`` (both retryable,
-``rpc/retry.py``), an unknown method ``UNIMPLEMENTED`` and a handler
-that raised ``INTERNAL``.
+``rpc/retry.py``), an unknown method ``UNIMPLEMENTED``, a handler
+that raised ``INTERNAL``, and a request over the message cap
+``RESOURCE_EXHAUSTED`` (raised by the client before it sends, as gRPC's
+client refuses a message over its send limit).
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
 SERVICE_NAME = "elasticdl_tpu.Master"
 
-# the master's control-plane methods on the lockstep path
+# the master's control-plane methods the port's workers call
 _METHODS = (
     "get_task",
     "get_step_task",
     "report_task_result",
     "report_version",
+    "report_evaluation_metrics",
     "heartbeat",
 )
 
@@ -57,6 +60,7 @@ class StatusCode(enum.Enum):
     OK = 0
     UNAVAILABLE = 14
     DEADLINE_EXCEEDED = 4
+    RESOURCE_EXHAUSTED = 8
     UNIMPLEMENTED = 12
     INTERNAL = 13
 
@@ -250,6 +254,14 @@ class RpcClient:
         if timeout is None and self._deadlines is not None:
             timeout = self._deadlines.deadline_for(name)
         payload = msg.encode(request)
+        if len(payload) > MAX_MESSAGE_BYTES:
+            # the server would drop it unread: refuse it here, loudly,
+            # and never as a retryable outage
+            raise RpcError(
+                StatusCode.RESOURCE_EXHAUSTED,
+                f"{name}: a request of {len(payload)} bytes is over the "
+                f"{MAX_MESSAGE_BYTES}-byte message cap",
+            )
         if self._retry is None or name not in self._retryable:
             try:
                 out = self._invoke(name, payload, timeout)
@@ -289,6 +301,9 @@ class MasterClient(RpcClient):
 
     def report_version(self, request: msg.ReportVersionRequest):
         return self._call("report_version", request)
+
+    def report_evaluation_metrics(self, request: msg.ReportEvaluationMetricsRequest):
+        return self._call("report_evaluation_metrics", request)
 
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
         return self._call("heartbeat", request)

@@ -268,6 +268,9 @@ class StagedGroup:
     ``train_steps_stacked``; ``KIND_SINGLES``, ``placed`` is a list of
     ``(features, labels, mask)`` single steps (a trailing partial group).
     ``hook_features``: one host features ref per step, for ``pre_batch``.
+    ``host``: what the group was assembled from (the plain batches'
+    ``(features, labels, rows)`` list, or the :class:`PreStacked`), so
+    that a retry can place it again.
     ``error``: staging itself failed (nothing placed); the consumer
     raises it at the group's position.
     ``ready``: the CUDA event after the group's copies (None on the
@@ -277,18 +280,19 @@ class StagedGroup:
     KIND_SINGLES = "singles"
 
     __slots__ = (
-        "kind", "steps", "records", "hook_features", "error", "nbytes",
-        "_placed", "_ready", "_release",
+        "kind", "steps", "records", "hook_features", "host", "error",
+        "nbytes", "_placed", "_ready", "_release",
     )
 
     def __init__(
         self, kind, placed, steps, records, hook_features, error=None,
-        nbytes=0, ready=None, release=None,
+        nbytes=0, ready=None, release=None, host=None,
     ):
         self.kind = kind
         self.steps = int(steps)
         self.records = int(records)
         self.hook_features = hook_features
+        self.host = host
         self.error = error
         self.nbytes = int(nbytes)
         self._placed = placed
@@ -421,7 +425,7 @@ class DeviceStager:
             STAGING_BUDGET_ENV,
         )
 
-    def _stage(self, trainer, stream, assemble, steps, records, hooks):
+    def _stage(self, trainer, stream, assemble, steps, records, hooks, host):
         """Assemble and place one group; a failure here (a bad batch, a
         failed copy) becomes a group that carries the error, which the
         consumer raises in stream position."""
@@ -437,7 +441,7 @@ class DeviceStager:
         except Exception as e:  # noqa: BLE001 — raised by the consumer
             return self._put((_STAGE_KIND_GROUP, StagedGroup(
                 StagedGroup.KIND_SINGLES, None, steps=steps, records=records,
-                hook_features=hooks, error=e,
+                hook_features=hooks, error=e, host=host,
             )))
         nbytes = pytree_bytes(placed)
         self._admit(nbytes, trainer.device)
@@ -446,7 +450,7 @@ class DeviceStager:
         _note_staged(time.monotonic() - t0)
         return self._put((_STAGE_KIND_GROUP, StagedGroup(
             kind, placed, steps=steps, records=records, hook_features=hooks,
-            nbytes=nbytes, ready=ready, release=self._release_bytes,
+            nbytes=nbytes, ready=ready, release=self._release_bytes, host=host,
         )))
 
     def _release_bytes(self, nbytes: int):
@@ -468,7 +472,7 @@ class DeviceStager:
                     trainer, stream,
                     lambda: assemble_canonical_group(trainer, group, self._k, self._rows),
                     steps=len(group), records=sum(n for _f, _l, n in group),
-                    hooks=[f for f, _l, _n in group],
+                    hooks=[f for f, _l, _n in group], host=list(group),
                 )
 
             for item in self._batches:
@@ -490,6 +494,7 @@ class DeviceStager:
                             ),
                             steps=item.num_steps, records=item.num_records,
                             hooks=[item.sample_features] * item.num_steps,
+                            host=item,
                         )
                     if not ok:
                         return

@@ -9,9 +9,7 @@ other platform is refused by name.  Every other flag is the JAX CLI's.
 A flag whose feature the port does not have yet is parsed like any
 other, and :func:`check_ported_flags` (called when an executor or a
 master is built) raises when it is set to anything but its default,
-naming the flag and the slice of ``ROADMAP.md`` queue 1 that brings it;
-:func:`check_distributed_flags` does the same for what a distributed
-job cannot do yet.
+naming the flag and the slice of ``ROADMAP.md`` queue 1 that brings it.
 
 The master assembles each worker's argv from its own flags
 (:func:`build_worker_arguments`), and the worker parses it with
@@ -639,7 +637,8 @@ def _comes_with(slice_name: str) -> str:
 
 
 _ELASTIC = _comes_with(
-    "slice 6b, the rest of data parallelism and elastic reform"
+    "slice 6b-2, the rest of data parallelism and elastic reform "
+    "(replication, the journal, standbys, slices and the autoscaler)"
 )
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
 _K8S = _comes_with("slice 9, Kubernetes submission")
@@ -647,8 +646,6 @@ _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
     "mesh_shape": _ELASTIC,
     "dcn_mesh_shape": _ELASTIC,
-    "evaluation_start_delay_secs": _ELASTIC,
-    "evaluation_throttle_secs": _ELASTIC,
     "replication": _ELASTIC,
     "replication_steps": _ELASTIC,
     "master_journal_dir": _ELASTIC,
@@ -721,29 +718,3 @@ def check_ported_flags(args: argparse.Namespace) -> None:
             continue
         raise NotImplementedError(f"--{flag}={value!r} is not ported: {reason}")
 
-
-def check_distributed_flags(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for what a distributed job (a master
-    with workers) cannot do yet, naming slice 6b: a single worker (the
-    JAX package's task-stream worker), evaluation (the evaluation service
-    and the lockstep worker's evaluation tasks), prediction, and
-    ``--device_prefetch``."""
-    if args.num_workers < 2:
-        raise NotImplementedError(
-            f"--num_workers={args.num_workers} is not ported: a distributed "
-            "job of one worker runs the task-stream worker, which "
-            + _ELASTIC
-        )
-    for flag in ("validation_data", "prediction_data"):
-        if getattr(args, flag, ""):
-            raise NotImplementedError(
-                f"--{flag} under --distribution_strategy="
-                f"{args.distribution_strategy} is not ported: the lockstep "
-                "worker's evaluation and prediction tasks and the master's "
-                "evaluation service come with slice 6b (ROADMAP.md queue 1)"
-            )
-    if args.device_prefetch:
-        raise NotImplementedError(
-            "--device_prefetch under the lockstep worker is not ported: "
-            + _ELASTIC
-        )

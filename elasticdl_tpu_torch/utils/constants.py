@@ -40,3 +40,7 @@ class DistributionStrategy:
 
 # Default port the master control-plane service listens on.
 MASTER_DEFAULT_PORT = 50001
+
+# Times the task-stream worker retries a minibatch after a failure
+# before it reports the failure with the task.
+MAX_MINIBATCH_RETRY_NUM = 64

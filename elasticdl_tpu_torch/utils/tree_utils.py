@@ -25,17 +25,18 @@ def tree_leaves(tree) -> list:
     return leaves
 
 
-def stack_trees(trees: list):
-    """Trees of one structure as one tree whose leaves are the leaves
-    stacked on a new leading axis (``np.stack``)."""
+def stack_trees(trees: list, join=np.stack):
+    """Trees of one structure as one tree whose leaves are ``join`` of the
+    trees' leaves: stacked on a new leading axis (``np.stack``), or, with
+    ``np.concatenate``, their rows one after another."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees], join) for k in first}
     if isinstance(first, (list, tuple)):
         return type(first)(
-            stack_trees([t[i] for t in trees]) for i in range(len(first))
+            stack_trees([t[i] for t in trees], join) for i in range(len(first))
         )
-    return np.stack([np.asarray(t) for t in trees])
+    return join([np.asarray(t) for t in trees])
 
 
 def batch_rows(tree) -> int:

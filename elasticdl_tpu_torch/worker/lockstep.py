@@ -23,11 +23,25 @@ so the only sound recovery is to report the task failed and crash; the
 master re-forms the world and re-queues the task, within its
 ``--relaunch_on_worker_failure`` budget.
 
-Left out until the next part of the slice: evaluation and prediction
-tasks, ``--device_prefetch``, peer replication and master high
-availability; and per-process checkpoint parts: process 0 writes every
-checkpoint as one part (the name-keyed layout of a Local run) and, at a
-world's start, restores it and broadcasts the state to the others.
+Evaluation and prediction tasks come down the same stream: every
+process runs the forward on its own rows of each batch (eval mode:
+BatchNorm reads its running statistics, so no collective runs in it, and
+dropout is off), the rows are gathered to process 0 in global batch
+order (``parallel/elastic.py::gather_rows_to_chief``), and process 0
+alone reports the evaluation's outputs and labels to the master, or
+hands each prediction batch to the model's ``PredictionOutputsProcessor``.
+
+``--device_prefetch`` (forwarded by the master through the environment,
+so every process resolves it alike) stages a task's next dispatch groups
+on the card while the current one computes, and drains at every task
+boundary: a group staged across a re-formation fence on some processes
+and not on others would split the world, so cross-task staging
+(``--boundary_fusion``) is not wired here, as in the JAX package.
+
+Left out until the next part of the slice: peer replication and master
+high availability; and per-process checkpoint parts: process 0 writes
+every checkpoint as one part (the name-keyed layout of a Local run) and,
+at a world's start, restores it and broadcasts the state to the others.
 """
 
 from __future__ import annotations
@@ -46,10 +60,12 @@ from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
 from elasticdl_tpu_torch.master.task_dispatcher import FAIL_COUNT
-from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
-from elasticdl_tpu_torch.parallel.elastic import batch_divisor
+from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
+from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
+from elasticdl_tpu_torch.parallel.elastic import batch_divisor, gather_rows_to_chief
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
+from elasticdl_tpu_torch.trainer import device_pipeline
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
     restore_trainer_state,
@@ -61,11 +77,14 @@ from elasticdl_tpu_torch.trainer.stacking import (
     run_stacked_steps,
 )
 from elasticdl_tpu_torch.trainer.state import Modes, state_to_checkpoint
-from elasticdl_tpu_torch.utils.constants import TaskType
+from elasticdl_tpu_torch.utils.args import derive_job_type
+from elasticdl_tpu_torch.utils.constants import JobType, TaskType
 from elasticdl_tpu_torch.utils.export_utils import export_model
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+from elasticdl_tpu_torch.utils.tensor import ndarray_to_tensor
 from elasticdl_tpu_torch.utils.timing_utils import Timing
+from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
 
 # Debug hook: when set, each process dumps its final dense state to
 # $ELASTICDL_TPU_DUMP_STATE/final_state_p{process_id}.npz — tests and the
@@ -86,6 +105,7 @@ class LockstepWorker:
         self._process_id = world.process_id
         self._cluster_version = int(args.cluster_version)
         self._minibatch_size = args.minibatch_size
+        self._job_type = derive_job_type(args)
         self._timing = Timing(enabled=args.log_level == "DEBUG", logger=logger)
         self._spec = get_model_spec(
             args.model_zoo,
@@ -101,8 +121,11 @@ class LockstepWorker:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(INIT_SEED)
             self._model = self._spec.build_model()
+        # one reader serves every task of the job: a task names its shard
         self._reader = create_data_reader(
-            args.training_data,
+            args.prediction_data
+            if self._job_type == JobType.PREDICTION_ONLY
+            else args.training_data or args.validation_data,
             records_per_task=args.records_per_task,
             custom_reader=self._spec.custom_data_reader,
             **args.data_reader_params_dict,
@@ -111,6 +134,13 @@ class LockstepWorker:
         # world size): every process agrees on shapes and step counts
         self._canonical_rows = canonical_batch_rows(
             self._minibatch_size, batch_divisor(world.num_processes)
+        )
+        # the device pipeline, from the master-forwarded environment
+        self._device_prefetch = device_pipeline.resolve_device_prefetch(
+            args.device_prefetch
+        )
+        self._pipeline_depth = device_pipeline.resolve_pipeline_depth(
+            args.pipeline_depth
         )
         self._trainer: SPMDTrainer | None = None
         self._stopped = False
@@ -184,22 +214,24 @@ class LockstepWorker:
 
     # ---- task execution ----------------------------------------------------
 
-    def _task_batches(self, task):
-        """The global minibatches of one training task, the same on every
-        process: the shuffle is a pure function of the task, and an
-        explicit ``--steps_per_dispatch k`` groups them identically."""
+    def _task_batches(self, task, mode: Modes = Modes.TRAINING):
+        """The global minibatches of one task, the same on every process:
+        the shuffle (training only) is a pure function of the task, and
+        an explicit ``--steps_per_dispatch k`` groups training batches
+        identically."""
+        training = mode == Modes.TRAINING
         return build_task_batches(
             self._reader,
             task,
             self._spec,
-            Modes.TRAINING,
+            mode,
             self._reader.metadata,
             self._minibatch_size,
-            shuffle_records=True,
+            shuffle_records=training,
             # 'auto' would size k from a per-process probe, which could
             # differ between processes: the byte rule alone decides
             stack_k=choose_stack_k(
-                self._args.steps_per_dispatch, True, allow_auto=False
+                self._args.steps_per_dispatch, training, allow_auto=False
             ),
             stack_divisor=batch_divisor(self._world.num_processes),
             dispatch_device=self._world.device,
@@ -225,10 +257,21 @@ class LockstepWorker:
                 dispatch_ctx=lambda: self._timing.record("batch_process"),
                 deterministic_auto=True,
                 canonical_rows=self._canonical_rows,
+                # staging changes when a group is copied, never what is
+                # dispatched, and drains before this returns
+                device_prefetch=self._device_prefetch,
+                pipeline_depth=self._pipeline_depth,
             )
+        device_pipeline.note_task_boundary()
+        # the version before the task's report: a version that crosses an
+        # --evaluation_steps milestone queues its evaluation tasks while
+        # this task still holds the queue open, so no process of the world
+        # can pull end-of-job in between (reported the other way round, as
+        # the JAX package does, a peer's pull between the two reports
+        # ends the stream without the last milestone's evaluation)
+        self._report_version()
         self._report_task_result(task.task_id, include_timing=True)
         self._timing.report_timing(reset=True)
-        self._report_version()
         self._maybe_checkpoint()
 
     @contextlib.contextmanager
@@ -250,6 +293,59 @@ class LockstepWorker:
             )
             raise
 
+    def _forward_rows(self, features, n: int):
+        """This process's rows of one canonical evaluation or prediction
+        batch through the model (eval mode), gathered to process 0 and
+        trimmed to the ``n`` real rows there; None on the others."""
+        trainer = self._trainer
+        padded = trainer.pad_to(features, self._canonical_rows)
+        outputs = trainer.predict_step(trainer.place_local(padded))
+        gathered = gather_rows_to_chief(outputs, self._world.group)
+        return trim_pad(gathered, n) if gathered is not None else None
+
+    def _eval_task(self, task):
+        all_outputs, all_labels = [], []
+        with self._crash_on_error(task):
+            for features, labels in self._task_batches(task, Modes.EVALUATION):
+                self._ensure_trainer()
+                n = batch_rows(labels)
+                outputs = self._forward_rows(features, n)
+                if self._is_chief:
+                    all_outputs.append(outputs)
+                    all_labels.append(np.asarray(labels))
+        if all_outputs:
+            self._report_eval_metrics(
+                stack_trees(all_outputs, np.concatenate), np.concatenate(all_labels), task
+            )
+        self._report_task_result(task.task_id)
+
+    def _report_eval_metrics(self, outputs, labels, task):
+        """One report per task, after all its batches: a report over the
+        transport's message cap raises (``RESOURCE_EXHAUSTED``)."""
+        if isinstance(outputs, dict):
+            out_tensors = {k: ndarray_to_tensor(k, np.asarray(v)) for k, v in outputs.items()}
+        else:
+            out_tensors = {"output": ndarray_to_tensor("output", np.asarray(outputs))}
+        self._master.report_evaluation_metrics(
+            msg.ReportEvaluationMetricsRequest(
+                model_outputs=out_tensors,
+                labels=ndarray_to_tensor("labels", labels),
+                model_version=task.model_version,
+                task_id=task.task_id,
+                evaluated_version=self._trainer.step if self._trainer else -1,
+            )
+        )
+
+    def _predict_task(self, task):
+        processor = self._spec.prediction_outputs_processor
+        with self._crash_on_error(task):
+            for features in self._task_batches(task, Modes.PREDICTION):
+                self._ensure_trainer()
+                outputs = self._forward_rows(features, batch_rows(features))
+                if self._is_chief and processor is not None:
+                    processor.process(outputs, self._worker_id)
+        self._report_task_result(task.task_id)
+
     def _save_model_task(self, task):
         with self._crash_on_error(task):
             # a restart after training drained has no trainer yet: the
@@ -269,6 +365,21 @@ class LockstepWorker:
 
     # ---- main loop ---------------------------------------------------------
 
+    def _heartbeat(self):
+        """One heartbeat, with the RPC outcome and staging totals."""
+        try:
+            self._master.heartbeat(
+                msg.HeartbeatRequest(
+                    worker_id=self._worker_id,
+                    step=self._trainer.step if self._trainer else 0,
+                    timestamp=time.time(),
+                    rpc=rpc_stats.snapshot(),
+                    prefetch=device_pipeline.heartbeat_snapshot(),
+                )
+            )
+        except Exception:  # noqa: BLE001 — the master may be gone
+            pass
+
     def _start_heartbeats(self, interval_secs: float = HEARTBEAT_INTERVAL_SECS):
         def beat():
             while not self._stopped:
@@ -277,17 +388,7 @@ class LockstepWorker:
                     # master must see a dead worker
                     time.sleep(interval_secs)
                     continue
-                try:
-                    self._master.heartbeat(
-                        msg.HeartbeatRequest(
-                            worker_id=self._worker_id,
-                            step=self._trainer.step if self._trainer else 0,
-                            timestamp=time.time(),
-                            rpc=rpc_stats.snapshot(),
-                        )
-                    )
-                except Exception:  # noqa: BLE001 — the master may be gone
-                    pass
+                self._heartbeat()
                 time.sleep(interval_secs)
 
         threading.Thread(target=beat, name="heartbeat", daemon=True).start()
@@ -317,22 +418,34 @@ class LockstepWorker:
                 seq += 1
                 if task.type == int(TaskType.TRAINING):
                     self._train_task(task)
+                elif task.type == int(TaskType.EVALUATION):
+                    self._eval_task(task)
+                elif task.type == int(TaskType.PREDICTION):
+                    self._predict_task(task)
                 elif task.type == int(TaskType.SAVE_MODEL):
                     self._save_model_task(task)
                 else:
-                    # evaluation and prediction tasks come with the next
-                    # part of the slice; the master never makes them for
-                    # a distributed job (utils/args.py refuses the flags)
                     self._report_task_result(
-                        task.task_id, f"task type {task.type} is not ported"
+                        task.task_id, f"unknown task type {task.type}"
                     )
-            if self._is_chief and self._trainer is not None:
+            if (
+                self._is_chief
+                and self._checkpointer.enabled
+                and self._trainer is not None
+                and self._job_type
+                in (JobType.TRAINING_ONLY, JobType.TRAINING_WITH_EVALUATION)
+            ):
                 # the final state as a checkpoint, as the Local executor
                 # leaves it (the periodic ones stop at a milestone)
                 self._checkpointer.save_now(self._trainer, skip_if_current=True)
             self._dump_state_if_requested()
+            dump_launch_counts_if_requested(f"w{self._worker_id}")
+            # the last totals reach the master however short the run
+            self._heartbeat()
             ok = True
         finally:
+            # a pending boundary mark must not outlive the run loop
+            device_pipeline.clear_boundary_mark()
             try:
                 # a job must not end with an unwritten checkpoint, and a
                 # failed flush must not replace an exception in flight
@@ -353,3 +466,4 @@ class LockstepWorker:
     @property
     def trainer(self):
         return self._trainer
+

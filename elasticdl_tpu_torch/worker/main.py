@@ -1,13 +1,15 @@
 """Worker process entry; the counterpart of
-``elasticdl_tpu/worker/main.py`` for the lockstep runtime.
+``elasticdl_tpu/worker/main.py``.
 
 ``python -m elasticdl_tpu_torch.worker.main --master_addr=... --worker_id=N
 --coordinator_addr=... --num_processes=... --process_id=...`` joins the
 job's ``torch.distributed`` world (``parallel/elastic.py``) and runs the
 lockstep loop (``worker/lockstep.py``) against the master's control
-plane.  The master assembles this argv (``master/main.py``).  The job
-runs on the card unless ``--device cpu`` was given; a worker that finds
-no card raises.
+plane; without ``--coordinator_addr`` it runs the task-stream worker
+(``worker/worker.py``).  The master assembles this argv
+(``master/main.py``).  The job runs on the card unless ``--device cpu``
+was given; a worker that finds no card raises, and so does a flag whose
+feature the port does not have yet (``check_ported_flags``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 import sys
 
 from elasticdl_tpu_torch.rpc.service import MASTER_RETRYABLE_METHODS, MasterClient
-from elasticdl_tpu_torch.utils.args import parse_worker_args
+from elasticdl_tpu_torch.utils.args import check_ported_flags, parse_worker_args
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
@@ -51,15 +53,20 @@ def build_master_client(master_addr: str) -> MasterClient:
 
 def main(argv=None) -> int:
     args = parse_worker_args(argv)
+    check_ported_flags(args)
+    resolve_device(args.device)  # no card where one is asked for: raise
     if not args.coordinator_addr:
-        raise NotImplementedError(
-            "a worker without --coordinator_addr runs the task-stream worker, "
-            "which comes with slice 6b (ROADMAP.md queue 1)"
+        from elasticdl_tpu_torch.worker.worker import Worker
+
+        logger.info(
+            "Worker %d (task stream) connecting to master at %s",
+            args.worker_id, args.master_addr,
         )
+        Worker(args, build_master_client(args.master_addr)).run()
+        return 0
     from elasticdl_tpu_torch.parallel import elastic
     from elasticdl_tpu_torch.worker.lockstep import LockstepWorker
 
-    resolve_device(args.device)  # no card where one is asked for: raise
     logger.info(
         "Worker %d (process %d/%d, generation %d) connecting to master at %s",
         args.worker_id, args.process_id, args.num_processes,

@@ -21,9 +21,15 @@ fast enough to run with the rest.
   exactly epochs x records, the invariant checker finds no violation,
   the new world restored the newest checkpoint, and its two processes
   end bitwise equal.
-- The flags this slice ported no longer raise; the ones left raise and
-  name slice 6b.
-- ``chip_smoke.py``'s phase 10 at a small size.
+- With validation data the world evaluates (the master's evaluation
+  service, the lockstep worker's evaluation tasks, each rank's rows
+  gathered to process 0), and the JAX package's Local evaluate of the
+  world's checkpoint gives the same accuracy; ``--device_prefetch``
+  leaves the weights bit for bit as they were; an evaluation task that a
+  re-formation re-queued is counted once.
+- The flags ported so far no longer raise; the ones left raise and name
+  slice 6b-2.
+- ``chip_smoke.py``'s phases 10 and 11a-b at a small size.
 """
 
 from __future__ import annotations
@@ -73,6 +79,24 @@ def _dist(*extra):
     ]
 
 
+def _run_keeping_master(argv):
+    """``client.main(argv)``; returns its exit code and the master."""
+    from unittest import mock
+
+    from elasticdl_tpu_torch.master import main as master_main
+
+    kept = {}
+    original = master_main.build_master
+
+    def build(args):
+        kept["master"] = original(args)
+        return kept["master"]
+
+    with mock.patch.object(master_main, "build_master", build):
+        rc = client.main(argv)
+    return rc, kept["master"]
+
+
 def _dumps(dump_dir):
     out = []
     for p in (0, 1):
@@ -86,8 +110,10 @@ def _dumps(dump_dir):
 
 @pytest.fixture(scope="module")
 def world_and_local(tmp_path_factory):
-    """A JAX-written warm-start checkpoint; the two-worker CLI job and the
-    Local run from it, with their final checkpoints."""
+    """A JAX-written warm-start checkpoint; the two-worker CLI job (with
+    validation data: it evaluates at the end) and the Local run from it,
+    with their final checkpoints; and the world again with
+    ``--device_prefetch``."""
     import optax
 
     from elasticdl_tpu.models import mnist_functional_api as jax_mnist
@@ -107,15 +133,26 @@ def world_and_local(tmp_path_factory):
         0, state_to_checkpoint(TrainState.create(model.apply, params, optax.sgd(0.1), stats)),
         extra={"model_version": 0},
     )
-    dump_dir = str(root / "dump")
+    dump_dir, staged_dump = str(root / "dump"), str(root / "dump_staged")
     world_ckpt, local_ckpt = str(root / "world_ckpt"), str(root / "local_ckpt")
     init = ["--checkpoint_dir_for_init", data["init"]]
-    rc = client.main(["train", *_argv(data, *init, "--checkpoint_dir", world_ckpt,
-                                      *_dist("--envs", f"{DUMP_STATE_ENV}={dump_dir}"))])
+    rc, master = _run_keeping_master(["train", *_argv(
+        data, *init, "--checkpoint_dir", world_ckpt, "--validation_data", data["eval"],
+        *_dist("--envs", f"{DUMP_STATE_ENV}={dump_dir}"),
+    )])
+    assert rc == 0
+    rc, staged = _run_keeping_master(["train", *_argv(
+        data, *init, "--checkpoint_dir", str(root / "staged_ckpt"), "--device_prefetch", "true",
+        *_dist("--envs", f"{DUMP_STATE_ENV}={staged_dump}"),
+    )])
     assert rc == 0
     rc = client.main(["train", *_argv(data, *init, "--checkpoint_dir", local_ckpt)])
     assert rc == 0
-    return dict(data=data, dump=_dumps(dump_dir), world_ckpt=world_ckpt, local_ckpt=local_ckpt)
+    return dict(
+        data=data, dump=_dumps(dump_dir), world_ckpt=world_ckpt, local_ckpt=local_ckpt,
+        summary=master.job_summary(), staged_dump=_dumps(staged_dump),
+        staged_prefetch=staged.servicer.prefetch_stats(),
+    )
 
 
 def test_two_worker_job_equals_the_local_run(world_and_local):
@@ -153,6 +190,101 @@ def test_the_jax_package_evaluates_the_worlds_checkpoint(world_and_local):
     # the initial weights leave the validation loss in the hundreds)
     assert abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
     assert abs(got["accuracy"] - want["accuracy"]) <= 1 / 64 + 1e-9
+
+
+def test_the_worlds_evaluation_equals_the_jax_local_evaluate(world_and_local):
+    """The world's own final evaluation (the master's service over the
+    records process 0 gathered and reported) gives the accuracy the JAX
+    package's Local evaluate gives on the world's checkpoint, over all 64
+    validation records once.  The master's summary holds the model's
+    metrics (``eval_metrics_fn``: mnist's accuracy), as the JAX master's
+    does; the loss is the Local executors' own, held in the test above."""
+    from elasticdl_tpu import api as jax_api
+    from elasticdl_tpu.utils.args import parse_master_args as jax_parse
+
+    data, summary = world_and_local["data"], world_and_local["summary"]
+    want = jax_api.evaluate(jax_parse([
+        "--model_def", MNIST_DEF, "--validation_data", data["eval"],
+        "--minibatch_size", "32", "--records_per_task", "96",
+        "--checkpoint_dir_for_init", world_and_local["world_ckpt"],
+    ]))
+    metrics = summary["evaluation_metrics"]
+    assert summary["evaluation"]["total_records"] == 64
+    assert (metrics["model_version"], metrics["evaluated_version"]) == (6, 6)
+    assert metrics["accuracy"] == want["accuracy"]
+
+
+def test_device_prefetch_under_lockstep_gives_the_same_weights(world_and_local):
+    """Staging changes when a group is copied, never what is dispatched:
+    the staged world ends bit for bit where the unstaged one did, and
+    both ranks staged groups (their heartbeats carried the totals)."""
+    plain, staged = world_and_local["dump"], world_and_local["staged_dump"]
+    assert set(plain) == set(staged)
+    for key, value in plain.items():
+        np.testing.assert_array_equal(staged[key], value, err_msg=key)
+    groups = [stats.get("groups", 0) for stats in world_and_local["staged_prefetch"].values()]
+    assert len(groups) == 2 and all(n > 0 for n in groups)
+
+
+def test_an_evaluation_task_requeued_by_a_reformation_is_counted_once(tmp_path):
+    """A world leases an evaluation task and is re-formed before it
+    reports: the task is re-queued, the old lease's late report is
+    dropped, and the new world's report is the round's only one."""
+    from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_mnist
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.rpc import messages as msg
+    from elasticdl_tpu_torch.utils.constants import TaskType
+    from elasticdl_tpu_torch.utils.tensor import ndarray_to_tensor
+
+    class Manager:
+        lockstep = True
+
+        def __init__(self, master):
+            self.master = master
+
+        def worker_ids(self):
+            return [0, 1]
+
+        def poll_failed_workers(self):
+            return []
+
+        def reform_world(self, cluster_version, count_against_budget=True):
+            self.master.request_stop()
+
+        def stop_workers(self, grace_secs=15.0):
+            pass
+
+    train = gen_mnist(str(tmp_path / "t"), num_records=64, num_shards=1, seed=0)
+    evaluation = gen_mnist(str(tmp_path / "e"), num_records=32, num_shards=1, seed=1)
+    args = port_args.parse_master_args(_argv(
+        {"train": train}, "--records_per_task", "32", "--validation_data", evaluation,
+        "--evaluation_steps", "2", *_dist(),
+    ))
+    master = Master(args, instance_manager_factory=Manager)
+    master.servicer.report_version(msg.ReportVersionRequest(model_version=2))
+    old = master.servicer.get_step_task(msg.GetStepTaskRequest(seq=0, worker_id=0))
+    assert old.type == int(TaskType.EVALUATION)
+    master.request_reform("capacity")
+    assert master.run(poll_secs=0.01) == 0
+
+    def report(task_id, labels):
+        master.servicer.report_evaluation_metrics(msg.ReportEvaluationMetricsRequest(
+            model_outputs={"output": ndarray_to_tensor("output", np.eye(10, dtype=np.float32)[labels])},
+            labels=ndarray_to_tensor("labels", labels), task_id=task_id,
+        ))
+
+    report(old.task_id, np.zeros(32, np.int64))  # the old world's, late
+    new = master.servicer.get_step_task(
+        msg.GetStepTaskRequest(seq=0, worker_id=2, cluster_version=1)
+    )
+    assert new.type == int(TaskType.EVALUATION) and new.task_id != old.task_id
+    labels = np.arange(32) % 10
+    report(new.task_id, labels)
+    report(new.task_id, labels)  # a re-delivery
+    master.servicer.report_task_result(msg.ReportTaskResultRequest(task_id=new.task_id))
+    summary = master.job_summary()
+    assert summary["evaluation"]["total_records"] == 32
+    assert summary["evaluation_metrics"]["accuracy"] == 1.0
 
 
 def test_preempt_one_worker_reforms_and_finishes(tmp_path):
@@ -248,51 +380,62 @@ def test_an_elective_reform_fences_recovers_and_relaunches(tmp_path):
 
 # ---- flags ---------------------------------------------------------------
 
-# the flags this slice took off UNPORTED_FLAGS, with a value each
+# the flags taken off UNPORTED_FLAGS or out of the distributed refusals,
+# with a value each (DATA: a directory of records)
 LIFTED = [
     ("distribution_strategy", "ParameterServerStrategy"), ("num_workers", "3"),
     ("envs", "A=1,B=2"), ("port", "0"), ("relaunch_on_worker_failure", "1"),
     ("heartbeat_timeout_secs", "3"), ("task_timeout_secs", "9"),
     ("rpc_retry_secs", "1"), ("rpc_deadline_secs", "1"),
+    ("num_workers", "1"), ("validation_data", "DATA"), ("prediction_data", "DATA"),
+    ("device_prefetch", "true"), ("evaluation_start_delay_secs", "5"),
+    ("evaluation_throttle_secs", "5"),
 ]
 
 
-@pytest.mark.parametrize("flag, value", LIFTED, ids=[f for f, _ in LIFTED])
+@pytest.mark.parametrize(
+    "flag, value", LIFTED,
+    ids=[f if (f, v) != ("num_workers", "1") else "num_workers=1" for f, v in LIFTED],
+)
 def test_lifted_flag_builds_a_master(tmp_path, flag, value):
     from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_mnist
     from elasticdl_tpu_torch.master.main import worker_envs
+    from elasticdl_tpu_torch.trainer.device_pipeline import DEVICE_PREFETCH_ENV
 
     assert flag not in port_args.UNPORTED_FLAGS
     train = gen_mnist(str(tmp_path / "t"), num_records=32, num_shards=1, seed=0)
+    value = train if value == "DATA" else value
     argv = _argv({"train": train}, *_dist(), f"--{flag}", value)
     args = port_args.parse_master_args(argv)
     master = build_master(args)
     assert master.instance_manager.world_size == args.num_workers
+    # one worker is the task-stream worker, two or more one world
+    assert master.instance_manager.lockstep == (args.num_workers > 1)
     envs = worker_envs(args)
     if flag == "envs":
         assert envs == {"A": "1", "B": "2"}
     if flag in ("rpc_retry_secs", "rpc_deadline_secs"):
         # the policies travel by env, never argv
         assert set(envs.values()) == {value + ".0"}
+    if flag == "device_prefetch":
+        # as does the device pipeline, so that every rank resolves it alike
+        assert envs == {DEVICE_PREFETCH_ENV: "1"}
+    if flag == "validation_data":
+        assert master.evaluation_service is not None
     worker_argv = port_args.build_worker_arguments(args, 0, "localhost:1")
     assert f"--{flag}" not in worker_argv or flag in (
-        "distribution_strategy", "num_workers", "envs"
+        "distribution_strategy", "num_workers", "envs", "validation_data",
+        "prediction_data", "evaluation_start_delay_secs", "evaluation_throttle_secs",
     )
     # and the worker parses it back
     parsed = port_args.parse_worker_args(worker_argv)
     assert (parsed.worker_id, parsed.model_def) == (0, MNIST_DEF)
 
 
-# what a distributed job cannot do yet: each raises naming slice 6b
+# what a distributed job cannot do yet: each raises naming slice 6b-2
 SLICE_6B = [
-    ("num_workers", ["--num_workers", "1"]),
-    ("validation_data", ["--validation_data", "/v"]),
-    ("prediction_data", ["--prediction_data", "/p"]),
-    ("device_prefetch", ["--device_prefetch", "true"]),
-] + [
     (flag, [f"--{flag}", value]) for flag, value in (
         ("mesh_shape", "dp=2"), ("dcn_mesh_shape", "dp=2"),
-        ("evaluation_start_delay_secs", "5"), ("evaluation_throttle_secs", "5"),
         ("replication", "true"), ("replication_steps", "3"),
         ("master_journal_dir", "/j"), ("rehome_grace_secs", "1"),
         ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
@@ -308,17 +451,21 @@ def test_slice_6b_flag_raises_naming_it(tmp_path, flag, extra):
 
     train = gen_mnist(str(tmp_path / "t"), num_records=32, num_shards=1, seed=0)
     args = port_args.parse_master_args(_argv({"train": train}, *_dist(), *extra))
-    with pytest.raises(NotImplementedError, match="slice 6b") as err:
+    with pytest.raises(NotImplementedError, match="slice 6b-2") as err:
         build_master(args)
     assert f"--{flag}" in str(err.value)
 
 
 def test_a_worker_without_a_world_raises_naming_slice_6b():
+    """A worker without a world runs the task-stream worker; asked for a
+    feature of slice 6b-2 (here a mesh of two devices), it refuses by
+    name, as the master does."""
     from elasticdl_tpu_torch.worker import main as worker_main
 
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="slice 6b-2"):
         worker_main.main([
             "--model_def", MNIST_DEF, "--worker_id", "0", "--master_addr", "localhost:1",
+            "--mesh_shape", "dp=2", "--device", "cpu",
         ])
 
 
@@ -372,3 +519,37 @@ def test_smoke_phase10_rehearsal_on_the_cpu(tmp_path, monkeypatch):
     assert dp_lm["backend"] == "gloo" and dp_lm["rows_per_rank"] == [4, 4]
     assert set(dp_lm["launches"].values()) == {0}
     assert dp_lm["grad_rel_err"] < 1e-5 and dp_lm["update_rel_err"] < 1e-2
+
+
+def test_smoke_phase11ab_rehearsal_on_the_cpu(tmp_path):
+    """Phase 11a and 11b at a small size: mnist with validation data in a
+    two-rank world with the device pipeline on, under
+    ``preempt_one_worker`` (one re-formation, exact training records,
+    every round's records once, the rounds' milestones, staged groups on
+    each rank, the final round as the Local evaluate CLI on the final
+    checkpoint), then two-worker evaluate (the final round's accuracy)
+    and predict (every record once, as Local's prediction)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    cfg = dict(
+        chip_smoke.EVAL_MNIST, train_records=512, eval_records=128, batch=32,
+        records_per_task=64, evaluation_steps=4, min_accuracy=0.0,
+    )
+    run = chip_smoke.eval_preempt_run(str(tmp_path / "mnist"), cfg, device="cpu")
+    row = run["row"]
+    assert [r["milestone"] for r in row["rounds"]] == [4, 8, 12, 16]
+    assert row["backend"] == "gloo" and row["reforms"] == 1
+    # the Local predict on the workers' one intra-op thread: on the CPU
+    # the thread count moves f32 sums in the last bits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.eval_predict_run(
+            str(tmp_path / "ep"), cfg, run["data"], run["ckpt"], run["final"], device="cpu"
+        )
+    finally:
+        torch.set_num_threads(threads)
+    assert out["predicted_rows"] == 128 and out["max_abs_err_to_local"] == 0.0

@@ -369,10 +369,16 @@ ACCURACY_TOL = 0.02  # the two runs' dropout bits differ
 
 
 def _local_argv(data, *extra, epochs=LOCAL_EPOCHS):
+    """One device for both packages (the port always runs on one; the
+    JAX package then uses one of its eight virtual CPU devices).  The
+    JAX package's data-parallel step over eight CPU devices all-reduces
+    in process through XLA's rendezvous, which under a loaded CPU was
+    seen to miss its 40 s termination timeout with 3 of 8 participants
+    unscheduled and abort the test process (ROADMAP.md queue 3)."""
     return [
         "--model_def", MNIST_DEF, "--records_per_task", "128",
         "--minibatch_size", "32", "--num_epochs", str(epochs),
-        "--shuffle_seed", "0",
+        "--shuffle_seed", "0", "--mesh_shape", "dp=1",
         "--validation_data", data["eval"], *extra,
     ]
 

@@ -54,6 +54,11 @@ MESSAGES = [
         trace={"span_id": "x"},
     ),
     msg.ReportVersionRequest(model_version=40, worker_id=1),
+    msg.ReportEvaluationMetricsRequest(
+        model_outputs={"output": Tensor("output", np.eye(3, dtype=np.float32))},
+        labels=Tensor("labels", np.arange(3, dtype=np.int64)), model_version=8,
+        task_id=5, evaluated_version=9,
+    ),
     msg.HeartbeatRequest(
         worker_id=4, step=17, timestamp=1234.5, replica={"addr": "h:1"},
         rpc={"retries": 2}, phases={"step": {"ms": 1.5, "count": 3}},
@@ -86,9 +91,25 @@ def test_message_fields_and_defaults_are_the_jax_packages(message):
     assert shape(cls) == shape(jax_cls)
 
 
+def _same(a, b) -> bool:
+    """Message equality, tensors compared by name, dtype and values."""
+    if isinstance(a, Tensor):
+        return (
+            isinstance(b, Tensor) and a.name == b.name and a.values.dtype == b.values.dtype
+            and np.array_equal(a.values, b.values)
+        )
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)
+        )
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a == b
+
+
 @pytest.mark.parametrize("message", MESSAGES, ids=_ids)
 def test_every_message_round_trips_the_codec(message):
-    assert msg.decode(msg.encode(message)) == message
+    assert _same(msg.decode(msg.encode(message)), message)
     # defaults too (the sentinels WAIT and end-of-job are all defaults)
     cls = type(message)
     required = {
@@ -166,12 +187,51 @@ def test_client_carries_every_master_method(served):
     assert dispatcher.finished()
     assert client.report_version(msg.ReportVersionRequest(model_version=6, worker_id=0)) is None
     assert servicer.get_model_version() == 6
+    # no evaluation service behind this servicer: accepted, accumulated
+    # nowhere
+    assert client.report_evaluation_metrics(msg.ReportEvaluationMetricsRequest(
+        model_outputs={"output": Tensor("output", np.eye(2, dtype=np.float32))},
+        labels=Tensor("labels", np.arange(2)),
+    )) is None
     beat = client.heartbeat(msg.HeartbeatRequest(worker_id=5, rpc={"retries": 2}))
     assert beat == msg.HeartbeatResponse(cluster_version=0)
     assert servicer.rpc_stats_totals() == {"retries": 2}
     assert set(servicer.live_workers()) == {0, 1, 2, 5}
     end = client.get_step_task(msg.GetStepTaskRequest(seq=1, worker_id=1))
     assert end.is_empty
+
+
+def test_a_request_over_the_message_cap_fails_loudly(served, monkeypatch):
+    """A request over the transport's cap (256 MiB, the JAX package's
+    gRPC limit; shrunk here) is refused by the client before it is sent,
+    as RESOURCE_EXHAUSTED, which no retry policy re-sends."""
+    from elasticdl_tpu_torch.rpc import service
+
+    servicer, _dispatcher, _client, server = served
+    seen = []
+    monkeypatch.setattr(servicer, "report_evaluation_metrics", seen.append, raising=False)
+    monkeypatch.setattr(service, "MAX_MESSAGE_BYTES", 4096)
+    client = MasterClient(
+        f"localhost:{server.port}", retry=port_retry.RetryPolicy.from_budget(5.0),
+        retryable_methods=MASTER_RETRYABLE_METHODS,
+    )
+    request = msg.ReportEvaluationMetricsRequest(
+        model_outputs={"output": Tensor("output", np.zeros((64, 16), np.float32))},
+        labels=Tensor("labels", np.zeros(64, np.int64)), task_id=1,
+    )
+    t0 = time.monotonic()
+    with pytest.raises(RpcError) as err:
+        client.report_evaluation_metrics(request)
+    assert err.value.code() == StatusCode.RESOURCE_EXHAUSTED
+    assert "message cap" in err.value.details()
+    assert time.monotonic() - t0 < 1.0 and seen == []
+    # under the cap, the same method is carried to the servicer
+    small = msg.ReportEvaluationMetricsRequest(
+        model_outputs={"output": Tensor("output", np.zeros((2, 4), np.float32))},
+        labels=Tensor("labels", np.zeros(2, np.int64)), task_id=1,
+    )
+    client.report_evaluation_metrics(small)
+    assert len(seen) == 1 and seen[0].task_id == 1
 
 
 def test_concurrent_calls_are_served(served):
