@@ -159,6 +159,27 @@ printed:
    backend, the relaunch latency, each job's records/s and the LM's
    seconds between its task reports.
 
+12. replication — peer state replication and hot restore: the same kind
+   of two-rank mnist job (bench.py's width and step, phase 10's 16 384
+   records, one epoch, tasks of 4 steps, a disk checkpoint every 16
+   steps) with ``--replication true``.  (a) ``preempt_after_replication``
+   armed one step after the push of version 20: gated on rc 0, one
+   re-formation whose harvest staged 20, the re-formed world restoring
+   20 from peer RAM (``replication_no_lost_steps``: PASS, no disk read),
+   the restored state's re-encoded CRC equal to the pushed shard's and
+   the stage's, every record once, the ranks bitwise equal, and accuracy
+   >= 0.99 from the evaluate CLI.  (b) ``kill_during_replication`` armed
+   at the push of 24: the harvest skips the torn 24 and the world
+   restores the complete set of 20 (it prints where the state came
+   from), every record once.  (c) the fault-free job without and with
+   replication (same data, flags and seed), beside (a)'s push (snapshot,
+   encode with CRC, send), blob bytes, harvest, restore and re-formation
+   seconds and phase 10's disk-path re-formation.  (d) the LM at full
+   width in two ranks with replication, 2 tasks: every push of the
+   chief's share (its f32 weights, over the 256 MiB message cap) refused
+   with ``RESOURCE_EXHAUSTED`` and counted, the job ending with rc 0, 12
+   launches of each kernel per step on each rank.
+
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
 and nothing of the JAX package.
@@ -2622,9 +2643,9 @@ def _distributed_run(
     cfg: dict, data: dict, device: str, work_dir: str, tag: str, plan=None, extra=()
 ) -> dict:
     """One ``AllreduceStrategy`` job of ``cfg`` through the train CLI,
-    under ``plan`` (a chaos plan name) or none: returns its master, the
-    checker's violations, the processes' final state dumps and the wall
-    seconds of the job."""
+    under ``plan`` (a chaos plan, or the name of a built-in one) or none:
+    returns its master, the checker's violations, the processes' final
+    state dumps, the chaos event log and the wall seconds of the job."""
     import numpy as np
 
     from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
@@ -2632,12 +2653,15 @@ def _distributed_run(
     from elasticdl_tpu_torch.utils.constants import TaskType
     from elasticdl_tpu_torch.worker.lockstep import DUMP_STATE_ENV
 
+    os.makedirs(work_dir, exist_ok=True)
     dump_dir = os.path.join(work_dir, f"dump_{tag}")
     envs = {DUMP_STATE_ENV: dump_dir}
     events = os.path.join(work_dir, f"events_{tag}.jsonl")
     if plan is not None:
         plan_path = os.path.join(work_dir, f"plan_{tag}.json")
-        builtin_plans(ELASTIC_WORKERS)[plan].save(plan_path)
+        if isinstance(plan, str):
+            plan = builtin_plans(ELASTIC_WORKERS)[plan]
+        plan.save(plan_path)
         envs.update({chaos_hooks.PLAN_ENV: plan_path, chaos_hooks.EVENTS_ENV: events})
     built, build = _job_recorder(expected_records=cfg["train_records"] * cfg["epochs"])
     argv = _elastic_argv(cfg, data, device, work_dir, envs, tag) + list(extra)
@@ -2649,6 +2673,13 @@ def _distributed_run(
     if os.path.exists(events):
         with open(events) as f:
             fired = [json.loads(line) for line in f if line.strip()]
+    # the first re-formed world's chief logs its restore (from peer RAM or
+    # disk) on the machine-wide monotonic clock the master's detection
+    # time is on
+    restored_at = [
+        e["monotonic"] for e in fired if e.get("cluster_version", 0) > 0
+        and e.get("observation") in ("replica_restore", "checkpoint_restore")
+    ]
     row = {
         "rc": rc, "job_secs": secs, "total_records": counters.total_records,
         "failed_records": counters.failed_records,
@@ -2661,13 +2692,23 @@ def _distributed_run(
         "reform_events": [
             {k: v for k, v in e.items() if k != "detected_at"} for e in master.reform_events
         ],
+        # detection to the restored state: the first step-task pull (the
+        # re-formation latency) comes before the trainer is built and
+        # restored
+        "restored_secs_after_detection": (
+            restored_at[0] - master.reform_events[0]["detected_at"]
+            if restored_at and master.reform_events else None
+        ),
         "violations": [v.as_dict() for v in built["checker"].check(counters)],
         "fired": [e.get("fault_id") or e.get("observation") for e in fired],
         "dumps_bitwise_equal": set(dumps[0]) == set(dumps[1]) and all(
             np.array_equal(dumps[0][k], dumps[1][k]) for k in dumps[0]
         ),
     }
-    return {"row": row, "master": master, "dumps": dumps, "ckpt": os.path.join(work_dir, f"ckpt_{tag}")}
+    return {
+        "row": row, "master": master, "dumps": dumps, "events": fired,
+        "ckpt": os.path.join(work_dir, f"ckpt_{tag}"),
+    }
 
 
 def _evaluate_checkpoint(cfg: dict, data: dict, device: str, ckpt: str) -> dict:
@@ -3417,6 +3458,275 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
     return {"task_stream": ts_row, "predict": pred_row, "evaluate": eval_row, "launches": launches}
 
 
+# ---- phase 12: peer replication and hot restore ---------------------------
+
+# mnist at bench.py's width and step, phase 10's 16 384 records for one
+# epoch (64 steps), tasks of 1024 records (4 steps), with --replication
+# (a push at every task boundary) and a disk checkpoint every 16 steps
+REPLICA_MNIST = dict(
+    ELASTIC_MNIST, name="mnist_replica", checkpoint_steps=16, epochs=1,
+    min_accuracy=0.99,
+)
+REPLICATION = ("--replication", "true")
+# (a) preempt_after_replication's SIGKILL of process 1 one step after the
+# push of version 20, which lies past the disk checkpoint of 16 and
+# before the next: the replica is strictly newer than the disk
+REPLICA_KILL_STEP = 21
+# (b) kill_during_replication: process 1 dies inside its push of version
+# 24, after committing it locally; the newest complete set is 20
+REPLICA_TORN_STEP = 24
+
+
+def replication_plan(name: str, at_step: int):
+    """The built-in plan ``name`` (``chaos/plan.py``) with its fault armed
+    at ``at_step``: the step fits this phase's tasks of 4 steps."""
+    import dataclasses
+
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+
+    plan = builtin_plans(ELASTIC_WORKERS)[name]
+    return dataclasses.replace(
+        plan, faults=[dataclasses.replace(f, at_step=at_step) for f in plan.faults]
+    )
+
+
+def _observed(events: list, what: str) -> list:
+    return [e for e in events if e.get("observation") == what]
+
+
+def _restored_from(events: list) -> str:
+    """Where the re-formed world's state came from, as its chief logged it."""
+    for e in events:
+        if e.get("observation") == "replica_restore":
+            return f"replica@{e['step']}"
+        if e.get("observation") == "checkpoint_restore":
+            return f"disk@{e['version']}"
+    return "initial weights"
+
+
+def _last_push_is_the_final_state(run: dict) -> bool:
+    """The chief's last push (at the last task boundary) carries the
+    state its process dumped at the end of the job, bit for bit: the
+    snapshot saw the finished step."""
+    from elasticdl_tpu_torch.replication import blob
+
+    pushes = [e for e in _observed(run["events"], "replica_push") if e["process_id"] == 0]
+    final = blob.blob_checksum(blob.encode_snapshot(run["dumps"][0], {}))
+    return bool(pushes) and pushes[-1]["checksum"] == final
+
+
+def _push_costs(pushes: list) -> dict:
+    """The chief's pushes (the shards that carry the state): the median
+    and the largest of each part of one push, and the blob's bytes."""
+    out = {"pushes": len(pushes), "bytes": sorted({e["bytes"] for e in pushes})}
+    for part in ("snapshot_ms", "encode_ms", "send_ms"):
+        values = [e[part] for e in pushes]
+        out[part] = {"median": statistics.median(values), "max": max(values)} if values else None
+    return out
+
+
+def replica_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """Phase 12a: ``cfg``'s two-rank job with ``--replication`` under
+    ``preempt_after_replication`` armed at ``REPLICA_KILL_STEP``.  Gates:
+    rc 0, one re-formation whose harvest staged the last accepted push's
+    version; the re-formed world restored that version from peer RAM
+    (``replication_no_lost_steps``: PASS; no disk read), with the CRC of
+    the pushed shard; every record once; ranks bitwise equal; accuracy
+    >= ``cfg["min_accuracy"]`` from the evaluate CLI on the final
+    checkpoint.  Returns the row, with the costs of (c)."""
+    from elasticdl_tpu_torch.chaos.invariants import check_replication_no_lost_steps
+
+    data = _zoo_data(work_dir, cfg)
+    plan = replication_plan("preempt_after_replication", REPLICA_KILL_STEP)
+    run = _distributed_run(cfg, data, device, work_dir, "hot", plan=plan, extra=REPLICATION)
+    events, row = run["events"], dict(run["row"])
+    kill = next(e for e in events if e.get("fault_id"))
+    pushed = [e for e in _observed(events, "replica_push") if e["monotonic"] <= kill["monotonic"]]
+    accepted = [e["step"] for e in pushed if e["ok"]]
+    last = {p: max((e["step"] for e in pushed if e["process_id"] == p and e["ok"]), default=None)
+            for p in range(ELASTIC_WORKERS)}
+    chief_push = next((e for e in pushed if e["process_id"] == 0 and e["step"] == last[0]), {})
+    restores = _observed(events, "replica_restore")
+    harvest = row["reform_events"][0].get("harvest", {}) if row["reform_events"] else {}
+    row.update(
+        kill_step=kill["step"], last_accepted_push=last,
+        pushes_before_kill=len(pushed), harvest=harvest, restored_from=_restored_from(events),
+        restore=restores[0] if restores else None,
+        pushed_checksum=chief_push.get("checksum"),
+        no_lost_steps=check_replication_no_lost_steps(events),
+        push_costs=_push_costs([e for e in pushed if e["process_id"] == 0]),
+        reform_latency_secs=(
+            row["reform_events"][0].get("latency_secs") if row["reform_events"] else None
+        ),
+        coverage=run["master"].job_summary().get("replication"),
+        last_push_is_final_state=_last_push_is_the_final_state(run),
+    )
+    row["accuracy"] = _evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"])
+    print(json.dumps({"replica_hot_restore": row}), flush=True)
+    want_records = cfg["train_records"] * cfg["epochs"]
+    version = REPLICA_KILL_STEP - 1
+    restore = row["restore"] or {}
+    if (
+        row["rc"] != 0 or len(row["reform_events"]) != 1 or kill["step"] != REPLICA_KILL_STEP
+        or last != {p: version for p in range(ELASTIC_WORKERS)}
+        or not harvest.get("complete") or harvest.get("version") != version
+        or row["restored_from"] != f"replica@{version}" or len(restores) != 1
+        or _observed(events, "checkpoint_restore")
+        or (row["no_lost_steps"] or {}).get("status") != "PASS"
+        or not restore.get("restored_checksum")
+        or not restore["restored_checksum"] == restore["checksum"] == harvest.get("checksum")
+        == row["pushed_checksum"]
+        or row["total_records"] != want_records or row["violations"]
+        or not row["dumps_bitwise_equal"] or not row["last_push_is_final_state"]
+        or row["accuracy"] is None or row["accuracy"] < cfg["min_accuracy"]
+        or version not in accepted
+    ):
+        raise AssertionError(f"{cfg['name']}: the hot restore failed its gates: {row}")
+    return {"row": row, "data": data}
+
+
+def replica_torn_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """Phase 12b: the same job under ``kill_during_replication`` armed at
+    ``REPLICA_TORN_STEP``.  Gates: rc 0, one re-formation whose harvest
+    skipped the torn version and staged the older complete set (20, newer
+    than the disk's 16), the world restored from it, and every record
+    once.  Prints where the restored state came from."""
+    plan = replication_plan("kill_during_replication", REPLICA_TORN_STEP)
+    run = _distributed_run(cfg, data, device, work_dir, "torn", plan=plan, extra=REPLICATION)
+    events, row = run["events"], dict(run["row"])
+    kill = next(e for e in events if e.get("fault_id"))
+    torn = [e for e in _observed(events, "replica_push")
+            if e["step"] == REPLICA_TORN_STEP and e["cluster_version"] == 0]
+    harvest = row["reform_events"][0].get("harvest", {}) if row["reform_events"] else {}
+    row.update(
+        kill=kill, harvest=harvest, restored_from=_restored_from(events),
+        torn_pushes_by=[e["process_id"] for e in torn],
+    )
+    print(json.dumps({"replica_torn_push": row}), flush=True)
+    want = REPLICA_TORN_STEP - 4
+    if (
+        row["rc"] != 0 or len(row["reform_events"]) != 1
+        or (kill.get("phase"), kill.get("step")) != ("replica_push", REPLICA_TORN_STEP)
+        or row["torn_pushes_by"] != [0]
+        or harvest.get("version") != want or row["restored_from"] != f"replica@{want}"
+        or row["total_records"] != cfg["train_records"] * cfg["epochs"] or row["violations"]
+        or not row["dumps_bitwise_equal"]
+    ):
+        raise AssertionError(f"{cfg['name']}: the torn push failed its gates: {row}")
+    return row
+
+
+def replica_cost_run(
+    work_dir: str, cfg: dict, data: dict, hot: dict, disk: dict, device: str = "cuda"
+) -> dict:
+    """Phase 12c: the fault-free job's records/s without and with
+    ``--replication`` (same data, flags and seed, in that order; both
+    with ``--device_prefetch true``, whose stager's stream is busy at the
+    boundaries the snapshots are taken at), beside (a)'s push, harvest,
+    restore and re-formation costs and phase 10's disk-path
+    re-formation (``disk``: phase 10a's row).  Gates: rc 0, no re-formation and every record once in
+    both; every push of the replicated run accepted, its last one the
+    final state bit for bit."""
+    rates = {}
+    for tag, extra in (("plain", ()), ("replicated", REPLICATION)):
+        # the plan without a fault, for the replicated run's event log
+        plan = "none" if extra else None
+        run = _distributed_run(
+            cfg, data, device, work_dir, f"ff_{tag}", plan=plan,
+            extra=("--device_prefetch", "true", *extra),
+        )
+        r = run["row"]
+        pushes = _observed(run["events"], "replica_push")
+        rates[tag] = {
+            "rc": r["rc"], "job_secs": r["job_secs"], "reforms": len(r["reform_events"]),
+            "total_records": r["total_records"],
+            "records_per_s_whole_job": r["records_per_s_whole_job"],
+            "steady_records_per_s": r["steady_records_per_s"],
+            "pushes": len(pushes), "pushes_accepted": sum(e["ok"] for e in pushes),
+            "last_push_is_final_state": _last_push_is_the_final_state(run) if extra else None,
+        }
+    row = {
+        "fault_free": rates, "push": hot["push_costs"],
+        "harvest_secs": hot["harvest"].get("secs"), "harvest_bytes": hot["harvest"].get("bytes"),
+        "restore_ms": (hot["restore"] or {}).get("restore_ms"),
+        "reform_latency_secs": hot["reform_latency_secs"],
+        "restored_secs_after_detection": hot["restored_secs_after_detection"],
+        "phase10_disk": {
+            k: disk.get(k) for k in ("reform_latency_secs", "restored_secs_after_detection")
+        },
+    }
+    print(json.dumps({"replica_costs": row}), flush=True)
+    want = cfg["train_records"] * cfg["epochs"]
+    if any(r["rc"] != 0 or r["reforms"] or r["total_records"] != want for r in rates.values()) \
+            or rates["replicated"]["pushes"] == 0 \
+            or rates["replicated"]["pushes_accepted"] != rates["replicated"]["pushes"] \
+            or not rates["replicated"]["last_push_is_final_state"]:
+        raise AssertionError(f"the fault-free replication runs failed their gates: {row}")
+    return row
+
+
+def replica_lm_run(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 12d: the LM at full width in two ranks with
+    ``--replication``, 2 tasks of one step.  The chief's share (every
+    f32 weight, ~0.5 GB) is over the transport's 256 MiB message cap:
+    each of its pushes is refused by its client (``RESOURCE_EXHAUSTED``)
+    and counted, and the job goes on; the other rank's share is empty
+    until sharded tables come, and its pushes are accepted.  Gates: rc 0,
+    every record once, no re-formation, each chief push refused by the
+    cap exactly when its shard is over it (on the card every one is, and
+    none is accepted), and 12 launches of each kernel per step on each
+    rank (``GPT2S["num_layers"]``; 0 on the CPU)."""
+    from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
+    from elasticdl_tpu_torch.chaos.invariants import read_event_log
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.ops.attention import LAUNCH_DUMP_ENV
+    from elasticdl_tpu_torch.rpc.service import MAX_MESSAGE_BYTES
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    per = GPT2S["num_layers"] if device == "cuda" else 0
+    data = _local_data(work_dir, records=TS_LM_RECORDS, shards=TS_LM_SHARDS)
+    steps = TS_LM_RECORDS // TRAIN_ROWS
+    launch_dir = os.path.join(work_dir, "launches")
+    events = os.path.join(work_dir, "events.jsonl")
+    plan = os.path.join(work_dir, "plan.json")
+    builtin_plans(ELASTIC_WORKERS)["none"].save(plan)
+    envs = {LAUNCH_DUMP_ENV: launch_dir, chaos_hooks.PLAN_ENV: plan, chaos_hooks.EVENTS_ENV: events}
+    built, build = _job_recorder(expected_records=TS_LM_RECORDS)
+    rc, secs = _cli_job(
+        _local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK)
+        + [*REPLICATION, *_dist_flags(ELASTIC_WORKERS, envs)], build,
+    )
+    master = built["master"]
+    counters = master.task_d.counters(TaskType.TRAINING)
+    pushes = _observed(read_event_log(events), "replica_push")
+    chief = [e for e in pushes if e["process_id"] == 0]
+    launches = _launches(launch_dir)
+    row = {
+        "rc": rc, "job_secs": secs, "total_records": counters.total_records,
+        "violations": [v.as_dict() for v in built["checker"].check(counters)],
+        "reforms": len(master.reform_events),
+        "chief_pushes": [{k: e[k] for k in ("step", "ok", "reason", "bytes", "snapshot_ms",
+                                            "encode_ms", "send_ms")} for e in chief],
+        "other_pushes_accepted": [e["ok"] for e in pushes if e["process_id"] != 0],
+        "launches": launches,
+    }
+    print(json.dumps({"replica_lm": row}), flush=True)
+    want_launches = {name: per * steps for name in FLASH_NAMES}
+    over_cap = [e["bytes"] > MAX_MESSAGE_BYTES for e in chief]
+    if (
+        rc != 0 or row["total_records"] != TS_LM_RECORDS or row["violations"] or row["reforms"]
+        or len(chief) != steps or (device == "cuda" and not all(over_cap))
+        or any(e["ok"] == over or (e["reason"] == "RESOURCE_EXHAUSTED") != over
+               for e, over in zip(chief, over_cap))
+        or not all(row["other_pushes_accepted"]) or len(row["other_pushes_accepted"]) != steps
+        or len(launches) != ELASTIC_WORKERS
+        or any(c != want_launches for c in launches.values())
+    ):
+        raise AssertionError(f"the replicated LM failed its gates: {row}")
+    row["launches"] = {name: sum(c[name] for c in launches.values()) for name in FLASH_NAMES}
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -3549,6 +3859,25 @@ def main() -> int:
         eval_rows["lm"] = eval_lm
     print(json.dumps({"evaluate_predict": eval_rows}), flush=True)
 
+    # ---- 12. peer replication and hot restore: the re-formed world
+    # resumes from peer host RAM at the last replicated step
+    replica_rows = {"device": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as work_dir:
+        _release_memory("cuda")
+        hot = replica_preempt_run(os.path.join(work_dir, "hot"), REPLICA_MNIST)
+        replica_rows["hot_restore"] = hot["row"]
+        replica_rows["torn_push"] = replica_torn_run(
+            os.path.join(work_dir, "torn"), REPLICA_MNIST, hot["data"]
+        )
+        replica_rows["costs"] = replica_cost_run(
+            os.path.join(work_dir, "cost"), REPLICA_MNIST, hot["data"], hot["row"],
+            elastic_rows["mnist_preempt"],
+        )
+        _release_memory("cuda")
+        replica_lm = replica_lm_run(os.path.join(work_dir, "lm"))
+        replica_rows["lm"] = replica_lm
+    print(json.dumps({"replication": replica_rows}), flush=True)
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -3557,7 +3886,7 @@ def main() -> int:
             "replaces": f"elasticdl_tpu/ops/attention.py:{replaces}",
             "launches": train_launches[name] + local_launches[name]
             + stacked_launches[name] + dp_lm["launches"][name]
-            + eval_lm["launches"][name]
+            + eval_lm["launches"][name] + replica_lm["launches"][name]
             + (serve_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

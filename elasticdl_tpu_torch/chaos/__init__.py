@@ -8,7 +8,8 @@ of the JAX-free part of ``elasticdl_tpu/chaos/``.
 - :mod:`.invariants` — the checker fed by the master's dispatcher,
   servicer and re-formations: every training task once, records
   accounted, versions monotonic within a generation, progress past
-  every re-formation.
+  every re-formation; and, over the event log, the JAX harness's
+  ``replication_no_lost_steps``.
 
 The harness, the runner CLI and the network shim come with the next
 part of the slice.

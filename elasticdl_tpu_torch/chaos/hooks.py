@@ -20,7 +20,16 @@ plan is installed:
 - :func:`wrap_batches` — the host-pipeline delay shim;
 - :func:`notify_checkpoint_save` / :func:`notify_checkpoint_restore` —
   checkpoint-path events (and the KILL_IN_CHECKPOINT fault), called by
-  :mod:`elasticdl_tpu_torch.trainer.checkpointing`.
+  :mod:`elasticdl_tpu_torch.trainer.checkpointing`;
+- :func:`notify_replica_push` / :func:`record_replica_push` /
+  :func:`notify_replica_restore` — the replication path's
+  (``replication/replicator.py``): the KILL_DURING_REPLICATION fault
+  before a push leaves, then an observation of each push (its version,
+  checksum, bytes, costs and whether the neighbor accepted it) and of a
+  restore from peer RAM.  The JAX package writes the push and restore
+  to its telemetry event log (slice 10 here); the port's chaos event log
+  carries them, so ``chaos/invariants.py::check_replication_no_lost_steps``
+  reads one log.
 
 Every firing is appended to the event log *before* the fault acts
 (a process about to SIGKILL itself can't report afterwards), with both
@@ -208,10 +217,16 @@ class ChaosInjector:
                 self._record(fault, step=version, phase="replica_push")
                 os.kill(os.getpid(), signal.SIGKILL)
 
-    def on_replica_restore(self, version: int):
+    def on_replica_pushed(self, version: int, **fields):
+        """Observation point: one replication's push (sent or not)."""
+        self._record_observation("replica_push", step=version, **fields)
+
+    def on_replica_restore(self, version: int, **fields):
         """Observation point: a re-formed world resumed from peer RAM
         (vs the disk observation ``checkpoint_restore``)."""
-        self._record_observation("replica_restore", version=version)
+        self._record_observation(
+            "replica_restore", version=version, step=version, **fields
+        )
 
     def _record_observation(self, what: str, **extra):
         append_event(
@@ -291,6 +306,13 @@ def notify_replica_push(version: int):
         _active.on_replica_push(version)
 
 
-def notify_replica_restore(version: int):
+def record_replica_push(version: int, **fields):
+    """Replica-push observation, after the push; no-op without an
+    installed injector."""
     if _active is not None:
-        _active.on_replica_restore(version)
+        _active.on_replica_pushed(version, **fields)
+
+
+def notify_replica_restore(version: int, **fields):
+    if _active is not None:
+        _active.on_replica_restore(version, **fields)

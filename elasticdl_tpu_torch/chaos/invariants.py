@@ -26,6 +26,12 @@ after the job what elasticity promises during it:
   version seen before each re-formation (the job cannot "complete" by
   looping over restored state).
 
+One more check reads the chaos event log instead
+(:func:`check_replication_no_lost_steps`, the JAX harness's
+``replication_no_lost_steps``): under a plain preemption with
+``--replication``, the re-formed world restores from peer RAM at the
+last replicated step before the kill, not at an older disk checkpoint.
+
 The checker never raises mid-run: it records, then :meth:`check`
 returns the violations.  It must detect corruption, so its unit tests
 (tests/test_chaos.py) feed it a lost task, a double report, and a
@@ -34,10 +40,18 @@ version rollback and assert each is flagged.
 
 from __future__ import annotations
 
+import json
 import threading
 from dataclasses import dataclass, field
 
+from elasticdl_tpu_torch.chaos.plan import FaultKind
 from elasticdl_tpu_torch.utils.constants import TaskType
+
+# faults after which a complete replica set survives by construction (one
+# process, or one slice, dies): the no-lost-steps check applies
+_REPLICA_RECOVERABLE_KINDS = frozenset(
+    {FaultKind.PREEMPT, FaultKind.KILL_COORDINATOR, FaultKind.SLICE_LOSS}
+)
 
 
 @dataclass
@@ -286,3 +300,78 @@ class InvariantChecker:
             "reforms": self.reforms,
             "max_model_version": self._max_version,
         }
+
+
+# ---- the replication contract, from the event log ---------------------------
+
+
+def read_event_log(path: str) -> list[dict]:
+    """The chaos event log's records (``chaos/hooks.py::append_event``)."""
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def check_replication_no_lost_steps(
+    events: list[dict], replication: bool = True
+) -> dict | None:
+    """The replication contract under a plain preemption, as a function
+    of the event log (the JAX harness's ``_check_no_lost_steps``,
+    ``elasticdl_tpu/chaos/harness.py:697``): the resumed generation
+    restores FROM PEER RAM at exactly the last replicated step before
+    the kill, not the (older) last disk checkpoint.  None when it does
+    not apply (replication off, or no recoverable fault fired).
+
+    The log's records are the port's: a fault firing carries its
+    ``kind``; pushes and restores are the ``replica_push`` and
+    ``replica_restore`` observations, each with its ``step``."""
+    if not replication:
+        return None
+    recoverable = [e for e in events if e.get("kind") in _REPLICA_RECOVERABLE_KINDS]
+    if not recoverable:
+        return None
+    kill_at = min(e["monotonic"] for e in recoverable)
+    push_events = [
+        e
+        for e in events
+        if e.get("observation") == "replica_push" and e.get("monotonic", 0.0) <= kill_at
+    ]
+    restore_events = [e for e in events if e.get("observation") == "replica_restore"]
+    pushed = [int(e.get("step", -1)) for e in push_events]
+    restored = [int(e.get("step", -1)) for e in restore_events]
+    violations = []
+    if not pushed:
+        violations.append("no replica_push before the kill")
+    if not restored:
+        violations.append(
+            "no replica_restore event — the re-formed world did not "
+            "restore from peer RAM"
+        )
+    elif pushed and max(restored) < max(pushed):
+        violations.append(
+            f"restored at step {max(restored)} but step {max(pushed)} "
+            "was replicated before the kill — steps lost despite a "
+            "complete replica set"
+        )
+    # sharded tables (slice 9; no port state has them yet): "no lost
+    # steps" includes their ROWS — the pushes before the kill must have
+    # carried them and the restore must have applied them
+    if any(e.get("has_sharded") for e in push_events):
+        rows_pushed = sum(int(e.get("sharded_rows", 0) or 0) for e in push_events)
+        rows_restored = sum(int(e.get("sharded_rows", 0) or 0) for e in restore_events)
+        if not rows_pushed:
+            violations.append(
+                "pushes report row-sharded state but carried zero "
+                "sharded table rows before the kill — the tables had "
+                "no replica to survive it"
+            )
+        if restored and not rows_restored:
+            violations.append(
+                "replica restore applied zero sharded table rows "
+                "though the replicated state is row-sharded — the "
+                "tables were lost across the reform"
+            )
+    return {
+        "name": "replication_no_lost_steps",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+    }

@@ -15,18 +15,19 @@ Two kinds of worker, as in the JAX package:
   every collective, so a worker failure (a non-zero process exit, or a
   heartbeat older than ``--heartbeat_timeout_secs``) re-forms the whole
   world (:meth:`Master._reform_lockstep`): fence the old generation,
+  (with ``--replication``) harvest the freshest complete replica set
+  from the survivors' RAM and stage it for the next generation,
   re-queue every leased task, reset the step stream and relaunch a fresh
   world (new cluster version, new coordinator port) that resumes from
-  the newest checkpoint, within the ``--relaunch_on_worker_failure``
-  budget;
+  the stage, or else from the newest checkpoint, within the
+  ``--relaunch_on_worker_failure`` budget;
 - one worker runs the task-stream worker, which leases its own tasks:
   a failure re-queues the dead worker's leases and relaunches it under a
   new worker id.
 
 Left out until the slices that bring them: hot standbys, slices and
-parking, the autoscaler, SLOs, streaming and live push, peer
-replication, the journal (master high availability), the TensorBoard
-service, and telemetry.
+parking, the autoscaler, SLOs, streaming and live push, the journal
+(master high availability), the TensorBoard service, and telemetry.
 """
 
 from __future__ import annotations
@@ -124,6 +125,21 @@ class Master:
         self.servicer = MasterServicer(
             args.minibatch_size, self.task_d, evaluation_service=self.evaluation_service
         )
+        # peer state replication (off by default: heartbeats and
+        # re-formations are then those of a job without it)
+        self.replica_directory = None
+        if args.replication:
+            from elasticdl_tpu_torch.replication.directory import ReplicaDirectory
+            from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+
+            self.replica_directory = ReplicaDirectory(
+                # the harvest takes the job's deadline policy (its
+                # state-transfer tier); None keeps the fixed timeout
+                deadlines=DeadlinePolicy.from_secs(args.rpc_deadline_secs)
+                if args.rpc_deadline_secs is not None
+                else None
+            )
+            self.servicer.set_replica_directory(self.replica_directory)
         self._server = None
         self._port = None
         self.instance_manager = (
@@ -246,6 +262,10 @@ class Master:
         # fence FIRST: from here every stale worker's get_step_task is
         # refused, so none can lease a task we are about to recover
         new_version = self.servicer.bump_cluster_version()
+        # harvest the survivors' replica shards BEFORE the loop below
+        # forgets them (the directory drops their addresses) and before
+        # reform_world kills them (their RAM dies with them)
+        harvest = self._stage_replica_restore(new_version, dead)
         for worker_id in set(dead) | set(im.worker_ids()):
             self.task_d.recover_tasks(worker_id)
             self.servicer.forget_worker(worker_id)
@@ -261,19 +281,52 @@ class Master:
             self._job_failed = True
             self.request_stop()
             return
-        self.reform_events.append(
-            {
-                "detected_at": t0,
-                "cluster_version": new_version,
-                "dead_workers": sorted(dead),
-                "reason": reason,
-            }
-        )
+        event = {
+            "detected_at": t0,
+            "cluster_version": new_version,
+            "dead_workers": sorted(dead),
+            "reason": reason,
+        }
+        if harvest is not None:
+            event["harvest"] = harvest
+        self.reform_events.append(event)
         for callback in self.reform_callbacks:
             try:
                 callback(new_version, sorted(dead), reason)
             except Exception:  # noqa: BLE001 — observers never break recovery
                 logger.exception("Reform callback failed")
+
+    def _stage_replica_restore(self, new_version: int, dead: list[int]) -> dict | None:
+        """Harvest the freshest complete replica set from the surviving
+        workers' RAM and stage it for generation ``new_version``; stages
+        None (the disk fallback) when coverage is incomplete.  Returns
+        what the harvest found (``complete``, ``version``, ``bytes``,
+        ``secs``), or None when replication is off."""
+        if self.replica_directory is None:
+            return None
+        t0 = time.monotonic()
+        live = [w for w in self.instance_manager.worker_ids() if w not in set(dead)]
+        stage = None
+        try:
+            stage = self.replica_directory.harvest(
+                live_worker_ids=live,
+                num_sources=self.instance_manager.world_size,
+                generation=new_version - 1,
+                staged_for=new_version,
+            )
+        except Exception:  # noqa: BLE001 — a harvest must never take down
+            # recovery; the disk restore is always there
+            logger.exception("Replica harvest failed; disk fallback")
+        self.servicer.set_restore_stage(stage)
+        found = {
+            "complete": stage is not None,
+            "version": stage["version"] if stage else None,
+            "bytes": len(stage["payload"]) if stage else 0,
+            "checksum": stage["checksum"] if stage else None,
+            "secs": time.monotonic() - t0,
+        }
+        logger.info("Replica harvest for generation %d: %s", new_version, found)
+        return found
 
     def request_reform(self, reason: str = "elective"):
         """Ask the run loop to re-form the world at its next tick; safe
@@ -312,8 +365,10 @@ class Master:
         summary = getattr(self.evaluation_service, "latest_summary", None)
         if summary:
             out["evaluation_metrics"] = summary
+        if self.replica_directory is not None:
+            out["replication"] = self.replica_directory.coverage_stats()
         if self.reform_events:
-            keep = ("cluster_version", "dead_workers", "latency_secs", "reason")
+            keep = ("cluster_version", "dead_workers", "latency_secs", "reason", "harvest")
             out["reforms"] = [
                 {k: v for k, v in event.items() if k in keep}
                 for event in self.reform_events

@@ -7,17 +7,18 @@ and prediction tasks), the memoized lockstep step stream
 (``get_step_task``, with its two cluster-version fences), task and
 version reports (a version report may queue a step-based evaluation),
 evaluation metrics (lease-guarded and deduplicated by task id, then
-accumulated by the evaluation service) and heartbeats; the master's run
-loop reads liveness from it
+accumulated by the evaluation service), heartbeats (with ``--replication``
+they feed the replica directory and carry the ring's peer map back) and
+the harvested replica stage of a re-formed world (``get_restore_state``,
+fenced by generation); the master's run loop reads liveness from it
 (``dead_workers``) and fences a world with ``bump_cluster_version`` and
 ``reset_step_stream``.  Requests and responses are the dataclasses of
 ``rpc/messages.py``; ``rpc/service.py`` only moves them.
 
 Left out until the slices that need them: the journal (master high
-availability), the replica directory and restore stage, re-homing, the
-profiler command, the quiesce flag, and the telemetry fan-in of step
-phases and memory (the device pipeline's staging totals are kept, per
-worker).  Heartbeats are applied under one lock (the JAX package
+availability), re-homing, the profiler command, the quiesce flag, and
+the telemetry fan-in of step phases and memory (the device pipeline's
+staging totals are kept, per worker).  Heartbeats are applied under one lock (the JAX package
 coalesces them for fleets of thousands).
 """
 
@@ -80,6 +81,11 @@ class MasterServicer:
         self._first_stream_pull_at: float | None = None  # guarded-by: _stream_lock
         # (worker_id, model_version) observers — chaos invariant checking
         self._version_observers: list = []
+        # peer replication (replication/): the master-side directory the
+        # heartbeats feed, and the harvested stage a re-formed world
+        # restores from
+        self._replica_directory = None
+        self._restore_stage: dict | None = None  # guarded-by: _lock
         if evaluation_service is not None:
             evaluation_service.set_master_servicer(self)
 
@@ -90,6 +96,11 @@ class MasterServicer:
 
     def get_model_version(self) -> int:
         return self._version
+
+    def set_replica_directory(self, directory):
+        """Attach the replication subsystem's master-side directory;
+        heartbeats then carry advertisements up and peer maps down."""
+        self._replica_directory = directory
 
     # ---- RPC handlers -----------------------------------------------------
 
@@ -262,7 +273,46 @@ class MasterServicer:
                     self._worker_prefetch_stats.setdefault(request.worker_id, {}),
                     request.prefetch,
                 )
-        return msg.HeartbeatResponse(cluster_version=self._cluster_version)
+        # the directory synchronizes itself: outside the lock
+        generation = self._cluster_version
+        replica_peers: dict = {}
+        if self._replica_directory is not None:
+            if request.replica:
+                self._replica_directory.update(request.worker_id, request.replica)
+            replica_peers = self._replica_directory.peers(generation)
+        return msg.HeartbeatResponse(
+            cluster_version=generation, replica_peers=replica_peers
+        )
+
+    # ---- replica restore stage ---------------------------------------------
+
+    def set_restore_stage(self, stage: dict | None):
+        """Install (or clear, with None) the harvested replica state the
+        NEXT generation restores from (``Master._reform_lockstep``)."""
+        with self._lock:
+            self._restore_stage = stage
+
+    def get_restore_state(
+        self, request: msg.GetRestoreStateRequest
+    ) -> msg.RestoreStateResponse:
+        """Serve the staged replica set, only to the generation it was
+        harvested FOR (any other asker gets the disk-fallback answer).
+        The port's world restores on process 0 and broadcasts, so the
+        stage is released from master RAM once process 0 has its copy
+        (the JAX package serves every process and releases it after the
+        last)."""
+        with self._lock:
+            stage = self._restore_stage
+            if stage is None or stage["generation"] != request.cluster_version:
+                return msg.RestoreStateResponse()
+            if request.process_id == 0:
+                self._restore_stage = None
+        return msg.RestoreStateResponse(
+            has=True,
+            version=stage["version"],
+            checksum=stage["checksum"],
+            payload=stage["payload"],
+        )
 
     # ---- failure detection and re-formation hooks -------------------------
 
@@ -290,6 +340,8 @@ class MasterServicer:
         with self._lock:
             self._heartbeats.pop(worker_id, None)
             self._marked_dead.discard(worker_id)
+        if self._replica_directory is not None:
+            self._replica_directory.forget_worker(worker_id)
 
     def live_workers(self) -> list[int]:
         with self._lock:

@@ -177,6 +177,35 @@ def gather_rows_to_chief(tree, group):
     return out if chief else None
 
 
+def state_checkpoint_parts(state, mesh=None, materialize_dense: bool = True):
+    """Split the live state into ``(dense, parts)``, the counterpart of
+    the JAX package's ``state_checkpoint_parts`` (:160), with its
+    signature and contract: ``dense`` maps checkpoint names to whole
+    host arrays, ``parts`` maps a row-sharded table's name to the
+    ``(ids, rows)`` this process owns.
+
+    ``dense`` is the name-keyed flat layout of a checkpoint
+    (``trainer/state.py::state_to_checkpoint``: ``params/...`` and
+    ``batch_stats/...``), so a replica restore and a disk restore apply
+    one format through one function
+    (``trainer/checkpointing.py::apply_restored_values``).  It is read
+    from this process's copy of the state, a device-to-host copy on the
+    calling thread after the step's work on the current stream, and
+    skipped when ``materialize_dense`` is False (only the chief's share
+    carries it; the others would discard it).
+
+    ``parts`` is empty: every leaf of the port's state is replicated on
+    every process of a world until sharded tables come (slice 9), so no
+    collective runs here and ``mesh`` (the world's group, or None) is
+    not read."""
+    del mesh
+    # trainer.state imports the layers, which import this module
+    from elasticdl_tpu_torch.trainer.state import state_to_checkpoint
+
+    dense = state_to_checkpoint(state) if materialize_dense else {}
+    return dense, {}
+
+
 def batch_divisor(num_processes: int) -> int:
     """Global batch rows must be divisible by this for placement."""
     return max(1, int(num_processes))

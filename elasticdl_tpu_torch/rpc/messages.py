@@ -8,10 +8,11 @@ standard library's: one frame is
     [u32 header_len][header json][tensor frame 0][tensor frame 1]...
 
 The header holds the message kind, its fields (``dataclasses.asdict``)
-and the byte length of each tensor frame.  A ``utils.tensor.Tensor``
-anywhere inside a field's dicts or lists leaves the JSON as
-``{"__tensor__": i}`` and rides as raw frame ``i`` (``Tensor.to_bytes``),
-so tensor payloads are never text-encoded.
+and the byte length of each frame.  A ``utils.tensor.Tensor`` anywhere
+inside a field's dicts or lists leaves the JSON as ``{"__tensor__": i}``
+and rides as raw frame ``i`` (``Tensor.to_bytes``); a ``bytes`` value (a
+replica shard's payload) leaves it as ``{"__bytes__": i}`` and rides as
+frame ``i`` unchanged.  So neither is ever text-encoded.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from elasticdl_tpu_torch.utils.tensor import Tensor
 
 _U32 = struct.Struct("<I")
 _TENSOR_KEY = "__tensor__"
+_BYTES_KEY = "__bytes__"
 
 
 @dataclass
@@ -107,10 +109,11 @@ class ReportEvaluationMetricsRequest:
 class HeartbeatRequest:
     """The JAX package's heartbeat, every field kept.  The port's workers
     fill ``worker_id``, ``step``, ``timestamp``, ``rpc`` (the client's
-    outcome totals, ``rpc/stats.py``) and ``prefetch`` (the device
-    pipeline's staging totals); ``replica``, ``phases`` and ``memory``
-    come with the slices that port replication and telemetry, and stay
-    empty."""
+    outcome totals, ``rpc/stats.py``), ``prefetch`` (the device
+    pipeline's staging totals) and, with ``--replication``, ``replica``
+    (the replicator's advertisement: its replica server's address and
+    holdings); ``phases`` and ``memory`` come with the telemetry slice,
+    and stay empty."""
 
     worker_id: int
     step: int = 0
@@ -132,6 +135,72 @@ class HeartbeatResponse:
     profile: dict = field(default_factory=dict)
 
 
+@dataclass
+class PushReplicaRequest:
+    """Ring-neighbor state push (worker -> worker, replica service).
+
+    ``payload`` is one encoded state shard (``replication/blob.py``);
+    ``checksum`` lets the receiver detect a torn transfer and refuse to
+    commit it; ``generation`` fences pushes from stale worlds.
+    """
+
+    source: int  # process index whose state shard this is
+    version: int  # model version the shard was snapshotted at
+    generation: int = 0
+    checksum: str = ""
+    payload: bytes = b""
+
+
+@dataclass
+class PushReplicaResponse:
+    accepted: bool = False
+    reason: str = ""
+
+
+@dataclass
+class FetchReplicaRequest:
+    """Master-side harvest pull (master -> worker, replica service).
+    ``probe=True`` returns metadata only (version/generation/checksum
+    plus every retained version), so the harvester can pick a complete
+    replica set before moving any payload bytes.  ``version=-1`` means
+    the newest retained shard; a specific version fetches exactly that
+    one (an older shard may be the only COMPLETE set left)."""
+
+    source: int
+    probe: bool = False
+    version: int = -1
+
+
+@dataclass
+class FetchReplicaResponse:
+    has: bool = False
+    source: int = -1
+    version: int = -1
+    generation: int = -1
+    checksum: str = ""
+    payload: bytes = b""
+    # every version the store retains for this source (probe responses)
+    versions: list = field(default_factory=list)
+
+
+@dataclass
+class GetRestoreStateRequest:
+    """A re-formed world asks the master for the harvested in-memory
+    replica set.  ``cluster_version`` fences the stage: only the
+    generation the harvest was staged FOR may restore from it."""
+
+    cluster_version: int
+    process_id: int = 0
+
+
+@dataclass
+class RestoreStateResponse:
+    has: bool = False
+    version: int = -1
+    checksum: str = ""
+    payload: bytes = b""
+
+
 MESSAGE_TYPES = {
     cls.__name__: cls
     for cls in (
@@ -143,6 +212,12 @@ MESSAGE_TYPES = {
         ReportEvaluationMetricsRequest,
         HeartbeatRequest,
         HeartbeatResponse,
+        PushReplicaRequest,
+        PushReplicaResponse,
+        FetchReplicaRequest,
+        FetchReplicaResponse,
+        GetRestoreStateRequest,
+        RestoreStateResponse,
     )
 }
 
@@ -151,6 +226,9 @@ def _pack(value, frames: list):
     if isinstance(value, Tensor):
         frames.append(value.to_bytes())
         return {_TENSOR_KEY: len(frames) - 1}
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        frames.append(value)
+        return {_BYTES_KEY: len(frames) - 1}
     if isinstance(value, dict):
         return {k: _pack(v, frames) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
@@ -162,6 +240,8 @@ def _unpack(value, frames: list):
     if isinstance(value, dict):
         if set(value) == {_TENSOR_KEY}:
             return Tensor.from_bytes(frames[value[_TENSOR_KEY]])
+        if set(value) == {_BYTES_KEY}:
+            return bytes(frames[value[_BYTES_KEY]])
         return {k: _unpack(v, frames) for k, v in value.items()}
     if isinstance(value, list):
         return [_unpack(v, frames) for v in value]

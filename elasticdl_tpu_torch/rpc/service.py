@@ -17,6 +17,12 @@ codes keep gRPC's names: a refused or dropped connection is
 that raised ``INTERNAL``, and a request over the message cap
 ``RESOURCE_EXHAUSTED`` (raised by the client before it sends, as gRPC's
 client refuses a message over its send limit).
+
+A server carries one servicer's method table: the master's
+(:data:`_METHODS`, the default) or another's, such as the replica
+service's (``replication/service.py``: ``push_replica``,
+``fetch_replica``), bound through the same :func:`create_server` and
+called through the same :class:`RpcClient` with its own table.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ _METHODS = (
     "report_version",
     "report_evaluation_metrics",
     "heartbeat",
+    "get_restore_state",
 )
 
 # every master method here is retry-safe (rpc/retry.py's contract), so
@@ -307,3 +314,8 @@ class MasterClient(RpcClient):
 
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
         return self._call("heartbeat", request)
+
+    def get_restore_state(
+        self, request: msg.GetRestoreStateRequest
+    ) -> msg.RestoreStateResponse:
+        return self._call("get_restore_state", request)

@@ -115,6 +115,23 @@ class PeriodicCheckpointer:
             self._write_error = e
 
 
+def apply_restored_values(trainer, dense: dict, parts: dict, restored_step: int):
+    """Load restored values into the trainer: the shared back half of the
+    disk restore and the peer-replica hot restore
+    (``replication/replicator.py``).  ``dense`` holds checkpoint-named
+    arrays (loaded in place, ``checkpoint_to_state``); the step counter
+    lands at ``restored_step`` exactly.  ``parts`` (row-sharded table
+    rows) raise until sharded tables come (slice 9), as in
+    ``utils/save_utils.py``."""
+    if parts:
+        raise NotImplementedError(
+            f"sharded table parts {sorted(parts)} are not ported: they come "
+            "with slice 9 (ROADMAP.md queue 1)"
+        )
+    checkpoint_to_state(trainer.state, dense)
+    trainer.state.step = int(restored_step)
+
+
 def restore_trainer_state(trainer, args) -> int | None:
     """Resume from ``--checkpoint_dir`` when it holds a checkpoint, else
     warm-start from ``--checkpoint_dir_for_init``.  Returns the restored
@@ -134,8 +151,7 @@ def restore_trainer_state(trainer, args) -> int | None:
     dense, extra = save_utils.restore_checkpoint(restore_dir)
     version = int(extra.get("model_version", 0) or 0)
     restored_step = version if resume else 0
-    checkpoint_to_state(trainer.state, dense)
-    trainer.state.step = restored_step
+    apply_restored_values(trainer, dense, {}, restored_step)
     chaos_hooks.notify_checkpoint_restore(version)
     logger.info(
         "Restored state at version %d from %s%s",

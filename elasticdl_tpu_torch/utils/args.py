@@ -211,11 +211,17 @@ def _add_train_params(parser: argparse.ArgumentParser):
     parser.add_argument("--keep_checkpoint_max", type=non_neg_int, default=3)
     parser.add_argument(
         "--replication", type=parse_bool, default=None, required=False,
-        help="Replicate trainer state into peer host RAM (not ported)",
+        help="AllreduceStrategy worlds of two or more workers: replicate "
+        "each process's share of the trainer state into its ring "
+        "neighbor's host RAM, so a re-formed world resumes at the last "
+        "replicated step instead of the last disk checkpoint (a Local "
+        "run and a single task-stream worker take it and do not read it)",
     )
     parser.add_argument(
         "--replication_steps", type=non_neg_int, default=None,
-        required=False, help="Replicate every N steps (not ported)",
+        required=False,
+        help="With --replication: replicate at each crossing of a "
+        "multiple of N steps (0 or unset: at every task boundary)",
     )
     parser.add_argument(
         "--output", default="", help="Directory for the exported model"
@@ -638,7 +644,7 @@ def _comes_with(slice_name: str) -> str:
 
 _ELASTIC = _comes_with(
     "slice 6b-2, the rest of data parallelism and elastic reform "
-    "(replication, the journal, standbys, slices and the autoscaler)"
+    "(the journal, standbys, slices and the autoscaler)"
 )
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
 _K8S = _comes_with("slice 9, Kubernetes submission")
@@ -646,8 +652,6 @@ _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
     "mesh_shape": _ELASTIC,
     "dcn_mesh_shape": _ELASTIC,
-    "replication": _ELASTIC,
-    "replication_steps": _ELASTIC,
     "master_journal_dir": _ELASTIC,
     "rehome_grace_secs": _ELASTIC,
     "num_slices": _ELASTIC,

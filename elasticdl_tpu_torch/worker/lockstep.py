@@ -38,10 +38,24 @@ boundary: a group staged across a re-formation fence on some processes
 and not on others would split the world, so cross-task staging
 (``--boundary_fusion``) is not wired here, as in the JAX package.
 
-Left out until the next part of the slice: peer replication and master
-high availability; and per-process checkpoint parts: process 0 writes
-every checkpoint as one part (the name-keyed layout of a Local run) and,
-at a world's start, restores it and broadcasts the state to the others.
+``--replication`` (worlds of two or more processes) gives each process
+a replica server and a ring pusher (``replication/``): at every task
+boundary due by ``--replication_steps``, after the periodic checkpoint,
+each process snapshots its share of the state and pushes it to its ring
+neighbor; the heartbeat carries the replicator's advertisement up and
+the ring's addresses back.  A re-formed world's process 0 restores the
+master's harvested replica stage when it is at least as new as the
+newest disk checkpoint, else the checkpoint, and broadcasts, as before.
+A process whose world broke lingers with its replica server up (gloo
+fails fast when a peer dies: a survivor that exited at once would take
+its replicas with it) until the master's re-formation kills it, or for
+``ELASTICDL_TPU_REPLICA_LINGER_SECS`` (300 s) at most.
+
+Left out until the next parts of the slice: master high availability;
+and per-process checkpoint parts: process 0 writes every checkpoint as
+one part (the name-keyed layout of a Local run) and, at a world's start,
+restores it (or the replica stage) and broadcasts the state to the
+others.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.data.factory import create_data_reader
@@ -63,6 +78,13 @@ from elasticdl_tpu_torch.master.task_dispatcher import FAIL_COUNT
 from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
 from elasticdl_tpu_torch.parallel.elastic import batch_divisor, gather_rows_to_chief
+from elasticdl_tpu_torch.replication.replicator import (
+    PeerReplicator,
+    replica_host,
+    restore_from_replica,
+)
+from elasticdl_tpu_torch.replication.service import start_replica_server
+from elasticdl_tpu_torch.replication.store import ReplicaStore
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
 from elasticdl_tpu_torch.trainer import device_pipeline
@@ -77,6 +99,7 @@ from elasticdl_tpu_torch.trainer.stacking import (
     run_stacked_steps,
 )
 from elasticdl_tpu_torch.trainer.state import Modes, state_to_checkpoint
+from elasticdl_tpu_torch.utils import save_utils
 from elasticdl_tpu_torch.utils.args import derive_job_type
 from elasticdl_tpu_torch.utils.constants import JobType, TaskType
 from elasticdl_tpu_torch.utils.export_utils import export_model
@@ -88,10 +111,20 @@ from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
 
 # Debug hook: when set, each process dumps its final dense state to
 # $ELASTICDL_TPU_DUMP_STATE/final_state_p{process_id}.npz — tests and the
-# smoke hold the processes' states bitwise equal
+# smoke hold the processes' states bitwise equal — and a re-formed
+# world's restored state to start_state_p{process_id}_g{generation}.npz
 DUMP_STATE_ENV = "ELASTICDL_TPU_DUMP_STATE"
 
 HEARTBEAT_INTERVAL_SECS = 2.0
+
+# how long a process whose world broke keeps its replica server up for
+# the master's harvest (the master's re-formation kills it sooner)
+REPLICA_LINGER_ENV = "ELASTICDL_TPU_REPLICA_LINGER_SECS"
+REPLICA_LINGER_SECS = 300.0
+
+# how long a task boundary waits for the heartbeats to bring the ring
+# neighbor's replica address (a push fails without it)
+PEER_DISCOVERY_SECS = 30.0
 
 
 class LockstepWorker:
@@ -154,6 +187,22 @@ class LockstepWorker:
             args.checkpoint_steps,
             keep_checkpoint_max=args.keep_checkpoint_max,
         )
+        # peer state replication: a replica server and ring pusher per
+        # process, in worlds of two or more (a lone process has no peer
+        # to restore from)
+        self._replicator: PeerReplicator | None = None
+        self._replica_server = None
+        if args.replication and world.num_processes > 1:
+            store = ReplicaStore(generation=self._cluster_version)
+            self._replica_server, replica_port = start_replica_server(store)
+            self._replicator = PeerReplicator(
+                store,
+                process_id=self._process_id,
+                num_processes=world.num_processes,
+                generation=self._cluster_version,
+                addr=f"{replica_host()}:{replica_port}",
+                replication_steps=args.replication_steps or 0,
+            )
 
     # ---- process-0-only master reporting -----------------------------------
 
@@ -203,14 +252,43 @@ class LockstepWorker:
             process_group=self._world.group,
         )
         if self._is_chief:
-            restore_trainer_state(self._trainer, self._args)
+            self._restore_state()
         version = self._trainer.broadcast_state()
         self._checkpointer.note_restored_version(version)
+        if self._replicator is not None:
+            self._replicator.note_restored_version(version)
+        if self._cluster_version > 0:
+            self._dump_state_if_requested(
+                f"start_state_p{self._process_id}_g{self._cluster_version}.npz"
+            )
+
+    def _restore_state(self):
+        """Process 0: the harvested replica stage first, when it is at
+        least as new as the newest disk checkpoint; the disk second."""
+        if self._replicator is not None:
+            ckpt_dir = self._args.checkpoint_dir
+            disk_floor = save_utils.latest_version(ckpt_dir) if ckpt_dir else None
+            version = restore_from_replica(
+                self._trainer,
+                self._master,
+                self._cluster_version,
+                self._process_id,
+                min_version=disk_floor,
+            )
+            if version is not None:
+                return
+        restore_trainer_state(self._trainer, self._args)
 
     def _maybe_checkpoint(self):
-        """Periodic checkpoint at task boundaries, by process 0 alone."""
+        """At task boundaries: the periodic checkpoint, by process 0
+        alone, then the replication due, on every process (the cadence
+        is a function of the shared step)."""
         if self._is_chief:
             self._checkpointer.maybe_save(self._trainer)
+        if self._replicator is not None:
+            if not self._replicator.knows_neighbor():
+                self._discover_peers()
+            self._replicator.maybe_replicate(self._trainer, self._world.group)
 
     # ---- task execution ----------------------------------------------------
 
@@ -366,19 +444,45 @@ class LockstepWorker:
     # ---- main loop ---------------------------------------------------------
 
     def _heartbeat(self):
-        """One heartbeat, with the RPC outcome and staging totals."""
+        """One heartbeat, with the RPC outcome and staging totals and the
+        replicator's advertisement; the reply's peer map goes to the
+        replicator."""
+        replicator = self._replicator
         try:
-            self._master.heartbeat(
+            resp = self._master.heartbeat(
                 msg.HeartbeatRequest(
                     worker_id=self._worker_id,
                     step=self._trainer.step if self._trainer else 0,
                     timestamp=time.time(),
+                    replica=replicator.advertisement() if replicator else {},
                     rpc=rpc_stats.snapshot(),
                     prefetch=device_pipeline.heartbeat_snapshot(),
                 )
             )
         except Exception:  # noqa: BLE001 — the master may be gone
-            pass
+            return
+        if replicator is not None and resp is not None:
+            replicator.set_peers(resp.replica_peers)
+
+    def _discover_peers(self, timeout_secs: float = PEER_DISCOVERY_SECS):
+        """Heartbeat until the reply names the ring neighbor's replica
+        server, so a push has somewhere to go.  Called at a task boundary
+        while the neighbor is unknown: by then every process of the world
+        has taken a step with this one, so each has sent its first beat
+        (which advertises it), and one round trip is enough."""
+        deadline = time.monotonic() + timeout_secs
+        while True:
+            self._heartbeat()
+            if self._replicator.knows_neighbor():
+                return
+            if time.monotonic() > deadline:
+                logger.warning(
+                    "Process %d: no replica address for process %d after "
+                    "%.0f s; pushes fail until a heartbeat brings it",
+                    self._process_id, self._replicator.neighbor, timeout_secs,
+                )
+                return
+            time.sleep(0.05)
 
     def _start_heartbeats(self, interval_secs: float = HEARTBEAT_INTERVAL_SECS):
         def beat():
@@ -438,11 +542,21 @@ class LockstepWorker:
                 # the final state as a checkpoint, as the Local executor
                 # leaves it (the periodic ones stop at a milestone)
                 self._checkpointer.save_now(self._trainer, skip_if_current=True)
-            self._dump_state_if_requested()
+            if self._replicator is not None:
+                # every process's last push has landed before any replica
+                # server stops (a peer's server gone mid-push is a failure)
+                dist.barrier(group=self._world.group)
+            self._dump_state_if_requested(f"final_state_p{self._process_id}.npz")
             dump_launch_counts_if_requested(f"w{self._worker_id}")
             # the last totals reach the master however short the run
             self._heartbeat()
             ok = True
+        except BaseException:
+            if self._replica_server is not None:
+                # shown now: a lingering process would show it only when
+                # it leaves, and a re-formation kills it first
+                traceback.print_exc()
+            raise
         finally:
             # a pending boundary mark must not outlive the run loop
             device_pipeline.clear_boundary_mark()
@@ -452,15 +566,39 @@ class LockstepWorker:
                 self._checkpointer.flush_on_unwind(clean_exit=ok)
             finally:
                 self._stopped = True
+                if self._replicator is not None:
+                    self._replicator.close()
+                if self._replica_server is not None:
+                    if not ok:
+                        self._linger_for_harvest()
+                    self._replica_server.stop(grace=0)
 
-    def _dump_state_if_requested(self):
+    def _linger_for_harvest(self):
+        """The world broke: keep this process's replica RAM servable until
+        the master's re-formation (which harvests it, then kills this
+        process), or for the linger cap.  On the CPU and on gloo a
+        collective on a dead peer raises at once; exiting then would
+        take this process's replicas with it."""
+        try:
+            linger_secs = float(os.environ.get(REPLICA_LINGER_ENV, REPLICA_LINGER_SECS))
+        except ValueError:
+            linger_secs = REPLICA_LINGER_SECS
+        if linger_secs <= 0:
+            return
+        logger.warning(
+            "Process %d stopped on an error: lingering up to %.0f s so the "
+            "master can harvest its replica shards",
+            self._process_id, linger_secs,
+        )
+        time.sleep(linger_secs)
+
+    def _dump_state_if_requested(self, name: str):
         out_dir = os.environ.get(DUMP_STATE_ENV, "")
         if not out_dir or self._trainer is None:
             return
         os.makedirs(out_dir, exist_ok=True)
         np.savez(
-            os.path.join(out_dir, f"final_state_p{self._process_id}.npz"),
-            **state_to_checkpoint(self._trainer.state),
+            os.path.join(out_dir, name), **state_to_checkpoint(self._trainer.state)
         )
 
     @property

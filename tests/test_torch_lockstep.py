@@ -389,7 +389,7 @@ LIFTED = [
     ("rpc_retry_secs", "1"), ("rpc_deadline_secs", "1"),
     ("num_workers", "1"), ("validation_data", "DATA"), ("prediction_data", "DATA"),
     ("device_prefetch", "true"), ("evaluation_start_delay_secs", "5"),
-    ("evaluation_throttle_secs", "5"),
+    ("evaluation_throttle_secs", "5"), ("replication", "true"), ("replication_steps", "3"),
 ]
 
 
@@ -422,11 +422,18 @@ def test_lifted_flag_builds_a_master(tmp_path, flag, value):
         assert envs == {DEVICE_PREFETCH_ENV: "1"}
     if flag == "validation_data":
         assert master.evaluation_service is not None
+    # the master's replica directory comes with --replication alone
+    assert (master.replica_directory is not None) == (flag == "replication")
     worker_argv = port_args.build_worker_arguments(args, 0, "localhost:1")
     assert f"--{flag}" not in worker_argv or flag in (
         "distribution_strategy", "num_workers", "envs", "validation_data",
         "prediction_data", "evaluation_start_delay_secs", "evaluation_throttle_secs",
+        "replication", "replication_steps",
     )
+    if flag.startswith("replication"):
+        # the worker argv carries the replication flags, as they were given
+        i = worker_argv.index(f"--{flag}")
+        assert worker_argv[i + 1] == value
     # and the worker parses it back
     parsed = port_args.parse_worker_args(worker_argv)
     assert (parsed.worker_id, parsed.model_def) == (0, MNIST_DEF)
@@ -436,7 +443,6 @@ def test_lifted_flag_builds_a_master(tmp_path, flag, value):
 SLICE_6B = [
     (flag, [f"--{flag}", value]) for flag, value in (
         ("mesh_shape", "dp=2"), ("dcn_mesh_shape", "dp=2"),
-        ("replication", "true"), ("replication_steps", "3"),
         ("master_journal_dir", "/j"), ("rehome_grace_secs", "1"),
         ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
         ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
@@ -454,6 +460,60 @@ def test_slice_6b_flag_raises_naming_it(tmp_path, flag, extra):
     with pytest.raises(NotImplementedError, match="slice 6b-2") as err:
         build_master(args)
     assert f"--{flag}" in str(err.value)
+
+
+# a world's process and what its replicator does: none in a world of one
+# (no peer to restore from), else a push at every task boundary or at
+# each crossing of a multiple of --replication_steps
+REPLICATION_WORLDS = [
+    (["--replication", "true"], 2, [2, 4, 6]),
+    (["--replication", "true", "--replication_steps", "3"], 2, [4, 6]),
+    (["--replication", "true"], 1, None),
+    (["--replication_steps", "3"], 2, None),
+]
+
+
+@pytest.mark.parametrize(
+    "flags, processes, pushes", REPLICATION_WORLDS,
+    ids=["every_boundary", "steps_3", "world_of_one", "steps_without_replication"],
+)
+def test_a_lockstep_world_acts_on_the_replication_flags(flags, processes, pushes, monkeypatch):
+    """The flags as the worker parses them: a replicator and its replica
+    server in a world of two or more, pushing at the cadence the flags
+    set (the steps a world's task boundaries fall on: 2, 4, 6)."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel import elastic
+    from elasticdl_tpu_torch.parallel.elastic import World
+    from elasticdl_tpu_torch.worker.lockstep import LockstepWorker
+
+    monkeypatch.setattr(
+        elastic, "state_checkpoint_parts",
+        lambda state, mesh=None, materialize_dense=True: ({}, {}),
+    )
+    args = port_args.parse_worker_args([
+        "--model_def", MNIST_DEF, "--worker_id", "0", "--master_addr", "localhost:1",
+        "--device", "cpu", *flags,
+    ])
+    world = World(0, processes, "gloo", torch.device("cpu"))
+    worker = LockstepWorker(args, master=None, world=world)
+    try:
+        if pushes is None:
+            assert worker._replicator is None and worker._replica_server is None
+            return
+        assert worker._replica_server is not None
+        # a neighbor address that refuses at once: each push fails fast
+        worker._replicator.set_peers({"1": "127.0.0.1:1"})
+        done = []
+        for step in (2, 4, 6):
+            worker._trainer = type("T", (), {"step": step, "state": None})()
+            worker._maybe_checkpoint()
+            if worker._replicator.last_push.get("version") == step:
+                done.append(step)
+        assert done == pushes
+    finally:
+        if worker._replica_server is not None:
+            worker._replica_server.stop(grace=0)
 
 
 def test_a_worker_without_a_world_raises_naming_slice_6b():

@@ -68,6 +68,19 @@ MESSAGES = [
         accepted=False, should_quiesce=True, cluster_version=3,
         replica_peers={"0": "h:2"}, boot_id="b", profile={"window_id": 1},
     ),
+    # the replica service's and the restore stage's messages: payloads
+    # ride as raw byte frames
+    msg.PushReplicaRequest(
+        source=1, version=8, generation=2, checksum="0a1b2c3d", payload=b"\x00\xffshard",
+    ),
+    msg.PushReplicaResponse(accepted=True, reason="stale_version"),
+    msg.FetchReplicaRequest(source=1, probe=True, version=6),
+    msg.FetchReplicaResponse(
+        has=True, source=1, version=6, generation=2, checksum="c",
+        payload=b"\x01" * 7, versions=[4, 6],
+    ),
+    msg.GetRestoreStateRequest(cluster_version=3, process_id=1),
+    msg.RestoreStateResponse(has=True, version=6, checksum="c", payload=b"state"),
 ]
 
 
@@ -137,6 +150,14 @@ def test_tensors_ride_as_raw_frames():
     np.testing.assert_array_equal(sparse.indices, ids)
 
 
+def test_bytes_ride_as_raw_frames():
+    payload = bytes(range(256)) * 64
+    frame = msg.encode(msg.PushReplicaRequest(source=0, version=1, payload=payload))
+    # the payload once, as it is: no base64 in the JSON header
+    assert payload in frame and len(frame) < len(payload) + 256
+    assert msg.decode(frame).payload == payload
+
+
 def test_codec_refuses_foreign_and_torn_frames():
     with pytest.raises(ValueError, match="not a control-plane message"):
         msg.encode(object())
@@ -197,6 +218,10 @@ def test_client_carries_every_master_method(served):
     assert beat == msg.HeartbeatResponse(cluster_version=0)
     assert servicer.rpc_stats_totals() == {"retries": 2}
     assert set(servicer.live_workers()) == {0, 1, 2, 5}
+    # no restore stage: the disk-fallback answer
+    assert client.get_restore_state(msg.GetRestoreStateRequest(cluster_version=0)) == (
+        msg.RestoreStateResponse()
+    )
     end = client.get_step_task(msg.GetStepTaskRequest(seq=1, worker_id=1))
     assert end.is_empty
 
