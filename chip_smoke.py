@@ -179,6 +179,22 @@ printed:
    chief's share (its f32 weights, over the 256 MiB message cap) refused
    with ``RESOURCE_EXHAUSTED`` and counted, the job ending with rc 0, 12
    launches of each kernel per step on each rank.
+13. zoo — the rest of the single-device model zoo.  (a) A seeded
+   ResNet-50 step on one 64-row batch in f32 held to the port's CPU run
+   of it (probabilities, loss); then ``resnet50_subclass`` through the
+   train CLI at bench.py's headline width and step (32 x 32 cifar images,
+   2048 rows, bf16; 2 epochs of 49 152 ``gen_cifar10`` records, 2048
+   validation records), checked as phase 7 checks mnist with accuracy
+   >= 0.5, the trained model's bf16 forward held to the same weights in
+   f32, its steady records/s, step ms, peak memory, and bare steps with
+   the profiled busy and idle shares.  (b) ``imagenet_resnet50`` at
+   bench.py's shape (224 x 224 x 3, 1000 classes, 128 rows, bf16)
+   through ``SPMDTrainer``: 12 steps, median step ms, samples/s, peak
+   memory.  (c) mnist_subclass, both CIFAR-10 CNNs, the three census
+   styles, heart and iris through the CLI, one epoch of a few thousand
+   synthetic records each: tasks, steps, records, the data path, the
+   wire dtype, finite losses, an accuracy floor where the generator is
+   learnable.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -1205,8 +1221,8 @@ def _checked_local_run(work_dir: str, data: dict, device: str):
             f"tasks {tasks}, {trained} records in {len(batches)} batches, "
             f"trainer at step {trainer.step}"
         )
-    # (b) the real rows are the training records, each once; padding rows
-    # weigh 0
+    # (b) the real rows are the training records, each once an epoch;
+    # padding rows weigh 0
     got_rows = []
     for tokens, labels, w in batches:
         n = int(w.sum())
@@ -1505,7 +1521,8 @@ def _zoo_argv(cfg: dict, data: dict, device: str, *extra) -> list:
         "--training_data", data["train"],
         "--minibatch_size", str(cfg["batch"]),
         "--records_per_task", str(cfg["records_per_task"]),
-        "--num_epochs", "1", "--shuffle_seed", "0", "--device", device, *extra,
+        "--num_epochs", str(cfg.get("epochs", 1)), "--shuffle_seed", "0",
+        "--device", device, *extra,
     ]
     if cfg["model_params"]:
         argv += ["--model_params", cfg["model_params"]]
@@ -1657,6 +1674,19 @@ def _row_key(wire, label) -> bytes:
     ).digest()
 
 
+def _zoo_counts(cfg: dict) -> tuple:
+    """The training tasks, steps and records of ``cfg``'s run, and its
+    evaluation batches."""
+    per_shard = cfg["train_records"] // cfg["shards"]
+    rpt, batch = cfg["records_per_task"], cfg["batch"]
+    epochs = cfg.get("epochs", 1)
+    tasks = epochs * cfg["shards"] * -(-per_shard // rpt)
+    steps = epochs * cfg["shards"] * sum(
+        -(-min(rpt, per_shard - lo) // batch) for lo in range(0, per_shard, rpt)
+    )
+    return tasks, steps, epochs * cfg["train_records"], -(-cfg["eval_records"] // batch)
+
+
 def _checked_zoo_run(
     work_dir: str, cfg: dict, data: dict, device: str, flags=(), rec=None
 ) -> dict:
@@ -1690,21 +1720,16 @@ def _checked_zoo_run(
     trainer = rec.executor.trainer
     model = trainer.state.model
     steps = len(rec.batches)
-    per_shard = cfg["train_records"] // cfg["shards"]
-    rpt, batch = cfg["records_per_task"], cfg["batch"]
-    want_tasks = cfg["shards"] * -(-per_shard // rpt)
-    want_steps = cfg["shards"] * sum(
-        -(-min(rpt, per_shard - lo) // batch) for lo in range(0, per_shard, rpt)
-    )
-    eval_batches = -(-cfg["eval_records"] // batch)
+    epochs = cfg.get("epochs", 1)
+    want_tasks, want_steps, want_records, eval_batches = _zoo_counts(cfg)
 
     # (a) tasks, records and steps
     weights = [w.cpu() for _x, _l, w in rec.batches]
     trained = int(sum(float(w.sum()) for w in weights))
     if (
         len(rec.tasks) != want_tasks
-        or sum(t.end - t.start for t in rec.tasks) != cfg["train_records"]
-        or trained != cfg["train_records"]
+        or sum(t.end - t.start for t in rec.tasks) != want_records
+        or trained != want_records
         or steps != want_steps or trainer.step != want_steps
     ):
         raise AssertionError(
@@ -1712,8 +1737,8 @@ def _checked_zoo_run(
             f"trainer at step {trainer.step}; want {want_tasks} tasks, "
             f"{want_steps} steps"
         )
-    # (b) the real rows are the training records, each once; padding rows
-    # weigh 0
+    # (b) the real rows are the training records, each once an epoch;
+    # padding rows weigh 0
     got_keys = []
     for (wire, labels, w), w_host in zip(rec.batches, weights):
         n = int(w_host.sum())
@@ -1721,8 +1746,8 @@ def _checked_zoo_run(
             raise AssertionError(f"a batch's row weights are not 1s then 0s: {w_host}")
         wire, labels = wire[:n].cpu().numpy(), labels[:n].cpu().numpy()
         got_keys += [_row_key(wire[i], labels[i]) for i in range(n)]
-    if sorted(got_keys) != sorted(_record_keys(data["train"], wire_key)):
-        raise AssertionError("the trained rows are not the training records, once each")
+    if sorted(got_keys) != sorted(_record_keys(data["train"], wire_key) * epochs):
+        raise AssertionError("the trained rows are not the training records, once an epoch")
     # (c) every batch through the vectorized path and the native codec,
     # and no attention kernel on this path
     if (
@@ -1801,6 +1826,11 @@ def _timed_zoo_run(cfg: dict, data: dict, device: str, flags=(), rec=None) -> di
     its steps."""
     rec = rec or _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
     rec.run(_zoo_argv(cfg, data, device, *flags))
+    return _steady_window(rec)
+
+
+def _steady_window(rec) -> dict:
+    """:func:`_timed_zoo_run`'s numbers from a recorder after its run."""
     secs = rec.reports[-1] - rec.reports[0]
     steady = rec.tasks[1:]
     first = sum(1 for t0 in rec.step_starts if t0 < rec.reports[0])
@@ -1830,9 +1860,10 @@ def _bare_zoo_steps(cfg: dict, data: dict, device: str) -> dict:
     ``cfg["batch"]`` training records, as the CLI builds the trainer
     (bf16 float features, the model's device parse): host time to issue
     a step, wall time per step over a synced loop, device time per step
-    back to back (CUDA events, the stream held until a round is queued),
-    and the device's busy time per step in a profiled window, with the
-    idle share of the wall time it leaves."""
+    back to back (CUDA events, the stream held until a round is queued;
+    not for a ``cfg`` whose ``device_reps`` is None), and the device's
+    busy time per step in a profiled window, with the idle share of the
+    wall time it leaves."""
     import torch
 
     from elasticdl_tpu_torch.data.reader import decode_example_batch
@@ -1885,7 +1916,9 @@ def _bare_zoo_steps(cfg: dict, data: dict, device: str) -> dict:
         raise AssertionError(f"the bare loop's loss is {float(loss)}")
     device_ms = busy_ms = None
     if device == "cuda":
-        device_ms = time_cuda(step, reps=ZOO_DEVICE_REPS, rounds=5)
+        reps = cfg.get("device_reps", ZOO_DEVICE_REPS)
+        if reps:
+            device_ms = time_cuda(step, reps=reps, rounds=5)
         busy_ms = _device_busy_ms(step, ZOO_PROFILED_STEPS)
     return {
         "rows": rows, "host_ms_per_step_median": statistics.median(host_ms),
@@ -3727,6 +3760,316 @@ def replica_lm_run(work_dir: str, device: str = "cuda") -> dict:
     return row
 
 
+# ---- phase 13: the rest of the single-device zoo through the train CLI -----
+
+RESNET_DEF = "resnet50_subclass.resnet50_subclass.custom_model"
+IMAGENET_DEF = "imagenet_resnet50.imagenet_resnet50.custom_model"
+# bench.py's headline (bench.py:181-190): ResNet-50 on 32x32 cifar images,
+# 10 classes, 2048 rows a step, bf16.  49 152 gen_cifar10 records in 8
+# shards of one 3-step task each (24 steps an epoch), 2 epochs, 2048
+# validation records, a checkpoint every 16 steps
+RESNET_CIFAR = dict(
+    name="resnet50_cifar10", model_def=RESNET_DEF, gen="gen_cifar10",
+    gen_kwargs={}, model_params="dtype=bfloat16", train_records=49152,
+    eval_records=2048, shards=8, batch=2048, records_per_task=6144, epochs=2,
+    checkpoint_steps=16, wire=("image", "uint8"), accuracy_key="accuracy",
+    min_accuracy=0.5,
+    # a step is about 4 200 torch operations, more launches than the
+    # launch queue holds, so steps cannot be queued behind time_cuda's
+    # spin kernel: the bare loop's device time is the profiler's busy time
+    device_reps=None,
+)
+# the step held against the port's CPU run: one 64-row batch from seeded
+# weights, f32 with TF32 off.  cuDNN's convolutions and the CPU's sum in
+# other orders through 53 BatchNorms: probabilities within 2e-3 and the
+# loss within 1e-3.  The trained model's bf16 evaluation forward within
+# 0.1 of the same weights in f32 (8-bit mantissas through 53 layers)
+RESNET_HELD_ROWS = 64
+RESNET_PROB_TOL, RESNET_LOSS_TOL, RESNET_BF16_TOL = 2e-3, 1e-3, 0.1
+# bench.py's imagenet_resnet50 (bench.py:226-234): 224 x 224 x 3, 1000
+# classes, 128 rows a step, bf16; seeded in-memory batches, 12 steps, the
+# median over the steps after the first 2
+IMAGENET = dict(rows=128, side=224, classes=1000, steps=12, warmup=2)
+# the rest of the zoo: each model on a few thousand synthetic records,
+# one epoch, a final evaluation; accuracy floors where the generator is
+# learnable in that epoch (heart's SGD(1e-6) learns nothing in one)
+_REST_COMMON = dict(gen_kwargs={}, model_params="", shards=4, accuracy_key="accuracy")
+ZOO_REST = tuple(dict(_REST_COMMON, **cfg) for cfg in (
+    dict(name="mnist_subclass", model_def="mnist_subclass.mnist_subclass.custom_model",
+         gen="gen_mnist", train_records=4096, eval_records=1024, batch=128,
+         records_per_task=1024, wire=("image", "uint8"), path="vectorized",
+         min_accuracy=0.8),
+    dict(name="cifar10_functional_api",
+         model_def="cifar10_functional_api.cifar10_functional_api.custom_model",
+         gen="gen_cifar10", train_records=8192, eval_records=1024, batch=128,
+         records_per_task=2048, wire=("image", "uint8"), path="vectorized",
+         min_accuracy=0.5),
+    dict(name="cifar10_subclass", model_def="cifar10_subclass.cifar10_subclass.custom_model",
+         gen="gen_cifar10", train_records=8192, eval_records=1024, batch=128,
+         records_per_task=2048, wire=("image", "uint8"), path="vectorized",
+         min_accuracy=0.5),
+    *(
+        dict(name=f"census_{style}",
+             model_def=f"census_dnn_model.census_{style}.custom_model",
+             gen="gen_census", train_records=8192, eval_records=2048, batch=128,
+             records_per_task=2048, wire=("age", "float32"), path="vectorized",
+             min_accuracy=0.6)
+        for style in ("functional_api", "sequential", "subclass")
+    ),
+    dict(name="heart", model_def="heart_functional_api.heart_functional_api.custom_model",
+         gen="gen_heart", train_records=2048, eval_records=512, batch=64,
+         records_per_task=512, wire=("age", "float32"), path="dataset_fn",
+         min_accuracy=None),
+    dict(name="odps_iris", model_def="odps_iris_dnn_model.odps_iris_dnn_model.custom_model",
+         gen="gen_iris", train_records=2048, eval_records=512, batch=64,
+         records_per_task=512, wire=("features", "float32"), path="dataset_fn",
+         min_accuracy=0.9),
+))
+
+
+def resnet_held_on_card(device: str = "cuda", rows: int = RESNET_HELD_ROWS) -> dict:
+    """Phase 13a's held step: seeded ResNet-50 weights and one 64-row
+    batch of uint8 images, the training-mode probabilities and the first
+    SGD step's loss in f32 on ``device`` against the port's CPU run of the
+    same."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models import resnet50_subclass as resnet
+    from elasticdl_tpu_torch.trainer.state import TrainState
+    from elasticdl_tpu_torch.trainer.step import build_train_step
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        weights = resnet.custom_model().state_dict()
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randint(0, 256, (rows, 32, 32, 3)).astype(np.uint8))
+    labels = torch.from_numpy(rng.randint(0, 10, rows).astype(np.int32))
+
+    def run(dev):
+        model = resnet.custom_model()
+        model.load_state_dict(weights)
+        model.to(dev)
+        features = {"image": images.to(dev)}
+        with torch.no_grad():
+            probs = copy.deepcopy(model)(resnet.device_parse(features), training=True)
+        state = TrainState.create(model, resnet.optimizer())
+        _, metrics = build_train_step(resnet.loss, device_parse=resnet.device_parse)(
+            state, features, labels.to(dev), torch.ones(rows, device=dev)
+        )
+        return probs.cpu().numpy(), float(metrics["loss"])
+
+    cpu_probs, cpu_loss = run("cpu")
+    card_probs, card_loss = run(device)
+    row = {
+        "rows": rows, "cpu_loss": cpu_loss, "card_loss": card_loss,
+        "prob_max_abs_err": float(np.abs(card_probs - cpu_probs).max()),
+        "max_prob": float(cpu_probs.max()),
+    }
+    if not (
+        np.isfinite(card_loss) and abs(card_loss - cpu_loss) <= RESNET_LOSS_TOL
+        and row["prob_max_abs_err"] <= RESNET_PROB_TOL
+    ):
+        raise AssertionError(f"ResNet-50 on {device} disagrees with the CPU: {row}")
+    return row
+
+
+def _bf16_against_f32(model, data: dict, device: str, tol: float) -> dict:
+    """The trained bf16 ``model``'s evaluation-mode probabilities on the
+    first 64 validation records against the same weights in f32: the
+    bf16 forward held to the f32 one.  (At initialisation the network's
+    probabilities on noise images are too ill-conditioned for this: bf16
+    moves them by up to 0.47 at 64 x 32 x 32 on the CPU.)"""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.reader import decode_example_batch
+    from elasticdl_tpu_torch.data.recordio_reader import RecordIODataReader
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.models import resnet50_subclass as resnet
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    reader = RecordIODataReader(data_dir=data["eval"])
+    shard, (start, n) = sorted(reader.create_shards().items())[0]
+    records = list(reader.read_records(
+        Task(shard, start, start + min(n, RESNET_HELD_ROWS), TaskType.EVALUATION)
+    ))
+    images = torch.from_numpy(decode_example_batch(records)["image"]).to(device)
+    f32 = resnet.custom_model(num_classes=model.num_classes)
+    f32.load_state_dict(model.state_dict())
+    probs = []
+    for m in (model, f32.to(device)):
+        with torch.no_grad():
+            probs.append(m.eval()(resnet.device_parse({"image": images})).cpu().numpy())
+    row = {
+        "rows": len(records), "prob_max_abs_err": float(np.abs(probs[0] - probs[1]).max()),
+        "argmax_agreement": float((probs[0].argmax(1) == probs[1].argmax(1)).mean()),
+    }
+    if not row["prob_max_abs_err"] <= tol:
+        raise AssertionError(f"the bf16 forward is not held to the f32 one: {row}")
+    return row
+
+
+def _channels_last_share(model, device: str) -> float:
+    """The share of ``model``'s BatchNorm inputs that were
+    ``channels_last`` in an evaluation forward of 8 images: the layout
+    cuDNN's convolutions gave them."""
+    import torch
+
+    from elasticdl_tpu_torch.layers.normalization import BatchNorm
+
+    seen = []
+    hooks = [
+        m.register_forward_pre_hook(
+            lambda _m, args: seen.append(args[0].is_contiguous(memory_format=torch.channels_last))
+        )
+        for m in model.modules() if isinstance(m, BatchNorm)
+    ]
+    try:
+        with torch.no_grad():
+            model.eval()({"image": torch.zeros(8, 32, 32, 3, device=device)})
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(seen) / len(seen)
+
+
+def train_resnet_cifar(work_dir: str, device: str = "cuda", cfg=None) -> dict:
+    """Phase 13a: the held step, then ``resnet50_subclass`` through the
+    train CLI at bench.py's width and step, checked as phase 7 checks
+    mnist (tasks, every record once an epoch, the vectorized path, the
+    uint8 wire, finite losses, the accuracy floor, statistics that moved,
+    checkpoints and the export), with the steady window read off the same
+    run, the peak memory and bare steps (``device="cpu"`` rehearses it at
+    a small size)."""
+    import torch
+
+    cfg = cfg or RESNET_CIFAR
+    row = {"held": resnet_held_on_card(device, cfg.get("held_rows", RESNET_HELD_ROWS))}
+    data = _zoo_data(work_dir, cfg)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=True)
+    row["checked"] = _checked_zoo_run(work_dir, cfg, data, device, rec=rec)
+    row["steady"] = _steady_window(rec)
+    if device == "cuda":
+        row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    model = rec.executor.trainer.state.model
+    row["bf16_against_f32"] = _bf16_against_f32(
+        model, data, device, cfg.get("bf16_tol", RESNET_BF16_TOL)
+    )
+    row["channels_last_share"] = _channels_last_share(model, device)
+    del model
+    del rec
+    _release_memory(device)
+    row["bare"] = _bare_zoo_steps(cfg, data, device)
+    return row
+
+
+def imagenet_resnet_steps(device: str = "cuda", cfg=None) -> dict:
+    """Phase 13b: ``imagenet_resnet50`` through ``SPMDTrainer`` on a seeded
+    in-memory batch of uint8 images at bench.py's shape, as the CLI
+    builds the trainer (bf16 features, the model's device parse):
+    median step ms over a synced loop, samples/s and peak memory."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.local_executor import build_optimizer
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    cfg = cfg or IMAGENET
+    rows, side = cfg["rows"], cfg["side"]
+    spec = get_model_spec("", IMAGENET_DEF, model_params={"dtype": "bfloat16"})
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = spec.build_model()
+    trainer = SPMDTrainer(
+        model, spec.loss, build_optimizer(spec), compute_dtype=torch.bfloat16,
+        device=device, device_parse=spec.device_parse,
+    )
+    rng = np.random.RandomState(0)
+    batch = trainer.place_batch((
+        {"image": rng.randint(0, 256, (rows, side, side, 3)).astype(np.uint8)},
+        rng.randint(0, cfg["classes"], rows).astype(np.int32),
+        np.ones(rows, np.float32),
+    ))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.monotonic()
+        losses.append(trainer.train_step(*batch)["loss"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    losses = [float(x) for x in losses]
+    median_ms = statistics.median(step_ms[cfg["warmup"]:])
+    row = {
+        "rows": rows, "side": side, "classes": cfg["classes"], "steps": cfg["steps"],
+        "step_ms": step_ms, "median_step_ms": median_ms,
+        "samples_per_s": rows / (median_ms / 1e3), "losses": losses,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None,
+    }
+    params_finite = all(torch.isfinite(p).all() for p in trainer.state.model.parameters())
+    if not (all(np.isfinite(losses)) and params_finite and trainer.step == cfg["steps"]):
+        raise AssertionError(f"imagenet ResNet-50 did not step cleanly: {row}")
+    return row
+
+
+def zoo_cli_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """Phase 13c for one model: one epoch of ``cfg`` through the train CLI
+    with a final evaluation.  Gates: the tasks, steps and records of the
+    epoch, every batch through ``cfg["path"]`` (the vectorized pipeline
+    for a model with a ``batch_parse``, else its ``dataset_fn``),
+    the wire dtype on the device, finite losses and evaluation, and the
+    accuracy floor where there is one."""
+    import numpy as np
+    import torch
+
+    data = _zoo_data(work_dir, cfg)
+    rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
+    _launches, paths = rec.run(_zoo_argv(cfg, data, device, "--validation_data", data["eval"]))
+    want_tasks, want_steps, want_records, eval_batches = _zoo_counts(cfg)
+    trainer = rec.executor.trainer
+    losses = [float(x) for x in rec.losses]
+    accuracy = rec.result.get(cfg["accuracy_key"])
+    # a model without a batch_parse takes the per-record path, which
+    # fast_pipeline does not count
+    vectorized = want_steps + eval_batches if cfg["path"] == "vectorized" else 0
+    want_paths = {"vectorized": vectorized, "classic": 0}
+    want_wire = (getattr(torch, cfg["wire"][1]), device)
+    row = {
+        "tasks": len(rec.tasks), "records": sum(t.end - t.start for t in rec.tasks),
+        "steps": trainer.step, "evaluation": rec.result, "paths": paths,
+        "first_losses": losses[:2], "last_losses": losses[-2:],
+        "data_secs": data["secs"], "run_secs": time.monotonic() - rec.start,
+    }
+    if (
+        (row["tasks"], row["records"], row["steps"], len(losses))
+        != (want_tasks, want_records, want_steps, want_steps)
+        or paths != want_paths or any(w != want_wire for w in rec.wire)
+        or not all(np.isfinite(losses)) or not np.isfinite(rec.result.get("loss", np.nan))
+        or (cfg["min_accuracy"] is not None and not accuracy >= cfg["min_accuracy"])
+    ):
+        raise AssertionError(
+            f"{cfg['name']} failed its gates: {row} (want {want_tasks} tasks, "
+            f"{want_steps} steps, paths {want_paths}, wire {want_wire} not {set(rec.wire)})"
+        )
+    return row
+
+
+def train_zoo_rest(work_dir: str, device: str = "cuda", cfgs=None) -> dict:
+    """Phase 13c: every model of :data:`ZOO_REST` in turn."""
+    rows = {}
+    for cfg in cfgs or ZOO_REST:
+        rows[cfg["name"]] = zoo_cli_run(os.path.join(work_dir, cfg["name"]), cfg, device)
+        _release_memory(device)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3877,6 +4220,21 @@ def main() -> int:
         replica_lm = replica_lm_run(os.path.join(work_dir, "lm"))
         replica_rows["lm"] = replica_lm
     print(json.dumps({"replication": replica_rows}), flush=True)
+
+    # ---- 13. the rest of the single-device zoo: ResNet-50 at bench.py's
+    # headline width and step through the train CLI, the imagenet shape
+    # through the trainer, and every other model of the zoo through the CLI
+    zoo_rows = {"device": smi}
+    t13 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as work_dir:
+        _release_memory("cuda")
+        zoo_rows["resnet50_cifar10"] = train_resnet_cifar(os.path.join(work_dir, "resnet"))
+        _release_memory("cuda")
+        zoo_rows["imagenet_resnet50"] = imagenet_resnet_steps()
+        _release_memory("cuda")
+        zoo_rows["rest"] = train_zoo_rest(os.path.join(work_dir, "rest"))
+    zoo_rows["secs"] = time.monotonic() - t13
+    print(json.dumps({"zoo": zoo_rows}), flush=True)
 
     def row(name, source, replaces, measured):
         return {

@@ -1,7 +1,8 @@
-"""Flax's default initializers for ``Dense`` and ``Conv`` layers, so a
-model of the port that starts from no checkpoint draws its weights from
-the distributions the JAX package's model draws from (the bits differ:
-the generators do)."""
+"""Flax's initializers for ``Dense`` and ``Conv`` layers (the default
+``lecun_normal`` and ResNet's ``he_normal``), so that a model of the
+port that starts from no checkpoint draws its weights from the
+distributions the JAX package's model draws from (the bits differ: the
+generators do)."""
 
 from __future__ import annotations
 
@@ -14,14 +15,25 @@ from torch import nn
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
-    """flax's ``lecun_normal()``: a normal truncated to two standard
-    deviations, scaled to variance ``1 / fan_in``.  ``weight`` is in
-    torch's layout (``(out, in, *kernel)``), so its fan-in is the
-    product of every dimension but the first."""
+def _variance_scaling_(weight: torch.Tensor, scale: float) -> torch.Tensor:
+    """flax's ``variance_scaling(scale, "fan_in", "truncated_normal")``:
+    a normal truncated to two standard deviations, scaled to variance
+    ``scale / fan_in``.  ``weight`` is in torch's layout (``(out, in,
+    *kernel)``), so its fan-in is the product of every dimension but the
+    first (flax's ``H * W * I`` of an HWIO kernel)."""
     fan_in = math.prod(weight.shape[1:])
-    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    std = math.sqrt(scale / fan_in) / _TRUNCATED_STD
     return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's ``lecun_normal()``: variance ``1 / fan_in``."""
+    return _variance_scaling_(weight, 1.0)
+
+
+def he_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's ``he_normal()``: variance ``2 / fan_in``."""
+    return _variance_scaling_(weight, 2.0)
 
 
 def flax_default_init_(layer: nn.Linear | nn.Conv2d) -> None:

@@ -54,8 +54,9 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype) -> torch.Tensor:
     """``layer(x)`` with input, kernel and bias cast to the compute dtype
     (flax ``Conv`` with ``dtype=``; parameters stay f32)."""
     dt = compute_dtype(dtype, x)
+    bias = layer.bias.to(dt) if layer.bias is not None else None
     return F.conv2d(
-        x.to(dt), layer.weight.to(dt), layer.bias.to(dt),
+        x.to(dt), layer.weight.to(dt), bias,
         stride=layer.stride, padding=layer.padding,
     )
 

@@ -37,7 +37,13 @@ from elasticdl_tpu_torch.trainer.stacking import (
     run_stacked_steps,
     warm_dispatch_overhead_async,
 )
-from elasticdl_tpu_torch.trainer.state import LRSchedule, Modes, TrainState
+from elasticdl_tpu_torch.trainer.state import (
+    LRSchedule,
+    Modes,
+    TrainState,
+    takes_named_parameters,
+    wants_named_parameters,
+)
 from elasticdl_tpu_torch.trainer.step import resolve_optimizer
 from elasticdl_tpu_torch.utils.args import check_ported_flags
 from elasticdl_tpu_torch.utils.device import resolve_device
@@ -77,7 +83,7 @@ def build_optimizer(spec, learning_rate=None):
         opt.register_step_pre_hook(opt.lr_schedule)
         return opt
 
-    return build
+    return takes_named_parameters(build) if wants_named_parameters(factory) else build
 
 
 class LocalExecutor:

@@ -55,8 +55,27 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, tx: Callable) -> "TrainState":
         """A fresh state at step 0; ``tx`` builds the optimizer from the
-        model's parameters."""
-        return cls(step=0, model=model, optimizer=tx(model.parameters()))
+        model's parameters, or from ``model.named_parameters()`` when it
+        :func:`takes_named_parameters`."""
+        params = (
+            model.named_parameters() if wants_named_parameters(tx)
+            else model.parameters()
+        )
+        return cls(step=0, model=model, optimizer=tx(params))
+
+
+def takes_named_parameters(factory: Callable) -> Callable:
+    """Mark an optimizer factory as one that builds its optimizer from
+    ``model.named_parameters()``, ``(name, parameter)`` pairs, instead of
+    the bare parameters: the form of a factory that chooses parameter
+    groups by name (the JAX package's optax masks).  Returns
+    ``factory``."""
+    factory.takes_named_parameters = True
+    return factory
+
+
+def wants_named_parameters(factory: Callable) -> bool:
+    return getattr(factory, "takes_named_parameters", False)
 
 
 class LRSchedule:

@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from elasticdl_tpu_torch.layers.attention import dropout_generator
 from elasticdl_tpu_torch.layers.normalization import frozen_statistics
 from elasticdl_tpu_torch.parallel import elastic
-from elasticdl_tpu_torch.trainer.state import TrainState
+from elasticdl_tpu_torch.trainer.state import TrainState, wants_named_parameters
 from elasticdl_tpu_torch.utils.tree_utils import map_tree
 
 
@@ -248,8 +248,11 @@ def build_predict_step(device_parse: Callable | None = None) -> Callable:
 
 
 def _is_optimizer_factory(spec) -> bool:
-    """A torch optimizer class, or a ``functools.partial`` of one: it
-    takes the parameters and builds the optimizer."""
+    """A torch optimizer class, a ``functools.partial`` of one, or a
+    factory marked with ``takes_named_parameters``: it takes the
+    parameters and builds the optimizer."""
+    if wants_named_parameters(spec):
+        return True
     if isinstance(spec, functools.partial):
         spec = spec.func
     return isinstance(spec, type) and issubclass(spec, torch.optim.Optimizer)

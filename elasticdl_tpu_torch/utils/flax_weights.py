@@ -84,11 +84,13 @@ def _linear(t: str, f: str, layer: nn.Linear, kernel_shape=None,
 
 def _conv(t: str, f: str, layer: nn.Conv2d) -> list[_Entry]:
     o, i, kh, kw = layer.weight.shape
-    return [
+    entries = [
         _Entry(f"{t}.weight", f"{f}/kernel", _CONV, (o, i, kh, kw),
                (kh, kw, i, o)),
-        _copy(f"{t}.bias", f"{f}/bias", layer.bias),
     ]
+    if layer.bias is not None:  # use_bias=False has no bias
+        entries.append(_copy(f"{t}.bias", f"{f}/bias", layer.bias))
+    return entries
 
 
 def _batch_norm(t: str, f: str, layer) -> list[_Entry]:
@@ -168,11 +170,55 @@ def _deepfm(model) -> list[_Entry]:
     ]
 
 
+def _resnet_block(t: str, block) -> list[_Entry]:
+    entries = []
+    for name, child in block.named_children():
+        if isinstance(child, nn.Conv2d):
+            entries += _conv(f"{t}.{name}", f"{t}/{name}", child)
+        else:
+            entries += _batch_norm(f"{t}.{name}", f"{t}/{name}", child)
+    return entries
+
+
+def _resnet(model) -> list[_Entry]:
+    # the torch names are flax's: conv_block_2.conv_a is conv_block_2/conv_a
+    entries = _conv("conv1", "conv1", model.conv1)
+    entries += _batch_norm("bn_conv1", "bn_conv1", model.bn_conv1)
+    for name in model.block_names:
+        entries += _resnet_block(name, getattr(model, name))
+    return entries + _linear("fc", "fc", model.fc)
+
+
+def _cifar10(model) -> list[_Entry]:
+    # flax numbers the convs and the BatchNorms in order; the flatten is
+    # NHWC, as the mnist model's
+    entries = []
+    for i, (layer, norm) in enumerate(zip(model.convs, model.norms)):
+        entries += _conv(f"convs.{i}", f"Conv_{i}", layer)
+        entries += _batch_norm(f"norms.{i}", f"BatchNorm_{i}", norm)
+    return entries + _linear("output", "output", model.output)
+
+
+def _feature_column_dnn(model) -> list[_Entry]:
+    entries = [
+        _copy(f"dense_features.{name}.embedding",
+              f"DenseFeatures_0/{name}/embedding", table.embedding)
+        for name, table in model.dense_features.named_children()
+    ]
+    for i in range(3):
+        entries += _linear(f"dense_{i}", f"Dense_{i}", getattr(model, f"dense_{i}"))
+    return entries
+
+
 def _entries(model: nn.Module) -> list[_Entry]:
     # imported here: the model modules import trainer.state, which
     # imports this module
+    from elasticdl_tpu_torch.models._tabular import FeatureColumnDNN
+    from elasticdl_tpu_torch.models.cifar10_functional_api import Cifar10CNN
     from elasticdl_tpu_torch.models.deepfm_functional_api import DeepFM
     from elasticdl_tpu_torch.models.mnist_functional_api import MnistCNN
+    from elasticdl_tpu_torch.models.odps_iris_dnn_model import IrisDNN
+    from elasticdl_tpu_torch.models.resnet50_model import ResNet50
 
     if isinstance(model, TransformerLM):
         return _lm(model)
@@ -180,6 +226,14 @@ def _entries(model: nn.Module) -> list[_Entry]:
         return _mnist(model)
     if isinstance(model, DeepFM):
         return _deepfm(model)
+    if isinstance(model, ResNet50):
+        return _resnet(model)
+    if isinstance(model, Cifar10CNN):
+        return _cifar10(model)
+    if isinstance(model, FeatureColumnDNN):
+        return _feature_column_dnn(model)
+    if isinstance(model, IrisDNN):
+        return _linear("output", "output", model.output)
     if isinstance(model, TransformerBlock):
         return _block("", "", model)
     if isinstance(model, MultiHeadSelfAttention):
