@@ -95,10 +95,12 @@ printed:
    trainer give the same weights and statistics exactly (the zoo models'
    checked runs hold cuDNN to its deterministic algorithms, on both
    sides: its default convolution weight gradients are not); for the
-   LM, the flash kernels of every graph replay, read from the profiler's
-   device trace, are each kernel's launches per step times k (the
-   forward twice with remat), and the wrappers' counts those of the
-   eager steps and the evaluation.  mnist runs again, checked and timed,
+   LM, the flash kernels of every replayed graph, counted as its capture
+   records them, are each kernel's launches per step times k (the
+   forward twice with remat), every replay's profiler trace shows each
+   of them and no more, and at most a tenth fewer
+   (``TRACE_DROP_MAX_SHARE``: the trace can drop a record), and the wrappers'
+   counts are those of the eager steps and the evaluation.  mnist runs again, checked and timed,
    with ``bench.py``'s e2e flags (``--steps_per_dispatch auto
    --device_prefetch true``; ``auto`` gives k = 1 on the card, so every
    step is single), and is timed with 8 steps a dispatch and no staging
@@ -195,6 +197,32 @@ printed:
    synthetic records each: tasks, steps, records, the data path, the
    wire dtype, finite losses, an accuracy floor where the generator is
    learnable.
+14. master HA — the master journal and master high availability: phase
+   10's two-rank mnist job (bench.py's width and step, 16 384 records,
+   2 epochs, tasks of 4 steps) with ``--master_journal_dir``, its master
+   killed once and relaunched from the journal 2 s later
+   (``chaos/harness.py::run_master_lives`` drives the train CLI, one
+   ``InvariantChecker`` spanning both lives): (a) ``master_kill_mid_epoch``
+   at a tick at version >= 6: both workers re-home with their own pids
+   and are adopted, no generation bump; (b) ``master_kill_during_reform``:
+   process 1 preempted at step 6 and the master killed inside that
+   re-formation after journaling the fence: the survivor is fenced, the
+   relaunched master re-forms a new generation under new worker ids; (c)
+   one task-stream worker over 20 epochs (long enough for its 5 s
+   heartbeat to re-home it within the job): it re-homes presenting its
+   leases; (d) a real kill: ``python -m elasticdl_tpu_torch.master.main``
+   SIGKILLed at version >= 6 and started again, its orphaned workers
+   re-homing into the new process, which adopts them (no generation
+   bump in the journal), read from the journal (every training uid done
+   once) and the chaos event log; (d) runs beside (b) and (c), and
+   prints its master logs' tails when it fails or is slow.  The phase
+   trains on phase 10's shards.  Each is gated (``check_master_ha``) on
+   rc 0, no violation, every record once, ``master_recovery`` PASS, the
+   re-homes above and accuracy >= 0.99 from the Local evaluate, and
+   prints the outage, the replay's seconds and bytes, each re-home's
+   latency, the steps trained again, the job's seconds, the journal's
+   flush time, and 14a's steady records/s before and after the kill
+   beside phase 10a's.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
@@ -2276,23 +2304,43 @@ def stacked_zoo_run(
 
 
 class _FlashTrace:
-    """The flash kernels of every graph replay of a run, read from the
-    device trace (a replay runs no Python, so the wrappers do not count
-    it): each replay runs under ``torch.profiler``, and each kernel's
-    launches in it are kept."""
+    """The flash kernels of every graph replay of a run (a replay runs no
+    Python, so the wrappers do not count it): ``counts``, per replay, the
+    kernels its graph holds, counted as the capture records them (a
+    replay launches exactly what its graph holds); ``traced``, per
+    replay, the kernels its device trace shows (each replay runs under
+    ``torch.profiler``), the observation that they ran.  The trace can
+    drop a record (on an H100 it read 92, 94, and twice 95, of a graph's
+    96 forward launches), never add one: :func:`replay_trace_gaps`
+    bounds the drop."""
 
     def __init__(self):
         self.counts = []
+        self.traced = []
 
+    @contextlib.contextmanager
     def patch(self):
         from unittest import mock
 
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from elasticdl_tpu_torch.ops import attention
         from elasticdl_tpu_torch.parallel import distributed
 
-        trace, replay = self, distributed._StepsGraph.replay
+        trace, graphs = self, distributed._StepsGraph
+        replay, capture, launch = graphs.replay, graphs.__init__, attention._launch
+        captured = dict.fromkeys(FLASH_NAMES, 0)
+
+        def counted_launch(name, *args):
+            launch(name, *args)
+            if torch.cuda.is_current_stream_capturing():
+                captured[name] += 1
+
+        def counted_capture(graph, *args, **kwargs):
+            captured.update(dict.fromkeys(FLASH_NAMES, 0))
+            capture(graph, *args, **kwargs)
+            graph.flash_kernels = dict(captured)
 
         def traced(graph, inputs):
             torch.cuda.synchronize()
@@ -2304,10 +2352,16 @@ class _FlashTrace:
                 name = next((f for f in FLASH_NAMES if f in avg.key), None)
                 if name is not None:
                     counts[name] += avg.count
-            trace.counts.append(counts)
+            trace.counts.append(dict(graph.flash_kernels))
+            trace.traced.append(counts)
             return out
 
-        return mock.patch.object(distributed._StepsGraph, "replay", traced)
+        with (
+            mock.patch.object(attention, "_launch", counted_launch),
+            mock.patch.object(graphs, "__init__", counted_capture),
+            mock.patch.object(graphs, "replay", traced),
+        ):
+            yield
 
 
 def _stacked_lm_checked(work_dir: str, data: dict, device: str) -> dict:
@@ -2355,8 +2409,9 @@ def _stacked_lm_checked(work_dir: str, data: dict, device: str) -> dict:
             got_rows.append(row_tokens.cpu().numpy().tobytes())
     if sorted(got_rows) != sorted(_record_rows(data["train"])):
         raise AssertionError("the trained rows are not the training records, once each")
-    # (c) kernel launches: each graph replay's from the device trace (k
-    # steps, the forward twice a step with remat); the wrappers count
+    # (c) kernel launches: each graph replay's from its capture (k steps,
+    # the forward twice a step with remat), seen in its device trace;
+    # the wrappers count
     # the eager steps (the first group and the singles) and the
     # evaluation's forward, and nothing of the capture
     layers, k = GPT2S["num_layers"], STACKED_LM["group"]
@@ -2370,11 +2425,19 @@ def _stacked_lm_checked(work_dir: str, data: dict, device: str) -> dict:
             n: c * eager_steps + (n == "flash_fwd") * layers * eval_batches
             for n, c in per_step.items()
         }
-        row.update(replay_trace=trace.counts, wrapper_counts=launches)
-        if trace.counts != want_trace or launches != want_wrappers:
+        row.update(replay_graph=trace.counts, replay_trace=trace.traced, wrapper_counts=launches)
+        unseen = replay_trace_gaps(trace.counts, trace.traced)
+        row["trace_dropped"] = sum(
+            c[n] - t[n] for t, c in zip(trace.traced, trace.counts) for n in FLASH_NAMES
+        )
+        if (
+            trace.counts != want_trace or launches != want_wrappers or unseen
+            or len(trace.traced) != replays
+        ):
             raise AssertionError(
-                f"flash launches: traced replays {trace.counts} (want {want_trace}), "
-                f"wrapper counts {launches} (want {want_wrappers})"
+                f"flash launches: replayed graphs {trace.counts} (want {want_trace}), "
+                f"their traces {trace.traced}, wrapper counts {launches} "
+                f"(want {want_wrappers})"
             )
         # what ran on the card: the eager launches and every traced replay
         row["launches"] = {
@@ -2411,6 +2474,27 @@ def _stacked_lm_checked(work_dir: str, data: dict, device: str) -> dict:
     if versions != want_versions or export_diff != 0.0 or not exact:
         raise AssertionError(f"checkpoints {versions} (want {want_versions}) or export disagree: {row}")
     return row
+
+
+# the share of one kernel's captured launches that one replay's device
+# trace may lack: on the H100 the profiler dropped 0, 1, 2 and 4 of a
+# replay's 96 forward records in five runs (never one of a backward
+# kernel's 48), while the graph replays every node it captured
+TRACE_DROP_MAX_SHARE = 0.1
+
+
+def replay_trace_gaps(counts: list, traced: list) -> list:
+    """The replays whose device trace does not show each flash kernel its
+    graph holds: more of it than the graph holds, or fewer than
+    ``1 - TRACE_DROP_MAX_SHARE`` of it.  ``counts`` and ``traced`` are
+    per replay ({kernel: launches}): captured, and seen in its trace."""
+    return [
+        (i, t) for i, (t, c) in enumerate(zip(traced, counts))
+        if any(
+            not (0 < t[n] <= c[n] and c[n] - t[n] <= TRACE_DROP_MAX_SHARE * c[n])
+            for n in FLASH_NAMES
+        )
+    ]
 
 
 def _stacked_lm_timed(data: dict, device: str, flags) -> dict:
@@ -2761,16 +2845,17 @@ def _evaluate_checkpoint(cfg: dict, data: dict, device: str, ckpt: str) -> dict:
     return api.evaluate(parse_master_args(argv))
 
 
-def elastic_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+def elastic_preempt_run(work_dir: str, cfg: dict, device: str = "cuda", data=None) -> dict:
     """Phase 10a (mnist) or the first half of 10b (DeepFM): ``cfg``'s job
     under ``preempt_one_worker``, with its gates: rc 0, one re-formation
     with a latency, every record counted once (the dispatcher's total is
     epochs x records, and the checker finds no violation), the last
     world's two final states bitwise equal, and the evaluate CLI's
-    accuracy on the final checkpoint above ``cfg["min_accuracy"]``."""
+    accuracy on the final checkpoint above ``cfg["min_accuracy"]``.
+    ``data``: ``cfg``'s shards, else made here."""
     from elasticdl_tpu_torch.parallel import elastic
 
-    data = _zoo_data(work_dir, cfg)
+    data = data or _zoo_data(work_dir, cfg)
     run = _distributed_run(cfg, data, device, work_dir, "preempt", plan="preempt_one_worker")
     row = dict(run["row"], backend=elastic.choose_backend(device, ELASTIC_WORKERS))
     results = _evaluate_checkpoint(cfg, data, device, run["ckpt"])
@@ -3558,7 +3643,7 @@ def _push_costs(pushes: list) -> dict:
     return out
 
 
-def replica_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+def replica_preempt_run(work_dir: str, cfg: dict, device: str = "cuda", data=None) -> dict:
     """Phase 12a: ``cfg``'s two-rank job with ``--replication`` under
     ``preempt_after_replication`` armed at ``REPLICA_KILL_STEP``.  Gates:
     rc 0, one re-formation whose harvest staged the last accepted push's
@@ -3566,10 +3651,11 @@ def replica_preempt_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
     (``replication_no_lost_steps``: PASS; no disk read), with the CRC of
     the pushed shard; every record once; ranks bitwise equal; accuracy
     >= ``cfg["min_accuracy"]`` from the evaluate CLI on the final
-    checkpoint.  Returns the row, with the costs of (c)."""
+    checkpoint.  Returns the row, with the costs of (c).  ``data``:
+    ``cfg``'s shards, else made here."""
     from elasticdl_tpu_torch.chaos.invariants import check_replication_no_lost_steps
 
-    data = _zoo_data(work_dir, cfg)
+    data = data or _zoo_data(work_dir, cfg)
     plan = replication_plan("preempt_after_replication", REPLICA_KILL_STEP)
     run = _distributed_run(cfg, data, device, work_dir, "hot", plan=plan, extra=REPLICATION)
     events, row = run["events"], dict(run["row"])
@@ -4070,6 +4156,493 @@ def train_zoo_rest(work_dir: str, device: str = "cuda", cfgs=None) -> dict:
     return rows
 
 
+# ---- phase 14: the master journal and master high availability ------------
+
+# mnist at bench.py's width and step on phase 10's 16 384 records (8
+# shards, tasks of 1024 records = 4 steps, 2 epochs = 128 steps, a disk
+# checkpoint every 2 steps), with --master_journal_dir; every master-kill
+# plan arms its kill at version 6 (chaos/plan.py's _KILL_STEP), and a
+# killed master is relaunched after the fault's 2 s
+HA_MNIST = dict(ELASTIC_MNIST, name="mnist_ha", min_accuracy=0.99)
+# the restored master's wait for its journaled world to re-home: a worker
+# beats, and so re-homes, as soon as its client has re-resolved the
+# relaunched master (a worker that is alive but late is settled, not
+# declared dead); 14b waits it out in full
+HA_GRACE_SECS = 5.0
+# the four jobs of the phase, by the key its report files them under
+HA_CASES = ("mid_epoch", "during_reform", "task_stream", "real_kill")
+# 14c's epochs: the task-stream worker re-homes at its next heartbeat
+# (every 5 s), at most about 4 s after the relaunch when a beat fell in
+# the outage; 20 epochs leave it over 6 s of training after the
+# relaunch at 41 000 records/s, the fastest 14c ran on the H100
+HA_TASK_STREAM_EPOCHS = 20
+# 14d's job seconds past which it prints its master logs' tails
+HA_SLOW_SECS = 90.0
+
+
+def ha_case_cfg(case: str, cfg: dict) -> dict:
+    """The configuration one case of phase 14 trains."""
+    return dict(cfg, epochs=HA_TASK_STREAM_EPOCHS) if case == "task_stream" else cfg
+
+
+def _ha_paths(work_dir: str, tag: str) -> dict:
+    os.makedirs(work_dir, exist_ok=True)
+    return {k: os.path.join(work_dir, f"{k}_{tag}") for k in ("journal", "ckpt", "dump")} | {
+        "events": os.path.join(work_dir, f"events_{tag}.jsonl"),
+        "plan": os.path.join(work_dir, f"plan_{tag}.json"),
+    }
+
+
+def _ha_argv(cfg: dict, data: dict, device: str, paths: dict, num_workers: int) -> list:
+    """The train CLI's argv for a phase-14 job (``argv[0]`` is ``train``),
+    with the plan and the chaos event log in the workers' environment."""
+    from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
+    from elasticdl_tpu_torch.worker.lockstep import DUMP_STATE_ENV
+
+    envs = {chaos_hooks.PLAN_ENV: paths["plan"], chaos_hooks.EVENTS_ENV: paths["events"], **TF32_OFF}
+    if num_workers > 1:
+        envs[DUMP_STATE_ENV] = paths["dump"]
+    return _zoo_argv(cfg, data, device) + [
+        "--checkpoint_dir", paths["ckpt"], "--checkpoint_steps", str(cfg["checkpoint_steps"]),
+        "--master_journal_dir", paths["journal"], "--rehome_grace_secs", str(HA_GRACE_SECS),
+        *_dist_flags(num_workers, envs),
+    ]
+
+
+def _ha_expected_steps(cfg: dict) -> int:
+    """Steps a job without a retrained task takes (tasks divide evenly)."""
+    per_task = -(-cfg["records_per_task"] // cfg["batch"])
+    return cfg["epochs"] * (cfg["train_records"] // cfg["records_per_task"]) * per_task
+
+
+def _journal_accounting(journal_dir: str) -> dict:
+    """Every training task uid the journal ever held, each with exactly
+    one successful report, and the replayed training total."""
+    from collections import Counter
+
+    from elasticdl_tpu_torch.master.journal import journal_path, replay
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+
+    records = read_jsonl(journal_path(journal_dir))
+    created = set()
+    # each generation bump (a re-formation's fence) is journaled
+    bumps = [int(r["cluster_version"]) for r in records if r.get("kind") == "generation"]
+    for r in records:
+        if r.get("kind") == "snapshot":
+            disp = r["state"]["dispatcher"]
+            tasks = disp["pending"] + [a["task"] for a in disp["active"].values()]
+        elif r.get("kind") == "tasks_created":
+            tasks = r["tasks"]
+        else:
+            continue
+        created.update(int(t["uid"]) for t in tasks if int(t["type"]) == 0)
+    done = Counter(
+        int(r["uid"]) for r in records
+        if r.get("kind") == "report" and r.get("success") and int(r.get("task_type", 0)) == 0
+    )
+    state = replay(records) or {}
+    counters = state.get("dispatcher", {}).get("counters", {}).get("TRAINING", {})
+    return {
+        "model_version": state.get("servicer", {}).get("model_version"),
+        "tasks": len(created),
+        "done_twice": sorted(u for u, n in done.items() if n > 1),
+        "never_done": sorted(created - set(done)),
+        "total_records": counters.get("total_records"),
+        "generation": state.get("servicer", {}).get("cluster_version"),
+        "generation_bumps": bumps,
+        "clean_shutdown": state.get("clean_shutdown"),
+        "journal_bytes": os.path.getsize(journal_path(journal_dir)),
+    }
+
+
+def _ha_row(cfg: dict, out: dict, events: list, secs: float, clocks: list) -> dict:
+    """What a phase-14 job through the harness's master lives did."""
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    masters = out["masters"]
+    first, last = masters[0], masters[-1]
+    kill = dict(out["kills"][0]) if out["kills"] else {}
+    crashed_at = kill.pop("crashed_at", 0.0)
+    old_pids = kill.pop("pids", {})
+    counters = last.task_d.counters(TaskType.TRAINING)
+    accepted = [e for e in events if e.get("observation") == "worker_rehome" and e.get("accepted")]
+    return {
+        "rc": out["rc"], "timed_out": out["timed_out"], "lives": len(masters), "job_secs": secs,
+        "kill": kill,
+        # the kill to the relaunched master's first served RPC
+        "outage_secs": last.first_rpc_at - crashed_at if last.first_rpc_at and crashed_at else None,
+        "replay_secs": (last.restore_info or {}).get("replay_secs"),
+        "journal_bytes": (last.restore_info or {}).get("journal_bytes"),
+        # the kill to each worker's accepted rehome_worker
+        "rehome_secs": {str(e["worker_id"]): e["monotonic"] - crashed_at for e in accepted},
+        "rehomed": {
+            str(w): {k: v for k, v in r.items() if k != "at"} for w, r in last.rehomed.items()
+        },
+        "fenced": sorted(
+            e["worker_id"] for e in events
+            if e.get("observation") == "worker_rehome" and e.get("accepted") is False
+        ),
+        "old_pids": {str(w): p for w, p in old_pids.items()},
+        "generations": {"at_kill": first.servicer.cluster_version, "final": last.servicer.cluster_version},
+        "reforms": [{k: v for k, v in e.items() if k != "detected_at"} for e in last.reform_events],
+        # the last world the master journaled (its workers have exited)
+        "new_world": (last._restored_world or {}).get("worker_ids", []),
+        "total_records": counters.total_records,
+        "steps_trained_again": last.servicer.get_model_version() - _ha_expected_steps(cfg),
+        # each life's reports after its first; the relaunched life's from
+        # the last re-home on (before it, the world rides out the outage)
+        "steady_records_per_s": {
+            "before_kill": clocks[0].steady_records_per_s(0.0),
+            "after_kill": clocks[-1].steady_records_per_s(
+                max((r["at"] for r in last.rehomed.values()), default=0.0)
+            ) if len(clocks) > 1 else None,
+        },
+    }
+
+
+def master_ha_run(
+    work_dir: str, cfg: dict, data: dict, case: str, device: str = "cuda"
+) -> dict:
+    """Phase 14a-c: ``cfg``'s job through the train CLI under a master-kill
+    plan (``mid_epoch``: two ranks and ``master_kill_mid_epoch``;
+    ``during_reform``: two ranks and ``master_kill_during_reform``;
+    ``task_stream``: one task-stream worker and ``master_kill_mid_epoch``),
+    its master lives run by ``chaos/harness.py::run_master_lives`` with one
+    ``InvariantChecker`` spanning them; returns the row that
+    :func:`check_master_ha_case` gates."""
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.chaos.harness import (
+        ChaosJobConfig,
+        _check_master_recovery,
+        run_master_lives,
+    )
+    from elasticdl_tpu_torch.chaos.invariants import InvariantChecker, read_event_log
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    cfg = ha_case_cfg(case, cfg)
+    num_workers = 1 if case == "task_stream" else ELASTIC_WORKERS
+    plan = builtin_plans(num_workers)[
+        "master_kill_during_reform" if case == "during_reform" else "master_kill_mid_epoch"
+    ]
+    paths = _ha_paths(work_dir, case)
+    plan.save(paths["plan"])
+    argv = _ha_argv(cfg, data, device, paths, num_workers)
+    expected = cfg["train_records"] * cfg["epochs"]
+    checker = InvariantChecker(expected_records=expected)
+    clocks: list = []
+
+    flushes: list = []
+
+    def on_build(master):
+        clocks.append(_ReportClock())
+        master.task_d.add_observer(clocks[-1])
+        flush = master.journal.flush
+
+        def timed_flush():
+            t = time.perf_counter()
+            flush()
+            flushes.append((time.perf_counter() - t) * 1e3)
+
+        master.journal.flush = timed_flush
+
+    config = ChaosJobConfig(
+        plan=plan, workdir=work_dir, master_ha=True, journal_dir=paths["journal"],
+        run_timeout_secs=600.0,
+    )
+    t0 = time.monotonic()
+    out = run_master_lives(
+        lambda: client.main(argv), config, paths["events"], checker=checker, on_build=on_build
+    )
+    secs = time.monotonic() - t0
+    events = read_event_log(paths["events"])
+    row = _ha_row(cfg, out, events, secs, clocks)
+    row["preempt_step"] = next(
+        (e["step"] for e in events if e.get("kind") == "preempt_worker"), None
+    )
+    # the journal's flushes on this life's threads: lease, report, fence
+    row["journal_flush"] = {
+        "count": len(flushes), "ms_median": statistics.median(flushes) if flushes else None,
+        "ms_total": sum(flushes),
+    }
+    counters = out["masters"][-1].task_d.counters(TaskType.TRAINING)
+    row["violations"] = [v.as_dict() for v in checker.check(counters)]
+    row["master_recovery"] = _check_master_recovery(config, paths["events"], len(out["masters"]), events)
+    row["accuracy"] = _evaluate_checkpoint(cfg, data, device, paths["ckpt"]).get(cfg["accuracy_key"])
+    return row
+
+
+def _worker_children(pid: int) -> list:
+    """The worker processes ``pid`` started (``/proc``: its children whose
+    command line runs the port's worker)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children", encoding="ascii") as f:
+            children = [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+    workers = []
+    for child in children:
+        try:
+            with open(f"/proc/{child}/status", encoding="ascii") as f:
+                tgid = next(int(line.split()[1]) for line in f if line.startswith("Tgid:"))
+            with open(f"/proc/{child}/cmdline", "rb") as f:
+                # a process, not one of its threads, running the worker
+                if tgid == child and b"elasticdl_tpu_torch.worker.main" in f.read():
+                    workers.append(child)
+        except (OSError, StopIteration, ValueError):
+            continue
+    return workers
+
+
+def _pid_alive(pid: int) -> bool:
+    from elasticdl_tpu_torch.master.master import _AdoptedProcess
+
+    return _AdoptedProcess(pid).poll() is None
+
+
+def _real_kill_lives(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """Phase 14d's two master processes (no torch in this process, so it
+    can run beside another case): the 14a job's master as a process of
+    its own (``python -m elasticdl_tpu_torch.master.main``), SIGKILLed
+    once the journal holds version 6, then started again with the same
+    arguments; its orphaned workers re-home into the new process.
+    Returns what it saw, with a timeline in seconds from the start."""
+    import signal
+
+    from elasticdl_tpu_torch.chaos.harness import _record_master_kill
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.master.journal import load_state
+
+    plan = builtin_plans(ELASTIC_WORKERS)["master_kill_mid_epoch"]
+    fault = plan.master_kill_faults()[0]
+    paths = _ha_paths(work_dir, "real_kill")
+    plan.save(paths["plan"])
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+           *_ha_argv(cfg, data, device, paths, ELASTIC_WORKERS)[1:]]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    logs = [os.path.join(work_dir, f"master_life{i}.log") for i in (1, 2)]
+    t0 = time.monotonic()
+    with open(logs[0], "w") as log_file:
+        first = subprocess.Popen(cmd, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+    version, deadline = 0, time.monotonic() + 600
+    while first.poll() is None and time.monotonic() < deadline:
+        state = load_state(paths["journal"])
+        version = state["servicer"]["model_version"] if state else 0
+        if version >= fault.at_step:
+            break
+        time.sleep(0.1)
+    old_pids = sorted(_worker_children(first.pid))
+    os.kill(first.pid, signal.SIGKILL)
+    crashed_at = time.monotonic()
+    first_rc = first.wait()
+    _record_master_kill(paths["events"], fault, crashed_at, step=version)
+    time.sleep(fault.duration_secs or 2.0)
+    relaunched_at = time.monotonic()
+    with open(logs[1], "w") as log_file:
+        second = subprocess.Popen(cmd, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            rc = second.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            second.kill()
+            rc = second.wait()
+    second_done_at = time.monotonic()
+    # the workers end at the stream's end; one that re-homed as the
+    # relaunched master stopped may still be on its way out
+    deadline = time.monotonic() + 30.0
+    while any(_pid_alive(p) for p in old_pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in old_pids if _pid_alive(p)]
+    for pid in old_pids:
+        with contextlib.suppress(OSError):
+            if pid in left:
+                os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, os.WNOHANG)  # orphans this process may have inherited
+    return {
+        "paths": paths, "plan": plan, "fault": fault, "logs": logs, "version": version,
+        "rc": rc, "first_rc": first_rc, "old_pids": old_pids, "left": left,
+        "crashed_at": crashed_at, "secs": time.monotonic() - t0,
+        "timeline": {
+            "kill": crashed_at - t0, "relaunch": relaunched_at - t0,
+            "second_master_exit": second_done_at - t0, "workers_gone": time.monotonic() - t0,
+        },
+    }
+
+
+def _log_tails(logs: list, lines: int = 60) -> None:
+    for path in logs:
+        with contextlib.suppress(OSError), open(path, errors="replace") as f:
+            tail = f.readlines()[-lines:]
+            log(f"--- the last {len(tail)} lines of {os.path.basename(path)}\n{''.join(tail)}")
+
+
+def master_ha_real_kill_run(cfg: dict, data: dict, lives: dict, device: str = "cuda") -> dict:
+    """Phase 14d's row from :func:`_real_kill_lives`, read without an
+    in-process checker: the journal (every training uid done exactly
+    once, the replayed total, the generation and its bumps),
+    ``master_recovery``, the chaos event log (each re-home, its pid and
+    its adoption; the restarted master's generation) and the Local
+    evaluate of the trained checkpoint."""
+    from elasticdl_tpu_torch.chaos.harness import ChaosJobConfig, _check_master_recovery
+    from elasticdl_tpu_torch.chaos.invariants import read_event_log
+
+    paths, crashed_at = lives["paths"], lives["crashed_at"]
+    events = read_event_log(paths["events"])
+    accepted = [e for e in events if e.get("observation") == "worker_rehome" and e.get("accepted")]
+    serving = [e["monotonic"] for e in events if e.get("observation") == "master_serving"]
+    restart = next((e for e in events if e.get("observation") == "master_restart"), {})
+    config = ChaosJobConfig(
+        plan=lives["plan"], workdir=os.path.dirname(paths["journal"]), master_ha=True,
+        journal_dir=paths["journal"],
+    )
+    accounting = _journal_accounting(paths["journal"])
+    return {
+        "rc": lives["rc"], "first_rc": lives["first_rc"], "timed_out": False, "lives": 2,
+        "job_secs": lives["secs"], "timeline": lives["timeline"],
+        "kill": {"fault_id": lives["fault"].fault_id, "step": lives["version"]},
+        "outage_secs": serving[0] - crashed_at if serving else None,
+        "replay_secs": restart.get("replay_secs"), "journal_bytes": restart.get("journal_bytes"),
+        "rehome_secs": {str(e["worker_id"]): e["monotonic"] - crashed_at for e in accepted},
+        "rehomed": {
+            str(e["worker_id"]): {k: e.get(k) for k in ("pid", "adopted", "kept", "requeued")}
+            for e in accepted
+        },
+        "fenced": sorted(e["worker_id"] for e in events
+                         if e.get("observation") == "worker_rehome" and e.get("accepted") is False),
+        "old_pids": lives["old_pids"], "left_running": lives["left"],
+        # the restarted master's replayed generation, and the journal's
+        "generations": {"at_kill": restart.get("cluster_version"), "final": accounting["generation"]},
+        "reforms": [{"cluster_version": v} for v in accounting["generation_bumps"]],
+        "journal": accounting, "total_records": accounting["total_records"],
+        "steps_trained_again": accounting["model_version"] - _ha_expected_steps(cfg),
+        "violations": [
+            {"invariant": "exactly_once", "detail": f"uids {accounting[k]} {k}"}
+            for k in ("done_twice", "never_done") if accounting[k]
+        ],
+        "master_recovery": _check_master_recovery(config, paths["events"], 2, events),
+        "accuracy": _evaluate_checkpoint(cfg, data, device, paths["ckpt"]).get(cfg["accuracy_key"]),
+        "logs": lives["logs"],
+    }
+
+
+def check_master_ha_case(case: str, row: dict, cfg: dict) -> list:
+    """Phase 14's gates on one job's row; the failures, or []."""
+    from elasticdl_tpu_torch.chaos.plan import _KILL_STEP
+
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(what)
+
+    cfg = ha_case_cfg(case, cfg)
+    need(row.get("rc") == 0 and not row.get("timed_out"), "rc 0 within the time limit")
+    need(row.get("lives") == 2, "one kill, one relaunch")
+    need(not row.get("violations"), "no invariant violation across lives")
+    need(row.get("total_records") == cfg["train_records"] * cfg["epochs"], "every record once")
+    need((row.get("master_recovery") or {}).get("status") == "PASS", "master_recovery PASS")
+    acc = row.get("accuracy")
+    need(acc is not None and acc >= cfg["min_accuracy"], "accuracy from the Local evaluate")
+    # the kill at version >= 6, or inside the re-formation of a
+    # preemption at step 6
+    fault_step = row.get("preempt_step") if case == "during_reform" else (row.get("kill") or {}).get("step")
+    need((fault_step or -1) >= _KILL_STEP, "the fault at version >= 6")
+    for key in ("outage_secs", "replay_secs", "journal_bytes", "job_secs"):
+        need(isinstance(row.get(key), (int, float)) and row[key] > 0, f"{key} measured")
+    rehomed = row.get("rehomed") or {}
+    pids = {w: r["pid"] for w, r in rehomed.items()}
+    if case == "during_reform":
+        gens = row.get("generations") or {}
+        need(gens.get("at_kill") == 1, "the master died after journaling the fence")
+        need(gens.get("final", 0) > gens.get("at_kill", 0), "a new generation past the fence")
+        need(len(row.get("fenced") or []) == 1 and not rehomed, "the survivor fenced, none resurrected")
+        need(len(row.get("reforms") or []) == 1, "one re-formation by the relaunched master")
+        new_world = set(row.get("new_world") or [])
+        need(new_world and not new_world & {int(w) for w in row.get("old_pids") or {}},
+             "a new world, under new worker ids")
+    else:
+        old = row.get("old_pids") or {}
+        if isinstance(old, dict):
+            need(old and pids == old, "every worker re-homed with its own pid")
+        else:
+            # a process's children are all the master knew of its pids:
+            # the world's workers are among them
+            need(len(pids) == ELASTIC_WORKERS and set(pids.values()) <= set(old),
+                 "every worker re-homed with its own pid")
+        need(not row.get("fenced"), "no worker fenced")
+        need(rehomed and all(r.get("adopted") is True for r in rehomed.values()),
+             "every re-homed worker adopted")
+        gens = row.get("generations") or {}
+        need(gens.get("at_kill") == 0 and gens.get("final") == 0 and row.get("reforms") == [],
+             "no re-formation, no generation bump")
+        if case == "real_kill":
+            need(not row.get("left_running"), "no worker outlived the job")
+            need(row.get("first_rc") == -9, "the first master died of SIGKILL")
+        if case == "task_stream":
+            need(any(r["kept"] or r["requeued"] for r in rehomed.values()),
+                 "the worker presented its lease")
+    return bad
+
+
+def check_master_ha(report: dict, cfg: dict = HA_MNIST) -> None:
+    """Every case of phase 14 reported, each passing its gates."""
+    missing = [case for case in HA_CASES if case not in report]
+    bad = {case: check_master_ha_case(case, report[case], cfg) for case in HA_CASES if case in report}
+    bad = {case: b for case, b in bad.items() if b}
+    if missing or bad:
+        raise AssertionError(f"phase 14 failed: missing {missing}, gates {bad}")
+
+
+def master_ha_phase(
+    work_dir: str, cfg: dict = HA_MNIST, device: str = "cuda", rate_10a=None, data=None
+) -> dict:
+    """Phase 14: the four master-kill jobs on one set of shards (``data``,
+    phase 10's, else made here), gated.  14a runs alone (its steady rate
+    is read against phase 10a's); 14d's master processes run beside 14b
+    and 14c."""
+    import threading
+
+    t0 = time.monotonic()
+    data = data or _zoo_data(os.path.join(work_dir, "data"), cfg)
+    report = {}
+
+    def one(case):
+        _release_memory(device)
+        report[case] = master_ha_run(os.path.join(work_dir, case), cfg, data, case, device)
+        print(json.dumps({f"master_ha_{case}": report[case]}), flush=True)
+
+    one("mid_epoch")
+    lives: dict = {}
+
+    def real_kill():
+        try:
+            lives.update(_real_kill_lives(os.path.join(work_dir, "real_kill"), cfg, data, device))
+        except Exception as ex:  # noqa: BLE001 — reported as 14d's failure
+            lives["error"] = repr(ex)
+
+    beside = threading.Thread(target=real_kill, name="phase14d")
+    beside.start()
+    try:
+        one("during_reform")
+        one("task_stream")
+    finally:
+        beside.join()
+    if "error" in lives:
+        raise AssertionError(f"phase 14d failed: {lives['error']}")
+    report["real_kill"] = master_ha_real_kill_run(cfg, data, lives, device)
+    print(json.dumps({"master_ha_real_kill": report["real_kill"]}), flush=True)
+    steady = report["mid_epoch"]["steady_records_per_s"]
+    report["journal_steady_cost"] = {
+        **steady, "phase10a_without_journal": rate_10a,
+        "after_over_10a": steady["after_kill"] / rate_10a if rate_10a and steady["after_kill"] else None,
+    }
+    report["secs"] = time.monotonic() - t0
+    real = report["real_kill"]
+    if check_master_ha_case("real_kill", real, cfg) or real["job_secs"] > HA_SLOW_SECS:
+        _log_tails(real["logs"])
+    check_master_ha(report, cfg)
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -4165,10 +4738,13 @@ def main() -> int:
     # ---- 10. AllreduceStrategy: two worker processes under the port's
     # master, a preemption and the re-formed world, through the train CLI
     elastic_rows = {"device": smi}
+    # phase 10's mnist shards, made once: phases 12 and 14 train on them too
+    mnist_shards_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_shards_")
+    mnist_shards = _zoo_data(mnist_shards_dir.name, ELASTIC_MNIST)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as work_dir:
         _release_memory("cuda")
         mnist_dir = os.path.join(work_dir, "mnist")
-        mnist_run = elastic_preempt_run(mnist_dir, ELASTIC_MNIST)
+        mnist_run = elastic_preempt_run(mnist_dir, ELASTIC_MNIST, data=mnist_shards)
         elastic_rows["mnist_preempt"] = mnist_run["row"]
         elastic_rows["deepfm_preempt"] = elastic_preempt_run(
             os.path.join(work_dir, "deepfm"), ELASTIC_DEEPFM
@@ -4207,7 +4783,7 @@ def main() -> int:
     replica_rows = {"device": smi}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as work_dir:
         _release_memory("cuda")
-        hot = replica_preempt_run(os.path.join(work_dir, "hot"), REPLICA_MNIST)
+        hot = replica_preempt_run(os.path.join(work_dir, "hot"), REPLICA_MNIST, data=mnist_shards)
         replica_rows["hot_restore"] = hot["row"]
         replica_rows["torn_push"] = replica_torn_run(
             os.path.join(work_dir, "torn"), REPLICA_MNIST, hot["data"]
@@ -4235,6 +4811,16 @@ def main() -> int:
         zoo_rows["rest"] = train_zoo_rest(os.path.join(work_dir, "rest"))
     zoo_rows["secs"] = time.monotonic() - t13
     print(json.dumps({"zoo": zoo_rows}), flush=True)
+
+    # ---- 14. the master journal and master high availability: a killed
+    # master relaunched from --master_journal_dir, its workers re-homed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ha_") as work_dir:
+        ha_rows = master_ha_phase(
+            work_dir, rate_10a=elastic_rows["mnist_preempt"]["steady_records_per_s"],
+            data=mnist_shards,
+        )
+    mnist_shards_dir.cleanup()
+    print(json.dumps({"master_ha": {"device": smi, **ha_rows}}), flush=True)
 
     def row(name, source, replaces, measured):
         return {

@@ -9,10 +9,13 @@ of the JAX-free part of ``elasticdl_tpu/chaos/``.
   servicer and re-formations: every training task once, records
   accounted, versions monotonic within a generation, progress past
   every re-formation; and, over the event log, the JAX harness's
-  ``replication_no_lost_steps``.
+  ``replication_no_lost_steps``;
+- :mod:`.harness` — the harness's master lives: a job run through master
+  kills, one checker spanning every life, and the ``master_recovery``
+  invariant.
 
-The harness, the runner CLI and the network shim come with the next
-part of the slice.
+The rest of the harness, the runner CLI and the network shim come with
+slice 6b-2d.
 """
 
 from elasticdl_tpu_torch.chaos.plan import Fault, FaultKind, FaultPlan  # noqa: F401

@@ -24,12 +24,16 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
 def worker_envs(args) -> dict[str, str]:
     """The environment the master adds to every worker's: ``--envs``,
-    the RPC retry budget and deadlines, and the device pipeline's flags
+    the RPC retry budget and deadlines, the device pipeline's flags
     (``--device_prefetch``, ``--boundary_fusion``, ``--pipeline_depth``),
-    which travel by env, never argv, so that every process of a world
-    resolves them alike."""
+    and with ``--master_journal_dir`` the master's address file (which
+    also implies the retry budget that carries a worker across a master
+    outage).  They travel by env, never argv, so that every process of a
+    world resolves them alike and worker argv is the same with or
+    without them."""
+    from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV, addr_file_path
     from elasticdl_tpu_torch.rpc.deadline import DEADLINE_SECS_ENV
-    from elasticdl_tpu_torch.rpc.retry import RETRY_SECS_ENV
+    from elasticdl_tpu_torch.rpc.retry import DEFAULT_RETRY_SECS, RETRY_SECS_ENV
     from elasticdl_tpu_torch.trainer import device_pipeline as dp
 
     envs = dict(args.envs_dict)
@@ -39,8 +43,13 @@ def worker_envs(args) -> dict[str, str]:
         envs.setdefault(dp.BOUNDARY_FUSION_ENV, "1")
     if args.pipeline_depth is not None:
         envs.setdefault(dp.PIPELINE_DEPTH_ENV, str(args.pipeline_depth))
-    if args.rpc_retry_secs is not None:
-        envs.setdefault(RETRY_SECS_ENV, str(args.rpc_retry_secs))
+    if args.master_journal_dir:
+        envs.setdefault(MASTER_ADDR_FILE_ENV, addr_file_path(args.master_journal_dir))
+    if args.rpc_retry_secs is not None or args.master_journal_dir:
+        retry_secs = args.rpc_retry_secs
+        envs.setdefault(
+            RETRY_SECS_ENV, str(DEFAULT_RETRY_SECS if retry_secs is None else retry_secs)
+        )
     if args.rpc_deadline_secs is not None:
         envs.setdefault(DEADLINE_SECS_ENV, str(args.rpc_deadline_secs))
     return envs

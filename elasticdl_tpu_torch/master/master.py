@@ -25,19 +25,40 @@ Two kinds of worker, as in the JAX package:
   a failure re-queues the dead worker's leases and relaunches it under a
   new worker id.
 
+With ``--master_journal_dir D`` (master high availability) the master
+writes a write-ahead journal of its control plane to ``D/journal.jsonl``
+(``master/journal.py``) and publishes its address in ``D/master_addr``.
+A master relaunched with the same arguments replays the journal (the
+dispatcher's todo and doing sets, the epoch cursor, the counters, the
+generation fence, the model version, the memoized step stream, the
+consumed deferred callbacks, the world and the replica stage), does not
+start a second world on top of the journaled one, and waits up to
+``--rehome_grace_secs`` for its workers to re-home: each presents its
+generation, pid and in-flight leases (``MasterServicer.rehome_worker``)
+and is adopted (:class:`_AdoptedProcess`: polled, fenced and killed by
+signals, since it is not this process's child).  A worker that never
+re-homes is declared dead, and the normal failure path re-forms the
+world or relaunches it.  ``request_crash`` kills a master in process
+with SIGKILL semantics (the chaos harness's master kill).  The restart
+and each re-home go to the chaos event log (``ELASTICDL_TPU_CHAOS_EVENTS``
+in ``--envs``), where the JAX package writes them to its telemetry.
+
 Left out until the slices that bring them: hot standbys, slices and
-parking, the autoscaler, SLOs, streaming and live push, the journal
-(master high availability), the TensorBoard service, and telemetry.
+parking, the autoscaler, SLOs, streaming and live push, the TensorBoard
+service, and telemetry.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import subprocess
 import sys
 import threading
 import time
+import uuid
 
+from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -46,6 +67,13 @@ from elasticdl_tpu_torch.utils.args import derive_job_type
 from elasticdl_tpu_torch.utils.constants import JobType, TaskType
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+
+class SimulatedMasterCrash(BaseException):
+    """Raised by the in-process master kill (``Master.request_crash``):
+    unwinds the run loop PAST every cleanup path (``stop()`` is never
+    reached), the in-process analogue of SIGKILL.  A BaseException, so
+    that no ``except Exception`` recovery can survive it."""
 
 
 class Master:
@@ -145,13 +173,261 @@ class Master:
         self.instance_manager = (
             instance_manager_factory(self) if instance_manager_factory else None
         )
+        # master high availability (off by default: with no
+        # --master_journal_dir no journal exists, no address file is
+        # written and heartbeats carry no boot id)
+        self.journal = None
+        self._journal_dir = args.master_journal_dir or ""
+        self._events_path = args.envs_dict.get(chaos_hooks.EVENTS_ENV, "")
+        # the pending set is mutated by RPC handler threads (a re-home
+        # discards) while the run loop iterates it
+        self._rehome_lock = threading.Lock()
+        self._rehome_pending: set[int] = set()  # guarded-by: _rehome_lock
+        self._rehome_deadline: float | None = None
+        self._restored_world: dict | None = None
+        self._restored = False
+        self._restart_at: float | None = None
+        # {"generation", "replay_secs", "journal_bytes", ...} of a restore
+        self.restore_info: dict | None = None
+        # {worker_id: {"pid", "adopted", "kept", "requeued", "at"}} of this life
+        self.rehomed: dict[int, dict] = {}
+        # the armed in-process kill site ("tick" or "reform"), or None
+        self._crash_armed: str | None = None
+        self.crashed_at: float | None = None
+        # monotonic time of a restored master's first served worker call
+        # (the end of its outage)
+        self.first_rpc_at: float | None = None
+        if self._journal_dir:
+            from elasticdl_tpu_torch.master import journal as journal_mod
+
+            restored = journal_mod.load_state(self._journal_dir)
+            restored_callbacks = 0
+            if restored is not None and not restored.get("clean_shutdown"):
+                restored_callbacks = self._restore_from_journal(restored)
+            self.journal = journal_mod.MasterJournal(self._journal_dir)
+            self.journal.set_callbacks_invoked(restored_callbacks)
+            self.servicer.set_journal(self.journal)
+            self.servicer.set_rehome_sink(self._on_worker_rehomed)
+            self.servicer.set_stage_released_sink(self.journal.record_stage_released)
+            self.servicer.set_event_sink(self._record_event)
+            self.servicer.set_boot_id(uuid.uuid4().hex)
+            if self._restored:
+                self.servicer.set_served_sink(self._note_served)
+            # attach UNARMED (the backlog replay below is state the
+            # initial snapshot already carries), then snapshot and arm
+            self.task_d.add_observer(self.journal)
+            self.servicer.add_version_observer(self.journal.on_version_report)
+            self.journal.set_snapshot_provider(self._journal_snapshot)
+            self.journal.start()
+
+    # ---- master high availability ------------------------------------------
+
+    def _record_event(self, event: str, **fields):
+        """One record of the chaos event log (``chaos/hooks.py``): the
+        master's restart and its workers' re-homes."""
+        chaos_hooks.append_event(
+            self._events_path,
+            {"observation": event, "time": time.time(), "monotonic": time.monotonic(), **fields},
+        )
+
+    # single-threaded: replay runs from __init__, before the RPC server
+    # and the run loop exist
+    def _restore_from_journal(self, state: dict) -> int:
+        """Install the journal-replayed control plane: the dispatcher's
+        todo and doing sets, the generation fence, the model-version
+        floor, the memoized step stream and the consumed deferred
+        callbacks.  Returns the consumed-callback count (the journal
+        writer resumes from it)."""
+        from elasticdl_tpu_torch.master.journal import journal_path
+
+        control = state.get("servicer", {})
+        generation = int(control.get("cluster_version", 0))
+        self._restart_at = time.monotonic()
+        self._restored = True
+        self.task_d.restore_state(state["dispatcher"])
+        self.servicer.restore_control_state(
+            cluster_version=generation,
+            model_version=int(control.get("model_version", 0)),
+            stream=control.get("stream"),
+            outage_leases=self.task_d.snapshot()["active"],
+        )
+        consumed = int(state.get("callbacks_invoked", 0))
+        self.task_d.drop_deferred_callbacks(consumed)
+        world = state.get("world")
+        if world:
+            self._restored_world = world
+            self._rehome_pending = set(world["worker_ids"])
+        # the staged replica payload was the previous life's RAM and died
+        # with it: a complete stage for a still-restoring generation means
+        # those workers now take the disk fallback
+        stage = state.get("stage")
+        stage_lost = bool(
+            stage and stage.get("complete") and stage["generation"] >= generation
+        )
+        if stage_lost:
+            logger.warning(
+                "Journal records a staged replica set (generation %d, version "
+                "%s) lost with the previous master; restoring workers fall "
+                "back to disk", stage["generation"], stage.get("version"),
+            )
+        snap = self.task_d.snapshot()
+        path = journal_path(self._journal_dir)
+        self.restore_info = {
+            "generation": generation,
+            "replay_secs": time.monotonic() - self._restart_at,
+            "journal_bytes": sum(
+                os.path.getsize(p) for p in (path, f"{path}.1", f"{path}.2", f"{path}.3")
+                if os.path.exists(p)
+            ),
+            "pending": snap["pending"] + snap["pending_eval"],
+            "active": len(snap["active"]),
+            "epoch": snap["epoch"],
+            "model_version": self.servicer.get_model_version(),
+            "world": sorted(self._rehome_pending),
+            "stage_lost": stage_lost,
+        }
+        self._record_event("master_restart", cluster_version=generation, **self.restore_info)
+        logger.warning(
+            "Master restored from journal: generation %d, epoch %d, %d pending "
+            "/ %d active task(s), expecting %s to re-home",
+            generation, snap["epoch"], snap["pending"] + snap["pending_eval"],
+            len(snap["active"]), sorted(self._rehome_pending) or "no workers",
+        )
+        return consumed
+
+    def _journal_snapshot(self, append):
+        """Assemble the full control-plane state and ``append`` it as a
+        journal ``snapshot`` record (run loop only).  The dispatcher
+        capture and the append happen under the dispatcher transition
+        lock, so no delta can land between them; the servicer fields
+        captured just before are safe (replay applies generation and
+        version deltas with max guards, and the stream field is
+        superseded by the ``stream_snapshot`` journaled right after)."""
+        servicer_state = {
+            "cluster_version": self.servicer.cluster_version,
+            "model_version": self.servicer.get_model_version(),
+            "stream": self.servicer.stream_snapshot(),
+        }
+        world = self._restored_world
+        self.task_d.atomic_state_snapshot(
+            lambda dispatcher_state: append(
+                {
+                    "dispatcher": dispatcher_state,
+                    "servicer": servicer_state,
+                    "callbacks_invoked": self.journal.callbacks_invoked
+                    if self.journal is not None
+                    else 0,
+                    "world": world,
+                }
+            )
+        )
+        self.servicer.journal_stream_snapshot()
+
+    def _record_world(self):
+        """Journal the live world's composition: what a restarted master
+        waits on for re-homing."""
+        im = self.instance_manager
+        if im is None:
+            return
+        ids = im.worker_ids()
+        world = {
+            "cluster_version": self.servicer.cluster_version,
+            "worker_ids": sorted(ids),
+            "world_size": getattr(im, "world_size", len(ids)),
+            "num_slices": 1,
+            "slices": {},
+            "parked": False,
+        }
+        self._restored_world = world
+        if self.journal is not None:
+            self.journal.record_world(
+                world["cluster_version"], world["worker_ids"], world["world_size"],
+                num_slices=world["num_slices"], slices=world["slices"],
+                parked=world["parked"],
+            )
+
+    def _on_worker_rehomed(self, worker_id, pid, kept, requeued, started_at):
+        """Servicer rehome sink: adopt the orphaned process (the dead
+        master spawned it; this one holds no handle) and settle the
+        re-home wait."""
+        im = self.instance_manager
+        adopted = bool(im is not None and pid and im.adopt_worker(worker_id, pid))
+        with self._rehome_lock:
+            self._rehome_pending.discard(worker_id)
+        now = time.monotonic()
+        self.rehomed[worker_id] = {
+            "pid": pid, "adopted": adopted, "kept": list(kept), "requeued": list(requeued),
+            "at": now,
+        }
+        self._record_event(
+            "worker_rehome", worker_id=worker_id, pid=pid, accepted=True, adopted=adopted,
+            cluster_version=self.servicer.cluster_version, kept=list(kept),
+            requeued=list(requeued), handshake_secs=now - started_at,
+        )
+
+    def _check_rehome_deadline(self):
+        """Run-loop tick: a restored master waits a bounded grace for its
+        journaled world to re-home; workers that never do are dead."""
+        if self._rehome_deadline is None:
+            return
+        with self._rehome_lock:
+            if not self._rehome_pending:
+                self._rehome_deadline = None
+                logger.info("All restored workers re-homed")
+                return
+            if time.monotonic() < self._rehome_deadline:
+                return
+            pending = sorted(self._rehome_pending)
+            self._rehome_pending = set()
+        self._rehome_deadline = None
+        # a pending worker that heartbeated THIS life is alive even if it
+        # never presented the handshake (spawned just before the outage,
+        # it may never have seen the previous boot id): settle it
+        alive = set(self.servicer.live_workers())
+        settled = [w for w in pending if w in alive]
+        missing = [w for w in pending if w not in alive]
+        if settled:
+            logger.info("Workers %s heartbeated without re-homing; settled", settled)
+        if not missing:
+            return
+        logger.warning(
+            "Workers %s never re-homed after the master restart; recovering "
+            "their tasks", missing,
+        )
+        self._handle_dead_workers(missing)
+
+    def request_crash(self, site: str = "tick"):
+        """Arm an in-process master kill at a named site: ``"tick"`` dies
+        at the next run-loop tick, ``"reform"`` inside the next
+        re-formation after the fence (generation journaled, old world
+        fenced and its tasks recovered, no new world launched).  The kill
+        has SIGKILL semantics: the RPC server stops at once, the
+        journal's unflushed tail is dropped, and no cleanup runs."""
+        self._crash_armed = site
+
+    def _crash_if_armed(self, site: str):
+        if self._crash_armed != site:
+            return
+        self._crash_armed = None
+        logger.warning("CHAOS: simulating master kill at %r (SIGKILL semantics)", site)
+        self.crashed_at = time.monotonic()
+        if self._server is not None:
+            self._server.stop(grace=0)
+            self._server = None
+        if self.journal is not None:
+            self.journal.abort()
+        raise SimulatedMasterCrash(site)
+
+    # ---- lifecycle ---------------------------------------------------------
 
     @property
     def port(self):
         return self._port
 
     def prepare(self, port: int | None = None):
-        """Start the control-plane server, then the workers."""
+        """Start the control-plane server, then the workers (a restored
+        master whose journaled world may still be alive waits for it to
+        re-home instead)."""
         from elasticdl_tpu_torch.rpc.service import create_server
 
         if self.evaluation_service is not None:
@@ -160,20 +436,61 @@ class Master:
         self._server = create_server(self.servicer, port)
         self._server.start()
         self._port = self._server.port
-        if self.instance_manager is not None:
-            self.instance_manager.start_workers()
+        if self.journal is not None:
+            # publish the (possibly new) address: workers that outlived a
+            # previous master re-resolve from this file
+            from elasticdl_tpu_torch.master.journal import write_master_addr
+
+            write_master_addr(self._journal_dir, f"localhost:{self._port}")
+        im = self.instance_manager
+        if im is None:
+            return
+        with self._rehome_lock:
+            rehome_wait = sorted(self._rehome_pending)
+        if self._restored and rehome_wait:
+            # the journaled world may outlive the dead master: do NOT
+            # start a second world on top of it; the grace deadline
+            # recovers whatever never comes back
+            im.reserve_worker_ids(max(rehome_wait) + 1)
+            grace = self._args.rehome_grace_secs
+            if grace is None:
+                grace = max(10.0, 3.0 * self._heartbeat_timeout_secs)
+            self._rehome_deadline = time.monotonic() + grace
+            logger.warning(
+                "Waiting up to %.1fs for workers %s to re-home", grace, rehome_wait
+            )
+        else:
+            im.start_workers()
+            self._record_world()
+
+    def _note_served(self):
+        """Servicer served sink (a restored master's): the first served
+        worker call ends the outage."""
+        with self._rehome_lock:
+            if self.first_rpc_at is not None:
+                return
+            self.first_rpc_at = time.monotonic()
+        # for a master relaunched in its own process the chaos event log
+        # is the one place this shows
+        self._record_event("master_serving", generation=self.servicer.cluster_version)
 
     def run(self, poll_secs: float = 0.5) -> int:
         """Poll until all tasks (the deferred SAVE_MODEL included) are
         done; 0 on success, 1 when the job gave up."""
         try:
             while True:
+                self._crash_if_armed("tick")
                 if self.task_d.finished() and not (
                     self.task_d.invoke_deferred_callback()
                 ):
                     break
                 if self._stop_requested:
                     break
+                # a restored master first waits for its journaled world
+                # to re-home (bounded by the grace deadline)
+                self._check_rehome_deadline()
+                if self.journal is not None:
+                    self.journal.maybe_snapshot()
                 if self.instance_manager is not None:
                     # process exits: an abnormal exit is detected in one
                     # poll instead of a heartbeat timeout
@@ -246,6 +563,9 @@ class Master:
             self.relaunch_events.append(
                 {"detected_at": detected_at, "dead_worker": worker_id, "worker_id": new_id}
             )
+            # the journaled world names the relaunched worker, so that a
+            # restarted master waits for it and not for the dead one
+            self._record_world()
 
     def _reform_lockstep(self, dead: list[int], reason: str):
         """Fence, recover, relaunch: the whole-world re-formation.
@@ -259,6 +579,11 @@ class Master:
         # any re-formation satisfies a pending elective request
         with self._reform_request_lock:
             self._reform_requested = None
+        # a re-formation supersedes any outstanding re-home wait: the world
+        # being fenced and relaunched IS the recovery
+        self._rehome_deadline = None
+        with self._rehome_lock:
+            self._rehome_pending = set()
         # fence FIRST: from here every stale worker's get_step_task is
         # refused, so none can lease a task we are about to recover
         new_version = self.servicer.bump_cluster_version()
@@ -270,6 +595,10 @@ class Master:
             self.task_d.recover_tasks(worker_id)
             self.servicer.forget_worker(worker_id)
         self.servicer.reset_step_stream()
+        # the master kill's "reform" site: generation bumped and
+        # journaled, old world fenced and its tasks recovered, no new
+        # world launched yet
+        self._crash_if_armed("reform")
         try:
             im.reform_world(
                 new_version,
@@ -281,6 +610,7 @@ class Master:
             self._job_failed = True
             self.request_stop()
             return
+        self._record_world()
         event = {
             "detected_at": t0,
             "cluster_version": new_version,
@@ -318,6 +648,12 @@ class Master:
             # recovery; the disk restore is always there
             logger.exception("Replica harvest failed; disk fallback")
         self.servicer.set_restore_stage(stage)
+        if self.journal is not None:
+            # metadata only: the staged payload is master RAM and dies
+            # with the process (a restarted master serves the disk path)
+            self.journal.record_stage(
+                new_version, stage["version"] if stage else None, complete=stage is not None
+            )
         found = {
             "complete": stage is not None,
             "version": stage["version"] if stage else None,
@@ -350,6 +686,10 @@ class Master:
         if self._server is not None:
             self._server.stop(grace=2)
             self._server = None
+        if self.journal is not None:
+            # a clean end is journaled: a relaunch knows there is nothing
+            # to recover, and waits for no re-homes
+            self.journal.record_job_end(1 if self._job_failed else 0)
 
     def job_summary(self) -> dict:
         out = {"job_type": self.job_type.value, "epoch": self.task_d.epoch}
@@ -374,6 +714,77 @@ class Master:
                 for event in self.reform_events
             ]
         return out
+
+
+class _AdoptedProcess:
+    """Popen-alike handle for a worker process THIS master did not spawn:
+    it outlived a previous master (orphaned, re-parented to init) and
+    re-homed with its pid.  The subset of the Popen surface the instance
+    manager uses (poll, kill, terminate, wait), by signals: a restarted
+    master cannot ``waitpid`` a non-child.
+
+    ``poll`` cannot observe a non-child's exit code: a vanished pid
+    reports -1 with ``exit_unknown`` set (a clean exit at the stream's
+    end looks the same: :meth:`LocalInstanceManager.poll_failed_workers`
+    tells them apart)."""
+
+    def __init__(self, pid: int):
+        self.pid = pid
+        self._rc: int | None = None
+        self.exit_unknown = False
+
+    def poll(self):
+        if self._rc is not None:
+            return self._rc
+        try:
+            # a master killed in process leaves its workers children of
+            # this process: reap one that exited, with its exit code
+            pid, status = os.waitpid(self.pid, os.WNOHANG)
+            if pid:
+                self._rc = os.waitstatus_to_exitcode(status)
+                return self._rc
+        except ChildProcessError:
+            pass
+        try:
+            os.kill(self.pid, 0)
+        except (ProcessLookupError, PermissionError):
+            # gone, or the pid now belongs to someone else (reuse)
+            self._rc, self.exit_unknown = -1, True
+            return self._rc
+        if _is_zombie(self.pid):
+            # exited, and its parent (not this process) has not reaped it
+            self._rc, self.exit_unknown = -1, True
+        return self._rc
+
+    def _signal(self, sig):
+        try:
+            os.kill(self.pid, sig)
+        except (ProcessLookupError, PermissionError):
+            self._rc = self._rc if self._rc is not None else -1
+
+    def terminate(self):
+        self._signal(signal.SIGTERM)
+
+    def kill(self):
+        self._signal(signal.SIGKILL)
+
+    def wait(self, timeout: float | None = None):
+        deadline = time.monotonic() + timeout if timeout is not None else None
+        while self.poll() is None:
+            if deadline is not None and time.monotonic() >= deadline:
+                raise subprocess.TimeoutExpired(f"pid {self.pid}", timeout)
+            time.sleep(0.05)
+        return self._rc
+
+
+def _is_zombie(pid: int) -> bool:
+    """Whether ``pid`` has exited and waits for its parent to reap it
+    (``/proc``; False where there is none)."""
+    try:
+        with open(f"/proc/{pid}/stat", encoding="ascii") as f:
+            return f.read().rpartition(")")[2].split()[0] == "Z"
+    except (OSError, IndexError):
+        return False
 
 
 class LocalInstanceManager:
@@ -414,6 +825,24 @@ class LocalInstanceManager:
         with self._lock:
             proc = self._procs.get(worker_id)
         return proc.pid if proc is not None else None
+
+    def adopt_worker(self, worker_id: int, pid: int) -> bool:
+        """Track a worker a PREVIOUS master spawned (it re-homed after a
+        master restart): from here it is polled, fenced and killed like
+        any spawned worker.  False when the id is tracked already."""
+        with self._lock:
+            if worker_id in self._procs:
+                return False
+            self._procs[worker_id] = _AdoptedProcess(pid)
+            self._next_worker_id = max(self._next_worker_id, worker_id + 1)
+        logger.info("Adopted re-homed worker %d (pid %d)", worker_id, pid)
+        return True
+
+    def reserve_worker_ids(self, next_id: int):
+        """A restored master's new workers take ids past its journaled
+        world's, so that no id names two processes."""
+        with self._lock:
+            self._next_worker_id = max(self._next_worker_id, next_id)
 
     def start_workers(self):
         if self.lockstep:
@@ -462,12 +891,20 @@ class LocalInstanceManager:
     def poll_failed_workers(self) -> list[int]:
         """Worker ids whose process exited abnormally (non-zero code or a
         signal).  A zero exit is not a failure: workers exit 0 at the end
-        of the stream, racing the master's own ``finished()`` check."""
+        of the stream, racing the master's own ``finished()`` check.  An
+        adopted worker's code is unknown unless this process reaped it:
+        one that vanished once the dispatcher had finished (no worker is
+        told the stream ended before) ended with the stream."""
         with self._lock:
-            return [
-                wid for wid, proc in self._procs.items()
+            failed = {
+                wid: proc for wid, proc in self._procs.items()
                 if proc.poll() not in (None, 0)
+            }
+        if failed and self._master is not None and self._master.task_d.finished():
+            return [
+                wid for wid, proc in failed.items() if not getattr(proc, "exit_unknown", False)
             ]
+        return list(failed)
 
     def _kill_all(self) -> list:
         with self._lock:

@@ -15,17 +15,30 @@ fenced by generation); the master's run loop reads liveness from it
 ``reset_step_stream``.  Requests and responses are the dataclasses of
 ``rpc/messages.py``; ``rpc/service.py`` only moves them.
 
-Left out until the slices that need them: the journal (master high
-availability), re-homing, the profiler command, the quiesce flag, and
-the telemetry fan-in of step phases and memory (the device pipeline's
-staging totals are kept, per worker).  Heartbeats are applied under one lock (the JAX package
-coalesces them for fleets of thousands).
+With ``--master_journal_dir`` (master high availability) the servicer
+journals the two transitions only it sees, generation bumps and the
+memoized step-stream resolutions (``master/journal.py``), stamps every
+heartbeat with the master process's boot id, and serves the re-homing
+handshake (``rehome_worker``): a worker that outlived a master outage
+presents its generation, pid and in-flight leases, and is fenced or
+reconciled and handed to the master for adoption.  Unlike the JAX
+package, a lease is durable before its response leaves the master: the
+servicer flushes the journal after each new lease (under the stream
+lock for the step stream), so a restarted master never re-issues a
+task id, nor a stream position, that a worker already holds.
+
+Left out until the slices that need them: the profiler command, the
+quiesce flag, and the telemetry fan-in of step phases and memory (the
+device pipeline's staging totals are kept, per worker).  Heartbeats are
+applied under one lock (the JAX package coalesces them for fleets of
+thousands).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from dataclasses import asdict
 
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.utils.constants import TaskType
@@ -86,6 +99,22 @@ class MasterServicer:
         # restores from
         self._replica_directory = None
         self._restore_stage: dict | None = None  # guarded-by: _lock
+        # master high availability (master/journal.py): the journal sink
+        # records generation bumps and step-stream resolutions; the boot
+        # id names THIS master process, so a re-homing worker can tell a
+        # restart from a blip; the rehome sink lets the Master adopt
+        # re-homed orphans; the event sink (``fn(event, **fields)``)
+        # records a fenced re-home; the served sink (a restored master's)
+        # marks the end of its outage
+        self._journal = None
+        self._boot_id = ""
+        self._rehome_sink = None
+        self._stage_released_sink = None
+        self._event_sink = None
+        self._served_sink = None
+        # the leases a restored master's journal held at the outage: the
+        # ones a re-homing handshake settles (None: not restored, all)
+        self._outage_leases: set[int] | None = None
         if evaluation_service is not None:
             evaluation_service.set_master_servicer(self)
 
@@ -102,12 +131,60 @@ class MasterServicer:
         heartbeats then carry advertisements up and peer maps down."""
         self._replica_directory = directory
 
+    def set_journal(self, journal):
+        """Attach the control-plane journal (``master/journal.py``):
+        generation bumps and lockstep stream resolutions are recorded
+        from here, the two transitions only the servicer sees."""
+        self._journal = journal
+
+    def set_boot_id(self, boot_id: str):
+        self._boot_id = boot_id
+
+    @property
+    def boot_id(self) -> str:
+        return self._boot_id
+
+    def set_stage_released_sink(self, sink):
+        """``sink(generation)`` fires once, when the staged replica set
+        has been fetched (journal hook)."""
+        self._stage_released_sink = sink
+
+    def set_rehome_sink(self, sink):
+        """``sink(worker_id, pid, kept, requeued, started_at)`` after a
+        successful re-home: the Master adopts the orphan."""
+        self._rehome_sink = sink
+
+    def set_event_sink(self, sink):
+        """``sink(event, **fields)``: the chaos event log."""
+        self._event_sink = sink
+
+    def set_served_sink(self, sink):
+        """``sink()`` at the first worker call served from here on
+        (``get_task``, ``get_step_task``, ``heartbeat``,
+        ``rehome_worker``): a restored master's end of the outage."""
+        self._served_sink = sink
+
+    def _note_served(self):
+        sink = self._served_sink
+        if sink is not None:
+            self._served_sink = None
+            sink()
+
+    def _emit(self, event: str, **fields):
+        if self._event_sink is None:
+            return
+        try:
+            self._event_sink(event, **fields)
+        except Exception:  # noqa: BLE001 — an event log never breaks RPCs
+            logger.exception("Event sink failed")
+
     # ---- RPC handlers -----------------------------------------------------
 
     def get_task(self, request: msg.GetTaskRequest) -> msg.TaskResponse:
         """Lease the next task for ``worker_id``.  A WAIT response means
         new work may appear later (a re-queued lease, a deferred
         SAVE_MODEL): poll again after a short sleep."""
+        self._note_served()
         with self._lock:
             self._heartbeats[request.worker_id] = self._clock()
         if request.task_type == int(TaskType.EVALUATION):
@@ -117,6 +194,7 @@ class MasterServicer:
         if task is not None:
             with self._lock:
                 self._first_lease_at.setdefault(request.worker_id, self._clock())
+            self._journal_durable()
             return msg.task_to_response(
                 task_id, task, self._version, self._minibatch_size
             )
@@ -133,6 +211,7 @@ class MasterServicer:
         process replays it.  End-of-job is memoized too, so every
         process ends at the same seq.  A request from another world
         generation gets end-of-job, and records no liveness."""
+        self._note_served()
         with self._lock:
             if request.cluster_version != self._cluster_version:
                 return self._end()
@@ -155,14 +234,16 @@ class MasterServicer:
                 resp = msg.task_to_response(
                     task_id, task, self._version, self._minibatch_size
                 )
-                self._memoize_stream(request.seq, resp)
+                self._memoize_stream(request.seq, resp, request.cluster_version)
+                # durable before any process of the world sees it
+                self._journal_durable()
                 return resp
             if (not self._task_d.finished()) or (
                 self._task_d.invoke_deferred_callback()
             ):
                 return self._wait()
             resp = self._end()
-            self._memoize_stream(request.seq, resp)
+            self._memoize_stream(request.seq, resp, request.cluster_version)
             return resp
 
     def _wait(self) -> msg.TaskResponse:
@@ -178,13 +259,56 @@ class MasterServicer:
         )
 
     # lock-holding: _stream_lock
-    def _memoize_stream(self, seq: int, resp: msg.TaskResponse):
+    def _memoize_stream(self, seq: int, resp: msg.TaskResponse, generation: int):
+        """Memoize and journal one stream resolution, pruning memos far
+        behind the frontier.  ``generation`` is the fence the request
+        passed, journaled with the record so that replay drops a
+        resolution that raced a re-formation's generation bump."""
         self._step_stream[seq] = resp
+        self._journal_stream(seq, resp, generation)
         if len(self._step_stream) > self.STREAM_MEMO_KEEP + 64:
             for old in sorted(self._step_stream)[
                 : len(self._step_stream) - self.STREAM_MEMO_KEEP
             ]:
                 del self._step_stream[old]
+
+    def _journal_stream(self, seq: int, resp: msg.TaskResponse, generation: int):
+        """A restarted master must answer already-resolved seqs
+        identically, or the world desyncs across the outage."""
+        if self._journal is None:
+            return
+        try:
+            self._journal.record_stream(seq, asdict(resp), generation)
+        except Exception:  # noqa: BLE001 — journaling never breaks RPCs
+            logger.exception("Journal stream record failed")
+
+    def _journal_durable(self):
+        """Flush the journal (a new lease must outlive a master kill)."""
+        if self._journal is not None:
+            self._journal.flush()
+
+    def stream_snapshot(self) -> dict:
+        """JSON-safe copy of the memoized step stream (journal snapshots;
+        keys stringified, as replay expects)."""
+        with self._stream_lock:
+            return self._stream_snapshot_locked()
+
+    # lock-holding: _stream_lock
+    def _stream_snapshot_locked(self) -> dict:
+        return {str(seq): asdict(resp) for seq, resp in self._step_stream.items()}
+
+    def journal_stream_snapshot(self):
+        """Journal a full stream-memo capture from UNDER the stream lock,
+        so the record's file position IS its capture point.  The master
+        writes one right after each main snapshot, whose stream field was
+        captured before its (dispatcher-atomic) append."""
+        if self._journal is None:
+            return
+        with self._stream_lock:
+            try:
+                self._journal.record_stream_snapshot(self._stream_snapshot_locked())
+            except Exception:  # noqa: BLE001 — journaling never breaks RPCs
+                logger.exception("Journal stream snapshot failed")
 
     def reset_step_stream(self):
         """Drop all memoized stream state (re-formation: the new world
@@ -198,7 +322,12 @@ class MasterServicer:
         the step stream from this point on."""
         with self._lock:
             self._cluster_version += 1
-            return self._cluster_version
+            version = self._cluster_version
+        if self._journal is not None:
+            # the fence record flushes inline: a restarted master that
+            # resurrected a fenced generation would un-fence stale workers
+            self._journal.record_generation(version)
+        return version
 
     def first_stream_pull_at(self) -> float | None:
         """Monotonic time of the first step-task pull since the last
@@ -260,6 +389,7 @@ class MasterServicer:
             )
 
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
+        self._note_served()
         with self._lock:
             self._heartbeats[request.worker_id] = self._clock()
             if request.rpc:
@@ -281,8 +411,82 @@ class MasterServicer:
                 self._replica_directory.update(request.worker_id, request.replica)
             replica_peers = self._replica_directory.peers(generation)
         return msg.HeartbeatResponse(
-            cluster_version=generation, replica_peers=replica_peers
+            cluster_version=generation, replica_peers=replica_peers, boot_id=self._boot_id
         )
+
+    # ---- master high availability: the re-homing handshake -----------------
+
+    def rehome_worker(self, request: msg.RehomeRequest) -> msg.RehomeResponse:
+        """A worker that outlived a master outage reconnects: fence its
+        generation, reconcile its in-flight leases against the
+        journal-restored active set (re-accept what it presents, requeue
+        the outage leases it does not), and hand it to the master for
+        adoption."""
+        self._note_served()
+        started_at = time.monotonic()
+        generation = self._cluster_version
+        if request.cluster_version != generation:
+            # stale world: refused WITHOUT a liveness record, exactly as
+            # the step-stream fence refuses
+            self._emit(
+                "worker_rehome", worker_id=request.worker_id, pid=request.pid,
+                accepted=False, worker_generation=request.cluster_version,
+                cluster_version=generation,
+            )
+            return msg.RehomeResponse(
+                accepted=False, cluster_version=generation, boot_id=self._boot_id
+            )
+        presented = {int(t) for t in request.lease_ids}
+        # only a lease held across the outage is the handshake's to
+        # settle: one this master granted since is in the worker's stream
+        # already, though the worker may not have recorded it when it
+        # built its request (requeued, it would train twice)
+        if self._outage_leases is not None:
+            presented |= {
+                tid for tid, (wid, *_where) in self._task_d.snapshot()["active"].items()
+                if wid == request.worker_id and tid not in self._outage_leases
+            }
+        kept, requeued = self._task_d.reconcile_leases(request.worker_id, presented)
+        with self._lock:
+            self._heartbeats[request.worker_id] = self._clock()
+        if self._rehome_sink is not None:
+            try:
+                self._rehome_sink(
+                    request.worker_id, request.pid, kept, requeued, started_at
+                )
+            except Exception:  # noqa: BLE001 — adoption must not fail the
+                # handshake the worker depends on
+                logger.exception("Rehome sink failed")
+        return msg.RehomeResponse(
+            accepted=True,
+            cluster_version=generation,
+            boot_id=self._boot_id,
+            accepted_leases=sorted(kept),
+        )
+
+    def restore_control_state(
+        self, cluster_version: int, model_version: int, stream: dict | None = None,
+        outage_leases=(),
+    ):
+        """Install journal-replayed control state (a master restart): the
+        generation fence, the model-version floor, the memoized step
+        stream, so already-resolved seqs replay their pre-outage answers,
+        and the leases held at the outage (the re-homing handshake's)."""
+        with self._lock:
+            self._cluster_version = int(cluster_version)
+            self._version = max(self._version, int(model_version))
+            self._outage_leases = {int(t) for t in outage_leases}
+        memos = {}
+        for seq, resp in (stream or {}).items():
+            try:
+                memos[int(seq)] = msg.TaskResponse(**resp)
+            except TypeError:
+                logger.warning("Dropping unreplayable stream memo for seq %s", seq)
+        if len(memos) > self.STREAM_MEMO_KEEP:
+            for old in sorted(memos)[: len(memos) - self.STREAM_MEMO_KEEP]:
+                del memos[old]
+        with self._stream_lock:
+            self._step_stream = memos
 
     # ---- replica restore stage ---------------------------------------------
 
@@ -305,8 +509,17 @@ class MasterServicer:
             stage = self._restore_stage
             if stage is None or stage["generation"] != request.cluster_version:
                 return msg.RestoreStateResponse()
-            if request.process_id == 0:
+            released = request.process_id == 0
+            if released:
                 self._restore_stage = None
+        if released and self._stage_released_sink is not None:
+            # outside the lock: the sink appends to the journal, so that a
+            # later restart does not report a served stage as lost
+            try:
+                self._stage_released_sink(stage["generation"])
+            except Exception:  # noqa: BLE001 — bookkeeping must not fail
+                # the restore the worker depends on
+                logger.exception("Stage-released sink failed")
         return msg.RestoreStateResponse(
             has=True,
             version=stage["version"],

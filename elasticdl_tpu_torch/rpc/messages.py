@@ -127,12 +127,44 @@ class HeartbeatRequest:
 
 @dataclass
 class HeartbeatResponse:
+    """``boot_id`` names the master PROCESS that answered (empty unless
+    ``--master_journal_dir`` is set): a worker that sees it change has
+    outlived a master, and re-homes (``RehomeRequest``)."""
+
     accepted: bool = True
     should_quiesce: bool = False
     cluster_version: int = 0
     replica_peers: dict = field(default_factory=dict)
     boot_id: str = ""
     profile: dict = field(default_factory=dict)
+
+
+@dataclass
+class RehomeRequest:
+    """Worker -> restarted master: the re-homing handshake.
+
+    ``lease_ids`` are the task leases this worker still holds in
+    flight; ``cluster_version`` is the world generation it belongs to
+    (the fence: a stale generation is rejected); ``pid`` lets a local
+    master ADOPT the orphaned process (the previous master spawned it,
+    so the restarted one holds no handle)."""
+
+    worker_id: int
+    cluster_version: int = 0
+    pid: int = 0
+    lease_ids: list = field(default_factory=list)
+
+
+@dataclass
+class RehomeResponse:
+    # False = the generation fence rejected the worker (stale world)
+    accepted: bool = False
+    cluster_version: int = 0
+    boot_id: str = ""
+    # the presented leases the master re-accepted; the worker drops any
+    # lease NOT in this list (its report would be dropped, and the task
+    # trains from the queue exactly once)
+    accepted_leases: list = field(default_factory=list)
 
 
 @dataclass
@@ -212,6 +244,8 @@ MESSAGE_TYPES = {
         ReportEvaluationMetricsRequest,
         HeartbeatRequest,
         HeartbeatResponse,
+        RehomeRequest,
+        RehomeResponse,
         PushReplicaRequest,
         PushReplicaResponse,
         FetchReplicaRequest,

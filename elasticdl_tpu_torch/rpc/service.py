@@ -49,6 +49,7 @@ _METHODS = (
     "report_evaluation_metrics",
     "heartbeat",
     "get_restore_state",
+    "rehome_worker",
 )
 
 # every master method here is retry-safe (rpc/retry.py's contract), so
@@ -213,9 +214,18 @@ class RpcClient:
     makes outage-class failures (UNAVAILABLE / DEADLINE_EXCEEDED) back
     off and re-send instead of raising — only for methods named in
     ``retryable_methods`` (default: the read-only subset).
-    ``deadlines`` (a :class:`~elasticdl_tpu_torch.rpc.deadline.
-    DeadlinePolicy`) gives each call a timeout when the caller passes
-    none.  With neither, a call fails fast and may wait forever."""
+    ``resolve_addr`` is the re-resolve hook: called after repeated
+    failures, and a changed address becomes the one later attempts
+    connect to — how a worker follows a master relaunched on another
+    port (the JAX client rebuilds its channel; a socket client has only
+    the address tuple to swap).  ``deadlines`` (a
+    :class:`~elasticdl_tpu_torch.rpc.deadline.DeadlinePolicy`) gives
+    each call a timeout when the caller passes none.  With none of the
+    three, a call fails fast and may wait forever."""
+
+    # failed attempts between re-resolve probes (the first probe fires
+    # early so a fast master relaunch is caught within ~2 backoffs)
+    _RERESOLVE_EVERY = 2
 
     def __init__(
         self,
@@ -224,8 +234,11 @@ class RpcClient:
         retry=None,
         retryable_methods: frozenset[str] | set[str] | None = None,
         deadlines=None,
+        resolve_addr=None,
     ):
-        self._addr = _split_addr(addr)
+        self._addr = _split_addr(addr)  # guarded-by: _addr_lock (writes)
+        self._addr_lock = threading.Lock()
+        self._resolve_addr = resolve_addr
         self._methods = tuple(methods)
         self._retry = retry
         self._deadlines = deadlines
@@ -235,10 +248,38 @@ class RpcClient:
             retryable_methods = DEFAULT_IDEMPOTENT
         self._retryable = frozenset(retryable_methods) & set(methods)
 
+    @property
+    def addr(self) -> str:
+        host, port = self._addr
+        return f"{host}:{port}"
+
+    def _maybe_reresolve(self, attempt: int):
+        """on_retry hook: every few failures, re-read the master address
+        and connect there from the next attempt on if it moved."""
+        if self._resolve_addr is None or attempt % self._RERESOLVE_EVERY != 0:
+            return
+        try:
+            addr = self._resolve_addr()
+        except Exception:  # noqa: BLE001 — a broken resolver must not
+            # end the retry loop; the old address may still come back
+            logger.exception("Master address re-resolution failed")
+            return
+        if not addr:
+            return
+        new = _split_addr(addr)
+        with self._addr_lock:
+            if new == self._addr:
+                return
+            logger.warning(
+                "Master address changed %s -> %s; reconnecting", self.addr, addr
+            )
+            self._addr = new
+
     def _invoke(self, name: str, payload: bytes, timeout: float | None) -> bytes:
         """One wire attempt."""
         method = name.encode("utf-8")
         try:
+            # one read: a concurrent re-resolve swaps the whole tuple
             with socket.create_connection(self._addr, timeout=timeout) as sock:
                 sock.sendall(
                     _U32.pack(len(method)) + method
@@ -284,11 +325,15 @@ class RpcClient:
                 _note_rpc_failure(ex)
             return retryable
 
+        def on_retry(attempt, _ex):
+            rpc_stats.note_retry()
+            self._maybe_reresolve(attempt)
+
         out = call_with_retry(
             lambda: self._invoke(name, payload, timeout),
             self._retry,
             is_retryable=is_retryable,
-            on_retry=lambda _attempt, _ex: rpc_stats.note_retry(),
+            on_retry=on_retry,
         )
         return msg.decode(out) if out else None
 
@@ -319,3 +364,6 @@ class MasterClient(RpcClient):
         self, request: msg.GetRestoreStateRequest
     ) -> msg.RestoreStateResponse:
         return self._call("get_restore_state", request)
+
+    def rehome_worker(self, request: msg.RehomeRequest) -> msg.RehomeResponse:
+        return self._call("rehome_worker", request)

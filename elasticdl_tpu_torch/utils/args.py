@@ -644,7 +644,7 @@ def _comes_with(slice_name: str) -> str:
 
 _ELASTIC = _comes_with(
     "slice 6b-2, the rest of data parallelism and elastic reform "
-    "(the journal, standbys, slices and the autoscaler)"
+    "(standbys, slices and the autoscaler)"
 )
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
 _K8S = _comes_with("slice 9, Kubernetes submission")
@@ -652,8 +652,6 @@ _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
     "mesh_shape": _ELASTIC,
     "dcn_mesh_shape": _ELASTIC,
-    "master_journal_dir": _ELASTIC,
-    "rehome_grace_secs": _ELASTIC,
     "num_slices": _ELASTIC,
     "min_slices": _ELASTIC,
     "autoscale_p95_step_ms": _ELASTIC,

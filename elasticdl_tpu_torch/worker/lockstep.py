@@ -51,11 +51,24 @@ fails fast when a peer dies: a survivor that exited at once would take
 its replicas with it) until the master's re-formation kills it, or for
 ``ELASTICDL_TPU_REPLICA_LINGER_SECS`` (300 s) at most.
 
-Left out until the next parts of the slice: master high availability;
-and per-process checkpoint parts: process 0 writes every checkpoint as
-one part (the name-keyed layout of a Local run) and, at a world's start,
-restores it (or the replica stage) and broadcasts the state to the
-others.
+Master high availability (``--master_journal_dir``): the client retries
+across a master outage and re-resolves the master's address
+(``worker/main.py::build_master_client``); the heartbeat thread notices
+the relaunched master's new boot id and re-homes, presenting this
+process's generation, pid and its last two tasks (``_note_master_boot``;
+a fence rejection is terminal).  The JAX worker presents its
+current task alone, so a relaunched master requeues a task whose report
+the chief has not landed yet when a peer one task ahead holds its lease.
+A process whose world broke lingers under master HA too, replica server
+or not, so that it is still there for the relaunched master: it watches
+the master's address file, re-homes when a relaunched master rewrites
+it, and leaves once fenced (the JAX package's lingering process waits
+silently until the linger cap).
+
+Left out until later slices: per-process checkpoint parts: process 0
+writes every checkpoint as one part (the name-keyed layout of a Local
+run) and, at a world's start, restores it (or the replica stage) and
+broadcasts the state to the others.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
+from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV
 from elasticdl_tpu_torch.master.task_dispatcher import FAIL_COUNT
 from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
@@ -121,6 +135,10 @@ HEARTBEAT_INTERVAL_SECS = 2.0
 # the master's harvest (the master's re-formation kills it sooner)
 REPLICA_LINGER_ENV = "ELASTICDL_TPU_REPLICA_LINGER_SECS"
 REPLICA_LINGER_SECS = 300.0
+
+# how often a lingering process under master HA looks at the master's
+# address file
+LINGER_POLL_SECS = 0.2
 
 # how long a task boundary waits for the heartbeats to bring the ring
 # neighbor's replica address (a push fails without it)
@@ -177,6 +195,17 @@ class LockstepWorker:
         )
         self._trainer: SPMDTrainer | None = None
         self._stopped = False
+        # master high availability: the boot id of the master last heard
+        # from; the last two tasks this process pulled (presented on
+        # re-homing: the lease of a world's task is held by whichever
+        # process pulled it first, and a process may be one task ahead
+        # of the chief's report of the previous one); whether a relaunched
+        # master fenced this process's generation; and the address file's
+        # stamp when this process last knew its master
+        self._master_boot_id: str | None = None
+        self._recent_task_ids: list[int] = []
+        self._fenced = False
+        self._addr_stamp = _addr_file_stamp()
         # deterministic fault injection: a no-op unless the master
         # exported a plan into this process's environment
         self._chaos = chaos_hooks.install_from_env(
@@ -463,6 +492,59 @@ class LockstepWorker:
             return
         if replicator is not None and resp is not None:
             replicator.set_peers(resp.replica_peers)
+        if resp is not None:
+            self._note_master_boot(resp.boot_id)
+
+    def _note_master_boot(self, boot_id: str):
+        """Heartbeat-thread hook: a changed master boot id means the
+        master restarted from its journal, so re-home: present this
+        process's generation, pid and its last two tasks, so that the
+        restarted dispatcher re-accepts those it holds for this process
+        (a reported task's lease is gone, and is ignored) and requeues
+        the rest.  A lockstep process's generation is fixed at spawn, so
+        a fence rejection is terminal (the step stream then ends the
+        process) and the boot id advances even then; it commits only
+        AFTER the handshake, so a failed RPC retries on the next beat."""
+        if not boot_id:
+            return
+        previous = self._master_boot_id
+        if previous is None or previous == boot_id:
+            self._master_boot_id = boot_id
+            return
+        logger.warning(
+            "Master restarted (boot %s -> %s); re-homing worker %d",
+            previous[:8], boot_id[:8], self._worker_id,
+        )
+        try:
+            # one read: the training thread replaces the list
+            self._rehome(list(self._recent_task_ids))
+        except Exception:  # noqa: BLE001 — retried on the next beat
+            logger.exception("Re-home RPC failed; will retry")
+            return
+        self._master_boot_id = boot_id
+
+    def _rehome(self, leases: list):
+        """The re-homing handshake; a rejection marks this process fenced."""
+        logger.warning(
+            "Re-homing worker %d (generation %d, in-flight leases %s)",
+            self._worker_id, self._cluster_version, leases,
+        )
+        resp = self._master.rehome_worker(
+            msg.RehomeRequest(
+                worker_id=self._worker_id,
+                cluster_version=self._cluster_version,
+                pid=os.getpid(),
+                lease_ids=leases,
+            )
+        )
+        self._addr_stamp = _addr_file_stamp()
+        if resp is not None and not resp.accepted:
+            # the generation fence: this world is stale
+            self._fenced = True
+            logger.warning(
+                "Re-home rejected: generation %d is fenced (master at %d)",
+                self._cluster_version, resp.cluster_version,
+            )
 
     def _discover_peers(self, timeout_secs: float = PEER_DISCOVERY_SECS):
         """Heartbeat until the reply names the ring neighbor's replica
@@ -520,6 +602,7 @@ class LockstepWorker:
                     )
                     break
                 seq += 1
+                self._recent_task_ids = [*self._recent_task_ids[-1:], task.task_id]
                 if task.type == int(TaskType.TRAINING):
                     self._train_task(task)
                 elif task.type == int(TaskType.EVALUATION):
@@ -552,7 +635,7 @@ class LockstepWorker:
             self._heartbeat()
             ok = True
         except BaseException:
-            if self._replica_server is not None:
+            if self._replica_server is not None or self._ha_mode():
                 # shown now: a lingering process would show it only when
                 # it leaves, and a re-formation kills it first
                 traceback.print_exc()
@@ -568,17 +651,26 @@ class LockstepWorker:
                 self._stopped = True
                 if self._replicator is not None:
                     self._replicator.close()
+                if not ok and (self._replica_server is not None or self._ha_mode()):
+                    self._linger_for_harvest()
                 if self._replica_server is not None:
-                    if not ok:
-                        self._linger_for_harvest()
                     self._replica_server.stop(grace=0)
 
+    @staticmethod
+    def _ha_mode() -> bool:
+        """Master HA is on for this job (the master exported its address
+        file)."""
+        return bool(os.environ.get(MASTER_ADDR_FILE_ENV, ""))
+
     def _linger_for_harvest(self):
-        """The world broke: keep this process's replica RAM servable until
-        the master's re-formation (which harvests it, then kills this
-        process), or for the linger cap.  On the CPU and on gloo a
-        collective on a dead peer raises at once; exiting then would
-        take this process's replicas with it."""
+        """The world broke: stay until the master's re-formation kills
+        this process, or for the linger cap.  On the CPU and on gloo a
+        collective on a dead peer raises at once; exiting then would take
+        this process's replicas with it (``--replication``), or, under
+        master HA, beat a relaunched master to the fence.  Under master HA
+        the wait watches the address file: a relaunched master rewrites
+        it, this process re-homes (presenting no lease: it trains no
+        more), and leaves once the handshake fences it."""
         try:
             linger_secs = float(os.environ.get(REPLICA_LINGER_ENV, REPLICA_LINGER_SECS))
         except ValueError:
@@ -587,10 +679,25 @@ class LockstepWorker:
             return
         logger.warning(
             "Process %d stopped on an error: lingering up to %.0f s so the "
-            "master can harvest its replica shards",
+            "(relaunched) master can fence this world%s",
             self._process_id, linger_secs,
+            " and harvest its replica shards" if self._replica_server is not None else "",
         )
-        time.sleep(linger_secs)
+        if not self._ha_mode():
+            time.sleep(linger_secs)
+            return
+        deadline = time.monotonic() + linger_secs
+        while not self._fenced and time.monotonic() < deadline:
+            if _addr_file_stamp() != self._addr_stamp:
+                try:
+                    self._rehome([])
+                except Exception:  # noqa: BLE001 — the master may be gone
+                    # again: retried when the file changes next
+                    logger.exception("Re-home from the linger failed")
+                    self._addr_stamp = _addr_file_stamp()
+            time.sleep(LINGER_POLL_SECS)
+        if self._fenced:
+            logger.warning("Process %d fenced by the relaunched master; leaving", self._process_id)
 
     def _dump_state_if_requested(self, name: str):
         out_dir = os.environ.get(DUMP_STATE_ENV, "")
@@ -605,3 +712,13 @@ class LockstepWorker:
     def trainer(self):
         return self._trainer
 
+
+def _addr_file_stamp():
+    """The master address file's modification time (None without master
+    HA, or before the master writes it): a relaunched master rewrites
+    the file, so a changed stamp means a restart."""
+    path = os.environ.get(MASTER_ADDR_FILE_ENV, "")
+    try:
+        return os.stat(path).st_mtime_ns if path else None
+    except OSError:
+        return None

@@ -26,7 +26,12 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 def build_master_client(master_addr: str) -> MasterClient:
     """A client with the per-method deadlines the master exported
     (``--rpc_deadline_secs``), and retries within the budget it exported
-    (``--rpc_retry_secs``); with neither, the fail-fast client."""
+    (``--rpc_retry_secs``, implied by ``--master_journal_dir``).  With
+    the master's address file in the environment (master high
+    availability), a retry re-resolves the address from it, so the
+    client follows a relaunched master.  With none of them, the
+    fail-fast client."""
+    from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV, read_master_addr
     from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
     from elasticdl_tpu_torch.rpc.retry import (
         DEFAULT_RETRY_SECS,
@@ -36,10 +41,11 @@ def build_master_client(master_addr: str) -> MasterClient:
 
     deadlines = DeadlinePolicy.from_env()
     budget = os.environ.get(RETRY_SECS_ENV, "")
-    if not budget:
+    addr_file = os.environ.get(MASTER_ADDR_FILE_ENV, "")
+    if not budget and not addr_file:
         return MasterClient(master_addr, deadlines=deadlines)
     try:
-        budget_secs = float(budget)
+        budget_secs = float(budget) if budget else DEFAULT_RETRY_SECS
     except ValueError:
         logger.error("Unparseable %s=%r; using %.0f s", RETRY_SECS_ENV, budget, DEFAULT_RETRY_SECS)
         budget_secs = DEFAULT_RETRY_SECS
@@ -48,6 +54,7 @@ def build_master_client(master_addr: str) -> MasterClient:
         retry=RetryPolicy.from_budget(budget_secs),
         retryable_methods=MASTER_RETRYABLE_METHODS,
         deadlines=deadlines,
+        resolve_addr=(lambda: read_master_addr(addr_file)) if addr_file else None,
     )
 
 

@@ -28,15 +28,23 @@ while the current one computes (``trainer/device_pipeline.py``);
 ``--boundary_fusion`` keeps one stager across task boundaries.  A
 staged batch dispatches once; its retry places it again from the host.
 
+Master high availability (``--master_journal_dir``): every lease the
+worker holds an unreported task for is in its lease ledger; the
+heartbeat notices a relaunched master's new boot id and re-homes,
+presenting the generation it held across the outage and the ledger
+(``_note_master_boot``).  The boot id and the master's generation
+advance only on acceptance, and presented leases the master did not
+re-accept leave the ledger.
+
 Unlike the JAX worker, this one writes a last checkpoint when its stream
 ends (as the port's lockstep worker and Local executor do).  Left out
-until the slices that bring them: re-homing to a restarted master
-(slice 6b-2), and the step anatomy, tracing, profiling and compile
-counters (slice 10).
+until slice 10: the step anatomy, tracing, profiling and compile
+counters.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import traceback
@@ -123,6 +131,12 @@ class Worker:
         )
         self._trainer: SPMDTrainer | None = None
         self._stopped = False
+        # the lease ledger the re-homing handshake presents: every lease
+        # this worker holds an unreported task for; the boot id of the
+        # master last heard from, and the generation it held then
+        self._inflight_leases: set[int] = set()
+        self._master_boot_id: str | None = None
+        self._master_cluster_version = 0
         # shape-canonical batching on one device
         self._canonical_rows = canonical_batch_rows(self._minibatch_size, 1)
         self._steps_per_dispatch = args.steps_per_dispatch or 1
@@ -145,9 +159,13 @@ class Worker:
     # ---- master protocol ---------------------------------------------------
 
     def get_task(self, task_type: int = -1) -> msg.TaskResponse:
-        return self._master.get_task(
+        task = self._master.get_task(
             msg.GetTaskRequest(worker_id=self._worker_id, task_type=task_type)
         )
+        if task.shard_name:
+            # WAIT polls are not leases
+            self._inflight_leases.add(task.task_id)
+        return task
 
     def report_task_result(
         self, task_id, err_msg="", exec_counters=None, include_timing=False
@@ -162,6 +180,9 @@ class Worker:
                 task_id=task_id, err_message=err_msg, exec_counters=counters
             )
         )
+        # only after the report returned: a lease whose report died with
+        # the master is still in flight, and is presented on re-homing
+        self._inflight_leases.discard(task_id)
 
     def report_version(self):
         if self._trainer is not None:
@@ -551,14 +572,71 @@ class Worker:
         self.report_task_result(task.task_id, err)
         return True
 
+    def _note_master_boot(self, boot_id: str) -> bool:
+        """Re-homing for the task stream: a changed master boot id means
+        a restart, so present the lease ledger, and the restarted
+        dispatcher re-accepts those leases and requeues the rest.
+
+        Returns True when the caller may adopt the heartbeat's cluster
+        version: adopted BEFORE the handshake completes, it would make the
+        servicer's fence compare the restarted master's generation with
+        itself, so while a re-home is pending (a failed RPC, or a fence
+        rejection) the worker keeps presenting the generation it held."""
+        if not boot_id:
+            return True
+        previous = self._master_boot_id
+        if previous is None or previous == boot_id:
+            self._master_boot_id = boot_id
+            return True
+        generation = self._master_cluster_version
+        # the boot id advances ONLY on acceptance below: this runs on the
+        # heartbeat thread while the task threads change the ledger, and
+        # any surprise must leave it so that the next beat retries
+        try:
+            leases = sorted(self._inflight_leases)
+            logger.warning(
+                "Master restarted; re-homing worker %d (generation %d, leases %s)",
+                self._worker_id, generation, leases,
+            )
+            resp = self._master.rehome_worker(
+                msg.RehomeRequest(
+                    worker_id=self._worker_id,
+                    cluster_version=generation,
+                    pid=os.getpid(),
+                    lease_ids=leases,
+                )
+            )
+        except Exception:  # noqa: BLE001 — retried on the next beat
+            logger.exception("Re-home RPC failed; will retry")
+            return False
+        if resp is not None and not resp.accepted:
+            # the generation fence: take the master's and retry on the
+            # next beat instead of presenting the stale one again
+            self._master_cluster_version = int(resp.cluster_version)
+            logger.warning(
+                "Re-home rejected (stale generation %d -> %d); retrying",
+                generation, self._master_cluster_version,
+            )
+            return False
+        # drop presented leases the restored master did NOT re-accept
+        # (leased in the journal's lost tail): their reports would be
+        # dropped and the task trains from the queue; leases the task
+        # threads added meanwhile stay
+        if resp is not None:
+            for lease in set(leases) - set(resp.accepted_leases):
+                self._inflight_leases.discard(lease)
+        self._master_boot_id = boot_id
+        return True
+
     def _start_heartbeats(self, interval_secs: float = HEARTBEAT_INTERVAL_SECS):
         """Liveness across long compute gaps (every ``get_task`` counts
-        too), with the RPC outcome and staging totals."""
+        too), with the RPC outcome and staging totals; the reply's boot
+        id drives re-homing."""
 
         def beat():
             while not self._stopped:
                 try:
-                    self._master.heartbeat(
+                    resp = self._master.heartbeat(
                         msg.HeartbeatRequest(
                             worker_id=self._worker_id,
                             step=self._trainer.step if self._trainer else 0,
@@ -567,6 +645,10 @@ class Worker:
                             prefetch=dp.heartbeat_snapshot(),
                         )
                     )
+                    # re-home BEFORE adopting the beat's generation: the
+                    # fence must see the generation held across the outage
+                    if resp is not None and self._note_master_boot(resp.boot_id):
+                        self._master_cluster_version = int(resp.cluster_version)
                 except Exception:  # noqa: BLE001 — the master may be gone
                     pass
                 time.sleep(interval_secs)

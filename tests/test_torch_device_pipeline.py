@@ -53,6 +53,18 @@ MNIST_DEF = "mnist_functional_api.mnist_functional_api.custom_model"
 ACCURACY_TOL = 0.02  # the two packages' dropout bits differ
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_intra_op_threads():
+    """At most two torch intra-op threads in this module, as in
+    ``tests/test_torch_resnet.py``: under the suite's six test processes,
+    the phase-9 rehearsal with one thread per core waited at each
+    barrier for threads the other processes had descheduled."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     for env in (DEVICE_PREFETCH_ENV, BOUNDARY_FUSION_ENV, PIPELINE_DEPTH_ENV, STAGING_BUDGET_ENV):

@@ -311,8 +311,7 @@ def test_api_refuses_jobs_without_their_data():
 # a value other than the default for every flag the port parses but
 # cannot act on yet
 UNPORTED_VALUES = {
-    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2",
-    "master_journal_dir": "/j", "rehome_grace_secs": "1", "num_slices": "2",
+    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "num_slices": "2",
     "min_slices": "2", "autoscale_p95_step_ms": "9", "autoscale_backlog_tasks": "2",
     "autoscale_cooldown_secs": "1", "autoscale_shrink": "true",
     "standby_workers": "0", "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",
@@ -352,14 +351,16 @@ def test_unported_flag_raises_at_executor_build(runs, flag, value):
 
 
 # the flags of stacked steps, remat and the device pipeline, ported; and
-# the evaluation service's time trigger and peer replication, which a
-# Local run takes and, as the JAX package's Local executor, does not read
+# the evaluation service's time trigger, peer replication and the master
+# journal, which a Local run takes and, as the JAX package's Local
+# executor, does not read
 PORTED_CASES = [
     ("steps_per_dispatch", "2"), ("steps_per_dispatch", "auto"),
     ("remat", "true"), ("device_prefetch", "true"),
     ("boundary_fusion", "true"), ("pipeline_depth", "3"),
     ("evaluation_start_delay_secs", "5"), ("evaluation_throttle_secs", "5"),
     ("replication", "true"), ("replication_steps", "3"),
+    ("master_journal_dir", "/j"), ("rehome_grace_secs", "1"),
 ]
 
 

@@ -390,6 +390,7 @@ LIFTED = [
     ("num_workers", "1"), ("validation_data", "DATA"), ("prediction_data", "DATA"),
     ("device_prefetch", "true"), ("evaluation_start_delay_secs", "5"),
     ("evaluation_throttle_secs", "5"), ("replication", "true"), ("replication_steps", "3"),
+    ("master_journal_dir", "JOURNAL"), ("rehome_grace_secs", "1"),
 ]
 
 
@@ -399,12 +400,14 @@ LIFTED = [
 )
 def test_lifted_flag_builds_a_master(tmp_path, flag, value):
     from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_mnist
+    from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV
     from elasticdl_tpu_torch.master.main import worker_envs
+    from elasticdl_tpu_torch.rpc.retry import RETRY_SECS_ENV
     from elasticdl_tpu_torch.trainer.device_pipeline import DEVICE_PREFETCH_ENV
 
     assert flag not in port_args.UNPORTED_FLAGS
     train = gen_mnist(str(tmp_path / "t"), num_records=32, num_shards=1, seed=0)
-    value = train if value == "DATA" else value
+    value = {"DATA": train, "JOURNAL": str(tmp_path / "journal")}.get(value, value)
     argv = _argv({"train": train}, *_dist(), f"--{flag}", value)
     args = port_args.parse_master_args(argv)
     master = build_master(args)
@@ -420,6 +423,12 @@ def test_lifted_flag_builds_a_master(tmp_path, flag, value):
     if flag == "device_prefetch":
         # as does the device pipeline, so that every rank resolves it alike
         assert envs == {DEVICE_PREFETCH_ENV: "1"}
+    if flag == "master_journal_dir":
+        # and the master's address file, which implies the retry budget
+        assert set(envs) == {MASTER_ADDR_FILE_ENV, RETRY_SECS_ENV}
+        assert envs[MASTER_ADDR_FILE_ENV] == os.path.join(value, "master_addr")
+    # the journal comes with --master_journal_dir alone
+    assert (master.journal is not None) == (flag == "master_journal_dir")
     if flag == "validation_data":
         assert master.evaluation_service is not None
     # the master's replica directory comes with --replication alone
@@ -443,7 +452,6 @@ def test_lifted_flag_builds_a_master(tmp_path, flag, value):
 SLICE_6B = [
     (flag, [f"--{flag}", value]) for flag, value in (
         ("mesh_shape", "dp=2"), ("dcn_mesh_shape", "dp=2"),
-        ("master_journal_dir", "/j"), ("rehome_grace_secs", "1"),
         ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
         ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
         ("autoscale_shrink", "true"), ("standby_workers", "0"),
