@@ -125,10 +125,14 @@ printed:
    checkpoint.  (b) the same for DeepFM's accuracy recipe (one epoch),
    then a fault-free two-rank mnist run against the Local run on the same
    data (final parameters within ``PARITY_RTOL``/``PARITY_ATOL``).  (c)
-   the LM at full width in two ranks of 4 rows against one rank of 8 from
-   the same weights for 2 Adam steps: the step-1 gradient within phase
-   5's ``GRAD_REL_ERR``, the updates within ``DP_UPDATE_REL_ERR``, and 12
-   launches of each flash kernel per step on each rank.  It prints the
+   the LM at full width and 2 of its 12 layers (``dist_lm()``) in two
+   ranks of 4 rows against one rank of 8 from the same weights for 2
+   Adam steps, in spawned processes beside (b): the step-1 gradient
+   within phase 5's ``GRAD_REL_ERR``, the updates within
+   ``DP_UPDATE_REL_ERR``, and 2 launches of each flash kernel per step
+   on each rank.  Every job of phases 10-12 and 14 runs with
+   ``--standby_workers 0`` (cold re-formations, as PRs 8-12 measured
+   them).  It prints the
    re-formation latency, the backend and each job's records/s (two
    ranks on one card: no scaling number).
 
@@ -150,13 +154,14 @@ printed:
    the task-stream worker (``--num_workers 1``): DeepFM's accuracy recipe
    with its worker SIGKILLed at version 6 or later (one relaunch under a
    new id, its leases re-queued, records exact, the master's accuracy >
-   0.8); the LM at full width warm-started from phase 6's weights,
-   bit for bit the Local run's, 12 launches of each kernel per step and
-   of the forward per evaluation batch (the workers dump their counts);
-   then the LM's two-worker ``predict`` (rows within phase 4's served
-   tolerance of Local's) and ``evaluate`` of one record a task (a
-   record's logits are 128 MiB, under the 256 MiB message cap), 12
-   forward launches per batch on each rank.  It prints the evaluation
+   0.8); the LM at full width and 2 of its 12 layers (``dist_lm()``)
+   warm-started from seeded weights, bit for bit the Local run's, 2
+   launches of each kernel per step and of the forward per evaluation
+   batch (the workers dump their counts); then the LM's two-worker
+   ``predict`` (rows within phase 4's served tolerance of Local's) and
+   ``evaluate`` of one record a task (a record's logits are 128 MiB,
+   under the 256 MiB message cap), 2 forward launches per batch on each
+   rank.  It prints the evaluation
    rounds and their seconds, the largest evaluation report, the gather's
    backend, the relaunch latency, each job's records/s and the LM's
    seconds between its task reports.
@@ -223,8 +228,32 @@ printed:
    latency, the steps trained again, the job's seconds, the journal's
    flush time, and 14a's steady records/s before and after the kill
    beside phase 10a's.
+15. slices — hot standbys, slices, parking and the autoscaler, on phase
+   10's shards and cell, each job through the train CLI and gated
+   (``check_slices``) on rc 0, no violation, every record once, the
+   last world's ranks bitwise equal and accuracy >= 0.99 from the Local
+   evaluate.  (a) phase 10a's job with the default standby pool: both
+   processes of the re-formed world are the pool's
+   (``standby_activations == 2``, their pids), and it prints the
+   re-formation split into the assignment, the rendezvous and the state
+   restore beside 10a's cold one, and a fresh process's seconds to import
+   torch and the port and to make a CUDA context; (b) four ranks in two
+   slices with replication under ``slice_loss_mid_epoch`` (both processes
+   of slice 1 die at step 6): one ``slice_loss`` of slice 1, a
+   ``mesh_resize`` from 2 to 1 slices and from 4 to 2 processes,
+   ``cross_slice_replica_coverage`` and ``replication_no_lost_steps``
+   PASS, the new world restored from peer RAM; (c) two ranks in two
+   slices with ``--min_slices 2`` and a journal: the same loss parks the
+   job (world torn down, quiesced, ``parked`` in the journaled world) and
+   a capacity grant 2 s later re-forms a new generation that finishes
+   it; (d) two ranks in two slices started on one, with
+   ``--autoscale_backlog_tasks 4``: one autoscale decision from 1 to 2
+   slices and the re-formation that realizes it.  (b), (c) and (d) run
+   side by side.
 
-The last two lines of standard output are the kernels' JSON line and
+Before the kernels' line it prints ``{"phase_secs": {...}}``: each
+phase's wall seconds and the total.  The last two lines of standard
+output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -244,6 +273,8 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the script's start: the phases' seconds sum to the total from here
+STARTED_AT = time.monotonic()
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -256,6 +287,16 @@ GPT2S = dict(
     vocab_size=32768, embed_dim=768, num_heads=12, num_layers=12,
     dtype="bfloat16",
 )
+# the depth of the LM in the distributed jobs of phases 10 and 11 (10c,
+# 11's task stream, predict and evaluate): gpt2s's full width at 2 of its
+# 12 layers, so that the smoke fits its time limit (12d keeps all 12: its
+# chief's replica share must pass the 256 MiB cap)
+DIST_LM_LAYERS = 2
+
+
+def dist_lm() -> dict:
+    """The distributed jobs' LM: ``GPT2S`` at ``DIST_LM_LAYERS`` layers."""
+    return dict(GPT2S, num_layers=min(DIST_LM_LAYERS, GPT2S["num_layers"]))
 # concurrent requests' row counts: 11 rows, the 5-row one spans groups
 REQUEST_ROWS = (1, 2, 3, 5)
 
@@ -1148,10 +1189,10 @@ def _record_rows(directory: str):
 
 
 def _local_data(
-    work_dir: str, records: int = LOCAL_RECORDS, shards: int = LOCAL_SHARDS
+    work_dir: str, records: int = LOCAL_RECORDS, shards: int = LOCAL_SHARDS, lm_cfg=None,
 ) -> dict:
     """The phase's EDLIO shards and its warm-start checkpoint of the
-    seeded weights."""
+    seeded weights (of ``lm_cfg``, gpt2s by default)."""
     import torch
 
     from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_sequence
@@ -1173,7 +1214,7 @@ def _local_data(
         "init": os.path.join(work_dir, "init"),
     }
     data["secs"] = time.monotonic() - t0
-    model = lm.custom_model(**GPT2S)
+    model = lm.custom_model(**(lm_cfg or GPT2S))
     lm.init_weights(model, torch.Generator().manual_seed(0))
     init = {f"params/{k}": v for k, v in flax_flat_from_torch(model).items()}
     save_utils.CheckpointSaver(data["init"]).save(0, init, extra={"model_version": 0})
@@ -1181,12 +1222,13 @@ def _local_data(
 
 
 def _local_argv(
-    data: dict, device: str, *extra, records_per_task: int = LOCAL_RECORDS_PER_TASK
+    data: dict, device: str, *extra, records_per_task: int = LOCAL_RECORDS_PER_TASK,
+    lm_cfg=None,
 ) -> list:
     """``train`` on the phase's shards, warm-started from its checkpoint."""
     return [
         "train", "--model_def", LM_DEF,
-        "--model_params", ";".join(f"{k}={v}" for k, v in GPT2S.items()),
+        "--model_params", ";".join(f"{k}={v}" for k, v in (lm_cfg or GPT2S).items()),
         "--training_data", data["train"],
         "--records_per_task", str(records_per_task),
         "--minibatch_size", str(TRAIN_ROWS), "--shuffle_seed", "0",
@@ -2639,25 +2681,31 @@ class _ReportClock:
         return sum(n for _t, n in window[1:]) / (window[-1][0] - window[0][0])
 
 
-def _job_recorder(expected_records=None, kill_at_version=None):
-    """Patches ``master.main.build_master`` so that the CLI's master is
-    kept, with: an invariant checker (``expected_records``), a clock of
+def _job_recorder(expected_records=None, kill_at_version=None, on_build=None):
+    """A ``build_master`` (for :func:`_cli_job`) that keeps the CLI's
+    master, with: an invariant checker (``expected_records``), a clock of
     its task reports, every evaluation round
     (its summary and the label rows accepted for it), the largest
-    evaluation report (bytes, and the seconds the master's handler took);
+    evaluation report (bytes, and the seconds the master's handler took),
+    each re-formed world's ``{worker_id: pid}`` (``worlds``);
     with ``kill_at_version``, a version observer that SIGKILLs the
-    reporting worker's process once, at the first version at or past it."""
+    reporting worker's process once, at the first version at or past it;
+    then ``on_build(master)``."""
     import signal
 
     from elasticdl_tpu_torch.chaos.invariants import InvariantChecker
-    from elasticdl_tpu_torch.master import main as master_main
 
-    built = {"rounds": [], "largest_report": None, "killed": None}
-    original = master_main.build_master
+    built = {"rounds": [], "largest_report": None, "killed": None, "worlds": []}
+    original = _real_build_master()
 
     def build(args):
         master = original(args)
         built["master"] = master
+        im = master.instance_manager
+        if im is not None:
+            master.reform_callbacks.append(lambda *_a: built["worlds"].append(
+                {w: im.worker_pid(w) for w in im.worker_ids()}
+            ))
         if expected_records is not None:
             checker = InvariantChecker(expected_records=expected_records)
             master.task_d.add_observer(checker)
@@ -2718,34 +2766,87 @@ def _job_recorder(expected_records=None, kill_at_version=None):
                     os.kill(pid, signal.SIGKILL)
 
             master.servicer.add_version_observer(kill)
+        if on_build is not None:
+            on_build(master)
         return master
 
     return built, build
 
 
+# the CLI jobs running now, by thread: one router stands in for
+# ``master.main.build_master`` while any runs, so that jobs can run side
+# by side, each with its own build
+_ROUTES: dict = {}  # thread ident -> build
+_ROUTES_LOCK = threading.Lock()
+_REAL_BUILD: list = []  # the real build_master while the router stands in
+
+
+def _real_build_master():
+    from elasticdl_tpu_torch.master import main as master_main
+
+    with _ROUTES_LOCK:
+        return _REAL_BUILD[0] if _REAL_BUILD else master_main.build_master
+
+
 def _cli_job(argv: list, build) -> tuple:
     """``client.main(argv)`` with the master built by ``build``; returns
-    its exit code and wall seconds."""
-    from unittest import mock
-
+    its exit code and wall seconds.  Safe beside another thread's job."""
     from elasticdl_tpu_torch import client
     from elasticdl_tpu_torch.master import main as master_main
 
+    me = threading.get_ident()
+    with _ROUTES_LOCK:
+        if not _ROUTES:
+            real = master_main.build_master
+            _REAL_BUILD.append(real)
+            master_main.build_master = lambda args: _ROUTES.get(threading.get_ident(), real)(args)
+        _ROUTES[me] = build
     t0 = time.monotonic()
-    with mock.patch.object(master_main, "build_master", build):
+    try:
         rc = client.main(argv)
+    finally:
+        with _ROUTES_LOCK:
+            del _ROUTES[me]
+            if not _ROUTES:
+                master_main.build_master = _REAL_BUILD.pop()
     return rc, time.monotonic() - t0
 
 
-def _elastic_argv(cfg: dict, data: dict, device: str, work_dir: str, envs: dict, tag: str):
+def _beside(**jobs) -> dict:
+    """Run each job (a callable) on a thread of its own, side by side;
+    returns their results by name, or raises the first failure."""
+    out, errors = {}, {}
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except BaseException as ex:  # noqa: BLE001 — re-raised below
+            errors[name] = ex
+
+    threads = [threading.Thread(target=run, args=item, name=item[0]) for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name, ex in errors.items():
+        raise AssertionError(f"{name} failed: {ex!r}") from ex
+    return out
+
+
+def _elastic_argv(
+    cfg: dict, data: dict, device: str, work_dir: str, envs: dict, tag: str,
+    num_workers: int = ELASTIC_WORKERS,
+):
+    """A distributed job's argv.  No standbys unless the caller's extra
+    flags ask (phases 10-12 measure cold re-formations, as PRs 8-10 did)."""
     env = ",".join(f"{k}={v}" for k, v in envs.items())
     return _zoo_argv(cfg, data, device) + [
         "--num_epochs", str(cfg["epochs"]),
         "--distribution_strategy", "AllreduceStrategy",
-        "--num_workers", str(ELASTIC_WORKERS), "--port", "0",
+        "--num_workers", str(num_workers), "--port", "0",
         "--checkpoint_dir", os.path.join(work_dir, f"ckpt_{tag}"),
         "--checkpoint_steps", str(cfg["checkpoint_steps"]),
-        "--heartbeat_timeout_secs", "30", "--envs", env,
+        "--heartbeat_timeout_secs", "30", "--standby_workers", "0", "--envs", env,
     ]
 
 
@@ -2757,12 +2858,15 @@ def _load_npz(path: str) -> dict:
 
 
 def _distributed_run(
-    cfg: dict, data: dict, device: str, work_dir: str, tag: str, plan=None, extra=()
+    cfg: dict, data: dict, device: str, work_dir: str, tag: str, plan=None, extra=(),
+    num_workers: int = ELASTIC_WORKERS, on_build=None,
 ) -> dict:
     """One ``AllreduceStrategy`` job of ``cfg`` through the train CLI,
     under ``plan`` (a chaos plan, or the name of a built-in one) or none:
-    returns its master, the checker's violations, the processes' final
+    returns its master, the checker's violations, the last world's final
     state dumps, the chaos event log and the wall seconds of the job."""
+    import glob
+
     import numpy as np
 
     from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
@@ -2777,15 +2881,22 @@ def _distributed_run(
     if plan is not None:
         plan_path = os.path.join(work_dir, f"plan_{tag}.json")
         if isinstance(plan, str):
-            plan = builtin_plans(ELASTIC_WORKERS)[plan]
+            plan = builtin_plans(num_workers)[plan]
         plan.save(plan_path)
         envs.update({chaos_hooks.PLAN_ENV: plan_path, chaos_hooks.EVENTS_ENV: events})
-    built, build = _job_recorder(expected_records=cfg["train_records"] * cfg["epochs"])
-    argv = _elastic_argv(cfg, data, device, work_dir, envs, tag) + list(extra)
+    built, build = _job_recorder(
+        expected_records=cfg["train_records"] * cfg["epochs"], on_build=on_build
+    )
+    argv = _elastic_argv(cfg, data, device, work_dir, envs, tag, num_workers) + list(extra)
     rc, secs = _cli_job(argv, build)
     master = built["master"]
     counters = master.task_d.counters(TaskType.TRAINING)
-    dumps = [_load_npz(os.path.join(dump_dir, f"final_state_p{p}.npz")) for p in range(ELASTIC_WORKERS)]
+    # the last world's processes dump at the end: a world that shrank
+    # has fewer than the first
+    dumps = [
+        _load_npz(path)
+        for path in sorted(glob.glob(os.path.join(dump_dir, "final_state_p*.npz")))
+    ]
     fired = []
     if os.path.exists(events):
         with open(events) as f:
@@ -2818,14 +2929,36 @@ def _distributed_run(
         ),
         "violations": [v.as_dict() for v in built["checker"].check(counters)],
         "fired": [e.get("fault_id") or e.get("observation") for e in fired],
-        "dumps_bitwise_equal": set(dumps[0]) == set(dumps[1]) and all(
-            np.array_equal(dumps[0][k], dumps[1][k]) for k in dumps[0]
+        "dumps": len(dumps),
+        "dumps_bitwise_equal": len(dumps) > 1 and all(
+            set(d) == set(dumps[0]) and all(np.array_equal(dumps[0][k], d[k]) for k in d)
+            for d in dumps[1:]
         ),
     }
     return {
-        "row": row, "master": master, "dumps": dumps, "events": fired,
+        "row": row, "master": master, "dumps": dumps, "events": fired, "built": built,
         "ckpt": os.path.join(work_dir, f"ckpt_{tag}"),
     }
+
+
+# one Local run (train, evaluate or predict) in this process at a time:
+# distributed jobs run side by side, and a Local run holds process-wide
+# state (the predictions directory's environment variable)
+_LOCAL_LOCK = threading.Lock()
+
+
+def _local_predict(argv: list, out_dir: str) -> None:
+    """The Local predict CLI's backend with its predictions written to
+    ``out_dir`` (by this script's prediction zoo)."""
+    from elasticdl_tpu_torch import api
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+
+    with _LOCAL_LOCK:
+        os.environ[PREDICTIONS_ENV] = out_dir
+        try:
+            api.predict(parse_master_args(argv))
+        finally:
+            del os.environ[PREDICTIONS_ENV]
 
 
 def _evaluate_checkpoint(cfg: dict, data: dict, device: str, ckpt: str) -> dict:
@@ -2842,7 +2975,8 @@ def _evaluate_checkpoint(cfg: dict, data: dict, device: str, ckpt: str) -> dict:
     ]
     if cfg["model_params"]:
         argv += ["--model_params", cfg["model_params"]]
-    return api.evaluate(parse_master_args(argv))
+    with _LOCAL_LOCK:
+        return api.evaluate(parse_master_args(argv))
 
 
 def elastic_preempt_run(work_dir: str, cfg: dict, device: str = "cuda", data=None) -> dict:
@@ -2898,7 +3032,8 @@ def elastic_parity_run(
     run = _distributed_run(cfg, data, device, work_dir, "parity", extra=init)
     local_ckpt = os.path.join(work_dir, "ckpt_local")
     t0 = time.monotonic()
-    rc = client.main(_zoo_argv(cfg, data, device, *init) + ["--checkpoint_dir", local_ckpt])
+    with _LOCAL_LOCK:
+        rc = client.main(_zoo_argv(cfg, data, device, *init) + ["--checkpoint_dir", local_ckpt])
     local_secs = time.monotonic() - t0
     local, _extra = save_utils.restore_checkpoint(local_ckpt)
     world, _extra = save_utils.restore_checkpoint(run["ckpt"])
@@ -3025,7 +3160,7 @@ def dp_lm_run(device: str = "cuda") -> dict:
     """Phase 10c: the LM in a two-rank world (2 x 4 rows) against one
     rank on the same 8 rows, from the same seeded weights, for 2 Adam
     steps; each rank's wrappers count each flash kernel's launches per
-    step (``GPT2S["num_layers"]`` on the card; the CPU takes the plain
+    step (``dist_lm()["num_layers"]`` on the card; the CPU takes the plain
     path).  Returns the phase's row, with both ranks' launches."""
     import torch.multiprocessing as tmp
 
@@ -3036,7 +3171,7 @@ def dp_lm_run(device: str = "cuda") -> dict:
         tmp.spawn(
             _dp_lm_child,
             args=(ELASTIC_WORKERS, elastic.pick_coordinator_port(), device,
-                  dict(GPT2S), SEQ, out_dir),
+                  dist_lm(), SEQ, out_dir),
             nprocs=ELASTIC_WORKERS, join=True,
         )
         secs = time.monotonic() - t0
@@ -3044,7 +3179,7 @@ def dp_lm_run(device: str = "cuda") -> dict:
         for rank in range(ELASTIC_WORKERS):
             with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
                 ranks.append(json.load(f))
-    per_step = GPT2S["num_layers"] if device == "cuda" else 0
+    per_step = dist_lm()["num_layers"] if device == "cuda" else 0
     r0 = ranks[0]
     world_losses = [sum(r["losses"][i] for r in ranks) for i in range(DP_LM_STEPS)]
     launches = {
@@ -3169,7 +3304,7 @@ def eval_milestones(cfg: dict) -> list:
 def _dist_flags(num_workers: int, envs: dict) -> list:
     return [
         "--distribution_strategy", "AllreduceStrategy", "--num_workers", str(num_workers),
-        "--port", "0", "--heartbeat_timeout_secs", "30",
+        "--port", "0", "--heartbeat_timeout_secs", "30", "--standby_workers", "0",
         "--envs", ",".join(f"{k}={v}" for k, v in envs.items()),
     ]
 
@@ -3277,8 +3412,6 @@ def eval_predict_run(
     CLI at the rows a rank holds."""
     import numpy as np
 
-    from elasticdl_tpu_torch import api
-    from elasticdl_tpu_torch.utils.args import parse_master_args
     from elasticdl_tpu_torch.utils.constants import TaskType
 
     key = cfg["accuracy_key"]
@@ -3308,15 +3441,9 @@ def eval_predict_run(
         ["predict", *pred, "--minibatch_size", str(cfg["batch"]),
          *_dist_flags(ELASTIC_WORKERS, {PREDICTIONS_ENV: world_out, **TF32_OFF})], build_p,
     )
-    os.environ[PREDICTIONS_ENV] = local_out
-    try:
-        # a rank's rows a call, so that each convolution sees the shapes
-        # a rank's did
-        api.predict(parse_master_args(
-            [*pred, "--minibatch_size", str(cfg["batch"] // ELASTIC_WORKERS)]
-        ))
-    finally:
-        del os.environ[PREDICTIONS_ENV]
+    # a rank's rows a call, so that each convolution sees the shapes a
+    # rank's did
+    _local_predict([*pred, "--minibatch_size", str(cfg["batch"] // ELASTIC_WORKERS)], local_out)
     world = np.concatenate(load_predictions(world_out))
     local = np.concatenate(load_predictions(local_out))
     row = {
@@ -3389,8 +3516,8 @@ def _lm_data_11(work_dir: str) -> dict:
     """Phase 6's kind of shards and warm start, at phase 11's counts."""
     from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_sequence
 
-    data = _local_data(work_dir, records=TS_LM_RECORDS, shards=TS_LM_SHARDS)
-    vocab = GPT2S["vocab_size"]
+    data = _local_data(work_dir, records=TS_LM_RECORDS, shards=TS_LM_SHARDS, lm_cfg=dist_lm())
+    vocab = dist_lm()["vocab_size"]
     data["eval"] = gen_sequence(
         os.path.join(work_dir, "eval_one"), num_records=TS_LM_EVAL_RECORDS,
         num_shards=TS_LM_EVAL_RECORDS, seed=1, seq_len=SEQ, vocab=vocab,
@@ -3404,7 +3531,7 @@ def _lm_data_11(work_dir: str) -> dict:
 
 def _lm_flags(data: dict, device: str) -> list:
     return [
-        "--model_params", ";".join(f"{k}={v}" for k, v in GPT2S.items()),
+        "--model_params", ";".join(f"{k}={v}" for k, v in dist_lm().items()),
         "--records_per_task", str(TS_LM_RECORDS_PER_TASK), "--device", device,
     ]
 
@@ -3413,12 +3540,12 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
     """Phase 11c, the LM: ``train --num_workers 1`` with validation data,
     warm-started from phase 6's seeded weights, against the Local run of
     the same data and flags: the final weights bit for bit, and the
-    worker's launches 12 per step of each kernel and 12 of the forward
-    per evaluation batch (``GPT2S["num_layers"]``; 0 on the CPU).  Then
+    worker's launches ``dist_lm()["num_layers"]`` (0 on the CPU) per step
+    of each kernel and of the forward per evaluation batch.  Then
     two-worker ``predict`` (rows within phase 4's served tolerance of
     Local's) and ``evaluate`` (accuracy within 1e-3 of Local's) from the
-    worker's final checkpoint, 12 forward launches per batch on each
-    rank.  Returns the phase's row, with every worker's launches."""
+    worker's final checkpoint, as many forward launches per batch on
+    each rank.  Returns the phase's row, with every worker's launches."""
     import numpy as np
     import torch
 
@@ -3428,7 +3555,7 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
     from elasticdl_tpu_torch.utils.args import parse_master_args
     from elasticdl_tpu_torch.utils.constants import TaskType
 
-    per = GPT2S["num_layers"] if device == "cuda" else 0
+    per = dist_lm()["num_layers"] if device == "cuda" else 0
     data = _lm_data_11(work_dir)
     steps = TS_LM_RECORDS // TRAIN_ROWS
     # (a) one task-stream worker against Local
@@ -3436,7 +3563,7 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
     ts_ckpt, local_ckpt = os.path.join(work_dir, "ckpt_ts"), os.path.join(work_dir, "ckpt_local")
     built, build = _job_recorder(expected_records=TS_LM_RECORDS)
     rc, secs = _cli_job(
-        _local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK) + [
+        _local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK, lm_cfg=dist_lm()) + [
             "--validation_data", data["eval"], "--checkpoint_dir", ts_ckpt,
             *_dist_flags(1, {LAUNCH_DUMP_ENV: launch_dir}),
         ], build,
@@ -3444,9 +3571,12 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
     master = built["master"]
     reports = [t for t, _n in built["clock"].reports]
     t0 = time.monotonic()
-    rc_local = client.main(_local_argv(data, device, records_per_task=TS_LM_RECORDS_PER_TASK) + [
-        "--validation_data", data["eval"], "--checkpoint_dir", local_ckpt,
-    ])
+    with _LOCAL_LOCK:
+        rc_local = client.main(_local_argv(
+            data, device, records_per_task=TS_LM_RECORDS_PER_TASK, lm_cfg=dist_lm(),
+        ) + [
+            "--validation_data", data["eval"], "--checkpoint_dir", local_ckpt,
+        ])
     local_secs = time.monotonic() - t0
     got, got_extra = save_utils.restore_checkpoint(ts_ckpt)
     want, want_extra = save_utils.restore_checkpoint(local_ckpt)
@@ -3498,11 +3628,7 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
             PREDICTIONS_ENV: world_out, LAUNCH_DUMP_ENV: predict_launches_dir,
         })], build_p,
     )
-    os.environ[PREDICTIONS_ENV] = local_out
-    try:
-        api.predict(parse_master_args(pred))
-    finally:
-        del os.environ[PREDICTIONS_ENV]
+    _local_predict(pred, local_out)
     worst_max, worst_mean, rows = 0.0, 0.0, 0
     world_batches, local_batches = load_predictions(world_out), load_predictions(local_out)
     dev = torch.device(device)
@@ -3550,7 +3676,8 @@ def task_stream_lm_run(work_dir: str, device: str = "cuda") -> dict:
         build_e,
     )
     summary = built_e["master"].job_summary().get("evaluation_metrics", {})
-    local = api.evaluate(parse_master_args(ev))
+    with _LOCAL_LOCK:
+        local = api.evaluate(parse_master_args(ev))
     eval_launches = _launches(eval_launches_dir)
     eval_row = {
         "rc": rc_eval, "job_secs": eval_secs, "records_per_s": TS_LM_EVAL_RECORDS / eval_secs,
@@ -4643,7 +4770,327 @@ def master_ha_phase(
     return report
 
 
+# ---- phase 15: hot standbys, slices, parking and the autoscaler ------------
+
+# phase 10's mnist cell and shards (bench.py's width and 256-row step,
+# 16 384 records, tasks of 4 steps, a checkpoint every 2, 2 epochs), held
+# to phase 14's accuracy
+SLICE_MNIST = dict(ELASTIC_MNIST, name="mnist_slices", min_accuracy=0.99)
+# 15b's fleet: two slices of two processes
+SLICE_WORKERS = 4
+# 15c's capacity grant comes this long after the park
+SLICE_GRANT_SECS = 2.0
+# 15d: grow while 4 or more tasks wait, at most once every 5 s
+AUTOSCALE_FLAGS = ("--autoscale_backlog_tasks", "4", "--autoscale_cooldown_secs", "5")
+# the four jobs of the phase, by the key its report files them under
+SLICE_CASES = ("standby", "slice_loss", "park_grant", "autoscale")
+
+
+def _worker_start_probe() -> dict:
+    """What a warm standby saves and what it does not: a fresh process's
+    seconds to import torch, then the port's lockstep chain, then to make
+    a CUDA context (a standby of the port waits before the last)."""
+    code = (
+        "import json, time; t0 = time.monotonic(); import torch; t1 = time.monotonic(); "
+        "import elasticdl_tpu_torch.worker.lockstep; t2 = time.monotonic(); "
+        "torch.cuda.set_device(0); torch.empty(1, device='cuda'); torch.cuda.synchronize(); "
+        "print(json.dumps({'import_torch_secs': t1 - t0, 'import_lockstep_secs': t2 - t1, "
+        "'cuda_context_secs': time.monotonic() - t2}))"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300, check=True).stdout.strip().splitlines()[-1]
+    return dict(json.loads(out), process_secs=time.monotonic() - t0)
+
+
+def standby_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda", cold=None) -> dict:
+    """Phase 15a: phase 10a's job (two ranks, ``preempt_one_worker`` at
+    step 6) with the default standby pool (``--standby_workers -1``: one
+    per process).  Returns its row: the re-formation split into the
+    assignment (detection to the last standby's assignment), the
+    rendezvous (to the new world's first step-task pull) and the state
+    restore (to the chief's restore), beside ``cold`` (phase 10a's row).
+    (The phase measures a fresh worker process's start beside 15b-d:
+    :func:`_worker_start_probe`.)"""
+    run = _distributed_run(
+        cfg, data, device, work_dir, "standby", plan="preempt_one_worker",
+        extra=("--standby_workers", "-1"),
+    )
+    master, row = run["master"], dict(run["row"])
+    im = master.instance_manager
+    event = master.reform_events[0] if master.reform_events else {}
+    latency = event.get("latency_secs")
+    assigned = max((a["at"] for a in im.activations), default=None)
+    restored = row["restored_secs_after_detection"]
+    split = None
+    if event and assigned is not None and latency is not None and restored is not None:
+        assignment = assigned - event["detected_at"]
+        split = {"assignment_secs": assignment, "rendezvous_secs": latency - assignment,
+                 "restore_secs": restored - latency}
+    row.update(
+        standby_activations=im.standby_activations,
+        activated_pids=sorted(a["pid"] for a in im.activations),
+        reformed_world_pids=sorted(run["built"]["worlds"][0].values()) if run["built"]["worlds"] else [],
+        reform_latency_secs=latency, reform_split=split,
+        accuracy=_evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"]),
+    )
+    if cold is not None:
+        row["cold_10a"] = {k: cold.get(k) for k in ("reform_latency_secs", "restored_secs_after_detection")}
+    print(json.dumps({"slices_standby": row}), flush=True)
+    return row
+
+
+def slice_loss_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """Phase 15b: four ranks in two slices (``--num_slices 2 --min_slices
+    1 --replication true``, no standbys) under ``slice_loss_mid_epoch``:
+    both processes of slice 1 die together at step 6; the next world is
+    slice 0's two processes, restored from peer RAM."""
+    from elasticdl_tpu_torch.chaos.harness import ChaosJobConfig, master_flags, slice_invariants
+    from elasticdl_tpu_torch.chaos.invariants import check_replication_no_lost_steps
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+
+    config = ChaosJobConfig(
+        builtin_plans(SLICE_WORKERS)["slice_loss_mid_epoch"], work_dir, replication=True,
+        num_slices=2,
+    )
+    run = _distributed_run(
+        cfg, data, device, work_dir, "slice_loss", plan=config.plan, num_workers=SLICE_WORKERS,
+        extra=(*master_flags(config), "--min_slices", "1", *REPLICATION),
+    )
+    events, row, master = run["events"], dict(run["row"]), run["master"]
+    row.update(
+        slice_loss=_observed(events, "slice_loss"), mesh_resize=_observed(events, "mesh_resize"),
+        invariants=slice_invariants(config, events, master.reform_events),
+        no_lost_steps=check_replication_no_lost_steps(events),
+        restored_from=_restored_from(events),
+        harvest=row["reform_events"][0].get("harvest") if row["reform_events"] else None,
+        world_after=len(run["built"]["worlds"][0]) if run["built"]["worlds"] else None,
+        accuracy=_evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"]),
+    )
+    print(json.dumps({"slices_slice_loss": row}), flush=True)
+    return row
+
+
+def park_grant_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """Phase 15c: two ranks in two slices (``--num_slices 2 --min_slices
+    2``, with ``--master_journal_dir``) under ``slice_loss_mid_epoch``:
+    slice 1's loss parks the job; ``SLICE_GRANT_SECS`` later a capacity
+    grant (``set_world_slices(2)`` and ``request_reform("capacity_grant")``)
+    un-parks it into a new generation that finishes the job."""
+    from elasticdl_tpu_torch.chaos.harness import ChaosJobConfig, master_flags
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+    from elasticdl_tpu_torch.master.journal import journal_path
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+
+    config = ChaosJobConfig(
+        builtin_plans(ELASTIC_WORKERS)["slice_loss_mid_epoch"], work_dir, master_ha=True,
+        num_slices=2,
+    )
+    park: dict = {}
+
+    def grant_after_park(master):
+        def watch():
+            deadline = time.monotonic() + 300.0
+            while not master._parked and time.monotonic() < deadline:
+                if master.task_d.finished():
+                    return
+                time.sleep(0.05)
+            if not master._parked:
+                return
+            park.update(
+                parked_at=time.monotonic(), quiesced=master.servicer.is_quiescing,
+                workers_while_parked=master.instance_manager.worker_ids(),
+                generation=master.servicer.cluster_version,
+            )
+            time.sleep(SLICE_GRANT_SECS)
+            master.instance_manager.set_world_slices(2)
+            master.request_reform("capacity_grant")
+            park["granted_at"] = time.monotonic()
+
+        threading.Thread(target=watch, name="phase15c-grant", daemon=True).start()
+
+    run = _distributed_run(
+        cfg, data, device, work_dir, "park_grant", plan=config.plan,
+        extra=(*master_flags(config), "--min_slices", "2"), on_build=grant_after_park,
+    )
+    events, row, master = run["events"], dict(run["row"]), run["master"]
+    worlds = [r for r in read_jsonl(journal_path(config.journal_dir)) if r.get("kind") == "world"]
+    row.update(
+        slice_loss=_observed(events, "slice_loss"), park=park,
+        journaled_parked_worlds=[
+            {k: w.get(k) for k in ("cluster_version", "worker_ids", "num_slices", "parked")}
+            for w in worlds if w.get("parked")
+        ],
+        generation=master.servicer.cluster_version,
+        unparked_secs=(
+            master.reform_events[0]["detected_at"] - park["parked_at"]
+            if master.reform_events and "parked_at" in park else None
+        ),
+        accuracy=_evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"]),
+    )
+    print(json.dumps({"slices_park_grant": row}), flush=True)
+    return row
+
+
+def autoscale_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """Phase 15d: two ranks in two slices (``--num_slices 2``, no standbys)
+    started on one slice (the harness's ``initial_slices=1``), with
+    ``AUTOSCALE_FLAGS``: the backlog grows the world to both slices."""
+    from elasticdl_tpu_torch.chaos.harness import ChaosJobConfig, master_flags
+    from elasticdl_tpu_torch.chaos.plan import builtin_plans
+
+    config = ChaosJobConfig(
+        builtin_plans(ELASTIC_WORKERS)["none"], work_dir, num_slices=2, initial_slices=1,
+    )
+
+    def start_small(master):
+        master.instance_manager.set_world_slices(config.initial_slices)
+
+    run = _distributed_run(
+        cfg, data, device, work_dir, "autoscale", plan=config.plan,
+        extra=(*master_flags(config), *AUTOSCALE_FLAGS), on_build=start_small,
+    )
+    row, master = dict(run["row"]), run["master"]
+    row.update(
+        decisions=list(master.autoscaler.decisions) if master.autoscaler else [],
+        decision_events=_observed(run["events"], "autoscale_decision"),
+        mesh_resize=_observed(run["events"], "mesh_resize"),
+        worlds=[len(w) for w in run["built"]["worlds"]],
+        accuracy=_evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"]),
+    )
+    print(json.dumps({"slices_autoscale": row}), flush=True)
+    return row
+
+
+def check_slices_case(case: str, row: dict, cfg: dict) -> list:
+    """Phase 15's gates on one job's row; the failures, or []."""
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(what)
+
+    need(row.get("rc") == 0, "rc 0")
+    need(not row.get("violations"), "no invariant violation")
+    need(row.get("total_records") == cfg["train_records"] * cfg["epochs"], "every record once")
+    acc = row.get("accuracy")
+    need(acc is not None and acc >= cfg["min_accuracy"], "accuracy from the Local evaluate")
+    need(row.get("dumps_bitwise_equal") is True, "the last world's ranks bitwise equal")
+    reforms = row.get("reform_events") or []
+    if case == "standby":
+        need(len(reforms) == 1 and (row.get("reform_latency_secs") or 0) > 0,
+             "one re-formation, its latency measured")
+        need((row.get("fired") or [])[:1] == [f"preempt-p{ELASTIC_WORKERS - 1}"], "the preemption fired")
+        need(row.get("standby_activations") == ELASTIC_WORKERS, "both processes from the pool")
+        pids = row.get("activated_pids") or []
+        need(len(pids) == ELASTIC_WORKERS and pids == row.get("reformed_world_pids"),
+             "the re-formed world's pids are the pool's")
+        split = row.get("reform_split") or {}
+        need(all(isinstance(split.get(k), (int, float)) and split[k] >= 0
+                 for k in ("assignment_secs", "rendezvous_secs", "restore_secs")),
+             "the re-formation split measured")
+    elif case == "slice_loss":
+        losses = row.get("slice_loss") or []
+        need(len(losses) == 1 and losses[0].get("lost_slices") == [1]
+             and losses[0].get("parked") is False, "one slice_loss of slice 1, not parked")
+        resize = row.get("mesh_resize") or []
+        need(len(resize) == 1 and (resize[0].get("old_slices"), resize[0].get("new_slices")) == (2, 1)
+             and (resize[0].get("old_world_size"), resize[0].get("new_world_size")) == (SLICE_WORKERS, 2),
+             "a mesh_resize from 2 to 1 slices and from 4 to 2 processes")
+        need(len(reforms) == 1 and row.get("world_after") == 2, "one re-formation into two processes")
+        inv = {i["name"]: i["status"] for i in row.get("invariants") or []}
+        need(inv.get("cross_slice_replica_coverage") == "PASS", "cross_slice_replica_coverage PASS")
+        need((row.get("no_lost_steps") or {}).get("status") == "PASS", "replication_no_lost_steps PASS")
+        need(str(row.get("restored_from", "")).startswith("replica@"), "restored from peer RAM")
+    elif case == "park_grant":
+        losses = row.get("slice_loss") or []
+        need(len(losses) == 1 and losses[0].get("lost_slices") == [1] and losses[0].get("parked") is True,
+             "slice 1's loss parked the job")
+        park = row.get("park") or {}
+        need(park.get("quiesced") is True and park.get("workers_while_parked") == [],
+             "parked: world torn down, quiesced")
+        parked = row.get("journaled_parked_worlds") or []
+        need(len(parked) == 1 and parked[0].get("worker_ids") == [] and parked[0].get("num_slices") == 1,
+             "parked in the journaled world")
+        need([e.get("reason") for e in reforms] == ["capacity_grant"], "one re-formation, the grant's")
+        need(len(reforms) == 1 and reforms[0].get("cluster_version") == 2
+             and (park.get("generation") or 0) == 1, "the grant's world a new generation past the park's")
+        need((row.get("unparked_secs") or 0) >= SLICE_GRANT_SECS, "the grant after the park")
+    elif case == "autoscale":
+        decisions = row.get("decisions") or []
+        need(len(decisions) == 1 and decisions[0].get("action") == "grow"
+             and (decisions[0].get("from_slices"), decisions[0].get("to_slices")) == (1, 2),
+             "one autoscale decision, 1 -> 2 slices")
+        need(len(row.get("decision_events") or []) == 1, "the decision in the event log")
+        need(len(reforms) == 1 and str(reforms[0].get("reason", "")).startswith("autoscale:"),
+             "a re-formation realizing it")
+        resize = row.get("mesh_resize") or []
+        need(len(resize) == 1 and (resize[0].get("old_slices"), resize[0].get("new_slices")) == (1, 2),
+             "the world resized from 1 to 2 slices")
+        need(row.get("worlds") == [ELASTIC_WORKERS], "the grown world has both processes")
+    return bad
+
+
+def check_slices(report: dict, cfg: dict = SLICE_MNIST) -> None:
+    """Every case of phase 15 the report ran, each passing its gates
+    (``standby`` is left out only where the report says so)."""
+    cases = [c for c in SLICE_CASES if c != "standby" or not report.get("without_standby")]
+    missing = [case for case in cases if case not in report]
+    bad = {case: check_slices_case(case, report[case], cfg) for case in cases if case in report}
+    bad = {case: b for case, b in bad.items() if b}
+    if missing or bad:
+        raise AssertionError(f"phase 15 failed: missing {missing}, gates {bad}")
+
+
+def slices_phase(
+    work_dir: str, cfg: dict = SLICE_MNIST, device: str = "cuda", data=None, cold=None,
+    with_standby: bool = True,
+) -> dict:
+    """Phase 15: 15a (standbys) alone, its re-formation timed beside phase
+    10a's; then 15b (the slice loss), 15c (park and grant) and 15d (the
+    autoscale grow) side by side.  ``with_standby=False`` leaves 15a out
+    (its CPU rehearsal is ``tests/test_torch_standby.py``'s)."""
+    t0 = time.monotonic()
+    data = data or _zoo_data(os.path.join(work_dir, "data"), cfg)
+    report: dict = {}
+    _release_memory(device)
+    if with_standby:
+        report["standby"] = standby_run(os.path.join(work_dir, "standby"), cfg, data, device, cold)
+    else:
+        report["without_standby"] = True
+    jobs = dict(
+        slice_loss=lambda: slice_loss_run(os.path.join(work_dir, "slice_loss"), cfg, data, device),
+        park_grant=lambda: park_grant_run(os.path.join(work_dir, "park_grant"), cfg, data, device),
+        autoscale=lambda: autoscale_run(os.path.join(work_dir, "autoscale"), cfg, data, device),
+    )
+    if device == "cuda":
+        jobs["worker_start_probe"] = _worker_start_probe
+    report.update(_beside(**jobs))
+    report["secs"] = time.monotonic() - t0
+    check_slices(report, cfg)
+    return report
+
+
+class _PhaseClock:
+    """Each phase's wall seconds, from the end of the one before."""
+
+    def __init__(self):
+        self.secs: dict = {}
+        self._last = STARTED_AT
+
+    def done(self, name: str):
+        now = time.monotonic()
+        self.secs[name] = now - self._last
+        self._last = now
+        log(f"phase {name}: {self.secs[name]:.1f} s ({now - STARTED_AT:.1f} s in all)")
+
+    def line(self) -> dict:
+        return {"phase_secs": dict(self.secs, total=time.monotonic() - STARTED_AT)}
+
+
 def main() -> int:
+    phases = _PhaseClock()
     try:
         import torch
     except ImportError as ex:
@@ -4665,6 +5112,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device_name = torch.cuda.get_device_name(0)
+    phases.done("1_device")
 
     # ---- 2. build
     t0 = time.monotonic()
@@ -4673,10 +5121,13 @@ def main() -> int:
     for name, text in _build.build_logs.items():
         log(f"--- nvcc {name}.cu\n{text}")
     kernel_build_report(_build, ["flash_fwd", "flash_bwd"])
+    phases.done("2_build")
 
     # ---- 3. kernels against their plain versions
     flash = check_flash_cases()
+    phases.done("3_kernels")
     backward = check_backward_cases()
+    phases.done("3b_backward")
 
     # ---- 4. the serving path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as model_dir:
@@ -4684,9 +5135,11 @@ def main() -> int:
         build_export(model_dir)
         print(json.dumps({"export_secs": time.monotonic() - t0}), flush=True)
         serve_launches = serve_lm(model_dir)
+    phases.done("4_serve")
 
     # ---- 5. the training path
     train_launches, bare_tokens_per_s = train_lm()
+    phases.done("5_train")
 
     # ---- 6. the train CLI (Local strategy), after phase 5's trainer and
     # its Adam state are freed
@@ -4698,6 +5151,7 @@ def main() -> int:
         "serve": {"flash_fwd": serve_launches}, "train": train_launches,
         "local_train": local_launches,
     }}), flush=True)
+    phases.done("6_local_train")
 
     # ---- 7. mnist through the train CLI, after phase 6's LM is freed
     gc.collect()
@@ -4705,12 +5159,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as work_dir:
         mnist_train = train_zoo_model(work_dir, MNIST)
         print(json.dumps({"mnist_train": mnist_train}), flush=True)
+    phases.done("7_mnist")
 
     # ---- 8. DeepFM through the train CLI
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_deepfm_") as work_dir:
         print(json.dumps({"deepfm_train": train_deepfm(work_dir)}), flush=True)
+    phases.done("8_deepfm")
 
     # ---- 9. stacked steps (one CUDA graph replay per group), remat and
     # the device pipeline through the train CLI
@@ -4734,11 +5190,13 @@ def main() -> int:
         )
     stacked_launches = stacked["lm"]["checked"]["launches"]
     print(json.dumps({"stacked": stacked}), flush=True)
+    phases.done("9_stacked")
 
     # ---- 10. AllreduceStrategy: two worker processes under the port's
     # master, a preemption and the re-formed world, through the train CLI
     elastic_rows = {"device": smi}
-    # phase 10's mnist shards, made once: phases 12 and 14 train on them too
+    # phase 10's mnist shards, made once: phases 12, 14 and 15 train on
+    # them too
     mnist_shards_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_shards_")
     mnist_shards = _zoo_data(mnist_shards_dir.name, ELASTIC_MNIST)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as work_dir:
@@ -4746,17 +5204,22 @@ def main() -> int:
         mnist_dir = os.path.join(work_dir, "mnist")
         mnist_run = elastic_preempt_run(mnist_dir, ELASTIC_MNIST, data=mnist_shards)
         elastic_rows["mnist_preempt"] = mnist_run["row"]
-        elastic_rows["deepfm_preempt"] = elastic_preempt_run(
-            os.path.join(work_dir, "deepfm"), ELASTIC_DEEPFM
-        )["row"]
-        elastic_rows["mnist_parity"] = elastic_parity_run(
-            os.path.join(work_dir, "parity"), ELASTIC_MNIST, mnist_run["data"],
-            mnist_run["ckpt"],
+        # 10b's worlds beside 10c's spawned ranks: each job leaves the
+        # card idle while its processes start (10a ran alone: its rate and
+        # cold re-formation are phases 14's and 15's yardsticks)
+        beside = _beside(
+            deepfm=lambda: elastic_preempt_run(os.path.join(work_dir, "deepfm"), ELASTIC_DEEPFM),
+            dp_lm=dp_lm_run,
+            parity=lambda: elastic_parity_run(
+                os.path.join(work_dir, "parity"), ELASTIC_MNIST, mnist_run["data"],
+                mnist_run["ckpt"],
+            ),
         )
-    _release_memory("cuda")
-    dp_lm = dp_lm_run()
-    elastic_rows["dp_lm"] = dp_lm
+        elastic_rows["deepfm_preempt"] = beside["deepfm"]["row"]
+        dp_lm = elastic_rows["dp_lm"] = beside["dp_lm"]
+        elastic_rows["mnist_parity"] = beside["parity"]
     print(json.dumps({"elastic": elastic_rows}), flush=True)
+    phases.done("10_elastic")
 
     # ---- 11. evaluate and predict in distributed jobs: the master's
     # evaluation service, the lockstep worker's evaluation and prediction
@@ -4764,38 +5227,54 @@ def main() -> int:
     eval_rows = {"device": smi}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work_dir:
         _release_memory("cuda")
-        mnist_eval = eval_preempt_run(os.path.join(work_dir, "mnist"), EVAL_MNIST)
-        eval_rows["mnist_eval_preempt"] = mnist_eval["row"]
-        eval_rows["mnist_evaluate_predict"] = eval_predict_run(
-            os.path.join(work_dir, "mnist_ep"), EVAL_MNIST, mnist_eval["data"],
-            mnist_eval["ckpt"], mnist_eval["final"],
+
+        def mnist_eval_jobs():
+            mnist_eval = eval_preempt_run(os.path.join(work_dir, "mnist"), EVAL_MNIST)
+            eval_rows["mnist_eval_preempt"] = mnist_eval["row"]
+            eval_rows["mnist_evaluate_predict"] = eval_predict_run(
+                os.path.join(work_dir, "mnist_ep"), EVAL_MNIST, mnist_eval["data"],
+                mnist_eval["ckpt"], mnist_eval["final"],
+            )
+
+        # 11a-b's mnist worlds, 11c's DeepFM task stream and the LM's
+        # jobs side by side
+        beside = _beside(
+            mnist=mnist_eval_jobs,
+            deepfm=lambda: task_stream_zoo_run(os.path.join(work_dir, "deepfm"), TS_DEEPFM),
+            lm=lambda: task_stream_lm_run(os.path.join(work_dir, "lm")),
         )
-        eval_rows["deepfm_task_stream"] = task_stream_zoo_run(
-            os.path.join(work_dir, "deepfm"), TS_DEEPFM
-        )
-        _release_memory("cuda")
-        eval_lm = task_stream_lm_run(os.path.join(work_dir, "lm"))
-        eval_rows["lm"] = eval_lm
+        eval_rows["deepfm_task_stream"] = beside["deepfm"]
+        eval_lm = eval_rows["lm"] = beside["lm"]
     print(json.dumps({"evaluate_predict": eval_rows}), flush=True)
+    phases.done("11_evaluate_predict")
 
     # ---- 12. peer replication and hot restore: the re-formed world
     # resumes from peer host RAM at the last replicated step
     replica_rows = {"device": smi}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as work_dir:
         _release_memory("cuda")
-        hot = replica_preempt_run(os.path.join(work_dir, "hot"), REPLICA_MNIST, data=mnist_shards)
-        replica_rows["hot_restore"] = hot["row"]
-        replica_rows["torn_push"] = replica_torn_run(
-            os.path.join(work_dir, "torn"), REPLICA_MNIST, hot["data"]
+        # 12a-b's mnist worlds beside 12d's LM world; 12c's timed runs
+        # alone
+        beside = _beside(
+            hot=lambda: replica_preempt_run(
+                os.path.join(work_dir, "hot"), REPLICA_MNIST, data=mnist_shards
+            ),
+            torn=lambda: replica_torn_run(
+                os.path.join(work_dir, "torn"), REPLICA_MNIST, mnist_shards
+            ),
+            lm=lambda: replica_lm_run(os.path.join(work_dir, "lm")),
         )
+        hot = beside["hot"]
+        replica_rows["hot_restore"] = hot["row"]
+        replica_rows["torn_push"] = beside["torn"]
+        replica_lm = replica_rows["lm"] = beside["lm"]
+        _release_memory("cuda")
         replica_rows["costs"] = replica_cost_run(
             os.path.join(work_dir, "cost"), REPLICA_MNIST, hot["data"], hot["row"],
             elastic_rows["mnist_preempt"],
         )
-        _release_memory("cuda")
-        replica_lm = replica_lm_run(os.path.join(work_dir, "lm"))
-        replica_rows["lm"] = replica_lm
     print(json.dumps({"replication": replica_rows}), flush=True)
+    phases.done("12_replication")
 
     # ---- 13. the rest of the single-device zoo: ResNet-50 at bench.py's
     # headline width and step through the train CLI, the imagenet shape
@@ -4811,6 +5290,7 @@ def main() -> int:
         zoo_rows["rest"] = train_zoo_rest(os.path.join(work_dir, "rest"))
     zoo_rows["secs"] = time.monotonic() - t13
     print(json.dumps({"zoo": zoo_rows}), flush=True)
+    phases.done("13_zoo")
 
     # ---- 14. the master journal and master high availability: a killed
     # master relaunched from --master_journal_dir, its workers re-homed
@@ -4819,8 +5299,16 @@ def main() -> int:
             work_dir, rate_10a=elastic_rows["mnist_preempt"]["steady_records_per_s"],
             data=mnist_shards,
         )
-    mnist_shards_dir.cleanup()
     print(json.dumps({"master_ha": {"device": smi, **ha_rows}}), flush=True)
+    phases.done("14_master_ha")
+
+    # ---- 15. hot standbys, slice-granular elasticity and parking, and
+    # the autoscaler
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slices_") as work_dir:
+        slice_rows = slices_phase(work_dir, data=mnist_shards, cold=elastic_rows["mnist_preempt"])
+    mnist_shards_dir.cleanup()
+    print(json.dumps({"slices": {"device": smi, **slice_rows}}), flush=True)
+    phases.done("15_slices")
 
     def row(name, source, replaces, measured):
         return {
@@ -4846,6 +5334,7 @@ def main() -> int:
         row("flash_bwd_dq", "flash_bwd.cu", 261, train_case["flash_bwd_dq"]),
         row("flash_bwd_dkv", "flash_bwd.cu", 335, train_case["flash_bwd_dkv"]),
     ]
+    print(json.dumps(phases.line()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -11,8 +11,9 @@ of the JAX-free part of ``elasticdl_tpu/chaos/``.
   every re-formation; and, over the event log, the JAX harness's
   ``replication_no_lost_steps``;
 - :mod:`.harness` — the harness's master lives: a job run through master
-  kills, one checker spanning every life, and the ``master_recovery``
-  invariant.
+  kills and capacity faults, one checker spanning every life, and the
+  ``master_recovery``, ``cross_slice_replica_coverage`` and capacity
+  invariants.
 
 The rest of the harness, the runner CLI and the network shim come with
 slice 6b-2d.

@@ -84,6 +84,10 @@ def build_master(args) -> Master:
             # the task-stream worker
             lockstep=args.num_workers > 1,
             max_reforms=args.relaunch_on_worker_failure,
+            # -1: a warm standby per process of a lockstep world
+            standby_workers=args.standby_workers,
+            # the fleet split into slices; None is one slice
+            num_slices=args.num_slices or 1,
         )
 
     return Master(args, instance_manager_factory=im_factory)

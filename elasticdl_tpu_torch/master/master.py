@@ -43,13 +43,31 @@ with SIGKILL semantics (the chaos harness's master kill).  The restart
 and each re-home go to the chaos event log (``ELASTICDL_TPU_CHAOS_EVENTS``
 in ``--envs``), where the JAX package writes them to its telemetry.
 
-Left out until the slices that bring them: hot standbys, slices and
-parking, the autoscaler, SLOs, streaming and live push, the TensorBoard
-service, and telemetry.
+A lockstep job keeps warm standby processes (``--standby_workers``,
+``-1``: one per process of the world), and a re-formed world is handed
+to them before any process is cold-started.  With ``--num_slices S``
+the fleet splits into slices (``parallel/mesh.py::slice_assignments``):
+a re-formation after a whole slice died shrinks the next world to the
+surviving slices (:meth:`Master._plan_slice_topology`), and below
+``--min_slices`` the job parks (:meth:`Master._park`): the world is
+torn down and the master waits quiesced until a capacity grant
+(``set_world_slices`` and ``request_reform``) or an autoscale grow
+re-forms it.  With an ``--autoscale_*`` SLO the run loop asks
+``master/autoscaler.py`` for a decision at every tick.  The slice loss,
+the resize of the world (``mesh_resize``) and each autoscale decision go
+to the chaos event log, as the restart and re-homes do.  A master
+restored from a journal keeps the slice map and the parked flag, and
+refills its pool with its next world.
+
+Left out until the slices that bring them: the device mesh's DCN
+planning (slice 8: the port's world is one flat process group), the
+streaming backlog (slice 9), SLOs, live push, the TensorBoard service
+and telemetry (slice 10).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import subprocess
@@ -67,6 +85,16 @@ from elasticdl_tpu_torch.utils.args import derive_job_type
 from elasticdl_tpu_torch.utils.constants import JobType, TaskType
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+
+# how long a re-formation's standby refill waits for the new world's
+# first step-task pull before it spawns anyway
+STANDBY_REFILL_WAIT_SECS = 60.0
+# how long a death in a multi-slice world waits for the rest of its slice
+# to be seen dead: a slice's processes die within moments of each other,
+# and a poll that fell between two of them would take a slice loss for a
+# crash of one process
+SLICE_DEATH_SETTLE_SECS = 2.0
 
 
 class SimulatedMasterCrash(BaseException):
@@ -173,6 +201,24 @@ class Master:
         self.instance_manager = (
             instance_manager_factory(self) if instance_manager_factory else None
         )
+        # slice-granular elasticity and the autoscaler (off by default:
+        # with no --num_slices, --min_slices or --autoscale_* flag every
+        # path below is dormant)
+        self._min_slices = args.min_slices or 1
+        # parked: below --min_slices, tasks re-queued and fenced, no world
+        # running, the master waiting quiesced for a capacity grant
+        self._parked = False
+        # the replica stage harvested at the park, held for the world
+        # that un-parks (it restores from peer RAM all the same)
+        self._parked_stage: dict | None = None
+        from elasticdl_tpu_torch.master.autoscaler import build_autoscaler
+
+        self.autoscaler = build_autoscaler(
+            args, getattr(self.instance_manager, "fleet_slices", 1)
+        )
+        if self.autoscaler is not None:
+            # the p95 step time rides the version reports
+            self.servicer.add_version_observer(self.autoscaler.note_version)
         # master high availability (off by default: with no
         # --master_journal_dir no journal exists, no address file is
         # written and heartbeats carry no boot id)
@@ -257,6 +303,12 @@ class Master:
         if world:
             self._restored_world = world
             self._rehome_pending = set(world["worker_ids"])
+            if world.get("parked"):
+                # the previous life parked below --min_slices: this one
+                # comes back parked (prepare() starts no world; the parked
+                # replica stage died with the old master's RAM, so the
+                # world that un-parks restores from disk)
+                self._parked = True
         # the staged replica payload was the previous life's RAM and died
         # with it: a complete stage for a still-restoring generation means
         # those workers now take the disk fallback
@@ -334,9 +386,14 @@ class Master:
             "cluster_version": self.servicer.cluster_version,
             "worker_ids": sorted(ids),
             "world_size": getattr(im, "world_size", len(ids)),
-            "num_slices": 1,
-            "slices": {},
-            "parked": False,
+            "num_slices": getattr(im, "world_num_slices", 1),
+            "slices": {
+                str(k): int(v)
+                for k, v in (im.worker_slices() if hasattr(im, "worker_slices") else {}).items()
+            },
+            # a restarted master comes back parked, and does not relaunch
+            # a fleet the capacity cannot run
+            "parked": self._parked,
         }
         self._restored_world = world
         if self.journal is not None:
@@ -452,12 +509,32 @@ class Master:
             # start a second world on top of it; the grace deadline
             # recovers whatever never comes back
             im.reserve_worker_ids(max(rehome_wait) + 1)
+            restored = self._restored_world or {}
+            if restored.get("num_slices", 1) > 1 and hasattr(im, "set_world_slices"):
+                im.set_world_slices(restored["num_slices"])
+            elif "world_size" in restored and hasattr(im, "set_world_size"):
+                im.set_world_size(restored["world_size"])
+            if restored.get("slices") and hasattr(im, "restore_worker_slices"):
+                # the re-homed world keeps its slice map, so that a slice
+                # loss after the restart still shrinks it right
+                im.restore_worker_slices(restored["slices"])
             grace = self._args.rehome_grace_secs
             if grace is None:
                 grace = max(10.0, 3.0 * self._heartbeat_timeout_secs)
             self._rehome_deadline = time.monotonic() + grace
             logger.warning(
                 "Waiting up to %.1fs for workers %s to re-home", grace, rehome_wait
+            )
+        elif self._restored and self._parked:
+            # restored PARKED: relaunching the fleet would crash-loop on
+            # capacity that is not there; a capacity grant or an autoscale
+            # grow un-parks
+            if hasattr(im, "set_world_slices"):
+                im.set_world_slices((self._restored_world or {}).get("num_slices", 1))
+            self.servicer.begin_quiesce()
+            logger.warning(
+                "Master restored PARKED (capacity below --min_slices %d); waiting "
+                "quiesced for a capacity grant", self._min_slices,
             )
         else:
             im.start_workers()
@@ -510,7 +587,22 @@ class Master:
                 elif self._reform_requested is not None:
                     with self._reform_request_lock:
                         reason, self._reform_requested = self._reform_requested, None
-                    self._reform_lockstep([], reason=reason)
+                    im = self.instance_manager
+                    target = getattr(im, "world_size", None)
+                    if target is not None and len(im.worker_ids()) == target:
+                        # a failure's re-formation between the request and
+                        # this tick already made a world of the target
+                        # size: another would be pure downtime
+                        logger.info(
+                            "Skipping elective re-formation (%s): world already "
+                            "at target size", reason,
+                        )
+                    else:
+                        self._reform_lockstep([], reason=reason)
+                if self.autoscaler is not None and not dead:
+                    # the autoscaler only requests a resize; the next tick
+                    # performs it through the elective path above
+                    self._autoscale_tick()
                 if self.relaunch_events and "latency_secs" not in self.relaunch_events[-1]:
                     # relaunch latency: detection to the new worker's
                     # first task lease
@@ -544,7 +636,7 @@ class Master:
         leases and relaunch it under a new id."""
         im = self.instance_manager
         if im is not None and im.lockstep:
-            self._reform_lockstep(dead, reason="worker_failure")
+            self._reform_lockstep(self._settle_slice_deaths(dead), reason="worker_failure")
             return
         for worker_id in dead:
             detected_at = time.monotonic()
@@ -569,9 +661,25 @@ class Master:
 
     def _reform_lockstep(self, dead: list[int], reason: str):
         """Fence, recover, relaunch: the whole-world re-formation.
-        ``dead`` may be empty (an elective re-formation)."""
+        ``dead`` may be empty (an elective re-formation).
+
+        On a multi-slice fleet a whole slice's death shrinks the next
+        world to the surviving slices, a capacity grant grows it back,
+        and a shrink below ``--min_slices`` parks the job instead of
+        relaunching."""
         im = self.instance_manager
         t0 = time.monotonic()
+        if self._parked and not dead:
+            target = getattr(im, "world_num_slices", 1)
+            if target < self._min_slices:
+                # parked below the floor: only a request that restores at
+                # least --min_slices relaunches a world
+                logger.warning(
+                    "Job parked below --min_slices %d; ignoring re-formation "
+                    "request (%s) targeting %d slice(s)",
+                    self._min_slices, reason, target,
+                )
+                return
         logger.warning(
             "Re-forming the distributed world (%s; dead workers: %s)",
             reason, dead or "none",
@@ -587,11 +695,21 @@ class Master:
         # fence FIRST: from here every stale worker's get_step_task is
         # refused, so none can lease a task we are about to recover
         new_version = self.servicer.bump_cluster_version()
+        all_ids = set(dead) | set(im.worker_ids())
+        old_world_size = len(all_ids)
+        worker_slices = im.worker_slices() if hasattr(im, "worker_slices") else {}
+        # the LIVE world's slice count comes from its slice map ({}: one
+        # slice); world_num_slices is the NEXT world's, which a capacity
+        # grant or an autoscale decision has moved already
+        old_slices = len(set(worker_slices.values())) or 1
+        # a fully dead slice is lost capacity: the next world shrinks to
+        # the surviving slices, and parks below --min_slices
+        park = self._plan_slice_topology(new_version, dead, old_slices, worker_slices, t0)
         # harvest the survivors' replica shards BEFORE the loop below
         # forgets them (the directory drops their addresses) and before
-        # reform_world kills them (their RAM dies with them)
-        harvest = self._stage_replica_restore(new_version, dead)
-        for worker_id in set(dead) | set(im.worker_ids()):
+        # the relaunch kills them (their RAM dies with them)
+        harvest = self._stage_replica_restore(new_version, dead, old_world_size)
+        for worker_id in all_ids:
             self.task_d.recover_tasks(worker_id)
             self.servicer.forget_worker(worker_id)
         self.servicer.reset_step_stream()
@@ -599,6 +717,17 @@ class Master:
         # journaled, old world fenced and its tasks recovered, no new
         # world launched yet
         self._crash_if_armed("reform")
+        if park:
+            self._park(new_version, reason)
+            self._notify_reform(new_version, dead, reason)
+            return
+        new_world_size = getattr(im, "world_size", old_world_size)
+        new_slices = getattr(im, "world_num_slices", old_slices)
+        if new_world_size != old_world_size or new_slices != old_slices:
+            self._record_event(
+                "mesh_resize", generation=new_version, old_world_size=old_world_size,
+                new_world_size=new_world_size, old_slices=old_slices, new_slices=new_slices,
+            )
         try:
             im.reform_world(
                 new_version,
@@ -610,6 +739,14 @@ class Master:
             self._job_failed = True
             self.request_stop()
             return
+        if self._parked:
+            # a world runs again: a capacity grant or an autoscale grow
+            # ended the park
+            self._parked = False
+            self.servicer.clear_quiesce()
+            logger.warning("Job UNPARKED: world relaunched with %d slice(s)", new_slices)
+        if self.autoscaler is not None:
+            self.autoscaler.note_reform()
         self._record_world()
         event = {
             "detected_at": t0,
@@ -620,33 +757,165 @@ class Master:
         if harvest is not None:
             event["harvest"] = harvest
         self.reform_events.append(event)
+        self._notify_reform(new_version, dead, reason)
+
+    def _notify_reform(self, new_version: int, dead: list[int], reason: str):
         for callback in self.reform_callbacks:
             try:
                 callback(new_version, sorted(dead), reason)
             except Exception:  # noqa: BLE001 — observers never break recovery
                 logger.exception("Reform callback failed")
 
-    def _stage_replica_restore(self, new_version: int, dead: list[int]) -> dict | None:
+    def _settle_slice_deaths(self, dead: list[int]) -> list[int]:
+        """``dead`` and the deaths that follow it within
+        ``SLICE_DEATH_SETTLE_SECS`` while a slice of a multi-slice world
+        is dead in part: the rest of a lost slice is then counted with
+        it.  A world of one slice, or a death that leaves no slice in
+        part, returns at once."""
+        im = self.instance_manager
+        slices = im.worker_slices() if hasattr(im, "worker_slices") else {}
+        if len(set(slices.values())) <= 1:
+            return dead
+        dead_set = set(dead)
+        deadline = time.monotonic() + SLICE_DEATH_SETTLE_SECS
+
+        def partial():
+            return any(
+                {w in dead_set for w, ws in slices.items() if ws == s} == {True, False}
+                for s in set(slices.values())
+            )
+
+        while partial() and time.monotonic() < deadline:
+            time.sleep(0.05)
+            dead_set.update(w for w in im.poll_failed_workers() if w in slices)
+        return sorted(dead_set)
+
+    def _plan_slice_topology(
+        self, new_version: int, dead: list[int], old_slices: int,
+        worker_slices: dict[int, int], detected_at: float,
+    ) -> bool:
+        """Slice-loss accounting: slices whose EVERY process died are lost
+        capacity, and the next world shrinks to the survivors.  A slice
+        that died in part is a software crash (its capacity presumed
+        intact): the world relaunches at full size.  True when the shrink
+        falls below ``--min_slices`` (the caller parks instead)."""
+        if not dead or old_slices <= 1 or not worker_slices:
+            return False
+        dead_set = set(dead)
+        lost = sorted(
+            {
+                s for s in set(worker_slices.values())
+                if all(w in dead_set for w, ws in worker_slices.items() if ws == s)
+            }
+        )
+        if not lost:
+            return False
+        if len(lost) >= old_slices:
+            # the whole world died at once: not told apart from a
+            # deterministic crash, so relaunch at full size (the budget
+            # bounds a crash loop) rather than shrink to nothing
+            logger.warning(
+                "All %d slices report dead; treating as a whole-world crash "
+                "(full-size relaunch), not a capacity loss", old_slices,
+            )
+            return False
+        new_slices = old_slices - len(lost)
+        park = new_slices < self._min_slices
+        self._record_event(
+            "slice_loss", generation=new_version, lost_slices=lost,
+            dead_workers=sorted(dead), old_slices=old_slices, new_slices=new_slices,
+            parked=park, detected_at=detected_at,
+        )
+        logger.warning(
+            "Slice loss: slice(s) %s fully dead; shrinking the next world from %d "
+            "to %d slice(s)%s", lost, old_slices, new_slices,
+            " (BELOW --min_slices: parking)" if park else "",
+        )
+        im = self.instance_manager
+        if hasattr(im, "set_world_slices"):
+            im.set_world_slices(max(1, new_slices))
+        return park
+
+    def _park(self, new_version: int, reason: str):
+        """Graceful degradation: the surviving capacity is below
+        ``--min_slices``.  Tear the world down (its tasks are re-queued
+        and its generation fenced already), hold the harvested replica
+        stage for the world that un-parks, and wait quiesced."""
+        self._parked = True
+        # the stage was made for THIS generation, which will never run:
+        # the master keeps it, and the un-parking re-formation re-stamps it
+        self._parked_stage = self.servicer.take_restore_stage()
+        self.servicer.begin_quiesce()
+        im = self.instance_manager
+        if hasattr(im, "teardown_world"):
+            im.teardown_world(budget=False)
+        else:  # no teardown of its own: a hard stop is the nearest
+            im.stop_workers(grace_secs=0.0)
+        if self.autoscaler is not None:
+            self.autoscaler.note_reform()
+        self._record_world()
+        logger.warning(
+            "Job PARKED quiesced (generation %d, %s): surviving capacity is below "
+            "--min_slices %d; waiting for a capacity grant",
+            new_version, reason, self._min_slices,
+        )
+
+    def _autoscale_tick(self):
+        """Run-loop tick: the autoscaler's decision becomes a resize of
+        the next world and an elective re-formation request."""
+        im = self.instance_manager
+        if im is None or not getattr(im, "lockstep", False):
+            return
+        snap = self.task_d.snapshot()
+        backlog = snap["pending"] + snap["pending_eval"]
+        decision = self.autoscaler.evaluate(backlog, getattr(im, "world_num_slices", 1))
+        if decision is None:
+            return
+        if hasattr(im, "set_world_slices"):
+            im.set_world_slices(decision["to_slices"])
+        self._record_event(
+            "autoscale_decision", generation=self.servicer.cluster_version, **decision
+        )
+        logger.warning(
+            "Autoscale %s: %d -> %d slice(s) (%s)", decision["action"],
+            decision["from_slices"], decision["to_slices"], decision["reason"],
+        )
+        self.request_reform(f"autoscale:{decision['action']}")
+
+    def _stage_replica_restore(
+        self, new_version: int, dead: list[int], old_world_size: int
+    ) -> dict | None:
         """Harvest the freshest complete replica set from the surviving
         workers' RAM and stage it for generation ``new_version``; stages
-        None (the disk fallback) when coverage is incomplete.  Returns
-        what the harvest found (``complete``, ``version``, ``bytes``,
-        ``secs``), or None when replication is off."""
+        None (the disk fallback) when coverage is incomplete.  An
+        un-parking re-formation re-stamps the stage held since the park
+        instead.  Returns what the harvest found (``complete``,
+        ``version``, ``bytes``, ``secs``), or None when replication is
+        off."""
         if self.replica_directory is None:
             return None
         t0 = time.monotonic()
-        live = [w for w in self.instance_manager.worker_ids() if w not in set(dead)]
         stage = None
-        try:
-            stage = self.replica_directory.harvest(
-                live_worker_ids=live,
-                num_sources=self.instance_manager.world_size,
-                generation=new_version - 1,
-                staged_for=new_version,
+        if self._parked_stage is not None:
+            # un-parking: the parked world's harvest waited in master RAM
+            stage = dict(self._parked_stage, generation=new_version)
+            self._parked_stage = None
+            logger.info(
+                "Unpark: serving the parked replica stage (version %s) to "
+                "generation %d", stage["version"], new_version,
             )
-        except Exception:  # noqa: BLE001 — a harvest must never take down
-            # recovery; the disk restore is always there
-            logger.exception("Replica harvest failed; disk fallback")
+        else:
+            live = [w for w in self.instance_manager.worker_ids() if w not in set(dead)]
+            try:
+                stage = self.replica_directory.harvest(
+                    live_worker_ids=live,
+                    num_sources=old_world_size,
+                    generation=new_version - 1,
+                    staged_for=new_version,
+                )
+            except Exception:  # noqa: BLE001 — a harvest must never take
+                # down recovery; the disk restore is always there
+                logger.exception("Replica harvest failed; disk fallback")
         self.servicer.set_restore_stage(stage)
         if self.journal is not None:
             # metadata only: the staged payload is master RAM and dies
@@ -676,6 +945,8 @@ class Master:
     def stop(self):
         if self.evaluation_service is not None:
             self.evaluation_service.stop()
+        # any polling standby learns that the job is over
+        self.servicer.drain_standbys()
         if self.instance_manager is not None:
             # the voluntary-exit grace only when the queue drained: on
             # failure the world hangs in collectives
@@ -795,11 +1066,21 @@ class LocalInstanceManager:
     a task-stream worker, relaunched alone under a new id
     (:meth:`restart_worker`).  Either way ``max_reforms``
     (``--relaunch_on_worker_failure``) bounds the relaunches a failure
-    may cost."""
+    may cost.
+
+    A lockstep fleet may split into ``num_slices`` slices of equal
+    process counts: worlds then resize in whole slices (a slice loss
+    shrinks the next world, a capacity grant grows it back), and each
+    process learns its slice coordinates from its world kwargs.  A
+    lockstep job keeps ``standby_workers`` warm standby processes
+    (``-1``: as many as the world has processes): each has paid its
+    imports and waits on its stdin, and a new world is handed to them
+    before any process is cold-started."""
 
     def __init__(
         self, master, num_workers: int, build_argv, envs=None,
         lockstep: bool = True, max_reforms: int = 3,
+        standby_workers: int = -1, num_slices: int = 1,
     ):
         self._master = master
         self._num_workers = num_workers
@@ -808,14 +1089,97 @@ class LocalInstanceManager:
         self._envs = dict(envs or {})
         self.lockstep = lockstep and num_workers > 1
         self._max_reforms = max_reforms
+        num_slices = max(1, int(num_slices or 1))
+        if num_slices > 1 and not self.lockstep:
+            logger.warning(
+                "--num_slices applies only to lockstep jobs (num_workers > 1); "
+                "ignoring"
+            )
+            num_slices = 1
+        if num_slices > 1 and num_workers % num_slices:
+            raise ValueError(
+                f"--num_workers {num_workers} not divisible by --num_slices "
+                f"{num_slices}: the local backend needs equal processes per slice"
+            )
+        self._fleet_slices = num_slices
+        self._procs_per_slice = num_workers // num_slices
+        self._world_slices = num_slices
+        # worker_id -> slice_id of the live world (the master's slice-loss
+        # accounting and the journal's world record read it)
+        self._worker_slices: dict[int, int] = {}
         self._reforms = 0
         self._procs: dict[int, subprocess.Popen] = {}
         self._next_worker_id = 0
         self._lock = threading.Lock()
+        # the hot-standby pool: only a lockstep world re-forms whole, so
+        # only there does a pool pay
+        if standby_workers < 0:
+            standby_workers = num_workers if self.lockstep else 0
+        if standby_workers > 0 and not self.lockstep:
+            logger.warning(
+                "--standby_workers applies only to lockstep jobs (num_workers > 1); "
+                "ignoring"
+            )
+        self._standby_target = standby_workers if self.lockstep else 0
+        self._standbys: list = []
+        self._draining = False
+        self.standby_activations = 0
+        # {"worker_id", "pid", "at"} of each activation (monotonic "at":
+        # when the assignment was written)
+        self.activations: list[dict] = []
+        # the size of the next world: a slice loss or a capacity fault
+        # shrinks it below num_workers
+        self._world_size = num_workers
 
     @property
     def world_size(self) -> int:
+        return self._world_size
+
+    @property
+    def max_world_size(self) -> int:
+        """The configured fleet: what a full capacity grant grows back to."""
         return self._num_workers
+
+    @property
+    def fleet_slices(self) -> int:
+        """The slice count of the whole fleet (``--num_slices``)."""
+        return self._fleet_slices
+
+    @property
+    def world_num_slices(self) -> int:
+        """The slice count of the NEXT world (the live one's outside a
+        resize)."""
+        return self._world_slices
+
+    def set_world_size(self, n: int):
+        """Resize the NEXT world (the live one is untouched until a
+        re-formation: ``Master.request_reform``), clamped to [1,
+        num_workers].  On a multi-slice fleet the size snaps down to
+        whole slices."""
+        n = max(1, min(self._num_workers, int(n)))
+        if self._fleet_slices > 1:
+            slices = max(1, n // self._procs_per_slice)
+            self._world_slices = min(slices, self._fleet_slices)
+            n = self._world_slices * self._procs_per_slice
+        self._world_size = n
+
+    def set_world_slices(self, n: int):
+        """Resize the NEXT world in slices (a slice loss shrinks it, a
+        capacity grant grows it)."""
+        n = max(1, min(self._fleet_slices, int(n)))
+        self._world_slices = n
+        self._world_size = min(self._num_workers, n * self._procs_per_slice)
+
+    def worker_slices(self) -> dict[int, int]:
+        """worker_id -> slice_id of the live world ({} in one slice)."""
+        with self._lock:
+            return dict(self._worker_slices)
+
+    def restore_worker_slices(self, mapping: dict):
+        """Install a journal-restored world's slice map (a restarted
+        master adopts workers it never spawned)."""
+        with self._lock:
+            self._worker_slices = {int(k): int(v) for k, v in (mapping or {}).items()}
 
     def worker_ids(self) -> list[int]:
         with self._lock:
@@ -847,6 +1211,7 @@ class LocalInstanceManager:
     def start_workers(self):
         if self.lockstep:
             self._start_world(cluster_version=0)
+            self._refill_in_background()
         else:
             for _ in range(self._num_workers):
                 self._start(self._claim_worker_id())
@@ -859,18 +1224,33 @@ class LocalInstanceManager:
 
     def _start_world(self, cluster_version: int):
         from elasticdl_tpu_torch.parallel import elastic
+        from elasticdl_tpu_torch.parallel.mesh import slice_assignments
 
+        n = self._world_size
         coordinator = f"localhost:{elastic.pick_coordinator_port()}"
-        for process_id in range(self._num_workers):
-            self._start(
-                self._claim_worker_id(),
+        # slice coordinates ride the world kwargs only in a multi-slice
+        # world: a one-slice worker's argv is the slice-blind one
+        assign = slice_assignments(n, self._world_slices) if self._world_slices > 1 else None
+        with self._lock:
+            self._worker_slices = {}
+        for process_id in range(n):
+            world = dict(
                 coordinator_addr=coordinator,
-                num_processes=self._num_workers,
+                num_processes=n,
                 process_id=process_id,
                 cluster_version=cluster_version,
             )
+            if assign is not None:
+                world["slice_id"] = assign[process_id]
+                world["num_slices"] = self._world_slices
+            worker_id = self._claim_worker_id()
+            if assign is not None:
+                with self._lock:
+                    self._worker_slices[worker_id] = assign[process_id]
+            if not self._activate_standby(worker_id, world):
+                self._start(worker_id, **world)
 
-    def _start(self, worker_id: int, **world_kwargs):
+    def _spawn(self, worker_id: int, stdin_pipe: bool = False, **world_kwargs):
         argv = self._build_argv(
             worker_id, f"localhost:{self._master.port}", **world_kwargs
         )
@@ -883,10 +1263,111 @@ class LocalInstanceManager:
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (pkg_root, env.get("PYTHONPATH", "")) if p
         )
-        proc = subprocess.Popen([sys.executable, "-m", *argv], env=env)
+        return subprocess.Popen(
+            [sys.executable, "-m", *argv], env=env,
+            stdin=subprocess.PIPE if stdin_pipe else None,
+        )
+
+    def _start(self, worker_id: int, **world_kwargs):
+        proc = self._spawn(worker_id, **world_kwargs)
         with self._lock:
             self._procs[worker_id] = proc
         logger.info("Started worker %d (pid %d)", worker_id, proc.pid)
+
+    # ---- the hot-standby pool ------------------------------------------------
+
+    def _replenish_standbys(self):
+        with self._lock:
+            if self._draining:
+                return
+            # prune standbys that died waiting, so the pool cannot grow
+            # without bound across re-formations
+            self._standbys = [p for p in self._standbys if p.poll() is None]
+            missing = self._standby_target - len(self._standbys)
+        for _ in range(max(0, missing)):
+            try:
+                proc = self._spawn(0, stdin_pipe=True, standby=1)
+            except OSError:
+                # one failed spawn (descriptors, process limits) must not
+                # end the refill
+                logger.exception("Failed to spawn a standby worker; continuing")
+                continue
+            with self._lock:
+                accepted = not self._draining
+                if accepted:
+                    self._standbys.append(proc)
+            if not accepted:
+                # stop_workers ran while this one was spawned: nobody
+                # would drain it
+                _close_stdin(proc)
+                proc.kill()
+                proc.wait()
+                return
+            logger.info("Spawned standby worker (pid %d)", proc.pid)
+
+    def _refill_in_background(self, after_join: bool = False):
+        """Refill the pool off the recovery path.  ``after_join``: first
+        wait (up to ``STANDBY_REFILL_WAIT_SECS``) for the new world's
+        first step-task pull, so that the standbys' imports do not
+        compete with the world's own start on the host."""
+
+        def refill():
+            if after_join and self._master is not None:
+                deadline = time.monotonic() + STANDBY_REFILL_WAIT_SECS
+                while (
+                    self._master.servicer.first_stream_pull_at() is None
+                    and time.monotonic() < deadline
+                    and not self._draining
+                ):
+                    time.sleep(0.1)
+            self._replenish_standbys()
+
+        if self._standby_target > 0:
+            threading.Thread(target=refill, name="standby-refill", daemon=True).start()
+
+    def _activate_standby(self, worker_id: int, world: dict) -> bool:
+        """Hand a warm standby its world assignment; False when none is
+        usable (the caller cold-starts instead)."""
+        while True:
+            with self._lock:
+                if not self._standbys:
+                    return False
+                proc = self._standbys.pop(0)
+            if proc.poll() is not None:
+                continue  # died while waiting: try the next
+            try:
+                line = json.dumps({"worker_id": worker_id, **world}) + "\n"
+                proc.stdin.write(line.encode("utf-8"))
+                proc.stdin.flush()
+            except (OSError, ValueError):
+                proc.kill()
+                continue
+            with self._lock:
+                self._procs[worker_id] = proc
+                self.standby_activations += 1
+                self.activations.append(
+                    {"worker_id": worker_id, "pid": proc.pid, "at": time.monotonic()}
+                )
+            logger.info(
+                "Activated standby pid %d as worker %d (process %d/%d)",
+                proc.pid, worker_id, world["process_id"], world["num_processes"],
+            )
+            return True
+
+    def _drain_standbys(self):
+        with self._lock:
+            self._draining = True  # fences a concurrent refill
+            standbys = list(self._standbys)
+            self._standbys.clear()
+        for proc in standbys:
+            if proc.poll() is None:
+                # EOF on its stdin is a standby's clean shutdown
+                _close_stdin(proc)
+                try:
+                    proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
 
     def poll_failed_workers(self) -> list[int]:
         """Worker ids whose process exited abnormally (non-zero code or a
@@ -910,6 +1391,7 @@ class LocalInstanceManager:
         with self._lock:
             procs = list(self._procs.values())
             self._procs.clear()
+            self._worker_slices = {}
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
@@ -939,10 +1421,12 @@ class LocalInstanceManager:
         return new_id
 
     def reform_world(self, cluster_version: int, count_against_budget: bool = True):
-        """Kill the old world and launch a new one.  Survivors may be
-        blocked in a collective that will never complete, so SIGKILL.
-        The old world is always torn down; only the relaunch is subject
-        to the budget (a deterministic crash must not loop forever)."""
+        """Kill the old world and launch a new one of ``world_size``
+        processes, standbys first.  Survivors may be blocked in a
+        collective that will never complete, so SIGKILL.  The old world
+        is always torn down; only the relaunch is subject to the budget
+        (a deterministic crash must not loop forever).  The pool is
+        refilled once the new world has joined."""
         self._kill_all()
         if count_against_budget:
             self._reforms += 1
@@ -952,11 +1436,22 @@ class LocalInstanceManager:
                 f"(--relaunch_on_worker_failure limit); giving up"
             )
         self._start_world(cluster_version=cluster_version)
+        self._refill_in_background(after_join=True)
+
+    def teardown_world(self, budget: bool = False):
+        """Kill the live world WITHOUT relaunching (a park: the master
+        harvested the replicas first).  ``budget=False``: a park is not a
+        crash loop."""
+        self._kill_all()
+        if budget:
+            self._reforms += 1
 
     def stop_workers(self, grace_secs: float = 15.0):
-        """Give the workers ``grace_secs`` to exit on their own (their
-        epilogue, a final checkpoint and state dump, may still be in a
-        collective when the queue drains), then terminate the rest."""
+        """Drain the standbys, then give the workers ``grace_secs`` to
+        exit on their own (their epilogue, a final checkpoint and state
+        dump, may still be in a collective when the queue drains), then
+        terminate the rest."""
+        self._drain_standbys()
         with self._lock:
             procs = list(self._procs.values())
             self._procs.clear()
@@ -978,3 +1473,10 @@ class LocalInstanceManager:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+
+
+def _close_stdin(proc):
+    try:
+        proc.stdin.close()
+    except (OSError, AttributeError):
+        pass

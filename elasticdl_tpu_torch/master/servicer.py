@@ -27,11 +27,17 @@ servicer flushes the journal after each new lease (under the stream
 lock for the step stream), so a restarted master never re-issues a
 task id, nor a stream position, that a worker already holds.
 
-Left out until the slices that need them: the profiler command, the
-quiesce flag, and the telemetry fan-in of step phases and memory (the
-device pipeline's staging totals are kept, per worker).  Heartbeats are
-applied under one lock (the JAX package coalesces them for fleets of
-thousands).
+The quiesce flag rides every heartbeat (``should_quiesce``): a parked
+job (``Master._park``) waits quiesced until a capacity grant re-forms
+its world; as in the JAX package, no worker reads it yet.  The standby
+mailbox (``post_world_assignment``, ``get_world_assignment``,
+``drain_standbys``) is the RPC form of the world assignment a local
+standby reads on its stdin.
+
+Left out until the slices that need them: the profiler command and the
+telemetry fan-in of step phases and memory (the device pipeline's
+staging totals are kept, per worker).  Heartbeats are applied under one
+lock (the JAX package coalesces them for fleets of thousands).
 """
 
 from __future__ import annotations
@@ -68,6 +74,11 @@ class MasterServicer:
         # every WRITE takes the lock
         self._version = 0  # guarded-by: _lock (writes)
         self._cluster_version = 0  # guarded-by: _lock (writes)
+        self._quiesce = False  # guarded-by: _lock (writes)
+        # hot-standby world assignments addressed by standby id (the RPC
+        # form of the local standby's stdin line)
+        self._world_assignments: dict[str, dict] = {}  # guarded-by: _lock
+        self._standby_drain = False  # guarded-by: _lock
         # worker_id -> last liveness signal (heartbeat or step pull)
         self._heartbeats: dict[int, float] = {}  # guarded-by: _lock
         # externally reported failures (process exits); cleared only by
@@ -411,7 +422,10 @@ class MasterServicer:
                 self._replica_directory.update(request.worker_id, request.replica)
             replica_peers = self._replica_directory.peers(generation)
         return msg.HeartbeatResponse(
-            cluster_version=generation, replica_peers=replica_peers, boot_id=self._boot_id
+            should_quiesce=self._quiesce,
+            cluster_version=generation,
+            replica_peers=replica_peers,
+            boot_id=self._boot_id,
         )
 
     # ---- master high availability: the re-homing handshake -----------------
@@ -496,6 +510,13 @@ class MasterServicer:
         with self._lock:
             self._restore_stage = stage
 
+    def take_restore_stage(self) -> dict | None:
+        """Remove the staged replica set and return it (a park keeps it
+        for the world that un-parks)."""
+        with self._lock:
+            stage, self._restore_stage = self._restore_stage, None
+        return stage
+
     def get_restore_state(
         self, request: msg.GetRestoreStateRequest
     ) -> msg.RestoreStateResponse:
@@ -526,6 +547,33 @@ class MasterServicer:
             checksum=stage["checksum"],
             payload=stage["payload"],
         )
+
+    # ---- hot-standby world assignments --------------------------------------
+
+    def post_world_assignment(self, standby_id: str, assignment: dict):
+        """Instance manager -> standby mailbox: ``assignment`` carries the
+        keys a local standby reads on its stdin (worker_id,
+        coordinator_addr, num_processes, process_id, cluster_version and,
+        in a multi-slice world, slice_id and num_slices)."""
+        with self._lock:
+            self._world_assignments[standby_id] = dict(assignment)
+
+    def get_world_assignment(
+        self, request: msg.GetWorldAssignmentRequest
+    ) -> msg.WorldAssignmentResponse:
+        """A standby's poll; not a liveness signal: a waiting standby is
+        invisible to failure detection until it is activated."""
+        with self._lock:
+            assignment = self._world_assignments.pop(request.standby_id, None)
+            if assignment is None:
+                return msg.WorldAssignmentResponse(shutdown=self._standby_drain)
+        return msg.WorldAssignmentResponse(has=True, **assignment)
+
+    def drain_standbys(self):
+        """The job is over: polling standbys are told to exit."""
+        with self._lock:
+            self._standby_drain = True
+            self._world_assignments.clear()
 
     # ---- failure detection and re-formation hooks -------------------------
 
@@ -580,3 +628,29 @@ class MasterServicer:
     @property
     def cluster_version(self) -> int:
         return self._cluster_version
+
+    @property
+    def is_quiescing(self) -> bool:
+        return self._quiesce
+
+    def begin_quiesce(self):
+        """Ask every worker to pause at its next task boundary (a parked
+        job waits so for a capacity grant)."""
+        with self._lock:
+            self._quiesce = True
+
+    def clear_quiesce(self):
+        """Drop the quiesce flag without bumping the generation (an
+        unpark: the re-formation that relaunches bumped it already)."""
+        with self._lock:
+            self._quiesce = False
+
+    def end_quiesce(self):
+        """Drop the quiesce flag and advance the generation, journaled as
+        any fence is."""
+        with self._lock:
+            self._quiesce = False
+            self._cluster_version += 1
+            generation = self._cluster_version
+        if self._journal is not None:
+            self._journal.record_generation(generation)

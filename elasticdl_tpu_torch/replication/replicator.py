@@ -15,12 +15,17 @@ the last replication through the disk restore's back half
 (``trainer/checkpointing.py::apply_restored_values``); the world then
 takes it by broadcast, as after a disk restore.
 
-Left out until the slices that bring them: a slice map for the ring
-(every world is one slice: :func:`ring_neighbor`'s classic ring, its
-slice-aware branch ported whole), the chaos corruption modes (with the
-chaos harness), and the telemetry spans and events (the push and
-restore observations go to the chaos event log, ``chaos/hooks.py``,
-when a plan is installed).
+In a multi-slice world the ring is slice-aware: the neighbor is the
+next process on ANOTHER slice (``parallel/mesh.py::slice_assignments``
+is the map), so a whole-slice loss never takes a shard and its only
+replica together; each push observation carries its source and target
+slices, which ``chaos/harness.py::check_cross_slice_coverage`` audits.
+
+Left out until the slices that bring them: the chaos corruption modes
+(``same_slice_ring``, ``drop_shard_parts``: with the rest of the chaos
+harness), and the telemetry spans and events (the push and restore
+observations go to the chaos event log, ``chaos/hooks.py``, when a plan
+is installed).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import time
 
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.parallel import elastic
+from elasticdl_tpu_torch.parallel.mesh import slice_assignments
 from elasticdl_tpu_torch.replication.blob import (
     blob_checksum,
     decode_snapshot,
@@ -103,10 +109,19 @@ class PeerReplicator:
         generation: int,
         addr: str,
         replication_steps: int = 0,
+        num_slices: int = 1,
     ):
         self._store = store
         self._process_id = process_id
         self._num_processes = num_processes
+        # the process -> slice map of a multi-slice world ([]: one slice,
+        # the classic ring)
+        self._slice_map = (
+            slice_assignments(num_processes, num_slices) if num_slices > 1 else []
+        )
+        if len(set(self._slice_map)) <= 1:
+            self._slice_map = []
+        self._slice_id = self._slice_map[process_id] if self._slice_map else 0
         self._generation = generation
         self._addr = addr
         # pushes are state transfer: the job's deadline policy's transfer
@@ -134,7 +149,10 @@ class PeerReplicator:
 
     @property
     def neighbor(self) -> int:
-        return ring_neighbor(self._process_id, self._num_processes)
+        return ring_neighbor(self._process_id, self._num_processes, self._slice_map)
+
+    def _slice_of(self, process_id: int) -> int:
+        return self._slice_map[process_id] if self._slice_map else 0
 
     # ---- peer discovery (heartbeat thread) ---------------------------------
 
@@ -144,7 +162,7 @@ class PeerReplicator:
         return {
             "addr": self._addr,
             "process_id": self._process_id,
-            "slice_id": 0,
+            "slice_id": self._slice_id,
             "generation": self._generation,
             "holdings": self._store.holdings(),
         }
@@ -222,6 +240,11 @@ class PeerReplicator:
             **self.last_push,
             source=self._process_id,
             target=self.neighbor,
+            # the push's slice placement: in a multi-slice world a
+            # shard's replica must live on another slice than its owner
+            source_slice=self._slice_id,
+            target_slice=self._slice_of(self.neighbor),
+            num_slices=len(set(self._slice_map)) if self._slice_map else 1,
             checksum=shard.checksum,
             has_sharded=bool(parts),
             sharded_tables=len(parts),

@@ -168,6 +168,31 @@ class RehomeResponse:
 
 
 @dataclass
+class GetWorldAssignmentRequest:
+    """Hot-standby poll: a warm worker asks whether it has been given a
+    place in a (re-)formed world.  ``standby_id`` is the identity the
+    instance manager addressed the assignment to."""
+
+    standby_id: str
+
+
+@dataclass
+class WorldAssignmentResponse:
+    has: bool = False
+    # True once the job is shutting down: the standby exits cleanly
+    shutdown: bool = False
+    worker_id: int = 0
+    coordinator_addr: str = ""
+    num_processes: int = 1
+    process_id: int = 0
+    cluster_version: int = 0
+    # slice coordinates of a multi-slice world
+    slice_id: int = 0
+    num_slices: int = 1
+    trace: dict = field(default_factory=dict)
+
+
+@dataclass
 class PushReplicaRequest:
     """Ring-neighbor state push (worker -> worker, replica service).
 
@@ -246,6 +271,8 @@ MESSAGE_TYPES = {
         HeartbeatResponse,
         RehomeRequest,
         RehomeResponse,
+        GetWorldAssignmentRequest,
+        WorldAssignmentResponse,
         PushReplicaRequest,
         PushReplicaResponse,
         FetchReplicaRequest,

@@ -48,6 +48,7 @@ _METHODS = (
     "report_version",
     "report_evaluation_metrics",
     "heartbeat",
+    "get_world_assignment",
     "get_restore_state",
     "rehome_worker",
 )
@@ -359,6 +360,11 @@ class MasterClient(RpcClient):
 
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
         return self._call("heartbeat", request)
+
+    def get_world_assignment(
+        self, request: msg.GetWorldAssignmentRequest
+    ) -> msg.WorldAssignmentResponse:
+        return self._call("get_world_assignment", request)
 
     def get_restore_state(
         self, request: msg.GetRestoreStateRequest

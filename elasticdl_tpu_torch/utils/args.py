@@ -458,6 +458,22 @@ def _add_worker_params(parser: argparse.ArgumentParser):
         help="World generation assigned by the master; fences stale "
         "workers after a re-formation",
     )
+    # slice coordinates of a multi-slice world, assigned by the instance
+    # manager per process and per generation, and only when the world
+    # spans more than one slice
+    parser.add_argument(
+        "--slice_id", type=non_neg_int, default=0,
+        help="This worker's slice index in a multi-slice world",
+    )
+    parser.add_argument(
+        "--num_slices", type=pos_int, default=1,
+        help="Slices in the distributed world this worker joins",
+    )
+    parser.add_argument(
+        "--standby", type=non_neg_int, default=0,
+        help="1 = hot standby: pay the imports, then block until the "
+        "master writes a world assignment (one JSON line) on stdin",
+    )
 
 
 _MASTER_GROUPS = (
@@ -642,23 +658,16 @@ def _comes_with(slice_name: str) -> str:
     return f"it comes with {slice_name} (ROADMAP.md queue 1)"
 
 
-_ELASTIC = _comes_with(
-    "slice 6b-2, the rest of data parallelism and elastic reform "
-    "(standbys, slices and the autoscaler)"
+_MESH = _comes_with(
+    "slice 8, sequence, tensor and pipeline parallelism (the port's "
+    "world is one flat process group)"
 )
 _TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
 _K8S = _comes_with("slice 9, Kubernetes submission")
 _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
-    "mesh_shape": _ELASTIC,
-    "dcn_mesh_shape": _ELASTIC,
-    "num_slices": _ELASTIC,
-    "min_slices": _ELASTIC,
-    "autoscale_p95_step_ms": _ELASTIC,
-    "autoscale_backlog_tasks": _ELASTIC,
-    "autoscale_cooldown_secs": _ELASTIC,
-    "autoscale_shrink": _ELASTIC,
-    "standby_workers": _ELASTIC,
+    "mesh_shape": _MESH,
+    "dcn_mesh_shape": _MESH,
     "telemetry_dir": _TELEMETRY,
     "tensorboard_log_dir": _TELEMETRY,
     "metrics_port": _TELEMETRY,

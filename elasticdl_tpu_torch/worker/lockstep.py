@@ -65,6 +65,17 @@ the master's address file, re-homes when a relaunched master rewrites
 it, and leaves once fenced (the JAX package's lingering process waits
 silently until the linger cap).
 
+In a multi-slice world (``--num_slices``) each process knows its slice
+coordinates from its world kwargs (``--slice_id``, ``--num_slices``):
+a ``SLICE_LOSS`` fault arms on every process of its slice, and the
+replica ring keeps each shard's replica off its owner's slice
+(``parallel/mesh.py::slice_assignments``), and a survivor of a broken
+world lingers as above: on gloo it learns of a dead peer at once, and
+had it exited, the master would count its slice lost with the dead one
+(JAX's survivors hang in the collective instead).  With
+``--replication`` even a world shrunk to one process asks the master
+for the replica stage.
+
 Left out until later slices: per-process checkpoint parts: process 0
 writes every checkpoint as one part (the name-keyed layout of a Local
 run) and, at a world's start, restores it (or the replica stage) and
@@ -155,6 +166,10 @@ class LockstepWorker:
         self._worker_id = int(args.worker_id)
         self._process_id = world.process_id
         self._cluster_version = int(args.cluster_version)
+        # slice coordinates of a multi-slice world, assigned with the
+        # process id by the instance manager
+        self._slice_id = int(getattr(args, "slice_id", 0) or 0)
+        self._num_slices = int(getattr(args, "num_slices", 1) or 1)
         self._minibatch_size = args.minibatch_size
         self._job_type = derive_job_type(args)
         self._timing = Timing(enabled=args.log_level == "DEBUG", logger=logger)
@@ -209,7 +224,8 @@ class LockstepWorker:
         # deterministic fault injection: a no-op unless the master
         # exported a plan into this process's environment
         self._chaos = chaos_hooks.install_from_env(
-            self._process_id, self._cluster_version, self._worker_id
+            self._process_id, self._cluster_version, self._worker_id,
+            slice_id=self._slice_id,
         )
         self._checkpointer = PeriodicCheckpointer(
             args.checkpoint_dir,
@@ -231,6 +247,8 @@ class LockstepWorker:
                 generation=self._cluster_version,
                 addr=f"{replica_host()}:{replica_port}",
                 replication_steps=args.replication_steps or 0,
+                # the slice-aware ring: no replica on its owner's slice
+                num_slices=self._num_slices,
             )
 
     # ---- process-0-only master reporting -----------------------------------
@@ -294,7 +312,7 @@ class LockstepWorker:
     def _restore_state(self):
         """Process 0: the harvested replica stage first, when it is at
         least as new as the newest disk checkpoint; the disk second."""
-        if self._replicator is not None:
+        if self._args.replication:
             ckpt_dir = self._args.checkpoint_dir
             disk_floor = save_utils.latest_version(ckpt_dir) if ckpt_dir else None
             version = restore_from_replica(
@@ -635,7 +653,7 @@ class LockstepWorker:
             self._heartbeat()
             ok = True
         except BaseException:
-            if self._replica_server is not None or self._ha_mode():
+            if self._lingers():
                 # shown now: a lingering process would show it only when
                 # it leaves, and a re-formation kills it first
                 traceback.print_exc()
@@ -651,10 +669,18 @@ class LockstepWorker:
                 self._stopped = True
                 if self._replicator is not None:
                     self._replicator.close()
-                if not ok and (self._replica_server is not None or self._ha_mode()):
+                if not ok and self._lingers():
                     self._linger_for_harvest()
                 if self._replica_server is not None:
                     self._replica_server.stop(grace=0)
+
+    def _lingers(self) -> bool:
+        """Whether a process whose world broke stays for the master's
+        re-formation instead of exiting: with replica shards to harvest,
+        under master HA, and in a multi-slice world (a survivor that
+        exited at once would count as dead with the lost slice, and a
+        slice loss would look like a whole-world crash)."""
+        return self._replica_server is not None or self._ha_mode() or self._num_slices > 1
 
     @staticmethod
     def _ha_mode() -> bool:

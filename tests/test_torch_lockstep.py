@@ -448,13 +448,11 @@ def test_lifted_flag_builds_a_master(tmp_path, flag, value):
     assert (parsed.worker_id, parsed.model_def) == (0, MNIST_DEF)
 
 
-# what a distributed job cannot do yet: each raises naming slice 6b-2
+# what a distributed job cannot do yet: the device mesh's flags, each
+# raising naming slice 8 (the port's world is one flat process group)
 SLICE_6B = [
     (flag, [f"--{flag}", value]) for flag, value in (
         ("mesh_shape", "dp=2"), ("dcn_mesh_shape", "dp=2"),
-        ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
-        ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
-        ("autoscale_shrink", "true"), ("standby_workers", "0"),
     )
 ]
 
@@ -465,9 +463,63 @@ def test_slice_6b_flag_raises_naming_it(tmp_path, flag, extra):
 
     train = gen_mnist(str(tmp_path / "t"), num_records=32, num_shards=1, seed=0)
     args = port_args.parse_master_args(_argv({"train": train}, *_dist(), *extra))
-    with pytest.raises(NotImplementedError, match="slice 6b-2") as err:
+    with pytest.raises(NotImplementedError, match="slice 8") as err:
         build_master(args)
     assert f"--{flag}" in str(err.value)
+
+
+# standbys, slices and the autoscaler (slice 6b-2c): each flag builds a
+# master whose instance manager and autoscaler are the JAX package's
+# master's from the same argv
+SLICE_6B_2C = [
+    ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
+    ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
+    ("autoscale_shrink", "true"), ("standby_workers", "0"),
+]
+
+
+def _slice_surface(master):
+    im, scaler = master.instance_manager, master.autoscaler
+    return {
+        "world_size": im.world_size, "max_world_size": im.max_world_size,
+        "fleet_slices": im.fleet_slices, "world_num_slices": im.world_num_slices,
+        "standbys": im._standby_target, "lockstep": im.lockstep,
+        "min_slices": master._min_slices, "parked": master._parked,
+        "autoscaler": None if scaler is None else (
+            scaler.p95_step_ms, scaler.backlog_tasks, scaler.cooldown_secs,
+            scaler.shrink_enabled, scaler.min_slices, scaler.max_slices,
+        ),
+    }
+
+
+@pytest.mark.parametrize("flag, value", SLICE_6B_2C, ids=[f for f, _ in SLICE_6B_2C])
+def test_slice_6b_2c_flag_builds_the_jax_masters_surface(tmp_path, flag, value):
+    from elasticdl_tpu.master.main import build_master as jax_build_master
+    from elasticdl_tpu.utils.args import build_worker_arguments as jax_worker_arguments
+    from elasticdl_tpu.utils.args import parse_master_args as jax_parse
+    from elasticdl_tpu_torch.data.recordio_gen.synthetic import gen_mnist
+
+    assert flag not in port_args.UNPORTED_FLAGS
+    train = gen_mnist(str(tmp_path / "t"), num_records=32, num_shards=1, seed=0)
+    argv = _argv({"train": train}, *_dist(), f"--{flag}", value)
+    port_master = build_master(port_args.parse_master_args(argv))
+    jax_args = jax_parse([a for a in argv if a not in ("--device", "cpu")] + ["--metrics_port", "-1"])
+    jax_master = jax_build_master(jax_args)
+    got, want = _slice_surface(port_master), _slice_surface(jax_master)
+    assert got == want
+    default = _slice_surface(build_master(port_args.parse_master_args(_argv({"train": train}, *_dist()))))
+    # the flag acts: the surface moves off the default's
+    assert got != default or flag in ("min_slices", "autoscale_cooldown_secs", "autoscale_shrink")
+    if flag in ("min_slices", "autoscale_cooldown_secs", "autoscale_shrink"):
+        # read at a park or with an SLO flag: held by the master's state
+        assert (port_master._min_slices, jax_master._min_slices) == (
+            (2, 2) if flag == "min_slices" else (1, 1)
+        )
+    # a master-only flag: neither package forwards it to its workers
+    assert f"--{flag}" not in port_args.build_worker_arguments(
+        port_master._args, 0, "localhost:1"
+    )
+    assert f"--{flag}" not in jax_worker_arguments(jax_args, 0, "localhost:1")
 
 
 # a world's process and what its replicator does: none in a world of one
@@ -526,11 +578,12 @@ def test_a_lockstep_world_acts_on_the_replication_flags(flags, processes, pushes
 
 def test_a_worker_without_a_world_raises_naming_slice_6b():
     """A worker without a world runs the task-stream worker; asked for a
-    feature of slice 6b-2 (here a mesh of two devices), it refuses by
-    name, as the master does."""
+    feature not ported yet (here a mesh of two devices, which slice 8
+    brings since slice 6b-2 ported the rest), it refuses by name, as the
+    master does."""
     from elasticdl_tpu_torch.worker import main as worker_main
 
-    with pytest.raises(NotImplementedError, match="slice 6b-2"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         worker_main.main([
             "--model_def", MNIST_DEF, "--worker_id", "0", "--master_addr", "localhost:1",
             "--mesh_shape", "dp=2", "--device", "cpu",

@@ -1,10 +1,11 @@
 """The build gate of ``chip_smoke.py`` (phase 2): how it reads
 ``cuobjdump``'s resource and SASS listings of the built kernels, and
 that it refuses a bf16 forward, dQ or dK/dV kernel that is missing,
-misses Hopper's instructions, may spill, or cannot be read at all; and
+misses Hopper's instructions, may spill, or cannot be read at all;
 phase 14's gates (``check_master_ha``) on a report the card recorded,
 refusing a phase that reports nothing, a missing case, and each gate
-broken in turn."""
+broken in turn; phase 15's (``check_slices``) the same way; and the
+``phase_secs`` line."""
 
 from __future__ import annotations
 
@@ -284,3 +285,106 @@ def test_replay_trace_gaps(traced, gaps):
     counts = [dict(CAPTURED)] * 3
     got = chip_smoke.replay_trace_gaps(counts, [dict(CAPTURED), traced, dict(CAPTURED)])
     assert got == ([(1, traced)] if gaps else [])
+
+
+# ---- phase 15: standbys, slices, parking and the autoscaler -----------------
+
+# phase 15's rows as an NVIDIA H100 80GB HBM3 (700.00 W) reported them
+# (phase 10's cell: 2 epochs of 16 384 records), trimmed to what the
+# gates read
+SLICE_CFG = chip_smoke.SLICE_MNIST
+SLICE_ROWS = {
+    "standby": {"rc": 0, "job_secs": 29.233208248999972, "total_records": 32768, "reform_events": [{"cluster_version": 1, "dead_workers": [1], "reason": "worker_failure", "latency_secs": 0.6179992870000888}], "restored_secs_after_detection": 8.14796487000001, "violations": [], "fired": ["preempt-p1", "checkpoint_restore"], "dumps_bitwise_equal": True, "standby_activations": 2, "activated_pids": [5527, 5528], "reformed_world_pids": [5527, 5528], "reform_latency_secs": 0.6179992870000888, "reform_split": {"assignment_secs": 0.21941522300005545, "rendezvous_secs": 0.3985840640000333, "restore_secs": 7.529965582999921}, "accuracy": 1.0},
+    "slice_loss": {"rc": 0, "job_secs": 46.083692875, "total_records": 32768, "reform_events": [{"cluster_version": 1, "dead_workers": [2, 3], "reason": "worker_failure", "harvest": {"complete": True, "version": 4, "bytes": 445524, "checksum": "3dff5972", "secs": 0.017127339000012398}, "latency_secs": 8.03050554999993}], "dumps_bitwise_equal": True, "violations": [], "slice_loss": [{"observation": "slice_loss", "generation": 1, "lost_slices": [1], "dead_workers": [2, 3], "old_slices": 2, "new_slices": 1, "parked": False}], "mesh_resize": [{"observation": "mesh_resize", "generation": 1, "old_world_size": 4, "new_world_size": 2, "old_slices": 2, "new_slices": 1}], "invariants": [{"name": "cross_slice_replica_coverage", "status": "PASS", "violations": []}], "no_lost_steps": {"name": "replication_no_lost_steps", "status": "PASS", "violations": []}, "restored_from": "replica@4", "world_after": 2, "accuracy": 1.0},
+    "park_grant": {"rc": 0, "job_secs": 47.64139675900003, "total_records": 32768, "reform_events": [{"cluster_version": 2, "dead_workers": [], "reason": "capacity_grant", "latency_secs": 7.052289428999984}], "dumps_bitwise_equal": True, "violations": [], "slice_loss": [{"observation": "slice_loss", "generation": 1, "lost_slices": [1], "dead_workers": [1], "old_slices": 2, "new_slices": 1, "parked": True}], "park": {"parked_at": 727.043057749, "quiesced": True, "workers_while_parked": [], "generation": 1, "granted_at": 729.043407353}, "journaled_parked_worlds": [{"cluster_version": 1, "worker_ids": [], "num_slices": 1, "parked": True}], "generation": 2, "unparked_secs": 2.177147694000041, "accuracy": 1.0},
+    "autoscale": {"rc": 0, "job_secs": 28.11634673900005, "total_records": 32768, "reform_events": [{"cluster_version": 1, "dead_workers": [], "reason": "autoscale:grow", "latency_secs": 10.918220266999924}], "dumps_bitwise_equal": True, "violations": [], "decisions": [{"action": "grow", "from_slices": 1, "to_slices": 2, "reason": "backlog 16 >= 4", "p95_step_ms": None, "backlog": 16}], "decision_events": [{"observation": "autoscale_decision", "generation": 0, "action": "grow", "from_slices": 1, "to_slices": 2, "reason": "backlog 16 >= 4", "p95_step_ms": None, "backlog": 16}], "mesh_resize": [{"observation": "mesh_resize", "generation": 1, "old_world_size": 1, "new_world_size": 2, "old_slices": 1, "new_slices": 2}], "worlds": [2], "accuracy": 1.0},
+}
+
+
+def slice_report():
+    import copy
+
+    return copy.deepcopy(SLICE_ROWS)
+
+
+def test_check_slices_passes_a_recorded_report():
+    chip_smoke.check_slices(slice_report(), SLICE_CFG)
+
+
+def test_check_slices_takes_a_report_without_15a_only_when_it_says_so():
+    report = slice_report()
+    report.pop("standby")
+    with pytest.raises(AssertionError):
+        chip_smoke.check_slices(report, SLICE_CFG)
+    chip_smoke.check_slices(dict(report, without_standby=True), SLICE_CFG)
+
+
+SLICE_EDITS = {
+    "nothing_reported": lambda report: report.clear(),
+    "no_standby": _ha_drop("standby"),
+    "no_slice_loss": _ha_drop("slice_loss"),
+    "no_park_grant": _ha_drop("park_grant"),
+    "no_autoscale": _ha_drop("autoscale"),
+    "rc_non_zero": _ha_set("slice_loss", ("rc",), 1),
+    "violation": _ha_set("park_grant", ("violations",), [{"invariant": "exactly_once"}]),
+    "records_short": _ha_set("autoscale", ("total_records",), 32768 - 1024),
+    "accuracy_low": _ha_set("standby", ("accuracy",), 0.98),
+    "accuracy_unread": _ha_set("slice_loss", ("accuracy",), None),
+    "ranks_differ": _ha_set("park_grant", ("dumps_bitwise_equal",), False),
+    "standby_cold_started": _ha_set("standby", ("standby_activations",), 0),
+    "standby_one_of_two": _ha_set("standby", ("standby_activations",), 1),
+    "standby_pids_not_the_pools": _ha_set("standby", ("reformed_world_pids",), [1, 2]),
+    "standby_no_reform": _ha_set("standby", ("reform_events",), []),
+    "standby_latency_unmeasured": _ha_set("standby", ("reform_latency_secs",), None),
+    "standby_split_unmeasured": _ha_set("standby", ("reform_split",), None),
+    "standby_no_preemption": _ha_set("standby", ("fired",), ["checkpoint_restore"]),
+    "slice_loss_unrecorded": _ha_set("slice_loss", ("slice_loss",), []),
+    "slice_loss_of_slice_0": _ha_set("slice_loss", ("slice_loss", 0, "lost_slices"), [0]),
+    "slice_loss_parked": _ha_set("slice_loss", ("slice_loss", 0, "parked"), True),
+    "no_mesh_resize": _ha_set("slice_loss", ("mesh_resize",), []),
+    "resize_kept_the_slices": _ha_set("slice_loss", ("mesh_resize", 0, "new_slices"), 2),
+    "resize_kept_the_world": _ha_set("slice_loss", ("mesh_resize", 0, "new_world_size"), 4),
+    "coverage_failed": _ha_set("slice_loss", ("invariants", 0, "status"), "FAIL"),
+    "coverage_unchecked": _ha_set("slice_loss", ("invariants",), []),
+    "lost_steps": _ha_set("slice_loss", ("no_lost_steps", "status"), "FAIL"),
+    "restored_from_disk": _ha_set("slice_loss", ("restored_from",), "disk@4"),
+    "shrunk_to_one_process": _ha_set("slice_loss", ("world_after",), 1),
+    "not_parked": _ha_set("park_grant", ("slice_loss", 0, "parked"), False),
+    "parked_world_running": _ha_set("park_grant", ("park", "workers_while_parked"), [0]),
+    "parked_not_quiesced": _ha_set("park_grant", ("park", "quiesced"), False),
+    "park_not_journaled": _ha_set("park_grant", ("journaled_parked_worlds",), []),
+    "parked_world_journaled_with_workers": _ha_set(
+        "park_grant", ("journaled_parked_worlds", 0, "worker_ids"), [0]),
+    "no_grant": _ha_set("park_grant", ("reform_events",), []),
+    "grant_reason_wrong": _ha_set("park_grant", ("reform_events", 0, "reason"), "worker_failure"),
+    "grant_same_generation": _ha_set("park_grant", ("reform_events", 0, "cluster_version"), 1),
+    "grant_before_the_delay": _ha_set("park_grant", ("unparked_secs",), 0.5),
+    "no_decision": _ha_set("autoscale", ("decisions",), []),
+    "shrink_decided": _ha_set("autoscale", ("decisions", 0, "action"), "shrink"),
+    "decision_unlogged": _ha_set("autoscale", ("decision_events",), []),
+    "decision_unrealized": _ha_set("autoscale", ("reform_events",), []),
+    "realized_by_another_reform": _ha_set("autoscale", ("reform_events", 0, "reason"), "elective"),
+    "grown_world_short": _ha_set("autoscale", ("worlds",), [1]),
+    "autoscale_not_resized": _ha_set("autoscale", ("mesh_resize",), []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_EDITS))
+def test_check_slices_refuses(name):
+    report = slice_report()
+    SLICE_EDITS[name](report)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_slices(report, SLICE_CFG)
+
+
+def test_the_phase_secs_line_has_each_phase_and_the_total(monkeypatch):
+    now = [chip_smoke.STARTED_AT]
+    monkeypatch.setattr(chip_smoke.time, "monotonic", lambda: now[0])
+    clock = chip_smoke._PhaseClock()
+    for name, secs in (("1_device", 2.0), ("2_build", 10.5), ("15_slices", 120.25)):
+        now[0] += secs
+        clock.done(name)
+    now[0] += 1.0
+    line = clock.line()
+    assert line == {"phase_secs": {"1_device": 2.0, "2_build": 10.5, "15_slices": 120.25,
+                                   "total": 133.75}}
