@@ -250,6 +250,28 @@ printed:
    ``--autoscale_backlog_tasks 4``: one autoscale decision from 1 to 2
    slices and the re-formation that realizes it.  (b), (c) and (d) run
    side by side.
+16. serving over RPC — (a) the gpt2s LM of phase 4 exported twice
+   (seeds 0 and 1, versions 1 and 2), served over the port's socket
+   transport by two ``ServingReplica`` of one canonical row each behind a
+   ``ServingRouter``: one-row requests (a row's bf16 logits are 128 MiB,
+   under the 256 MiB message cap) from 4 client threads, then
+   ``swap_model`` to version 2 through the router while a client keeps
+   sending, then the swap again, then one two-row request.  Gated on no
+   failed request, 12 ``flash_fwd`` launches per dispatch, every row
+   within phase 4's ``ROW_MAX_ERR``/``ROW_MEAN_ERR`` of the direct
+   forward of the version its response reports, version 2 for every
+   request sent after the swap's acknowledgement, the replayed swap
+   absorbed by both replicas, one input shape per replica, and the
+   two-row request answered ``RESOURCE_EXHAUSTED`` once with one request
+   served.  (b) beside it, ``python -m elasticdl_tpu_torch.serving.main
+   --num_replicas 2 --watch_model`` over the export of a short mnist
+   training through the train CLI; ``python -m elasticdl_tpu_torch.client
+   predict --serving_addr`` against it equal to the Local predict CLI
+   within ``PREDICT_MAX_ABS_ERR``; a newer export written into the watched
+   directory while a client keeps sending: no failed request, both
+   replicas at the new version; after SIGTERM the frontend and both
+   replicas gone within 10 s.  It prints the requests' latencies and
+   phases, each replica's swap ms and the watcher's swap latency.
 
 Before the kernels' line it prints ``{"phase_secs": {...}}``: each
 phase's wall seconds and the total.  The last two lines of standard
@@ -759,34 +781,38 @@ PLAIN_MAX_ERR = 0.25
 PLAIN_MEAN_ERR = 2e-2
 
 
-def build_export(model_dir: str):
-    """The gpt2s-shaped LM with seeded random weights, written in the
-    JAX package's export layout."""
+def build_export(model_dir: str, seed: int = 0, version: int = 1):
+    """The gpt2s-shaped LM with weights from ``seed``, written in the JAX
+    package's export layout as ``version``."""
     import torch
 
     from elasticdl_tpu_torch.models import long_seq_transformer as lm
     from elasticdl_tpu_torch.utils.export_utils import export_model
 
     model = lm.custom_model(**GPT2S)
-    lm.init_weights(model, torch.Generator().manual_seed(0))
+    lm.init_weights(model, torch.Generator().manual_seed(seed))
     export_model(
         model_dir, model,
         "long_seq_transformer.long_seq_transformer.custom_model",
-        model_params=GPT2S, model_version=1,
+        model_params=GPT2S, model_version=version,
     )
 
 
 def serve_round(replica, requests, tag):
     """Submit every request from its own thread at once; return the
-    responses in request order."""
-    from elasticdl_tpu_torch.serving.replica import PredictRequest
+    responses in request order, their outputs unpacked."""
+    from elasticdl_tpu_torch.rpc import messages as msg
 
     responses = [None] * len(requests)
 
     def call(i):
-        responses[i] = replica.predict(
-            PredictRequest(f"{tag}{i}", requests[i], len(requests[i]["tokens"]))
-        )
+        response = replica.predict(msg.PredictRequest(
+            request_id=f"{tag}{i}", features=msg.pack_array_tree(requests[i]),
+            rows=len(requests[i]["tokens"]),
+        ))
+        if not response.error:
+            response.outputs = msg.unpack_array_tree(response.outputs)
+        responses[i] = response
 
     threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
     for t in threads:
@@ -5072,6 +5098,598 @@ def slices_phase(
     return report
 
 
+# ---- phase 16: serving over RPC, and hot swap ------------------------------
+
+# 16a: two replicas of one row each (a row's bf16 logits, 2048 x 32768 x
+# 2 bytes = 128 MiB, is under the 256 MiB message cap; two rows' are
+# not), behind a router, from SERVE_RPC_CLIENTS client threads; requests
+# cycle through SERVE_RPC_POOL distinct rows, whose direct forwards of
+# both versions are made first
+SERVE_RPC_ROWS = 1
+SERVE_RPC_POOL = 8
+SERVE_RPC_CLIENTS = 4
+SERVE_RPC_WARM = 16  # one-row requests before the swap
+SERVE_RPC_AFTER_ACK = 4  # requests the load sends after the swap's ack
+SERVE_RPC_DEADLINE_SECS = 60.0
+# 16b: mnist trained briefly through the CLI (phase 7's model and step),
+# served by the real frontend with two replicas
+SERVE_MNIST = dict(
+    MNIST, name="mnist_serve", train_records=8192, eval_records=2048,
+    shards=2, records_per_task=4096, checkpoint_steps=16,
+)
+SERVE_CLI_UP_SECS = 120.0
+SERVE_CLI_SWAP_SECS = 60.0
+SERVE_CLI_EXIT_SECS = 10.0
+
+
+def _served_rows(response):
+    """A response's outputs as a tensor on the CPU (bf16 kept)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.rpc import messages as msg
+
+    out = np.asarray(msg.unpack_array_tree(response.outputs))
+    if out.dtype.name == "bfloat16":
+        return torch.from_numpy(out.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(out)
+
+
+def _row_err(got, want) -> tuple:
+    """Max and mean absolute difference of two tensors, on ``want``'s
+    device, in f32 (elementwise ops only: no kernel of the path runs)."""
+    diff = (got.to(want.device).float() - want.float()).abs()
+    return float(diff.max()), float(diff.mean())
+
+
+class _LmLoad:
+    """One-row LM requests sent through ``client`` and each checked, on
+    arrival, against the direct forward of the version it reports:
+    (request index, send time, answer time, version, max and mean error,
+    phases), or the failure."""
+
+    def __init__(self, client, pool, direct):
+        self.client, self.pool, self.direct = client, pool, direct
+        self.rows: list = []
+        self.failures: list = []
+        self._lock = threading.Lock()
+        self._next = 0
+
+    def one(self) -> None:
+        from elasticdl_tpu_torch.rpc import messages as msg
+
+        with self._lock:
+            i, self._next = self._next, self._next + 1
+        tokens = self.pool[i % len(self.pool)]
+        sent = time.monotonic()
+        try:
+            response = self.client.predict(msg.PredictRequest(
+                request_id=f"lm{i}", features=msg.pack_array_tree({"tokens": tokens}),
+                rows=1,
+            ))
+        except Exception as ex:  # noqa: BLE001 — a failure is recorded
+            with self._lock:
+                self.failures.append(f"request {i}: {ex!r}")
+            return
+        answered = time.monotonic()
+        if response.error or response.model_version not in self.direct:
+            with self._lock:
+                self.failures.append(
+                    f"request {i}: version {response.model_version}, {response.error!r}"
+                )
+            return
+        err = _row_err(
+            _served_rows(response)[0], self.direct[response.model_version][i % len(self.pool)]
+        )
+        with self._lock:
+            self.rows.append({
+                "i": i, "sent": sent, "answered": answered,
+                "version": response.model_version, "max_err": err[0], "mean_err": err[1],
+                "phases": response.phases,
+            })
+
+    def run(self, requests: int, threads: int) -> None:
+        """``requests`` requests from ``threads`` threads."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda _i: self.one(), range(requests)))
+
+
+def _latency(rows: list) -> dict:
+    lat = sorted(r["phases"]["total_ms"] for r in rows)
+    walls = sorted((r["answered"] - r["sent"]) * 1e3 for r in rows)
+    phases = {
+        name: statistics.median(r["phases"][name] for r in rows)
+        for name in rows[0]["phases"]
+    }
+    return {
+        "requests": len(rows), "replica_p50_ms": statistics.median(lat),
+        "replica_max_ms": lat[-1], "client_p50_ms": statistics.median(walls),
+        "client_max_ms": walls[-1], "replica_phases_p50_ms": phases,
+    }
+
+
+def serve_rpc_lm(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 16a: gpt2s served over the socket transport by two
+    ``ServingReplica`` behind a ``ServingRouter``, hot-swapped from
+    version 1 to 2 under load, then a two-row request over the message
+    cap.  ``device="cpu"`` rehearses it at a small size (its caller
+    lowers the cap), where the launch gate expects the plain path's 0."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.rpc import messages as msg
+    from elasticdl_tpu_torch.rpc import service as rpc_service
+    from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+    from elasticdl_tpu_torch.rpc.retry import RetryPolicy
+    from elasticdl_tpu_torch.serving.replica import (
+        SERVING_METHODS,
+        SERVING_SERVICE_NAME,
+        ServingClient,
+        ServingReplica,
+    )
+    from elasticdl_tpu_torch.serving.router import ServingRouter
+    from elasticdl_tpu_torch.utils.export_utils import load_exported_model
+
+    t_phase = time.monotonic()
+    exports = {v: os.path.join(work_dir, f"lm_v{v}") for v in (1, 2)}
+    t0 = time.monotonic()
+    _beside(**{
+        f"export_v{v}": (lambda v=v: build_export(exports[v], seed=v - 1, version=v))
+        for v in exports
+    })
+    export_secs = time.monotonic() - t0
+    row_bytes = SEQ * GPT2S["vocab_size"] * 2  # one row's bf16 logits
+    cap = rpc_service.MAX_MESSAGE_BYTES
+    if not row_bytes < cap <= 2 * row_bytes:
+        raise AssertionError(f"a row's logits ({row_bytes} bytes) must fit the cap {cap}, two must not")
+    rng = np.random.RandomState(16)
+    pool = [
+        rng.randint(0, GPT2S["vocab_size"], (1, SEQ)).astype(np.int32)
+        for _ in range(SERVE_RPC_POOL)
+    ]
+    # every pool row through each version's model directly, before any
+    # count is read (these launches are checks)
+    t0 = time.monotonic()
+    direct = {}
+    with torch.inference_mode():
+        for version, export in exports.items():
+            model, _flat, _state = load_exported_model(export, device)
+            direct[version] = [
+                model({"tokens": torch.from_numpy(tokens).to(device)})[0]
+                for tokens in pool
+            ]
+            del model
+    _release_memory(device)
+    direct_secs = time.monotonic() - t0
+
+    replicas = [
+        ServingReplica(
+            exports[1], canonical_rows=SERVE_RPC_ROWS, device=device,
+            replica_id=i, port=0,
+        ).start()
+        for i in range(2)
+    ]
+    deadlines = DeadlinePolicy.from_secs(SERVE_RPC_DEADLINE_SECS)
+    router = ServingRouter(deadlines=deadlines)
+    server = None
+    try:
+        for replica in replicas:
+            router.add_replica(f"localhost:{replica.port}")
+        router.probe_once()
+        router.start()
+        server = rpc_service.create_server(
+            router, 0, methods=SERVING_METHODS, service_name=SERVING_SERVICE_NAME
+        )
+        server.start()
+        client = ServingClient(
+            f"localhost:{server.port}", retry=RetryPolicy(max_attempts=5),
+            deadlines=deadlines,
+        )
+        attn.reset_launch_counts()
+        load = _LmLoad(client, pool, direct)
+        t0 = time.monotonic()
+        load.run(SERVE_RPC_WARM, SERVE_RPC_CLIENTS)
+        warm_secs = time.monotonic() - t0
+        warm_rows = list(load.rows)
+        warm_failures = list(load.failures)
+        warm_dispatches = sum(r.engine.dispatches for r in replicas)
+        warm_launches = attn.launch_counts["flash_fwd"]
+
+        # the swap under load: one client thread keeps sending
+        stop = threading.Event()
+        ack: dict = {}
+
+        def keep_sending():
+            while not stop.is_set():
+                load.one()
+                if "at" in ack and sum(
+                    1 for r in load.rows if r["sent"] > ack["at"]
+                ) >= SERVE_RPC_AFTER_ACK:
+                    return
+
+        sender = threading.Thread(target=keep_sending)
+        before_swap = len(load.rows)
+        sender.start()
+        while len(load.rows) + len(load.failures) < before_swap + 2 and sender.is_alive():
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        swap = client.swap_model(msg.SwapModelRequest(model_dir=exports[2]))
+        ack["at"] = time.monotonic()
+        swap_secs = ack["at"] - t0
+        sender.join(timeout=SERVE_RPC_DEADLINE_SECS * 4)
+        stop.set()
+        sender.join()
+        replay = client.swap_model(msg.SwapModelRequest(model_dir=exports[2]))
+        dispatches = sum(r.engine.dispatches for r in replicas)
+        launches = attn.launch_counts["flash_fwd"]
+        swap_ms = [r.engine.last_swap_ms for r in replicas]
+        versions_after = [r.engine.version for r in replicas]
+
+        # the cap: one two-row request, answered RESOURCE_EXHAUSTED once
+        served_before = sum(r.engine.requests_served for r in replicas)
+        cap_calls = 0
+        cap_error = None
+        try:
+            cap_calls += 1
+            client.predict(msg.PredictRequest(
+                request_id="over-cap",
+                features=msg.pack_array_tree({"tokens": np.concatenate(pool[:2])}),
+                rows=2,
+            ))
+        except rpc_service.RpcError as ex:
+            cap_error = ex
+        cap_served = sum(r.engine.requests_served for r in replicas) - served_before
+        shapes = [r.engine.shapes_dispatched for r in replicas]
+    finally:
+        if server is not None:
+            server.stop(1.0)
+        router.close()
+        for replica in replicas:
+            replica.close()
+        direct.clear()  # the load's reference too
+        _release_memory(device)
+
+    swapped = load.rows[before_swap:]
+    row = {
+        "device": device, "layers": GPT2S["num_layers"],
+        "export_secs": export_secs, "direct_secs": direct_secs,
+        "warm": _latency(warm_rows) if warm_rows else {}, "warm_secs": warm_secs,
+        "warm_failures": warm_failures,
+        "warm_dispatches": warm_dispatches, "warm_flash_fwd_launches": warm_launches,
+        "swap": {
+            "accepted": swap.accepted, "replicas": swap.replicas, "ack_secs": swap_secs,
+            "replica_swap_ms": swap_ms, "versions_after": versions_after,
+            "requests_during": len(swapped),
+            "versions_during": sorted({r["version"] for r in swapped}),
+            "versions_after_ack": [r["version"] for r in swapped if r["sent"] > ack["at"]],
+            "replay_accepted": replay.accepted,
+            "replay_absorbed": [o.get("absorbed") for o in replay.replicas],
+        },
+        "all": _latency(load.rows) if load.rows else {},
+        "requests": len(load.rows), "dispatches": dispatches,
+        "flash_fwd_launches": launches, "shapes_dispatched": shapes,
+        "max_abs_err": max((r["max_err"] for r in load.rows), default=None),
+        "mean_abs_err": max((r["mean_err"] for r in load.rows), default=None),
+        "failures": load.failures,
+        "cap": {
+            "calls": cap_calls,
+            "code": cap_error.code().name if cap_error is not None else None,
+            "details": cap_error.details()[:200] if cap_error is not None else None,
+            "replica_requests_served": cap_served,
+        },
+        "secs": time.monotonic() - t_phase,
+    }
+    print(json.dumps({"serve_rpc_lm": row}), flush=True)
+    bad = check_serve_rpc_lm(row)
+    if bad:
+        raise AssertionError(f"phase 16a failed: {bad}")
+    return row
+
+
+def check_serve_rpc_lm(row: dict) -> list:
+    """Phase 16a's gates on its printed row; the failed ones, by name."""
+    # on the card every layer's attention is one flash_fwd launch; the
+    # CPU rehearsal takes the plain path
+    per_dispatch = row["layers"] if row["device"] == "cuda" else 0
+    swap, cap = row["swap"], row["cap"]
+    bad = []
+    if row["warm_failures"] or row["failures"]:
+        bad.append("failed requests")
+    if row["warm"].get("requests") != SERVE_RPC_WARM:
+        bad.append("warm requests missing")
+    if row["warm_flash_fwd_launches"] != per_dispatch * row["warm_dispatches"] \
+            or row["flash_fwd_launches"] != per_dispatch * row["dispatches"]:
+        bad.append("flash_fwd launches != layers x dispatches: attention bypassed the kernel")
+    if row["dispatches"] < row["requests"]:
+        bad.append("fewer dispatches than one-row requests")
+    if row["max_abs_err"] is None or row["max_abs_err"] > ROW_MAX_ERR \
+            or row["mean_abs_err"] > ROW_MEAN_ERR:
+        bad.append("served rows disagree with their version's direct forward")
+    if not swap["accepted"] or [o.get("accepted") for o in swap["replicas"]] != [True, True]:
+        bad.append("the swap was not accepted by both replicas")
+    if swap["versions_after"] != [2, 2] or not set(swap["versions_during"]) <= {1, 2}:
+        bad.append("versions after the swap")
+    after_ack = swap["versions_after_ack"]
+    if len(after_ack) < SERVE_RPC_AFTER_ACK or set(after_ack) != {2}:
+        bad.append("a request sent after the swap's ack was not served by version 2")
+    if not swap["replay_accepted"] or swap["replay_absorbed"] != [True, True]:
+        bad.append("the replayed swap was not absorbed by both replicas")
+    if cap["code"] != "RESOURCE_EXHAUSTED" or cap["calls"] != 1 \
+            or cap["replica_requests_served"] != 1:
+        bad.append("the over-cap reply was not RESOURCE_EXHAUSTED once, served once")
+    if row["shapes_dispatched"] != [1, 1]:
+        bad.append("a replica dispatched more than one input shape")
+    return bad
+
+
+def _predict_batch(cfg: dict, data: dict, rows: int):
+    """The first prediction batch of ``cfg``'s evaluation records, as the
+    predict CLI's client decodes it."""
+    from elasticdl_tpu_torch.data.factory import create_data_reader
+    from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.trainer.state import Modes
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    spec = get_model_spec("", cfg["model_def"])
+    reader = create_data_reader(data["eval"], records_per_task=cfg["records_per_task"])
+    _tid, task = TaskDispatcher(
+        None, prediction_shards=reader.create_shards(),
+        records_per_task=cfg["records_per_task"],
+    ).get(0)
+    batches = build_task_batches(
+        reader, task, spec, Modes.PREDICTION, reader.metadata, rows,
+        dispatch_device="cpu",
+    )
+    return next(iter(batches))
+
+
+def _serving_children(pid: int) -> list:
+    """The replica processes a serving frontend ``pid`` started (``/proc``:
+    its children, not their threads, whose command line is a replica's)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children", encoding="ascii") as f:
+            children = [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+    out = []
+    for child in children:
+        try:
+            with open(f"/proc/{child}/status", encoding="ascii") as f:
+                tgid = next(int(line.split()[1]) for line in f if line.startswith("Tgid:"))
+            with open(f"/proc/{child}/cmdline", "rb") as f:
+                if tgid == child and b"--role\x00replica" in f.read():
+                    out.append(child)
+        except (OSError, StopIteration, ValueError):
+            continue
+    return out
+
+
+def _proc_running(pid: int) -> bool:
+    """Whether ``pid`` is a process that has not exited (a zombie has)."""
+    try:
+        with open(f"/proc/{pid}/stat", encoding="ascii") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _gone_within(pids: list, secs: float) -> bool:
+    deadline = time.monotonic() + secs
+    while time.monotonic() < deadline:
+        if not any(_proc_running(p) for p in pids):
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST) -> dict:
+    """Phase 16b: ``python -m elasticdl_tpu_torch.serving.main`` with two
+    replicas and ``--watch_model`` over the export of a short mnist
+    training through the CLI; ``python -m elasticdl_tpu_torch.client
+    predict --serving_addr`` against it, held to the Local predict CLI; a
+    newer export written into the watched directory under load; SIGTERM
+    and no process left."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.rpc import messages as msg
+    from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+    from elasticdl_tpu_torch.serving.replica import ServingClient
+    from elasticdl_tpu_torch.utils.export_utils import (
+        export_model,
+        load_exported_model,
+        read_manifest,
+    )
+
+    t_phase = time.monotonic()
+    data = _zoo_data(os.path.join(work_dir, "data"), cfg)
+    export_dir, ckpt = os.path.join(work_dir, "export"), os.path.join(work_dir, "ckpt")
+    t0 = time.monotonic()
+    with _LOCAL_LOCK:
+        rc_train = client.main(_zoo_argv(
+            cfg, data, device, "--output", export_dir, "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(cfg["checkpoint_steps"]),
+        ))
+    train_secs = time.monotonic() - t0
+    if rc_train != 0:
+        raise AssertionError(f"phase 16b: the mnist training exited {rc_train}")
+    version = int(read_manifest(export_dir)["model_version"])
+    env = dict(os.environ, **TF32_OFF)
+    addr_file = os.path.join(work_dir, "serving_addr")
+    log_path = os.path.join(work_dir, "frontend.log")
+    row: dict = {"device": device, "train_secs": train_secs, "version": version}
+    t0 = time.monotonic()
+    with open(log_path, "w") as log_file:
+        frontend = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
+             "--model_dir", export_dir, "--num_replicas", "2", "--watch_model",
+             "--addr_file", addr_file, "--device", device,
+             "--minibatch_size", str(cfg["batch"]),
+             # the router's deadline must outlast a replica's first
+             # request, which builds its model (the default 5 s, as in
+             # the JAX package, re-routes it and the client retries)
+             "--rpc_deadline_secs", str(SERVE_RPC_DEADLINE_SECS)],
+            cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        )
+    kids: list = []
+    try:
+        while not os.path.exists(addr_file):
+            if frontend.poll() is not None or time.monotonic() - t0 > SERVE_CLI_UP_SECS:
+                raise AssertionError(f"phase 16b: the frontend is not up (rc {frontend.poll()})")
+            time.sleep(0.05)
+        with open(addr_file) as f:
+            addr = f.read().strip()
+        row["frontend_up_secs"] = time.monotonic() - t0
+        kids = _serving_children(frontend.pid)
+
+        # the predict CLI against the frontend, and Local on the same
+        # weights (the final checkpoint, which the export holds)
+        zoo = os.path.join(work_dir, "zoo")
+        model_def = write_prediction_zoo(zoo, "mnist_functional_api")
+        remote_out, local_out = os.path.join(work_dir, "pred_remote"), os.path.join(work_dir, "pred_local")
+        os.makedirs(remote_out)
+        os.makedirs(local_out)
+        pred = [
+            "--model_zoo", zoo, "--model_def", model_def, "--prediction_data", data["eval"],
+            "--minibatch_size", str(cfg["batch"]),
+            "--records_per_task", str(cfg["records_per_task"]),
+        ]
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "elasticdl_tpu_torch.client", "predict", *pred,
+             "--serving_addr", addr],
+            cwd=REPO, env=dict(env, **{PREDICTIONS_ENV: remote_out}),
+            capture_output=True, text=True, timeout=300,
+        )
+        row["predict_cli_secs"] = time.monotonic() - t0
+        log("--- predict --serving_addr, the end of its log\n" + proc.stderr[-3000:])
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 16b: predict --serving_addr exited {proc.returncode}")
+        _local_predict([*pred, "--checkpoint_dir_for_init", ckpt, "--device", device], local_out)
+        remote = np.concatenate(load_predictions(remote_out))
+        local = np.concatenate(load_predictions(local_out))
+        row["predicted_rows"] = int(remote.shape[0])
+        row["max_abs_err_to_local"] = (
+            float(np.max(np.abs(remote - local))) if remote.shape == local.shape else None
+        )
+
+        # a newer export into the watched directory, under load
+        features = _predict_batch(cfg, data, cfg["batch"])
+        serving = ServingClient(addr, deadlines=DeadlinePolicy.from_secs(30))
+        outcomes: list = []
+        stop = threading.Event()
+
+        def keep_sending():
+            i = 0
+            while not stop.is_set():
+                i += 1
+                sent = time.monotonic()
+                try:
+                    response = serving.predict(msg.PredictRequest(
+                        request_id=f"watch{i}", features=msg.pack_array_tree(features),
+                    ))
+                    outcomes.append((sent, response.model_version, response.error))
+                except Exception as ex:  # noqa: BLE001 — recorded
+                    outcomes.append((sent, None, repr(ex)))
+
+        sender = threading.Thread(target=keep_sending)
+        sender.start()
+        try:
+            time.sleep(0.5)
+            model, _flat, _state = load_exported_model(export_dir, "cpu")
+            with torch.no_grad():
+                for param in model.parameters():
+                    param.mul_(1.01)
+            manifest = read_manifest(export_dir)
+            t_write = time.monotonic()
+            export_model(
+                export_dir, model, manifest["model_def"],
+                model_params=manifest.get("model_params"),
+                model_zoo=manifest.get("model_zoo", ""), model_version=version + 1,
+            )
+            written = time.monotonic()
+            status = None
+            while time.monotonic() - written < SERVE_CLI_SWAP_SECS:
+                status = serving.serving_status(msg.ServingStatusRequest(detail=True))
+                if [r["model_version"] for r in status.replicas] == [version + 1] * 2:
+                    break
+                time.sleep(0.05)
+            converged = time.monotonic()
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            sender.join()
+        row["watch"] = {
+            "export_write_secs": written - t_write,
+            "swap_latency_secs": converged - written,
+            "replica_versions": [r["model_version"] for r in status.replicas] if status else None,
+            "requests": len(outcomes),
+            "failures": sum(1 for o in outcomes if o[2]),
+            "first_failures": [o[2] for o in outcomes if o[2]][:3],
+            "versions": sorted({o[1] for o in outcomes if o[1] is not None}),
+            # versions of the requests sent once both replicas reported
+            # the new one
+            "after_converged": sorted({o[1] for o in outcomes if o[0] > converged}),
+        }
+
+        # SIGTERM: the frontend and both replicas gone within 10 s
+        pids = [frontend.pid, *kids]
+        t0 = time.monotonic()
+        frontend.send_signal(signal.SIGTERM)
+        row["exit"] = {
+            "replicas": len(kids), "gone": _gone_within(pids, SERVE_CLI_EXIT_SECS),
+            "secs": time.monotonic() - t0, "rc": frontend.poll(),
+        }
+    finally:
+        for pid in [frontend.pid, *kids]:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        frontend.wait()
+    row["secs"] = time.monotonic() - t_phase
+    with open(log_path) as f:
+        log("--- the serving frontend's log, its end\n" + f.read()[-3000:])
+    print(json.dumps({"serve_cli_mnist": row}), flush=True)
+    bad = check_serve_cli_mnist(row, cfg)
+    if bad:
+        raise AssertionError(f"phase 16b failed: {bad}")
+    return row
+
+
+def check_serve_cli_mnist(row: dict, cfg: dict = SERVE_MNIST) -> list:
+    """Phase 16b's gates on its printed row; the failed ones, by name."""
+    bad = []
+    if row.get("predicted_rows") != cfg["eval_records"] \
+            or row.get("max_abs_err_to_local") is None \
+            or row["max_abs_err_to_local"] > PREDICT_MAX_ABS_ERR:
+        bad.append("predict --serving_addr differs from the Local predict")
+    watch, new = row.get("watch", {}), row["version"] + 1
+    if watch.get("failures") != 0 or watch.get("replica_versions") != [new, new] \
+            or watch.get("after_converged") not in ([new], []):
+        bad.append("the watcher's swap under load")
+    if row.get("exit", {}).get("replicas") != 2 or not row["exit"].get("gone"):
+        bad.append("processes left after SIGTERM")
+    return bad
+
+
+def serving_phase(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 16: 16a (gpt2s over RPC, in this process) beside 16b (the
+    real serving CLI's processes)."""
+    t0 = time.monotonic()
+    out = _beside(
+        lm=lambda: serve_rpc_lm(os.path.join(work_dir, "lm"), device),
+        cli=lambda: serve_cli_mnist(os.path.join(work_dir, "cli"), device),
+    )
+    out["secs"] = time.monotonic() - t0
+    return out
+
+
 class _PhaseClock:
     """Each phase's wall seconds, from the end of the one before."""
 
@@ -5310,6 +5928,19 @@ def main() -> int:
     print(json.dumps({"slices": {"device": smi, **slice_rows}}), flush=True)
     phases.done("15_slices")
 
+    # ---- 16. serving over RPC: gpt2s behind a router, hot-swapped under
+    # load, beside the serving CLI with its watcher and predict
+    # --serving_addr
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as work_dir:
+        _release_memory("cuda")
+        serving_rows = serving_phase(work_dir)
+    serve_rpc_launches = serving_rows["lm"]["flash_fwd_launches"]
+    print(json.dumps({"serving_rpc": {
+        "device": smi, "secs": serving_rows["secs"],
+        "lm_secs": serving_rows["lm"]["secs"], "cli_secs": serving_rows["cli"]["secs"],
+    }}), flush=True)
+    phases.done("16_serving")
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -5319,7 +5950,7 @@ def main() -> int:
             "launches": train_launches[name] + local_launches[name]
             + stacked_launches[name] + dp_lm["launches"][name]
             + eval_lm["launches"][name] + replica_lm["launches"][name]
-            + (serve_launches if name == "flash_fwd" else 0),
+            + (serve_launches + serve_rpc_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],
             "plain_ms": measured["plain_ms"],

@@ -10,10 +10,11 @@ The strategies map as in the JAX package:
   world, one is the task-stream worker.
 
 Each runs every job type: ``train`` (with ``--validation_data`` the
-job also evaluates), ``evaluate`` and ``predict``.  Kubernetes
-submission, predicting through a running serving endpoint
-(``--serving_addr``) and the flags of the slices still to come raise,
-naming the slice of ``ROADMAP.md`` queue 1 that brings them
+job also evaluates), ``evaluate`` and ``predict``; with
+``--serving_addr`` a predict job is a client of a running serving
+endpoint (``serving/predict_client.py``) instead.  Kubernetes
+submission and the flags of the slices still to come raise, naming the
+slice of ``ROADMAP.md`` queue 1 that brings them
 (``utils/args.py::check_ported_flags``).
 """
 
@@ -61,10 +62,17 @@ def evaluate(args) -> dict:
 
 
 def predict(args) -> dict:
+    """With ``--serving_addr`` the batch predict becomes a client of a
+    running serving endpoint: shards decode locally, batches predict
+    remotely; unset keeps the in-process path."""
     if not getattr(args, "prediction_data", ""):
         raise ValueError("predict requires --prediction_data")
     args.training_data = ""
     args.validation_data = ""
+    if getattr(args, "serving_addr", None):
+        from elasticdl_tpu_torch.serving.predict_client import run_remote_predict
+
+        return run_remote_predict(args)
     return _dispatch(args)
 
 

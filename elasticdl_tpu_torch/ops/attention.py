@@ -31,6 +31,7 @@ import functools
 import json
 import math
 import os
+import threading
 
 import torch
 
@@ -45,6 +46,8 @@ _NEG_INF = -1e30
 launch_counts: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }
+# two serving replicas in one process launch from two dispatch threads
+_launch_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -282,7 +285,8 @@ def _launch(name, library, tensors, q, k, causal, sm_scale):
             f"{name} launch failed: {error_string(err).decode()} ({err})"
         )
     if not torch.cuda.is_current_stream_capturing():
-        launch_counts[name] += 1
+        with _launch_count_lock:
+            launch_counts[name] += 1
 
 
 def _flash_forward_cuda(q, k, v, causal: bool, sm_scale: float):

@@ -1,6 +1,6 @@
-"""Control-plane message types; the dataclasses of
-``elasticdl_tpu/rpc/messages.py`` that the lockstep and task-stream
-workers use, with the same field names and defaults.
+"""Control-plane and serving message types; the dataclasses of
+``elasticdl_tpu/rpc/messages.py`` that the workers, the replica service
+and the serving plane use, with the same field names and defaults.
 
 The JAX package serializes them with msgpack.  The port's codec is the
 standard library's: one frame is
@@ -21,8 +21,14 @@ import json
 import struct
 from dataclasses import dataclass, field, fields
 
+import numpy as np
+
 from elasticdl_tpu_torch.utils.constants import TaskType
-from elasticdl_tpu_torch.utils.tensor import Tensor
+from elasticdl_tpu_torch.utils.tensor import (
+    Tensor,
+    deserialize_tensors,
+    serialize_tensors,
+)
 
 _U32 = struct.Struct("<I")
 _TENSOR_KEY = "__tensor__"
@@ -258,6 +264,154 @@ class RestoreStateResponse:
     payload: bytes = b""
 
 
+# ---- serving plane (serving/) -----------------------------------------------
+#
+# Feature/output trees ride as tensor frames like the eval-metrics
+# payload: ``pack_array_tree``/``unpack_array_tree`` flatten a bare
+# ndarray or a {name: ndarray} dict into the serialize_tensors form (a
+# bare array travels under the reserved name below; bf16 leaves as
+# ``ml_dtypes.bfloat16``), and the packed bytes ride the message as one
+# raw frame, never text-encoded.
+
+BARE_ARRAY_KEY = "__bare__"
+
+
+def pack_array_tree(tree) -> bytes:
+    """Serialize a bare ndarray or a flat {name: ndarray} dict."""
+    if isinstance(tree, dict):
+        named = {
+            str(k): Tensor(str(k), np.asarray(v)) for k, v in tree.items()
+        }
+    else:
+        named = {BARE_ARRAY_KEY: Tensor(BARE_ARRAY_KEY, np.asarray(tree))}
+    return serialize_tensors(named)
+
+
+def unpack_array_tree(buf: bytes):
+    """Inverse of :func:`pack_array_tree`."""
+    tensors = deserialize_tensors(buf)
+    if set(tensors) == {BARE_ARRAY_KEY}:
+        return tensors[BARE_ARRAY_KEY].values
+    return {name: t.values for name, t in tensors.items()}
+
+
+@dataclass
+class PredictRequest:
+    """One inference request: ``rows`` rows of features (any row count —
+    the replica's micro-batcher coalesces/splits them into the one
+    canonical batch shape).  ``request_id`` is the client-chosen
+    identity (router retries re-send the SAME id; predict is read-only
+    so a re-delivery is harmless either way)."""
+
+    request_id: str = ""
+    features: bytes = b""  # pack_array_tree frames
+    rows: int = 0
+    # trace context ({"trace_id", "span_id"}) of the client's root
+    # span, which the JAX package's router and replica spans parent
+    # into; the port carries it and records no spans until slice 10
+    trace: dict = field(default_factory=dict)
+
+
+@dataclass
+class PredictResponse:
+    outputs: bytes = b""  # pack_array_tree frames
+    model_version: int = -1
+    rows: int = 0
+    # sum-exact per-request anatomy, ms keyed by serving phase name
+    # (queue_wait/assemble/h2d_transfer/device_compute/d2h_transfer/
+    # untracked) plus total_ms; empty on error responses
+    phases: dict = field(default_factory=dict)
+    # non-empty = the request failed (overload, shape mismatch, ...);
+    # the error classes a client may retry are marked retryable=True
+    error: str = ""
+    retryable: bool = False
+
+
+@dataclass
+class ServingStatusRequest:
+    """Replica/router status snapshot; doubles as the liveness probe."""
+
+    detail: bool = False
+    # trace context of the caller (probe beats omit it)
+    trace: dict = field(default_factory=dict)
+
+
+@dataclass
+class ServingStatusResponse:
+    replica_id: int = -1
+    model_version: int = -1
+    # the JAX package's process-wide XLA compile count; the port has no
+    # compiler to count and reports the distinct input shapes its engine
+    # has dispatched: 1 across steady-state traffic, whatever the
+    # request-size mix (the one canonical shape)
+    compile_count: int = 0
+    requests: int = 0
+    rows: int = 0
+    rejected: int = 0
+    swaps: int = 0
+    queue_rows: int = 0
+    canonical_rows: int = 0
+    # router responses: one status dict per live replica (detail=True)
+    replicas: list = field(default_factory=list)
+    # probe-beat telemetry fan-in (the heartbeat pattern riding the RPC
+    # that keeps flowing — here the liveness probe itself):
+    # monotone request/error counters since process start.  The router
+    # max-merges per replica (utils/merge.max_merge_counters), so
+    # duplicated or reordered probe replies are absorbed.  Empty when
+    # nothing was counted yet
+    counters: dict = field(default_factory=dict)
+    # monotone per-phase {ms, count, buckets} serving-request totals in
+    # the step-anatomy heartbeat shape (bucket keys stringified for the
+    # wire), max-merged per replica (the router's SLO watchdog, which
+    # reads them in the JAX package, comes with slice 10)
+    phases: dict = field(default_factory=dict)
+    # memory-ledger snapshot {"at", "current", "peak"} — NON-monotone,
+    # merged last-writer-wins.  The port's ledger comes with slice 10,
+    # so its replicas leave it empty
+    memory: dict = field(default_factory=dict)
+
+
+@dataclass
+class SwapModelRequest:
+    """Hot-swap the served model.  ``model_dir`` names an export
+    directory (manifest + npz); ``min_version`` guards staleness — the
+    replica refuses a swap that would not advance its version, which is
+    what makes the method a safe versioned-put under re-delivery."""
+
+    model_dir: str = ""
+    min_version: int = -1
+    # trace context of the operator's swap request (the JAX package's
+    # fan-out and model_swap spans parent into it; carried, unused,
+    # until slice 10)
+    trace: dict = field(default_factory=dict)
+    # live train->serve push (streaming subsystem): a non-empty
+    # ``payload`` carries an encoded replica snapshot
+    # (replication/blob.py) to swap from directly — no export dir, no
+    # disk.  ``version`` stamps the swap (the versioned-put guard is
+    # unchanged: a version <= the served one is refused as stale);
+    # ``source`` labels provenance; the two watermarks ride along for
+    # the streaming slice's freshness telemetry.  All default-valued
+    payload: bytes = b""
+    version: int = -1
+    source: str = ""
+    trained_watermark: int = -1
+    source_watermark: int = -1
+
+
+@dataclass
+class SwapModelResponse:
+    accepted: bool = False
+    model_version: int = -1
+    reason: str = ""
+    # structured staleness marker: True when the refusal means "already
+    # at/past this version" — the absorbed-replay case of the
+    # versioned-put contract.  A FIELD, not a reason-string prefix, so
+    # the router's convergence logic cannot be broken by rewording
+    stale: bool = False
+    # router fan-out: per-replica outcomes
+    replicas: list = field(default_factory=list)
+
+
 MESSAGE_TYPES = {
     cls.__name__: cls
     for cls in (
@@ -279,6 +433,12 @@ MESSAGE_TYPES = {
         FetchReplicaResponse,
         GetRestoreStateRequest,
         RestoreStateResponse,
+        PredictRequest,
+        PredictResponse,
+        ServingStatusRequest,
+        ServingStatusResponse,
+        SwapModelRequest,
+        SwapModelResponse,
     )
 }
 

@@ -14,9 +14,16 @@ means ``None``.  Handlers delegate to a transport-agnostic servicer
 codes keep gRPC's names: a refused or dropped connection is
 ``UNAVAILABLE``, a timed-out call ``DEADLINE_EXCEEDED`` (both retryable,
 ``rpc/retry.py``), an unknown method ``UNIMPLEMENTED``, a handler
-that raised ``INTERNAL``, and a request over the message cap
-``RESOURCE_EXHAUSTED`` (raised by the client before it sends, as gRPC's
-client refuses a message over its send limit).
+that raised ``INTERNAL`` (a handler that raised an :class:`RpcError`,
+such as a router passing on a replica's failure, sends that error's
+code and details), and a message over the cap ``RESOURCE_EXHAUSTED``,
+never retried.  The client raises it before it sends a request over the
+cap, as gRPC's client refuses a message over its send limit; the server
+checks its encoded reply against the cap and sends, in its place,
+``RESOURCE_EXHAUSTED`` with a short body naming the method and the size,
+as a gRPC server capped by ``grpc.max_send_message_length`` does; and a
+client that reads a reply length over the cap raises it too.  So an
+over-cap reply reaches the caller once, and the handler thread stays up.
 
 A server carries one servicer's method table: the master's
 (:data:`_METHODS`, the default) or another's, such as the replica
@@ -107,21 +114,46 @@ def _note_rpc_failure(ex):
         rpc_stats.note_failure(code().name.lower())
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    chunks, got = [], 0
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    """``n`` bytes, received straight into one buffer."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
     while got < n:
-        chunk = sock.recv(min(n - got, 1 << 20))
-        if not chunk:
+        count = sock.recv_into(view[got:], min(n - got, 1 << 22))
+        if not count:
             raise ConnectionError(f"connection closed after {got} of {n} bytes")
-        chunks.append(chunk)
-        got += len(chunk)
-    return b"".join(chunks)
+        got += count
+    return buf
+
+
+# a frame up to this size is sent with its prefix in one buffer; a larger
+# one after it, uncopied
+_CONCAT_BYTES = 1 << 20
+
+
+def _send(sock: socket.socket, prefix: bytes, body) -> None:
+    if len(body) <= _CONCAT_BYTES:
+        sock.sendall(prefix + body)
+    else:
+        sock.sendall(prefix)
+        sock.sendall(body)
+
+
+class _OverCap(Exception):
+    """A length prefix over :data:`MAX_MESSAGE_BYTES`."""
+
+    def __init__(self, length: int):
+        super().__init__(
+            f"a message of {length} bytes is over the "
+            f"{MAX_MESSAGE_BYTES}-byte message cap"
+        )
 
 
 def _recv_sized(sock: socket.socket) -> bytes:
     (length,) = _U64.unpack(_recv_exact(sock, _U64.size))
     if length > MAX_MESSAGE_BYTES:
-        raise ConnectionError(f"message of {length} bytes over the cap")
+        raise _OverCap(length)
     return _recv_exact(sock, length)
 
 
@@ -129,11 +161,12 @@ class _Handler(socketserver.BaseRequestHandler):
     def handle(self):
         server = self.server
         sock = self.request
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         try:
             (name_len,) = _U32.unpack(_recv_exact(sock, _U32.size))
             name = _recv_exact(sock, name_len).decode("utf-8")
             payload = _recv_sized(sock)
-        except (ConnectionError, OSError):
+        except (_OverCap, ConnectionError, OSError):
             return
         status, body = StatusCode.OK, b""
         if name not in server.methods:
@@ -144,12 +177,25 @@ class _Handler(socketserver.BaseRequestHandler):
                 request = msg.decode(payload)
                 response = getattr(server.servicer, name)(request)
                 body = msg.encode(response) if response is not None else b""
+            except RpcError as ex:  # a downstream call's failure, passed on
+                status, body = ex.code(), ex.details().encode("utf-8")
             except Exception:  # noqa: BLE001 — reported to the caller
                 status = StatusCode.INTERNAL
                 body = traceback.format_exc().encode("utf-8")
                 logger.exception("RPC handler %s failed", name)
+        if len(body) > MAX_MESSAGE_BYTES:
+            # the caller would refuse it unread: say so, in a few bytes
+            logger.error(
+                "RPC handler %s: a reply of %d bytes is over the cap",
+                name, len(body),
+            )
+            status = StatusCode.RESOURCE_EXHAUSTED
+            body = (
+                f"{server.service_name}/{name}: a reply of {len(body)} "
+                f"bytes is over the {MAX_MESSAGE_BYTES}-byte message cap"
+            ).encode("utf-8")
         try:
-            sock.sendall(_U8.pack(status.value) + _U64.pack(len(body)) + body)
+            _send(sock, _U8.pack(status.value) + _U64.pack(len(body)), body)
         except OSError:
             pass  # the caller gave up (its deadline): nothing to tell
 
@@ -254,6 +300,10 @@ class RpcClient:
         host, port = self._addr
         return f"{host}:{port}"
 
+    def close(self):
+        """Nothing to release: each call opens and closes its own
+        connection (the JAX client closes its channel here)."""
+
     def _maybe_reresolve(self, attempt: int):
         """on_retry hook: every few failures, re-read the master address
         and connect there from the next attempt on if it moved."""
@@ -276,18 +326,21 @@ class RpcClient:
             )
             self._addr = new
 
-    def _invoke(self, name: str, payload: bytes, timeout: float | None) -> bytes:
+    def _invoke(self, name: str, payload: bytes, timeout: float | None) -> bytearray:
         """One wire attempt."""
         method = name.encode("utf-8")
         try:
             # one read: a concurrent re-resolve swaps the whole tuple
             with socket.create_connection(self._addr, timeout=timeout) as sock:
-                sock.sendall(
-                    _U32.pack(len(method)) + method
-                    + _U64.pack(len(payload)) + payload
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                _send(
+                    sock, _U32.pack(len(method)) + method + _U64.pack(len(payload)),
+                    payload,
                 )
                 (status,) = _U8.unpack(_recv_exact(sock, _U8.size))
                 body = _recv_sized(sock)
+        except _OverCap as ex:  # never an outage: a retry gets it again
+            raise RpcError(StatusCode.RESOURCE_EXHAUSTED, f"{name}: {ex}") from ex
         except socket.timeout as ex:
             raise RpcError(StatusCode.DEADLINE_EXCEEDED, f"{name}: {ex}") from ex
         except OSError as ex:  # refused, reset, closed mid-call

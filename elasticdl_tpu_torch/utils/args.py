@@ -189,7 +189,11 @@ def _add_data_params(parser: argparse.ArgumentParser):
         "--serving_addr",
         default=None,
         required=False,
-        help="predict only: a running serving endpoint (not ported)",
+        help=(
+            "predict only: send the batches to this serving endpoint "
+            "(python -m elasticdl_tpu_torch.serving.main) instead of "
+            "predicting in process"
+        ),
     )
 
 
@@ -677,7 +681,6 @@ UNPORTED_FLAGS = {
     "profile_dir": _TELEMETRY,
     "profile_steps": _TELEMETRY,
     "slo_config": _TELEMETRY,
-    "serving_addr": _comes_with("slice 4, the gRPC face of serving"),
     "instance_backend": _K8S,
     "namespace": _K8S,
     "docker_image": _K8S,

@@ -314,7 +314,7 @@ UNPORTED_VALUES = {
     "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",
     "metrics_host": "0.0.0.0", "trace_sample_rate": "1.0", "step_anatomy": "true",
     "profile_dir": "/p", "profile_steps": "2", "slo_config": "default",
-    "serving_addr": "localhost:1", "instance_backend": "k8s", "namespace": "ns",
+    "instance_backend": "k8s", "namespace": "ns",
     "docker_image": "img", "docker_image_repository": "repo",
     "docker_base_image": "base", "worker_resource_request": "cpu=2",
     "worker_resource_limit": "cpu=2", "worker_pod_priority": "high",
@@ -349,8 +349,9 @@ def test_unported_flag_raises_at_executor_build(runs, flag, value):
 
 # the flags of stacked steps, remat and the device pipeline, ported; and
 # the evaluation service's time trigger, peer replication, the master
-# journal, standbys, slices and the autoscaler, which a Local run takes
-# and, as the JAX package's Local executor, does not read
+# journal, standbys, slices and the autoscaler, and --serving_addr (read
+# by predict alone), which a Local run takes and, as the JAX package's
+# Local executor, does not read
 PORTED_CASES = [
     ("steps_per_dispatch", "2"), ("steps_per_dispatch", "auto"),
     ("remat", "true"), ("device_prefetch", "true"),
@@ -361,6 +362,7 @@ PORTED_CASES = [
     ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
     ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
     ("autoscale_shrink", "true"), ("standby_workers", "0"),
+    ("serving_addr", "localhost:1"),
 ]
 
 

@@ -6,7 +6,11 @@ against the JAX package's, on the CPU.
   header plus raw tensor frames), tensors included.
 - A server and a ``MasterClient`` on localhost carry every master method
   to a real servicer, and map transport failures onto gRPC's status
-  codes (UNAVAILABLE, DEADLINE_EXCEEDED, UNIMPLEMENTED, INTERNAL).
+  codes (UNAVAILABLE, DEADLINE_EXCEEDED, UNIMPLEMENTED, INTERNAL,
+  RESOURCE_EXHAUSTED for a request or a reply over the message cap,
+  never retried).
+- Every method of the port's tables is classified in the port's copy of
+  the idempotency registry, and no ``not-retryable`` one is retried.
 - The copied retry and deadline rules behave as the JAX package's tests
   pin them: each rule's case runs against both packages' modules.
 """
@@ -81,6 +85,32 @@ MESSAGES = [
     ),
     msg.GetRestoreStateRequest(cluster_version=3, process_id=1),
     msg.RestoreStateResponse(has=True, version=6, checksum="c", payload=b"state"),
+    # the serving plane's: feature and output trees ride packed, as one
+    # raw byte frame each
+    msg.PredictRequest(
+        request_id="r1", features=msg.pack_array_tree({"x": np.ones((2, 4), np.float32)}),
+        rows=2, trace={"trace_id": "t"},
+    ),
+    msg.PredictResponse(
+        outputs=msg.pack_array_tree(np.zeros((2, 3), np.float32)), model_version=7,
+        rows=2, phases={"queue_wait": 0.5, "total_ms": 2.0}, error="e", retryable=True,
+    ),
+    msg.ServingStatusRequest(detail=True, trace={"span_id": "s"}),
+    msg.ServingStatusResponse(
+        replica_id=2, model_version=9, compile_count=1, requests=5, rows=11,
+        rejected=1, swaps=2, queue_rows=3, canonical_rows=4,
+        replicas=[{"replica_id": 0, "model_version": 9}], counters={"requests": 5},
+        phases={"total": {"ms": 3.5, "count": 5, "buckets": {"0.01": 5}}},
+        memory={"at": 1.0},
+    ),
+    msg.SwapModelRequest(
+        model_dir="/m", min_version=3, trace={"trace_id": "t"}, payload=b"blob",
+        version=12, source="live-push", trained_watermark=40, source_watermark=41,
+    ),
+    msg.SwapModelResponse(
+        accepted=False, model_version=12, reason="stale swap: version 12 <= served 12",
+        stale=True, replicas=[{"replica_id": 0, "absorbed": True}],
+    ),
 ]
 
 
@@ -257,6 +287,132 @@ def test_a_request_over_the_message_cap_fails_loudly(served, monkeypatch):
     )
     client.report_evaluation_metrics(small)
     assert len(seen) == 1 and seen[0].task_id == 1
+
+
+def test_a_reply_over_the_message_cap_is_resource_exhausted_once(served, monkeypatch):
+    """A reply over the cap (shrunk here, so the reply stays small) is
+    answered RESOURCE_EXHAUSTED with a short body naming the method and
+    the size, as a gRPC server capped by its send limit answers: one
+    error, the handler called once whatever the retry policy, and the
+    server answers the next call."""
+    from elasticdl_tpu_torch.rpc import service
+
+    servicer, _dispatcher, _client, server = served
+    calls = []
+
+    def big_heartbeat(request):
+        calls.append(request.worker_id)
+        return msg.HeartbeatResponse(replica_peers={"pad": "x" * 8192})
+
+    monkeypatch.setattr(servicer, "heartbeat", big_heartbeat)
+    monkeypatch.setattr(service, "MAX_MESSAGE_BYTES", 4096)
+    client = MasterClient(
+        f"localhost:{server.port}", retry=port_retry.RetryPolicy.from_budget(5.0),
+        retryable_methods=MASTER_RETRYABLE_METHODS,
+    )
+    with pytest.raises(RpcError) as err:
+        client.heartbeat(msg.HeartbeatRequest(worker_id=3))
+    assert err.value.code() == StatusCode.RESOURCE_EXHAUSTED
+    details = err.value.details()
+    assert "heartbeat" in details and "message cap" in details and len(details) < 256
+    assert calls == [3]
+    # the server's handler thread is up: the next call is answered
+    task = client.get_step_task(msg.GetStepTaskRequest(seq=0, worker_id=1))
+    assert (task.shard_name, task.end - task.start) == ("s", 32)
+
+
+def test_a_reply_length_over_the_cap_is_never_unavailable(monkeypatch):
+    """A client that reads a reply length over the cap (a server that
+    does not check, such as an older one) raises RESOURCE_EXHAUSTED, not
+    the retryable UNAVAILABLE a torn connection gives."""
+    import socket
+    import struct
+
+    from elasticdl_tpu_torch.rpc import service
+
+    listener = socket.create_server(("localhost", 0))
+    port = listener.getsockname()[1]
+
+    def serve_one():
+        conn, _ = listener.accept()
+        with conn:
+            conn.recv(1 << 16)
+            conn.sendall(struct.pack("<B", 0) + struct.pack("<Q", 8192) + b"x" * 8192)
+
+    thread = threading.Thread(target=serve_one)
+    thread.start()
+    monkeypatch.setattr(service, "MAX_MESSAGE_BYTES", 4096)
+    client = MasterClient(
+        f"localhost:{port}", retry=port_retry.RetryPolicy.from_budget(5.0),
+        retryable_methods=MASTER_RETRYABLE_METHODS,
+    )
+    with pytest.raises(RpcError) as err:
+        client.heartbeat(msg.HeartbeatRequest(worker_id=0))
+    thread.join()
+    listener.close()
+    assert err.value.code() == StatusCode.RESOURCE_EXHAUSTED
+
+
+def test_a_handlers_rpc_error_reaches_the_caller_with_its_code(served):
+    """A servicer that raises an ``RpcError`` (a router passing on a
+    replica's failure) answers with that error's code and details, not
+    INTERNAL."""
+    servicer, _dispatcher, client, _server = served
+
+    def relayed(_request):
+        raise RpcError(StatusCode.RESOURCE_EXHAUSTED, "downstream: over the cap")
+
+    servicer.report_version = relayed
+    with pytest.raises(RpcError) as err:
+        client.report_version(msg.ReportVersionRequest(model_version=1))
+    assert err.value.code() == StatusCode.RESOURCE_EXHAUSTED
+    assert err.value.details() == "downstream: over the cap"
+
+
+def _method_tables():
+    """Every method table and retryable set of the port, by name."""
+    from elasticdl_tpu_torch.replication.service import REPLICA_METHODS
+    from elasticdl_tpu_torch.rpc import service
+    from elasticdl_tpu_torch.serving import replica
+
+    return {
+        "master methods": service._METHODS,
+        "master retryable": service.MASTER_RETRYABLE_METHODS,
+        "default idempotent": port_retry.DEFAULT_IDEMPOTENT,
+        "replica methods": REPLICA_METHODS,
+        "serving methods": replica.SERVING_METHODS,
+        "serving retryable": replica.SERVING_RETRYABLE_METHODS,
+    }
+
+
+@pytest.mark.parametrize("table", sorted(_method_tables()))
+def test_every_method_is_classified_and_none_unsafe_is_retried(table):
+    """The JAX package's rpc-contract rules on the port's tables, until
+    the port's ``analysis/`` comes: every method of a method table or a
+    retryable set has an entry in the idempotency registry, and no
+    ``not-retryable`` method is in a retryable set."""
+    from elasticdl_tpu.rpc import idempotency as jax_idem
+    from elasticdl_tpu_torch.rpc import idempotency
+
+    methods = _method_tables()[table]
+    assert methods
+    for method in methods:
+        assert idempotency.classification(method) is not None, method
+        # the same classification as the JAX package's
+        assert idempotency.classification(method) == jax_idem.classification(method)
+        if "retryable" in table or "idempotent" in table:
+            assert idempotency.classification(method) != "not-retryable", method
+
+
+def test_the_idempotency_registry_is_the_jax_packages():
+    from elasticdl_tpu.rpc import idempotency as jax_idem
+    from elasticdl_tpu_torch.rpc import idempotency
+
+    assert {m: c for m, (c, _why) in idempotency.IDEMPOTENCY.items()} == {
+        m: c for m, (c, _why) in jax_idem.IDEMPOTENCY.items()
+    }
+    assert all(why for _c, why in idempotency.IDEMPOTENCY.values())
+    assert idempotency.classification("no_such_method") is None
 
 
 def test_concurrent_calls_are_served(served):

@@ -37,7 +37,8 @@ from elasticdl_tpu_torch.serving.batcher import (
     Ticket,
     tree_rows,
 )
-from elasticdl_tpu_torch.serving.replica import PredictRequest, ServingReplica
+from elasticdl_tpu_torch.rpc import messages as msg
+from elasticdl_tpu_torch.serving.replica import ServingReplica
 from elasticdl_tpu_torch.telemetry.anatomy import (
     PHASE_UNTRACKED,
     SERVING_REQUEST_PHASES,
@@ -87,6 +88,17 @@ def lm_export(tmp_path_factory):
     return _jax_export(str(tmp_path_factory.mktemp("lm_export")), LM_KW)
 
 
+def PredictRequest(request_id: str, features, rows: int) -> msg.PredictRequest:
+    """A wire request carrying ``features`` packed."""
+    return msg.PredictRequest(
+        request_id=request_id, features=msg.pack_array_tree(features), rows=rows
+    )
+
+
+def _outputs(response):
+    return msg.unpack_array_tree(response.outputs)
+
+
 def _serve_jax(export_dir, requests):
     """Each request through the JAX engine, synchronously (the dispatch
     loop's body, as tests/test_serving.py drives it)."""
@@ -115,8 +127,9 @@ def test_port_replica_serves_a_jax_export_like_the_jax_engine(lm_export):
     for n, response, expected in zip(REQUEST_ROWS, responses, want):
         assert not response.error, response.error
         assert response.rows == n and response.model_version == 7
-        assert response.outputs.shape == (n, SEQ, LM_KW["vocab_size"])
-        np.testing.assert_allclose(response.outputs, expected, atol=TOL, rtol=TOL)
+        outputs = _outputs(response)
+        assert outputs.shape == (n, SEQ, LM_KW["vocab_size"])
+        np.testing.assert_allclose(outputs, expected, atol=TOL, rtol=TOL)
     # 11 rows in groups of at most 4: at least 3 dispatches
     assert engine.dispatches >= 3 and engine.rows_served == sum(REQUEST_ROWS)
     assert port_attn.launch_counts["flash_fwd"] == 0  # CPU: the plain path
@@ -131,8 +144,9 @@ def test_port_serves_bf16_logits_in_the_jax_engines_dtype(tmp_path):
     with ServingReplica(export, canonical_rows=4, device="cpu") as replica:
         response = replica.predict(PredictRequest("a", feats, 3))
     assert not response.error, response.error
-    assert response.outputs.dtype == want.dtype == ml_dtypes.bfloat16
-    got, want = (np.asarray(x, np.float32) for x in (response.outputs, want))
+    outputs = _outputs(response)
+    assert outputs.dtype == want.dtype == ml_dtypes.bfloat16
+    got, want = (np.asarray(x, np.float32) for x in (outputs, want))
     np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
@@ -161,13 +175,13 @@ def test_port_replica_answers_bad_requests_without_dying(lm_export):
             PredictRequest("ids", bad_ids, 2)
         ).error
         again = replica.predict(PredictRequest("after", _tokens(3, 4), 3))
-        assert not again.error and again.outputs.shape[0] == 3
+        assert not again.error and _outputs(again).shape[0] == 3
 
 
 def test_port_engine_predict_rows_matches_the_served_rows(lm_export):
     with ServingReplica(lm_export, canonical_rows=4, device="cpu") as replica:
         feats = _tokens(3, seed=9)
-        served = replica.predict(PredictRequest("a", feats, 3)).outputs
+        served = _outputs(replica.predict(PredictRequest("a", feats, 3)))
         direct = replica.engine.predict_rows(feats)
     np.testing.assert_array_equal(served, direct)
 

@@ -4,8 +4,9 @@ that it refuses a bf16 forward, dQ or dK/dV kernel that is missing,
 misses Hopper's instructions, may spill, or cannot be read at all;
 phase 14's gates (``check_master_ha``) on a report the card recorded,
 refusing a phase that reports nothing, a missing case, and each gate
-broken in turn; phase 15's (``check_slices``) the same way; and the
-``phase_secs`` line."""
+broken in turn; phase 15's (``check_slices``) the same way; phase 16's
+(``check_serve_rpc_lm``, ``check_serve_cli_mnist``) on the card's rows,
+each gate broken alone; and the ``phase_secs`` line."""
 
 from __future__ import annotations
 
@@ -375,6 +376,102 @@ def test_check_slices_refuses(name):
     SLICE_EDITS[name](report)
     with pytest.raises(AssertionError):
         chip_smoke.check_slices(report, SLICE_CFG)
+
+
+# ---- phase 16: serving over RPC ---------------------------------------------
+
+# phase 16's rows as an NVIDIA H100 80GB HBM3 (700.00 W) reported them,
+# trimmed to what the gates read (16a's in the row's present form: the
+# versions of the four requests sent after the swap's acknowledgement,
+# all 2, as that run's gate read them)
+SERVE_LM_ROW = {
+    "device": "cuda", "layers": 12, "warm": {"requests": 16}, "warm_failures": [],
+    "warm_dispatches": 16, "warm_flash_fwd_launches": 192,
+    "swap": {
+        "accepted": True,
+        "replicas": [
+            {"replica_id": 0, "accepted": True, "absorbed": False, "reason": ""},
+            {"replica_id": 1, "accepted": True, "absorbed": False, "reason": ""},
+        ],
+        "versions_after": [2, 2], "versions_during": [1, 2],
+        "versions_after_ack": [2, 2, 2, 2], "replay_accepted": True,
+        "replay_absorbed": [True, True],
+    },
+    "requests": 31, "dispatches": 31, "flash_fwd_launches": 372,
+    "shapes_dispatched": [1, 1], "max_abs_err": 0.0, "mean_abs_err": 0.0, "failures": [],
+    "cap": {"calls": 1, "code": "RESOURCE_EXHAUSTED", "replica_requests_served": 1},
+}
+SERVE_CLI_ROW = {
+    "device": "cuda", "version": 32, "predicted_rows": 2048, "max_abs_err_to_local": 0.0,
+    "watch": {"replica_versions": [33, 33], "failures": 0, "versions": [32, 33],
+              "after_converged": [33]},
+    "exit": {"replicas": 2, "gone": True, "rc": 0},
+}
+
+
+def _row_set(row, path, value):
+    def edit(r):
+        node = r
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = value
+    return row, edit
+
+
+SERVE_EDITS = {
+    "lm_failed_request": _row_set("lm", ("failures",), ["request 3: UNAVAILABLE"]),
+    "lm_warm_failed_request": _row_set("lm", ("warm_failures",), ["request 0"]),
+    "lm_warm_short": _row_set("lm", ("warm", "requests"), 15),
+    "lm_kernel_bypassed": _row_set("lm", ("flash_fwd_launches",), 371),
+    "lm_warm_kernel_bypassed": _row_set("lm", ("warm_flash_fwd_launches",), 180),
+    # 30 dispatches, each with its 12 launches, for 31 requests
+    "lm_fewer_dispatches": ("lm", lambda r: r.update(dispatches=30, flash_fwd_launches=360)),
+    "lm_rows_disagree": _row_set("lm", ("max_abs_err",), 0.2),
+    "lm_rows_disagree_on_average": _row_set("lm", ("mean_abs_err",), 0.02),
+    "lm_rows_unchecked": _row_set("lm", ("max_abs_err",), None),
+    "lm_swap_refused": _row_set("lm", ("swap", "accepted"), False),
+    "lm_swap_one_replica": _row_set("lm", ("swap", "replicas", 1, "accepted"), False),
+    "lm_swap_left_version_1": _row_set("lm", ("swap", "versions_after"), [2, 1]),
+    "lm_unknown_version": _row_set("lm", ("swap", "versions_during"), [1, 2, 3]),
+    "lm_old_version_after_ack": _row_set("lm", ("swap", "versions_after_ack"), [2, 1, 2, 2]),
+    "lm_too_few_after_ack": _row_set("lm", ("swap", "versions_after_ack"), [2, 2]),
+    "lm_replay_applied": _row_set("lm", ("swap", "replay_absorbed"), [False, True]),
+    "lm_replay_refused": _row_set("lm", ("swap", "replay_accepted"), False),
+    "lm_cap_unavailable": _row_set("lm", ("cap", "code"), "UNAVAILABLE"),
+    "lm_cap_retried": _row_set("lm", ("cap", "replica_requests_served"), 3),
+    "lm_cap_answered": _row_set("lm", ("cap", "code"), None),
+    "lm_two_shapes": _row_set("lm", ("shapes_dispatched",), [1, 2]),
+    "cli_predict_differs": _row_set("cli", ("max_abs_err_to_local",), 1e-3),
+    "cli_predict_short": _row_set("cli", ("predicted_rows",), 2040),
+    "cli_watch_failure": _row_set("cli", ("watch", "failures"), 1),
+    "cli_watch_one_replica": _row_set("cli", ("watch", "replica_versions"), [33, 32]),
+    "cli_old_version_after_swap": _row_set("cli", ("watch", "after_converged"), [32, 33]),
+    "cli_replica_left": _row_set("cli", ("exit", "gone"), False),
+    "cli_replicas_uncounted": _row_set("cli", ("exit", "replicas"), 0),
+}
+
+
+def test_check_serving_passes_the_recorded_rows():
+    import copy
+
+    assert chip_smoke.check_serve_rpc_lm(copy.deepcopy(SERVE_LM_ROW)) == []
+    assert chip_smoke.check_serve_cli_mnist(copy.deepcopy(SERVE_CLI_ROW)) == []
+    # the CPU rehearsal's plain path launches nothing
+    cpu = dict(copy.deepcopy(SERVE_LM_ROW), device="cpu", flash_fwd_launches=0,
+               warm_flash_fwd_launches=0)
+    assert chip_smoke.check_serve_rpc_lm(cpu) == []
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_EDITS))
+def test_check_serving_refuses(name):
+    import copy
+
+    which, edit = SERVE_EDITS[name]
+    rows = {"lm": copy.deepcopy(SERVE_LM_ROW), "cli": copy.deepcopy(SERVE_CLI_ROW)}
+    edit(rows[which])
+    bad = (chip_smoke.check_serve_rpc_lm(rows["lm"]) if which == "lm"
+           else chip_smoke.check_serve_cli_mnist(rows["cli"]))
+    assert len(bad) == 1, bad
 
 
 def test_the_phase_secs_line_has_each_phase_and_the_total(monkeypatch):
