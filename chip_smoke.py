@@ -272,6 +272,27 @@ printed:
    replicas at the new version; after SIGTERM the frontend and both
    replicas gone within 10 s.  It prints the requests' latencies and
    phases, each replica's swap ms and the watcher's swap latency.
+17. chaos — the chaos runner CLI, ``python -m
+   elasticdl_tpu_torch.chaos.runner``, six runs side by side, each a
+   subprocess with its own work directory and job (two lockstep mnist
+   workers with their standby pool, 1 024 records, 2 epochs, on the
+   card): ``preempt_one_worker`` with its fault-free baseline (exit 0,
+   every invariant PASS, ``trajectory_parity`` within 0.15, one
+   re-formation); its ``--corrupt double_report`` (exit 1,
+   ``exactly_once`` FAIL); ``dup_report_storm`` (exit 0,
+   ``duplicate_delivery_exactly_once`` PASS, reports deduplicated) and
+   its ``--corrupt drop_dedup`` (exit 1, both that and ``exactly_once``
+   FAIL); ``blackhole_master_link`` (exit 0, deadlines expired, the
+   first re-formation evicting the blackholed worker); and
+   ``slow_network_mid_epoch`` (exit 0, no re-formation, and no call past
+   its 5 s deadline though it shares the host with the other five).
+   Each writes ``chaos_result.json``; one row per plan gives its wall
+   seconds, re-formation, detection and kill-to-step latencies, RPC
+   totals and accuracy.
+
+Every process the smoke starts shares one bytecode cache of this run
+(``_bytecode_cache``): the card's machine writes none, and each new
+process would compile torch's sources again.
 
 Before the kernels' line it prints ``{"phase_secs": {...}}``: each
 phase's wall seconds and the total.  The last two lines of standard
@@ -2125,8 +2146,8 @@ STACKED_MNIST_VARIANTS = (
     ("k8_unstaged", dict(STACKED_MNIST, flags=("--steps_per_dispatch", "8")), False),
 )
 # timed runs of a model with variants: each flag set this many times, in
-# turn, for their spread
-STACKED_TIMED_ROUNDS = 2
+# turn (two would give a spread; one keeps the smoke in its budget)
+STACKED_TIMED_ROUNDS = 1
 # DeepFM staged across task boundaries, 3 dispatches in flight: checked
 # on phase 8's accuracy recipe (16 tasks of 16 batches: two PreStacked
 # groups of 8 each), then at full width on phase 8's timed data, whose
@@ -2836,6 +2857,29 @@ def _cli_job(argv: list, build) -> tuple:
             if not _ROUTES:
                 master_main.build_master = _REAL_BUILD.pop()
     return rc, time.monotonic() - t0
+
+
+def _in_background(fn, name: str):
+    """Start ``fn`` on a thread of its own; the returned callable waits for
+    it and returns its result, or raises its failure."""
+    out: dict = {}
+
+    def run():
+        try:
+            out["result"] = fn()
+        except BaseException as ex:  # noqa: BLE001 — re-raised by the join
+            out["error"] = ex
+
+    thread = threading.Thread(target=run, name=name, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in out:
+            raise AssertionError(f"{name} failed: {out['error']!r}") from out["error"]
+        return out["result"]
+
+    return join
 
 
 def _beside(**jobs) -> dict:
@@ -5071,12 +5115,13 @@ def check_slices(report: dict, cfg: dict = SLICE_MNIST) -> None:
 
 def slices_phase(
     work_dir: str, cfg: dict = SLICE_MNIST, device: str = "cuda", data=None, cold=None,
-    with_standby: bool = True,
+    with_standby: bool = True, after_standby=None,
 ) -> dict:
     """Phase 15: 15a (standbys) alone, its re-formation timed beside phase
-    10a's; then 15b (the slice loss), 15c (park and grant) and 15d (the
-    autoscale grow) side by side.  ``with_standby=False`` leaves 15a out
-    (its CPU rehearsal is ``tests/test_torch_standby.py``'s)."""
+    10a's; then ``after_standby()``, and 15b (the slice loss), 15c (park
+    and grant) and 15d (the autoscale grow) side by side.
+    ``with_standby=False`` leaves 15a out (its CPU rehearsal is
+    ``tests/test_torch_standby.py``'s)."""
     t0 = time.monotonic()
     data = data or _zoo_data(os.path.join(work_dir, "data"), cfg)
     report: dict = {}
@@ -5085,6 +5130,8 @@ def slices_phase(
         report["standby"] = standby_run(os.path.join(work_dir, "standby"), cfg, data, device, cold)
     else:
         report["without_standby"] = True
+    if after_standby is not None:
+        after_standby()
     jobs = dict(
         slice_loss=lambda: slice_loss_run(os.path.join(work_dir, "slice_loss"), cfg, data, device),
         park_grant=lambda: park_grant_run(os.path.join(work_dir, "park_grant"), cfg, data, device),
@@ -5690,6 +5737,174 @@ def serving_phase(work_dir: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 17: the chaos runner CLI ----------------------------------------
+
+# (name, the runner's arguments, its exit code): each run is ``python -m
+# elasticdl_tpu_torch.chaos.runner`` in a subprocess of its own, with its
+# own work directory; its job (two lockstep mnist workers and their
+# standby pool, the master in the runner's process) trains on the card
+CHAOS_RUNS = (
+    ("preempt_one_worker", ("--plan", "preempt_one_worker"), 0),
+    ("double_report", ("--plan", "preempt_one_worker", "--corrupt", "double_report"), 1),
+    ("dup_report_storm", ("--plan", "dup_report_storm", "--no-baseline"), 0),
+    ("drop_dedup", ("--plan", "dup_report_storm", "--corrupt", "drop_dedup"), 1),
+    ("blackhole_master_link", ("--plan", "blackhole_master_link", "--no-baseline"), 0),
+    ("slow_network_mid_epoch", ("--plan", "slow_network_mid_epoch", "--no-baseline"), 0),
+)
+# each job's cap (the runner's --run-timeout-secs); a run is the faulted
+# job and, for preempt_one_worker, its baseline
+CHAOS_RUN_TIMEOUT_SECS = 300.0
+CHAOS_TRAJECTORY_TOLERANCE = 0.15  # the runner's default
+
+
+# the sessions of the chaos runs still running, stopped at exit too (a
+# failure elsewhere can end the smoke while they run in the background)
+_CHAOS_SESSIONS: set = set()
+
+
+def _stop_chaos_sessions():
+    import signal
+
+    for pid in list(_CHAOS_SESSIONS):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(pid, signal.SIGKILL)
+
+
+def chaos_run(work_dir: str, name: str, argv, device: str = "cuda") -> dict:
+    """One chaos runner CLI run in a subprocess (and its own session, so
+    that every process its job started is stopped after it); its exit
+    code, wall seconds, report and ``chaos_result.json``."""
+    import atexit
+    import signal
+
+    run_dir = os.path.join(work_dir, name)
+    os.makedirs(run_dir, exist_ok=True)
+    out = os.path.join(run_dir, "report.json")
+    cmd = [
+        sys.executable, "-m", "elasticdl_tpu_torch.chaos.runner", *argv,
+        "--device", device, "--workdir", run_dir, "--output", out,
+        "--run-timeout-secs", str(CHAOS_RUN_TIMEOUT_SECS),
+    ]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    with open(os.path.join(run_dir, "log.txt"), "w") as log:
+        if not _CHAOS_SESSIONS:
+            atexit.register(_stop_chaos_sessions)
+        proc = subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True,
+        )
+        _CHAOS_SESSIONS.add(proc.pid)
+        try:
+            rc = proc.wait(timeout=2 * CHAOS_RUN_TIMEOUT_SECS + 120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            _CHAOS_SESSIONS.discard(proc.pid)
+    secs = time.monotonic() - t0
+    row = {"rc": rc, "secs": secs, "result_json": os.path.exists(
+        os.path.join(run_dir, "chaos_result.json"))}
+    if not os.path.exists(out):
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            row["log_tail"] = f.read()[-3000:]
+        return row
+    with open(out) as f:
+        report = json.load(f)
+    reforms = report["reforms"]
+    row.update(
+        invariants_ok=report["invariants_ok"],
+        invariants={i["name"]: i["status"] for i in report["invariants"]},
+        fired=[(e.get("fault_id"), e.get("worker_id")) for e in report["faults_injected"]],
+        reforms=len(reforms),
+        dead_workers=[e.get("dead_workers") for e in reforms],
+        reform_latency_secs=report["reform_latency_secs"],
+        detect_secs=report["detect_secs"],
+        kill_to_step_secs=report["kill_to_step_secs"],
+        job_secs=report["wall_secs"],
+        rpc=report["rpc"],
+        standby_activated=report["standby_activated"],
+        accuracy=report.get("accuracy"),
+        baseline_accuracy=report.get("baseline_accuracy"),
+        accuracy_delta=report.get("accuracy_delta"),
+    )
+    return row
+
+
+def check_chaos_case(name: str, row: dict, want_rc: int) -> list:
+    """The gates of one phase-17 run; the problems found."""
+    problems = []
+    if row["rc"] != want_rc:
+        problems.append(f"exit code {row['rc']}, not {want_rc}")
+    if "invariants" not in row or not row["result_json"]:
+        return problems + ["no report or no chaos_result.json"]
+    inv = row["invariants"]
+    if want_rc == 0 and (not row["invariants_ok"] or set(inv.values()) != {"PASS"}):
+        problems.append(f"invariants {inv}")
+    if name == "preempt_one_worker":
+        delta = row["accuracy_delta"]
+        if inv.get("trajectory_parity") != "PASS" or delta is None or (
+            abs(delta) > CHAOS_TRAJECTORY_TOLERANCE
+        ):
+            problems.append(f"trajectory_parity {inv.get('trajectory_parity')}, delta {delta}")
+        if row["reforms"] != 1:
+            problems.append(f"{row['reforms']} re-formations, not 1")
+    elif name == "double_report":
+        if row["invariants_ok"] or inv.get("exactly_once") != "FAIL":
+            problems.append(f"exactly_once {inv.get('exactly_once')}")
+    elif name == "dup_report_storm":
+        if inv.get("duplicate_delivery_exactly_once") != "PASS":
+            problems.append("duplicate_delivery_exactly_once did not PASS")
+        if not row["rpc"].get("reports_deduped", 0) > 0:
+            problems.append(f"no report deduplicated: {row['rpc']}")
+    elif name == "drop_dedup":
+        if row["invariants_ok"] or {inv.get("exactly_once"),
+                                    inv.get("duplicate_delivery_exactly_once")} != {"FAIL"}:
+            problems.append(f"drop_dedup tripped {inv}")
+    elif name == "blackhole_master_link":
+        if not row["rpc"].get("deadline_exceeded", 0) > 0:
+            problems.append(f"no deadline expired: {row['rpc']}")
+        victims = {w for fault_id, w in row["fired"] if fault_id and fault_id.startswith("blackhole")}
+        if not row["dead_workers"] or not victims or not victims <= set(row["dead_workers"][0]):
+            problems.append(
+                f"the re-formation {row['dead_workers']} did not evict the blackholed {victims}"
+            )
+    elif name == "slow_network_mid_epoch":
+        if inv.get("no_false_dead") != "PASS" or row["reforms"]:
+            problems.append(f"{row['reforms']} re-formations under a slow network")
+        if row["rpc"].get("deadline_exceeded", 0):
+            problems.append(f"a call expired its deadline: {row['rpc']}")
+    return problems
+
+
+def chaos_phase(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 17: every run of :data:`CHAOS_RUNS` side by side, gated by
+    :func:`check_chaos_case`; one row per plan.  slow_network_mid_epoch's
+    calls must stay within their 5 s deadline beside the others' load:
+    its gate shows that none expired and that no worker was taken for
+    dead."""
+    t0 = time.monotonic()
+    rows = _beside(**{
+        name: (lambda name=name, args=args: chaos_run(work_dir, name, args, device))
+        for name, args, _rc in CHAOS_RUNS
+    })
+    for name, row in rows.items():
+        print(json.dumps({f"chaos_{name}": {
+            k: v for k, v in row.items() if k != "log_tail"
+        }}), flush=True)
+    problems = {
+        name: check_chaos_case(name, rows[name], rc) for name, _args, rc in CHAOS_RUNS
+    }
+    failed = {name: p for name, p in problems.items() if p}
+    if failed:
+        for name in failed:
+            log(f"--- chaos {name}: {rows[name].get('log_tail', '')}")
+        raise AssertionError(f"phase 17 failed its gates: {failed}")
+    return {"secs": time.monotonic() - t0, "runs": rows}
+
+
 class _PhaseClock:
     """Each phase's wall seconds, from the end of the one before."""
 
@@ -5707,8 +5922,29 @@ class _PhaseClock:
         return {"phase_secs": dict(self.secs, total=time.monotonic() - STARTED_AT)}
 
 
+def _bytecode_cache() -> str:
+    """A bytecode cache for this run and every process it starts.  The
+    card's machine sets ``PYTHONDONTWRITEBYTECODE`` and ships torch
+    without ``.pyc`` files, so each worker, standby, runner and replica
+    compiled torch's sources afresh: about 1 s of each ``import torch``,
+    and 3.5 of the 8 s that a process's first optimizer takes (it imports
+    ``torch._dynamo``).  The cache is a temporary directory of this run,
+    removed at its exit; nothing under site-packages is written."""
+    import atexit
+    import shutil
+
+    path = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    atexit.register(shutil.rmtree, path, True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = path
+    return path
+
+
 def main() -> int:
     phases = _PhaseClock()
+    _bytecode_cache()
     try:
         import torch
     except ImportError as ex:
@@ -5921,9 +6157,21 @@ def main() -> int:
     phases.done("14_master_ha")
 
     # ---- 15. hot standbys, slice-granular elasticity and parking, and
-    # the autoscaler
+    # the autoscaler.  Phase 17's chaos runs (subprocesses, none of whose
+    # seconds is a yardstick) start once 15a, which is timed, has ended,
+    # and run beside 15b-d and phase 16
+    chaos_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_")
+    chaos: list = []
+
+    def start_chaos():
+        _release_memory("cuda")
+        chaos.append(_in_background(lambda: chaos_phase(chaos_dir.name), "17_chaos"))
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_slices_") as work_dir:
-        slice_rows = slices_phase(work_dir, data=mnist_shards, cold=elastic_rows["mnist_preempt"])
+        slice_rows = slices_phase(
+            work_dir, data=mnist_shards, cold=elastic_rows["mnist_preempt"],
+            after_standby=start_chaos,
+        )
     mnist_shards_dir.cleanup()
     print(json.dumps({"slices": {"device": smi, **slice_rows}}), flush=True)
     phases.done("15_slices")
@@ -5940,6 +6188,13 @@ def main() -> int:
         "lm_secs": serving_rows["lm"]["secs"], "cli_secs": serving_rows["cli"]["secs"],
     }}), flush=True)
     phases.done("16_serving")
+
+    # ---- 17. the chaos runner CLI: fault plans against port jobs,
+    # started after 15a; its clock's seconds are what it ran past phase 16
+    chaos_rows = chaos[0]()
+    chaos_dir.cleanup()
+    print(json.dumps({"chaos": {"device": smi, "secs": chaos_rows["secs"]}}), flush=True)
+    phases.done("17_chaos")
 
     def row(name, source, replaces, measured):
         return {

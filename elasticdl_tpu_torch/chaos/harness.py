@@ -1,79 +1,185 @@
-"""The chaos harness's master lives and its capacity faults: run a job
-under a fault plan whose faults include master kills or capacity
-changes, with one invariant checker spanning every life of the master;
-the first parts of ``elasticdl_tpu/chaos/harness.py``.
+"""The chaos harness: run a real model-zoo job under a fault plan with
+the invariant checker attached, and return a JSON-able report; the
+counterpart of ``elasticdl_tpu/chaos/harness.py``.
 
-- :class:`_MasterKillWatcher` arms a step-triggered ``MASTER_KILL``: when
-  the master-observed model version reaches the fault's ``at_step``, the
-  run loop dies at its next tick (``Master.request_crash("tick")``); a
-  ``trigger="reform"`` kill is armed up front and dies inside the next
-  re-formation, after the fence;
-- :func:`run_master_lives` is the JAX ``run_chaos_job``'s master-lives
-  loop: build a master, arm the kill, run it, catch
-  ``SimulatedMasterCrash``, sleep the fault's ``duration_secs`` (the
-  outage the workers ride out on their retry budget), and build the
-  next master from the same arguments, hence from the same journal;
-- :func:`_check_master_recovery` is the ``master_recovery`` invariant:
-  every planned kill fired, a ``master_restart`` per extra life, and
-  journal generation fences that never go backwards;
-  :func:`_corrupt_journal_rollback` forges the rollback it must flag;
-- :class:`_CapacityDriver` executes the plan's ``REDUCE_CAPACITY`` and
-  ``RESTORE_CAPACITY`` faults on the master-observed model version, one
-  fault per re-formation, and :func:`check_capacity_realized` holds each
-  to a re-formation that realized it;
-- :func:`check_cross_slice_coverage` is the ``cross_slice_replica_coverage``
-  invariant: in a multi-slice world every replica push lands on another
-  slice than its source;
-- :func:`master_flags` gives the master the flags the configuration
-  implies (the journal, the slices, no standbys where JAX runs none).
+:func:`run_chaos_job` trains a lockstep job (mnist by default, or
+DeepFM on ``gen_frappe``) through ``master/main.py`` in this process,
+with the workers as subprocesses on the requested device, faults
+injected from the plan (worker-side from the plan file the master
+exports by env, master-side by :class:`_CapacityDriver`, the master
+kills and, for duplicate delivery, netem's server seam), and checks the
+elastic contract end to end:
 
-The port's master writes ``master_restart`` and ``worker_rehome`` to the
-chaos event log (``chaos/hooks.py::append_event``), so the invariant
-reads that log where the JAX harness reads its telemetry event log.  The
-rest of the harness (the report, the capacity faults, the other
-corruptions, the runner and netem) comes with slice 6b-2d.  The
-invariants read the port's chaos event log, whose observations carry
-``"observation"`` where the JAX telemetry log's carry ``"event"``; both
-are read.
+- the checker's ``exactly_once``, ``records_accounted``,
+  ``version_monotonic`` and ``reform_progress``;
+- ``faults_injected``: the plan executed (a fault-free run must not pass
+  a fault-injection gate), every capacity fault realized;
+- ``no_false_dead`` (a latency-only plan re-forms nothing) and
+  ``duplicate_delivery_exactly_once`` (duplicated reports visibly
+  deduplicated);
+- ``replication_no_lost_steps``, ``cross_slice_replica_coverage`` and
+  ``master_recovery`` where the configuration is in their contract.
+
+:func:`run_master_lives` runs the master's lives: build a master, arm its
+kill (:class:`_MasterKillWatcher` at a step, or inside a re-formation),
+run it, catch ``SimulatedMasterCrash``, wait the fault's outage, and
+build the next from the same arguments, hence the same journal.
+:data:`CORRUPTIONS` break a run on purpose, so that each invariant is
+shown to fail when it should (:func:`_install_corruption`).
+
+The port's master and workers write ``master_restart``, ``worker_rehome``,
+``slice_loss``, ``replica_push`` and the rest to the chaos event log
+(``chaos/hooks.py::append_event``), whose observations carry
+``"observation"`` where the JAX telemetry log's carry ``"event"``; the
+checks and the report's sections (``telemetry/report.py``) read both.
+Left for their slices, and refused with ``NotImplementedError`` naming
+it: streaming runs, ``live_push_addr``, and the ``drop_stream_window``
+and ``drop_shard_parts`` corruptions (slice 9).  The JAX package's
+``--telemetry_dir`` and its trace come with slice 10.
+
+Clock note: workers stamp their events with ``time.monotonic()``, which
+is machine-wide on Linux, so the master-side latencies subtract worker
+times from the master's own readings; chaos jobs run on one host.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
-from elasticdl_tpu_torch.chaos.invariants import read_event_log
+from elasticdl_tpu_torch.chaos.invariants import (
+    InvariantChecker,
+    check_replication_no_lost_steps,
+    is_record,
+    read_event_log,
+)
 from elasticdl_tpu_torch.chaos.plan import FaultKind, FaultPlan
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
+# fault kinds whose firing is "the preemption" for the latency metrics,
+# the network kinds that end in an eviction included (a blackholed or
+# one-way-partitioned worker exhausts its retry budget, dies, and the
+# re-formation it causes is the fault's downtime); delay and duplicate
+# kinds must cost no re-formation
+_KILL_KINDS = frozenset(
+    {
+        FaultKind.PREEMPT,
+        FaultKind.KILL_COORDINATOR,
+        FaultKind.KILL_IN_CHECKPOINT,
+        FaultKind.KILL_DURING_REPLICATION,
+        FaultKind.DROP_HEARTBEAT,
+        FaultKind.SLICE_LOSS,
+        FaultKind.NET_BLACKHOLE,
+        FaultKind.NET_PARTITION,
+    }
+)
+
+# deliberate corruptions: each proves that the checker catches what it
+# claims to (a checker that cannot fail is not a checker).
+# ``double_report``, ``lose_task`` and ``version_rollback`` corrupt what
+# the master's observers see; ``journal_rollback`` forges a decreasing
+# generation pair into the journal between master lives
+# (``master_recovery`` must flag it); ``same_slice_ring`` forces the
+# slice-blind replica ring on a multi-slice world through the workers'
+# environment (``cross_slice_replica_coverage`` must flag it);
+# ``drop_dedup`` counts a duplicated report twice (``exactly_once`` and
+# ``duplicate_delivery_exactly_once`` must trip; it needs a plan with
+# net_duplicate faults).  ``drop_shard_parts`` and
+# ``drop_stream_window`` need slice 9's sharded tables and streams.
+CORRUPTIONS = (
+    "",
+    "double_report",
+    "lose_task",
+    "version_rollback",
+    "journal_rollback",
+    "same_slice_ring",
+    "drop_dedup",
+    "drop_shard_parts",
+    "drop_stream_window",
+)
+
+# what slice 9 brings; refused until then
+_SLICE_9 = "slice 9 (streaming, sharded embeddings) brings it"
+_SLICE_9_CORRUPTIONS = ("drop_shard_parts", "drop_stream_window")
+
+# model-zoo presets: the model_def's synthetic dataset
+DATASETS = ("mnist", "frappe")
+
+
 @dataclass
 class ChaosJobConfig:
-    """What the master-lives part of the harness reads of the JAX
-    harness's job configuration: the plan, the work directory (the
-    journal defaults to ``<workdir>/journal``, as there), master HA, and
-    the wall budget of the whole run."""
+    """One chaos job: the JAX harness's configuration, plus the device
+    the workers and the final evaluation run on (``cuda`` unless the
+    caller asks for the CPU) and the journal's directory (default
+    ``<workdir>/journal``, as there)."""
 
     plan: FaultPlan
     workdir: str
     master_ha: bool = False
     journal_dir: str = ""
     run_timeout_secs: float = 600.0
-    # peer state replication (the cross-slice coverage invariant's
-    # precondition)
+    # peer state replication: ring-push state into the surviving
+    # processes' RAM so the re-formed world restores without a disk read
     replication: bool = False
     # the fleet split into this many slices; 1 = one-slice re-formation
     num_slices: int = 1
     # start the job on fewer slices than the fleet (a capacity grant or
     # an autoscale grow then grows the world mid-training)
     initial_slices: int | None = None
+    # the model-zoo job the faults hit, and the dataset that feeds it
+    model_def: str = "mnist_functional_api.mnist_functional_api.custom_model"
+    dataset: str = "mnist"  # one of DATASETS
+    num_records: int = 512
+    num_epochs: int = 2
+    num_workers: int = 2
+    minibatch_size: int = 32
+    records_per_task: int = 64
+    checkpoint_steps: int = 2
+    heartbeat_timeout_secs: float = 3.0
+    data_seed: int = 3
+    shuffle_seed: int = 5
+    # restore the final checkpoint and score a held-out split
+    evaluate: bool = False
+    eval_records: int = 512
+    eval_seed: int = 9
+    corrupt: str = ""  # one of CORRUPTIONS
+    extra_master_args: list = field(default_factory=list)
+    replication_steps: int = 0  # 0 = every task boundary
+    # how long a relaunched master waits for its journaled world to re-home
+    rehome_grace_secs: float = 5.0
+    # the network plans' RPC posture: per-method deadlines (a blackhole
+    # becomes DEADLINE_EXCEEDED), a retry budget (transient windows are
+    # ridden out, permanent ones evict), a lease timeout (an unreachable
+    # worker's lease is reclaimed); None = the flag is absent
+    rpc_deadline_secs: float | None = None
+    rpc_retry_secs: float | None = None
+    task_timeout_secs: float | None = None
+    # streaming (watermark-lease) runs and the live train-to-serve push:
+    # slice 9
+    streaming: bool = False
+    stream_total: int = 0
+    stream_rate: float = 0.0
+    stream_initial: int = 0
+    stream_lag_limit: int = 0
+    live_push_addr: str = ""
+    device: str = "cuda"
 
     def __post_init__(self):
         if not self.journal_dir:
             self.journal_dir = os.path.join(self.workdir, "journal")
+        if self.streaming or self.live_push_addr:
+            raise NotImplementedError(
+                f"streaming chaos runs and live_push_addr are not ported: {_SLICE_9}"
+            )
+        if self.corrupt in _SLICE_9_CORRUPTIONS:
+            raise NotImplementedError(
+                f"--corrupt {self.corrupt} is not ported: {_SLICE_9}"
+            )
 
 
 def master_flags(config: ChaosJobConfig) -> list[str]:
@@ -187,12 +293,6 @@ def check_capacity_realized(fault_events: list[dict], reform_events: list[dict])
     return violations
 
 
-def _is(event: dict, name: str) -> bool:
-    """Whether ``event`` is the observation ``name`` of the port's chaos
-    event log or the event ``name`` of the JAX package's telemetry log."""
-    return event.get("observation") == name or event.get("event") == name
-
-
 def check_cross_slice_coverage(events: list[dict], num_slices: int) -> list[str]:
     """The slice-aware replica ring's contract, from the event log: in a
     multi-slice world every replica push lands on ANOTHER slice than its
@@ -202,7 +302,7 @@ def check_cross_slice_coverage(events: list[dict], num_slices: int) -> list[str]
     violations: list[str] = []
     pushes = [
         e for e in events
-        if _is(e, "replica_push")
+        if is_record(e, "replica_push")
         # only pushes from a multi-slice world are in the contract (a
         # world shrunk to one slice has no other slice to push to)
         and int(e.get("num_slices", 1) or 1) > 1
@@ -225,7 +325,7 @@ def check_cross_slice_coverage(events: list[dict], num_slices: int) -> list[str]
                 "slice loss takes shard and replica together"
             )
     for e in events:
-        if not _is(e, "replica_push") or not e.get("has_sharded"):
+        if not is_record(e, "replica_push") or not e.get("has_sharded"):
             continue
         if not int(e.get("sharded_rows", 0) or 0):
             violations.append(
@@ -244,13 +344,9 @@ def slice_invariants(
     ``cross_slice_replica_coverage`` (replication over two or more
     slices) and ``capacity_realized`` (a plan with capacity faults)."""
     out = []
-    if config.replication and config.num_slices > 1:
-        violations = check_cross_slice_coverage(events, config.num_slices)
-        out.append({
-            "name": "cross_slice_replica_coverage",
-            "status": "FAIL" if violations else "PASS",
-            "violations": violations,
-        })
+    coverage = _check_cross_slice_coverage(config, events)
+    if coverage is not None:
+        out.append(coverage)
     if config.plan.master_faults():
         violations = check_capacity_realized(
             [e for e in events if e.get("kind") in FaultKind.MASTER_SIDE], reform_events
@@ -393,6 +489,7 @@ def run_master_lives(
     events_path: str,
     checker=None,
     on_build=None,
+    on_crash=None,
 ) -> dict:
     """Run a job through as many master lives as the plan's kills make.
     ``launch()`` runs one life through an entry point that builds its
@@ -405,7 +502,8 @@ def run_master_lives(
     kill, armed, the plan's capacity faults (a :class:`_CapacityDriver`
     whose fired set spans the lives) and, with
     ``config.initial_slices``, a first world of that many slices; a life
-    that dies is relaunched after the fault's ``duration_secs``.  Returns the last life's exit code, every life's
+    that dies is relaunched after the fault's ``duration_secs``, and
+    ``on_crash()`` runs between its death and that wait.  Returns the last life's exit code, every life's
     master, each kill's firing (``{"fault_id", "crashed_at",
     "armed_at_version", "step", "pids"}``: the model version at the kill and
     the worker processes the dead master left) and whether ``run_timeout_secs`` ran
@@ -499,6 +597,8 @@ def run_master_lives(
                 "pids": {w: im.worker_pid(w) for w in im.worker_ids()} if im else {},
             })
             _record_master_kill(events_path, kill, master.crashed_at, step=step)
+            if on_crash is not None:
+                on_crash()
             # the master-down window: the workers retry and back off here
             time.sleep(kill.duration_secs or 2.0)
             continue
@@ -508,3 +608,514 @@ def run_master_lives(
         if dead.instance_manager is not None:
             dead.instance_manager._kill_all()
     return {"rc": rc, "masters": masters, "kills": fired, "timed_out": timed_out}
+
+
+# ---- the job ----------------------------------------------------------------
+
+
+def _master_args(config: ChaosJobConfig, train_dir: str, ckpt_dir: str) -> list[str]:
+    """The master's argv for ``config``'s job: the JAX harness's flags,
+    with ``--device`` where it passes ``--jax_platform`` and no
+    ``--telemetry_dir`` (slice 10)."""
+    envs = [
+        f"{chaos_hooks.PLAN_ENV}={os.path.join(config.workdir, 'chaos_plan.json')}",
+        f"{chaos_hooks.EVENTS_ENV}={os.path.join(config.workdir, 'chaos_events.jsonl')}",
+    ]
+    if config.corrupt == "same_slice_ring":
+        from elasticdl_tpu_torch.replication.replicator import SAME_SLICE_RING_ENV
+
+        envs.append(f"{SAME_SLICE_RING_ENV}=1")
+
+    def optional(flag: str, value) -> list[str]:
+        return [flag, str(value)] if value is not None else []
+
+    return [
+        "--model_def", config.model_def,
+        "--training_data", train_dir,
+        "--minibatch_size", str(config.minibatch_size),
+        "--records_per_task", str(config.records_per_task),
+        "--num_epochs", str(config.num_epochs),
+        "--compute_dtype", "float32",
+        "--shuffle_seed", str(config.shuffle_seed),
+        "--device", config.device,
+        "--envs", ",".join(envs),
+        "--port", "0",
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", str(config.num_workers),
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(config.checkpoint_steps),
+        "--heartbeat_timeout_secs", str(config.heartbeat_timeout_secs),
+        *(
+            ["--replication", "true", "--replication_steps", str(config.replication_steps)]
+            if config.replication else []
+        ),
+        *master_flags(config),
+        *optional("--rehome_grace_secs", config.rehome_grace_secs if config.master_ha else None),
+        *optional("--rpc_deadline_secs", config.rpc_deadline_secs),
+        *optional("--rpc_retry_secs", config.rpc_retry_secs),
+        *optional("--task_timeout_secs", config.task_timeout_secs),
+        *config.extra_master_args,
+    ]
+
+
+def _install_corruption(master, checker: InvariantChecker, mode: str):
+    """Corrupt the run on purpose so that the checker must flag it:
+
+    - ``double_report``: the first successful training completion reaches
+      the observers twice (a double-counting dispatcher);
+    - ``lose_task``: the first successful training completion is hidden
+      from the observers (a silently lost completion);
+    - ``version_rollback``: once training passes version 4, a lower
+      version is reported (state regression);
+    - ``drop_dedup``: the dispatcher's task-id dedup is off: a report for
+      a lease no longer active (a duplicated delivery) counts again.
+
+    ``journal_rollback`` and ``same_slice_ring`` act elsewhere (between
+    master lives, in the workers' environment)."""
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    if not mode:
+        return
+    if mode not in CORRUPTIONS:
+        raise ValueError(f"unknown corruption {mode!r}; valid: {CORRUPTIONS}")
+    if mode in _SLICE_9_CORRUPTIONS:
+        raise NotImplementedError(f"--corrupt {mode} is not ported: {_SLICE_9}")
+    fired: list = []
+    if mode in ("double_report", "lose_task"):
+        task_d = master.task_d
+        orig_report = task_d.report
+
+        def corrupt_report(task_id, success=True, exec_counters=None):
+            assignment = task_d._active.get(task_id)
+            task = assignment.task if assignment else None
+            is_victim = (
+                success and not fired and task is not None and task.type == TaskType.TRAINING
+            )
+            if is_victim and mode == "lose_task":
+                fired.append(task_id)
+                # the dispatcher counts it with the observers detached:
+                # they never learn of it
+                observers, task_d._observers = task_d._observers, []
+                try:
+                    orig_report(task_id, success=success, exec_counters=exec_counters)
+                finally:
+                    task_d._observers = observers
+                return
+            orig_report(task_id, success=success, exec_counters=exec_counters)
+            if is_victim and mode == "double_report":
+                fired.append(task_id)
+                task_d._notify("on_task_reported", task_id, task, True, True)
+
+        task_d.report = corrupt_report
+    elif mode == "version_rollback":
+
+        def rollback(worker_id, version):
+            if version >= 4 and not fired:
+                fired.append(version)
+                checker.on_version_report(worker_id, version - 3)
+
+        master.servicer.add_version_observer(rollback)
+    elif mode == "drop_dedup":
+        task_d = master.task_d
+        orig_report = task_d.report
+        leased: dict[int, object] = {}
+
+        class _LeaseMemo:
+            """Every lease's task, so that the duplicate path below can
+            find a task the dispatcher has already popped."""
+
+            def on_task_leased(self, task_id, worker_id, task):
+                leased[task_id] = task
+
+        task_d.add_observer(_LeaseMemo())
+
+        def no_dedup_report(task_id, success=True, exec_counters=None):
+            active_before = task_d.is_active(task_id)
+            orig_report(task_id, success=success, exec_counters=exec_counters)
+            task = leased.get(task_id)
+            if (
+                success and not active_before and task is not None
+                and task.type == TaskType.TRAINING
+            ):
+                # the duplicate the dispatcher rightly dropped counts anyway
+                task_d._notify("on_task_reported", task_id, task, True, True)
+
+        task_d.report = no_dedup_report
+
+
+def _read_events(path: str) -> tuple[list[dict], list[dict]]:
+    """(fault firings, observations) from the chaos event log; a torn
+    line (a writer killed mid-write) is skipped."""
+    faults: list[dict] = []
+    observations: list[dict] = []
+    if not os.path.exists(path):
+        return faults, observations
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                event = json.loads(line)
+            except ValueError:
+                continue
+            (observations if "observation" in event else faults).append(event)
+    return faults, observations
+
+
+def _check_no_lost_steps(
+    config: ChaosJobConfig, events: list[dict], fault_events: list[dict]
+) -> dict | None:
+    """``replication_no_lost_steps``: under a plain preemption with
+    replication on, the resumed generation restores from peer RAM at the
+    last step replicated before the kill."""
+    return check_replication_no_lost_steps(events, config.replication, fault_events)
+
+
+def _check_no_false_dead(config: ChaosJobConfig, reform_events: list[dict]) -> dict | None:
+    """Gray is not dead: a plan whose only faults are network latency
+    (within the heartbeat tolerance) must end with no re-formation."""
+    kinds = {f.kind for f in config.plan.faults}
+    if not kinds or kinds != {FaultKind.NET_DELAY}:
+        return None
+    violations = []
+    if reform_events:
+        violations.append(
+            f"{len(reform_events)} re-formation(s) during a latency-only network "
+            "plan — a slow-but-alive worker was declared dead "
+            f"(reasons: {[e.get('reason') for e in reform_events]})"
+        )
+    return {
+        "name": "no_false_dead",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+    }
+
+
+def _check_duplicate_delivery(
+    config: ChaosJobConfig, checker: InvariantChecker, fault_events: list[dict]
+) -> dict | None:
+    """The dedup contract under real duplicate delivery: netem ran report
+    RPCs twice in the master, and task accounting stays exactly once,
+    with proof that the dedup engaged (the dispatcher dropped the
+    re-deliveries), not that no duplicate happened."""
+    dup_faults = [f for f in config.plan.faults if f.kind == FaultKind.NET_DUPLICATE]
+    if not dup_faults and config.corrupt != "drop_dedup":
+        return None
+    violations = []
+    dup_fired = [e for e in fault_events if e.get("kind") == FaultKind.NET_DUPLICATE]
+    if dup_faults and not dup_fired:
+        # an unfired duplicate fault must not pass this vacuously
+        violations.append(
+            f"plan injects {len(dup_faults)} duplicate-delivery fault(s) but none "
+            "fired — netem server-seam plumbing broken?"
+        )
+    dup_task_reports = [e for e in dup_fired if e.get("method") == "report_task_result"]
+    if dup_task_reports and checker.dropped_reports == 0:
+        violations.append(
+            f"{len(dup_task_reports)} duplicated report_task_result deliveries but "
+            "the dispatcher never dropped one — the task-id dedup did not engage"
+        )
+    for detail in checker.double_counted_tasks():
+        violations.append(f"task {detail} — duplicate delivery double-counted a shard")
+    return {
+        "name": "duplicate_delivery_exactly_once",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+    }
+
+
+def _check_cross_slice_coverage(config: ChaosJobConfig, events: list[dict]) -> dict | None:
+    """``cross_slice_replica_coverage``, for replication over two or more
+    slices."""
+    if not config.replication or config.num_slices <= 1:
+        return None
+    violations = check_cross_slice_coverage(events, config.num_slices)
+    return {
+        "name": "cross_slice_replica_coverage",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+    }
+
+
+def _refuse_misconfigured(config: ChaosJobConfig):
+    """A corruption or a fault that this configuration cannot realize
+    would let the run pass green; refuse it."""
+    kills = config.plan.master_kill_faults()
+    if config.dataset not in DATASETS:
+        raise ValueError(f"unknown dataset {config.dataset!r}; valid: {DATASETS}")
+    if kills and not config.master_ha:
+        raise ValueError(
+            f"plan {config.plan.name!r} contains MASTER_KILL faults but master_ha "
+            "is off — enable ChaosJobConfig.master_ha (the runner does this for "
+            "the master_kill_* plans)"
+        )
+    if config.corrupt == "journal_rollback" and not kills:
+        raise ValueError(
+            "--corrupt journal_rollback requires a master_kill plan with master HA "
+            "enabled (the forgery lands between master lives)"
+        )
+    if config.corrupt == "drop_dedup" and not any(
+        f.kind == FaultKind.NET_DUPLICATE for f in config.plan.faults
+    ):
+        raise ValueError(
+            "--corrupt drop_dedup requires a plan with net_duplicate faults "
+            "(dup_report_storm) — without duplicate delivery the disabled dedup "
+            "corrupts nothing"
+        )
+    if config.corrupt == "same_slice_ring" and not (
+        config.replication and config.num_slices > 1
+    ):
+        raise ValueError(
+            "--corrupt same_slice_ring requires replication on and num_slices > 1 "
+            "(it forces the slice-blind replica ring)"
+        )
+    if any(f.kind == FaultKind.SLICE_LOSS for f in config.plan.faults) and config.num_slices <= 1:
+        raise ValueError(
+            f"plan {config.plan.name!r} contains SLICE_LOSS faults but num_slices "
+            "is 1 — configure ChaosJobConfig.num_slices (the runner does this for "
+            "the slice plans)"
+        )
+
+
+def _fault_violations(config: ChaosJobConfig, fault_events, reform_events) -> list[str]:
+    """``faults_injected``: the plan executed.  A generation-0 kill may
+    pre-empt the later faults of its generation, so a single unfired
+    fault is reported, not failed; but a plan of which nothing fired, a
+    generation-0 eviction without a re-formation, or a capacity fault no
+    re-formation realized fails."""
+    from elasticdl_tpu_torch.rpc.retry import DEFAULT_RETRY_SECS
+
+    violations = []
+    if config.plan.faults and not fault_events:
+        violations.append(
+            "plan has %d fault(s) but none fired — injection plumbing broken?"
+            % len(config.plan.faults)
+        )
+
+    def evicting(f) -> bool:
+        # kills always cost their worker; a network window only when it
+        # outlasts the worker's retry budget (a survivable blackhole is
+        # ridden out on retries, with no re-formation)
+        if f.kind not in _KILL_KINDS:
+            return False
+        if f.kind in (FaultKind.NET_BLACKHOLE, FaultKind.NET_PARTITION):
+            budget = (
+                config.rpc_retry_secs if config.rpc_retry_secs is not None
+                else DEFAULT_RETRY_SECS
+            )
+            return (f.duration_secs or 0.0) > budget
+        return True
+
+    if any(f.cluster_version == 0 and evicting(f) for f in config.plan.faults) and not reform_events:
+        violations.append("plan kills a generation-0 worker but no re-formation occurred")
+    violations += check_capacity_realized(fault_events, reform_events)
+    return violations
+
+
+def run_chaos_job(config: ChaosJobConfig) -> dict:
+    """Run one chaos job end to end; returns the report.  Its
+    ``invariants_ok`` is the verdict; ``records_ok`` is the record
+    accounting alone."""
+    from elasticdl_tpu_torch.chaos import netem
+    from elasticdl_tpu_torch.data.recordio_gen import synthetic
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.telemetry.report import (
+        master_ha_section,
+        multislice_section,
+        replication_section,
+    )
+    from elasticdl_tpu_torch.utils.constants import TaskType
+
+    _refuse_misconfigured(config)
+    if config.num_workers > 1:
+        # a lockstep world needs the native codec in every worker: fail
+        # here, once, rather than in each worker through the re-formation
+        # budget
+        from elasticdl_tpu_torch.data.recordio import ensure_native_codec
+
+        ensure_native_codec()
+    os.makedirs(config.workdir, exist_ok=True)
+    plan_path = os.path.join(config.workdir, "chaos_plan.json")
+    events_path = os.path.join(config.workdir, "chaos_events.jsonl")
+    config.plan.save(plan_path)
+    if os.path.exists(events_path):
+        os.remove(events_path)
+    # a reused work directory starts afresh: a leftover checkpoint would
+    # resume at the last run's version, and a stale journal would restore
+    # the last run's dispatch state into the first master
+    for stale in (os.path.join(config.workdir, "ckpt"), config.journal_dir):
+        shutil.rmtree(stale, ignore_errors=True)
+    gen = synthetic.gen_frappe if config.dataset == "frappe" else synthetic.gen_mnist
+    train = gen(
+        os.path.join(config.workdir, "train"),
+        num_records=config.num_records, num_shards=2, seed=config.data_seed,
+    )
+    ckpt = os.path.join(config.workdir, "ckpt")
+    argv = _master_args(config, train, ckpt)
+    expected_records = config.num_epochs * config.num_records
+    checker = InvariantChecker(expected_records=expected_records)
+
+    # start clean: an earlier run in this process may have left a seam
+    # installed if it unwound on an error
+    netem.uninstall()
+    built: list = []
+
+    def on_build(master):
+        if not built:
+            # duplicate delivery fires in this process's handlers: the
+            # shim is installed once per run and kept across master lives
+            # (a new one would reset its counters and fire exhausted
+            # faults again)
+            netem.install_master_from_plan(config.plan, events_path)
+            _install_corruption(master, checker, config.corrupt)
+        built.append(master)
+
+    def on_crash():
+        if config.corrupt == "journal_rollback":
+            _corrupt_journal_rollback(config.journal_dir)
+
+    started_at = time.monotonic()
+    try:
+        out = run_master_lives(
+            lambda: master_main.main(argv), config, events_path,
+            checker=checker, on_build=on_build, on_crash=on_crash,
+        )
+    finally:
+        # the seams must not leak into the baseline run that usually
+        # follows in this process
+        netem.uninstall()
+    masters = out["masters"]
+    master = masters[-1]
+    reform_events = [e for m in masters for e in m.reform_events]
+    counters = master.task_d.counters(TaskType.TRAINING)
+    fault_events, observations = _read_events(events_path)
+    events = fault_events + observations
+
+    # latencies: the first kill-type firing, its detection, the first step
+    kill_at = next(
+        (e["monotonic"] for e in fault_events if e.get("kind") in _KILL_KINDS), None
+    )
+    # the re-formation the fault caused (a loaded host can re-form
+    # spuriously before the fault fires)
+    reform = next(
+        (e for e in reform_events if kill_at is None or e["detected_at"] >= kill_at),
+        reform_events[0] if reform_events else {},
+    )
+    # the RPC counters armed workers recorded in the event log, merged as
+    # their heartbeats would have (an evicted worker never shipped them)
+    for e in observations:
+        if e.get("observation") == "rpc_stats":
+            master.servicer.merge_rpc_stats(e["worker_id"], e.get("rpc") or {})
+    pull_at = master.servicer.first_stream_pull_at()
+    detect_secs = (
+        round(reform["detected_at"] - kill_at, 3) if reform and kill_at is not None else None
+    )
+    kill_to_step_secs = (
+        round(pull_at - kill_at, 3) if pull_at is not None and kill_at is not None else None
+    )
+    records_ok = (
+        out["rc"] == 0 and master.task_d.finished()
+        and counters.total_records == expected_records
+    )
+    invariants = checker.summary(counters)
+    fired_ids = {e.get("fault_id") for e in fault_events}
+    unfired = [f.fault_id for f in config.plan.faults if f.fault_id not in fired_ids]
+    fault_violations = _fault_violations(config, fault_events, reform_events)
+    checks = [
+        {
+            "name": "faults_injected",
+            "status": "FAIL" if fault_violations else "PASS",
+            "violations": fault_violations,
+        },
+        _check_no_false_dead(config, reform_events),
+        _check_duplicate_delivery(config, checker, fault_events),
+        _check_no_lost_steps(config, events, fault_events),
+        _check_cross_slice_coverage(config, events),
+        _check_master_recovery(config, events_path, len(masters), events),
+    ]
+    for check in checks:
+        if check is not None:
+            invariants["invariants"].append(check)
+            invariants["ok"] = invariants["ok"] and check["status"] == "PASS"
+
+    report = {
+        "plan": config.plan.name,
+        "seed": config.plan.seed,
+        "corrupt": config.corrupt,
+        "device": config.device,
+        "num_workers": config.num_workers,
+        "num_records": config.num_records,
+        "num_epochs": config.num_epochs,
+        "rc": out["rc"],
+        "timed_out": out["timed_out"],
+        "wall_secs": round(time.monotonic() - started_at, 3),
+        "records_ok": records_ok,
+        "faults_injected": fault_events,
+        "observations": observations,
+        "invariants": invariants["invariants"],
+        "invariants_ok": bool(invariants["ok"] and records_ok and not out["timed_out"]),
+        "faults_unfired": unfired,
+        "tasks_tracked": invariants["tasks_tracked"],
+        "max_model_version": invariants["max_model_version"],
+        "reforms": [
+            {
+                k: round(v, 3) if isinstance(v, float) else v
+                for k, v in e.items()
+                if k != "detected_at"
+            }
+            for e in reform_events
+        ],
+        "reform_latency_secs": round(reform.get("latency_secs", -1.0), 3),
+        "detect_secs": detect_secs,
+        "kill_to_step_secs": kill_to_step_secs,
+        "heartbeat_timeout_secs": config.heartbeat_timeout_secs,
+        "standby_activated": getattr(master.instance_manager, "standby_activations", 0),
+        # the fleet's RPC outcome totals (heartbeat-shipped, and recorded
+        # by armed workers) and the master's dedup drops
+        "rpc": {
+            **master.servicer.rpc_stats_totals(),
+            "reports_deduped": checker.dropped_reports,
+            "eval_reports_deduped": master.servicer.duplicate_eval_drops,
+        },
+    }
+    if config.replication:
+        report["replication"] = replication_section(events) or {}
+    multislice = multislice_section(events) if config.num_slices > 1 else None
+    if multislice is not None:
+        report["multislice"] = multislice
+    master_ha = master_ha_section(events) if config.master_ha else None
+    if master_ha is not None:
+        report["master_ha"] = master_ha
+    if config.master_ha:
+        report["master_lives"] = len(masters)
+    if not records_ok:
+        report["total_records"] = counters.total_records
+    if config.evaluate and records_ok:
+        report["accuracy"] = round(_evaluate_checkpoint(config, ckpt), 4)
+    return report
+
+
+def _evaluate_checkpoint(config: ChaosJobConfig, ckpt: str) -> float:
+    """The job's final checkpoint, restored into a Local evaluator on
+    ``config.device`` and scored on a held-out split."""
+    from elasticdl_tpu_torch.data.recordio_gen import synthetic
+    from elasticdl_tpu_torch.trainer.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+
+    gen = synthetic.gen_frappe if config.dataset == "frappe" else synthetic.gen_mnist
+    eval_dir = gen(
+        os.path.join(config.workdir, "eval"),
+        num_records=config.eval_records, num_shards=1, seed=config.eval_seed,
+    )
+    args = parse_master_args([
+        "--model_def", config.model_def,
+        "--validation_data", eval_dir,
+        "--minibatch_size", str(config.minibatch_size),
+        "--records_per_task", str(config.eval_records),
+        "--checkpoint_dir", ckpt,
+        "--compute_dtype", "float32",
+        "--device", config.device,
+    ])
+    results = LocalExecutor(args).run()
+    return float(results.get("accuracy", 0.0))

@@ -305,6 +305,12 @@ class InvariantChecker:
 # ---- the replication contract, from the event log ---------------------------
 
 
+def is_record(event: dict, name: str) -> bool:
+    """Whether ``event`` is the observation ``name`` of the port's chaos
+    event log or the event ``name`` of the JAX package's telemetry log."""
+    return event.get("observation") == name or event.get("event") == name
+
+
 def read_event_log(path: str) -> list[dict]:
     """The chaos event log's records (``chaos/hooks.py::append_event``)."""
     with open(path, encoding="utf-8") as f:
@@ -312,7 +318,7 @@ def read_event_log(path: str) -> list[dict]:
 
 
 def check_replication_no_lost_steps(
-    events: list[dict], replication: bool = True
+    events: list[dict], replication: bool = True, fault_events: list[dict] | None = None
 ) -> dict | None:
     """The replication contract under a plain preemption, as a function
     of the event log (the JAX harness's ``_check_no_lost_steps``,
@@ -321,21 +327,25 @@ def check_replication_no_lost_steps(
     the kill, not the (older) last disk checkpoint.  None when it does
     not apply (replication off, or no recoverable fault fired).
 
-    The log's records are the port's: a fault firing carries its
-    ``kind``; pushes and restores are the ``replica_push`` and
-    ``replica_restore`` observations, each with its ``step``."""
+    A fault firing carries its ``kind``; pushes and restores are the
+    ``replica_push`` and ``replica_restore`` records, each with its
+    ``step``, in the port's log (``observation``) or the JAX package's
+    telemetry log (``event``).  The firings are read from
+    ``fault_events`` when given (the JAX harness's split), else from
+    ``events``."""
     if not replication:
         return None
-    recoverable = [e for e in events if e.get("kind") in _REPLICA_RECOVERABLE_KINDS]
+    faults = events if fault_events is None else fault_events
+    recoverable = [e for e in faults if e.get("kind") in _REPLICA_RECOVERABLE_KINDS]
     if not recoverable:
         return None
     kill_at = min(e["monotonic"] for e in recoverable)
     push_events = [
         e
         for e in events
-        if e.get("observation") == "replica_push" and e.get("monotonic", 0.0) <= kill_at
+        if is_record(e, "replica_push") and e.get("monotonic", 0.0) <= kill_at
     ]
-    restore_events = [e for e in events if e.get("observation") == "replica_restore"]
+    restore_events = [e for e in events if is_record(e, "replica_restore")]
     pushed = [int(e.get("step", -1)) for e in push_events]
     restored = [int(e.get("step", -1)) for e in restore_events]
     violations = []

@@ -1004,26 +1004,31 @@ class _AdoptedProcess:
         self._rc: int | None = None
         self.exit_unknown = False
 
+    def _reap(self) -> bool:
+        """A master killed in process leaves its workers children of this
+        process: reap one that exited, with its exit code."""
+        try:
+            pid, status = os.waitpid(self.pid, os.WNOHANG)
+        except ChildProcessError:
+            return False
+        if pid:
+            self._rc = os.waitstatus_to_exitcode(status)
+        return bool(pid)
+
     def poll(self):
         if self._rc is not None:
             return self._rc
-        try:
-            # a master killed in process leaves its workers children of
-            # this process: reap one that exited, with its exit code
-            pid, status = os.waitpid(self.pid, os.WNOHANG)
-            if pid:
-                self._rc = os.waitstatus_to_exitcode(status)
-                return self._rc
-        except ChildProcessError:
-            pass
+        if self._reap():
+            return self._rc
         try:
             os.kill(self.pid, 0)
         except (ProcessLookupError, PermissionError):
             # gone, or the pid now belongs to someone else (reuse)
             self._rc, self.exit_unknown = -1, True
             return self._rc
-        if _is_zombie(self.pid):
-            # exited, and its parent (not this process) has not reaped it
+        # a zombie exited since the reap above: reaped here when it is
+        # this process's child, else its parent has not reaped it yet
+        if _is_zombie(self.pid) and not self._reap():
             self._rc, self.exit_unknown = -1, True
         return self._rc
 

@@ -94,6 +94,7 @@ class MasterServicer:
         # report for a lease still active (a lost reply, a client retry)
         # is dropped
         self._eval_metrics_seen: set[int] = set()  # guarded-by: _lock
+        self._duplicate_eval_drops = 0  # guarded-by: _lock
         # worker_id -> monotonic time of its first get_task lease (a
         # relaunched worker's is the end of the relaunch latency)
         self._first_lease_at: dict[int, float] = {}  # guarded-by: _lock
@@ -386,6 +387,7 @@ class MasterServicer:
             with self._lock:
                 duplicate = request.task_id in self._eval_metrics_seen
                 self._eval_metrics_seen.add(request.task_id)
+                self._duplicate_eval_drops += duplicate
             if duplicate:
                 logger.warning(
                     "Dropping duplicate eval metrics for task %d "
@@ -619,6 +621,23 @@ class MasterServicer:
         them."""
         with self._lock:
             return {wid: dict(stats) for wid, stats in self._worker_prefetch_stats.items()}
+
+    @property
+    def duplicate_eval_drops(self) -> int:
+        """Re-delivered evaluation reports dropped by their lease id."""
+        with self._lock:
+            return self._duplicate_eval_drops
+
+    def merge_rpc_stats(self, worker_id: int, stats: dict):
+        """Max-merge a worker's RPC outcome counters into its record and
+        the totals, as its heartbeat does: the chaos harness's way in for
+        the counters a worker recorded in the event log but never shipped
+        (a worker evicted by a network fault)."""
+        with self._lock:
+            max_merge_counters(
+                self._worker_rpc_stats.setdefault(worker_id, {}), stats,
+                totals=self._rpc_totals,
+            )
 
     def rpc_stats_totals(self) -> dict[str, int]:
         """Fleet-wide RPC outcome totals: per-worker maxima summed."""

@@ -63,6 +63,13 @@ def _parts_row_count(parts) -> int:
     return sum(len(ids) for ids, _ in parts.values())
 
 
+# the chaos harness's ``same_slice_ring`` corruption: the slice-blind
+# (i+1) % n neighbor even in a multi-slice world, so that the
+# cross_slice_replica_coverage invariant is shown to trip when a replica
+# lands on its owner's slice
+SAME_SLICE_RING_ENV = "ELASTICDL_TPU_CHAOS_SAME_SLICE_RING"
+
+
 def _ms_since(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
@@ -122,6 +129,7 @@ class PeerReplicator:
         if len(set(self._slice_map)) <= 1:
             self._slice_map = []
         self._slice_id = self._slice_map[process_id] if self._slice_map else 0
+        self._same_slice_ring = bool(os.environ.get(SAME_SLICE_RING_ENV, ""))
         self._generation = generation
         self._addr = addr
         # pushes are state transfer: the job's deadline policy's transfer
@@ -149,6 +157,8 @@ class PeerReplicator:
 
     @property
     def neighbor(self) -> int:
+        if self._same_slice_ring:  # the corruption: the slice-blind ring
+            return (self._process_id + 1) % self._num_processes
         return ring_neighbor(self._process_id, self._num_processes, self._slice_map)
 
     def _slice_of(self, process_id: int) -> int:

@@ -90,7 +90,10 @@ class ReplicaClient(RpcClient):
     nothing to close."""
 
     def __init__(self, addr: str, deadlines=None):
-        super().__init__(addr, methods=REPLICA_METHODS, deadlines=deadlines)
+        super().__init__(
+            addr, methods=REPLICA_METHODS, deadlines=deadlines,
+            service_name=REPLICA_SERVICE_NAME,
+        )
 
     def push_replica(
         self, request: msg.PushReplicaRequest, timeout: float | None = None

@@ -157,6 +157,31 @@ def _recv_sized(sock: socket.socket) -> bytes:
     return _recv_exact(sock, length)
 
 
+# ---- the netem seams (chaos/netem.py) ---------------------------------------
+#
+# The transport-level fault shim plugs in at the two points every call
+# passes: the client's per-attempt invoke and the server's dispatch to
+# its handler.  Nothing but the chaos layer sets them; with none set a
+# call pays one module-global None check.
+
+_client_fault_shim = None
+_server_fault_shim = None
+
+
+def set_client_fault_shim(shim):
+    """``shim.client_call(service, method, invoke, timeout)`` wraps every
+    client attempt in this process; None removes it."""
+    global _client_fault_shim
+    _client_fault_shim = shim
+
+
+def set_server_fault_shim(shim):
+    """``shim.server_call(service, method, handler, request)`` wraps every
+    handler this process's servers run; None removes it."""
+    global _server_fault_shim
+    _server_fault_shim = shim
+
+
 class _Handler(socketserver.BaseRequestHandler):
     def handle(self):
         server = self.server
@@ -175,7 +200,12 @@ class _Handler(socketserver.BaseRequestHandler):
         else:
             try:
                 request = msg.decode(payload)
-                response = getattr(server.servicer, name)(request)
+                handler = getattr(server.servicer, name)
+                shim = _server_fault_shim
+                if shim is not None:
+                    response = shim.server_call(server.service_name, name, handler, request)
+                else:
+                    response = handler(request)
                 body = msg.encode(response) if response is not None else b""
             except RpcError as ex:  # a downstream call's failure, passed on
                 status, body = ex.code(), ex.details().encode("utf-8")
@@ -282,8 +312,10 @@ class RpcClient:
         retryable_methods: frozenset[str] | set[str] | None = None,
         deadlines=None,
         resolve_addr=None,
+        service_name: str = SERVICE_NAME,
     ):
         self._addr = _split_addr(addr)  # guarded-by: _addr_lock (writes)
+        self._service_name = service_name
         self._addr_lock = threading.Lock()
         self._resolve_addr = resolve_addr
         self._methods = tuple(methods)
@@ -327,6 +359,17 @@ class RpcClient:
             self._addr = new
 
     def _invoke(self, name: str, payload: bytes, timeout: float | None) -> bytearray:
+        """One attempt, through the netem shim when chaos armed one, so
+        that injected latency, blackholes and partitions apply to every
+        attempt, retries included, as on a flaky link."""
+        shim = _client_fault_shim
+        if shim is not None:
+            return shim.client_call(
+                self._service_name, name, lambda: self._wire(name, payload, timeout), timeout
+            )
+        return self._wire(name, payload, timeout)
+
+    def _wire(self, name: str, payload: bytes, timeout: float | None) -> bytearray:
         """One wire attempt."""
         method = name.encode("utf-8")
         try:

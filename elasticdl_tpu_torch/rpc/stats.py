@@ -1,5 +1,6 @@
 """Process-local RPC outcome counters (client side); a copy of
-``elasticdl_tpu/rpc/stats.py``.
+``elasticdl_tpu/rpc/stats.py``, with an observer of the failures
+(:func:`set_observer`).
 
 The worker is where retries, deadline expiries and injected
 UNAVAILABLEs actually happen, but the ``/metrics`` endpoint lives on
@@ -27,6 +28,8 @@ import threading
 
 _lock = threading.Lock()
 _counts: dict[str, int] = {}
+# observer(totals) after each noted failure (set_observer)
+_observer = None
 
 # the status-code names worth tracking (``StatusCode.name.lower()``);
 # anything else is a bug-class failure the caller will surface loudly
@@ -39,6 +42,19 @@ def note_failure(code_name: str):
         return
     with _lock:
         _counts[code_name] = _counts.get(code_name, 0) + 1
+        totals = dict(_counts)
+    observer = _observer
+    if observer is not None:
+        observer(totals)
+
+
+def set_observer(observer):
+    """``observer(totals)`` runs after each noted failure, for counters
+    that must outlive their process: a worker that a network fault gets
+    evicted never ships them on a heartbeat, so the chaos layer
+    (``chaos/netem.py``) records them in its event log.  None removes it."""
+    global _observer
+    _observer = observer
 
 
 def note_retry():
@@ -54,5 +70,7 @@ def snapshot() -> dict[str, int]:
 
 
 def reset_for_tests():
+    global _observer
     with _lock:
         _counts.clear()
+    _observer = None

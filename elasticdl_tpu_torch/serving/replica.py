@@ -277,6 +277,7 @@ class ServingClient(RpcClient):
             retry=retry,
             retryable_methods=SERVING_RETRYABLE_METHODS,
             deadlines=deadlines,
+            service_name=SERVING_SERVICE_NAME,
         )
 
     def predict(self, request: msg.PredictRequest) -> msg.PredictResponse:

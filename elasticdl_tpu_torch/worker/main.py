@@ -86,6 +86,13 @@ def _standby_wait(args) -> bool:
         get_model_spec(args.model_zoo, args.model_def)
     except Exception:  # noqa: BLE001 — the live run will surface it
         pass
+    # and so is torch._dynamo: torch imports it at the first optimizer a
+    # process builds (Optimizer.add_param_group is wrapped in its
+    # dynamo-disable decorator), 8 s on the card's machine, which would
+    # otherwise fall between the activation and the first step
+    import torch
+
+    torch.optim.SGD([torch.zeros(1)], lr=0.0)
     standby_id = os.environ.get(STANDBY_ID_ENV, "")
     logger.info(
         "Standby worker warmed; waiting for a world assignment (%s)",
@@ -193,6 +200,15 @@ def main(argv=None) -> int:
         if not _standby_wait(args):
             return 0
         activated_at = time.monotonic()
+    # transport-level network chaos (chaos/netem.py): nothing unless the
+    # plan holds network faults for this process and generation; armed
+    # before the master client is built, so its first call rides the seam
+    from elasticdl_tpu_torch.chaos import netem
+
+    netem.install_from_env(
+        process_id=args.process_id, cluster_version=args.cluster_version,
+        worker_id=args.worker_id,
+    )
     if not args.coordinator_addr:
         from elasticdl_tpu_torch.worker.worker import Worker
 

@@ -942,6 +942,31 @@ def test_adopted_worker_that_vanished_fails_only_before_the_stream_end(finished)
     assert im.poll_failed_workers() == ([1] if finished else [0, 1])
 
 
+def test_a_child_that_exits_after_the_first_reap_keeps_its_exit_code(monkeypatch):
+    """The race behind the unsteady ``mid_job`` case above: a child of
+    this process exits after ``poll``'s first ``waitpid`` found it running
+    and before the zombie check.  It is reaped there, with its code, and
+    not taken for a vanished non-child (-1)."""
+    from elasticdl_tpu_torch.master import master as master_mod
+
+    child = subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"])
+    deadline = time.monotonic() + 30
+    while not master_mod._is_zombie(child.pid) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert master_mod._is_zombie(child.pid)
+    real_waitpid = os.waitpid
+    looks = []
+
+    def first_look_finds_it_running(pid, flags):
+        looks.append(pid)
+        return (0, 0) if len(looks) == 1 else real_waitpid(pid, flags)
+
+    monkeypatch.setattr(os, "waitpid", first_look_finds_it_running)
+    adopted = master_mod._AdoptedProcess(child.pid)
+    assert adopted.poll() == 3 and not adopted.exit_unknown
+    assert looks == [child.pid, child.pid]
+
+
 # ---- without --master_journal_dir nothing of the journal runs ---------------
 
 

@@ -10,8 +10,10 @@ canonical rows (one per device of the test conftest's 8-device CPU
 mesh), the port's 4 (``device="cpu"``); outputs are held to the JAX
 engine's within ``TOL`` (f32), as ``tests/test_torch_serving.py`` holds
 them.  Swap decisions, reasons and routing outcomes must be the JAX
-package's exactly.  The tests of ``tests/test_serving.py`` that need the
-chaos netem seam (``:799``, ``:838``) wait for the port's chaos harness.
+package's exactly.  The serving RPCs also ride the chaos netem seams as
+``tests/test_serving.py:799`` and ``:838`` hold the JAX replica to: an
+injected UNAVAILABLE is retried, and a duplicated ``predict`` answers
+once.
 """
 
 from __future__ import annotations
@@ -598,6 +600,60 @@ def _frontend(model_dir: str, addr_file: str, *extra) -> subprocess.Popen:
          "--minibatch_size", "8", *extra],
         cwd=REPO, env=env,
     )
+
+
+# ---- the netem seams on the serving RPCs (tests/test_serving.py:799, :838) --
+
+
+def test_serving_predict_survives_injected_unavailable(replica):
+    """A client-side injected UNAVAILABLE rides the retry loop of the
+    control plane: ``predict`` is retry-safe."""
+    from elasticdl_tpu_torch.chaos.netem import NetemShim
+    from elasticdl_tpu_torch.chaos.plan import Fault, FaultKind
+    from elasticdl_tpu_torch.rpc.retry import RetryPolicy
+
+    shim = NetemShim(
+        [Fault(kind=FaultKind.NET_UNAVAILABLE, fault_id="u", method="predict", count=1)],
+        plan_seed=1,
+    )
+    rpc_service.set_client_fault_shim(shim)
+    try:
+        client = ServingClient(
+            f"localhost:{replica.port}", retry=RetryPolicy(max_attempts=5),
+            deadlines=DeadlinePolicy.from_secs(10),
+        )
+        response = client.predict(
+            msg.PredictRequest(request_id="r", features=msg.pack_array_tree(_tokens(2, seed=3)))
+        )
+        assert not response.error  # the injected failure was retried
+        assert shim.armed_count == 0  # and it fired
+    finally:
+        rpc_service.set_client_fault_shim(None)
+
+
+def test_serving_predict_duplicate_delivery_harmless(replica):
+    """Server-side duplicate delivery runs ``predict`` twice; it reads
+    only, so the caller gets one right answer."""
+    from elasticdl_tpu_torch.chaos.netem import NetemShim
+    from elasticdl_tpu_torch.chaos.plan import Fault, FaultKind
+
+    shim = NetemShim(
+        [Fault(kind=FaultKind.NET_DUPLICATE, fault_id="d", method="predict", count=1)],
+        plan_seed=1,
+    )
+    rpc_service.set_server_fault_shim(shim)
+    try:
+        client = ServingClient(f"localhost:{replica.port}", deadlines=DeadlinePolicy.from_secs(10))
+        feats = _tokens(4, seed=9)
+        response = client.predict(
+            msg.PredictRequest(request_id="dup", features=msg.pack_array_tree(feats))
+        )
+        assert not response.error
+        out = msg.unpack_array_tree(response.outputs)
+        assert out.shape == (4, SEQ, LM_KW["vocab_size"]) and shim.armed_count == 0
+        assert replica.engine.counters_snapshot()["requests"] == 2  # ran twice
+    finally:
+        rpc_service.set_server_fault_shim(None)
 
 
 def _wait_for(path: str, proc, secs: float = 60.0) -> str:

@@ -193,6 +193,28 @@ def test_a_standby_process_exits_cleanly_at_eof():
     assert b"waiting for a world assignment" in proc.stderr
 
 
+def test_a_waiting_standby_has_paid_the_first_optimizers_imports():
+    """The first optimizer a process builds imports torch._dynamo (8 s on
+    the card's machine): a standby pays it while it waits, with no CUDA
+    context, so that its first step after the activation does not."""
+    code = (
+        "import io, sys; sys.stdin = io.StringIO('');"
+        "from elasticdl_tpu_torch.worker import main as m;"
+        "from elasticdl_tpu_torch.utils.args import parse_worker_args;"
+        f"args = parse_worker_args(['--model_def', '{MNIST_DEF}', '--worker_id', '0',"
+        " '--master_addr', 'localhost:1', '--standby', '1', '--device', 'cpu']);"
+        "before = 'torch._dynamo' in sys.modules;"
+        "ok = m._standby_wait(args);"
+        "import torch;"
+        "print(before, ok, 'torch._dynamo' in sys.modules, torch.cuda.is_initialized())"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.stdout.split() == ["False", "False", "True", "False"], proc.stderr[-2000:]
+
+
 def _servicer(pkg):
     mod = importlib.import_module(
         ("elasticdl_tpu" if pkg == "jax" else "elasticdl_tpu_torch") + ".master.servicer"
