@@ -290,6 +290,25 @@ printed:
    seconds, re-formation, detection and kill-to-step latencies, RPC
    totals and accuracy.
 
+18. anatomy — the step anatomy, the metrics registry and ``/metrics``.
+   (a) Alone, after phase 17: phase 6's LM (gpt2s at full width, 8 rows
+   of 2048 tokens, bf16) through the Local train CLI with
+   ``--step_anatomy true --telemetry_dir``, one epoch (8 steps) with
+   ``--device_prefetch false`` and one with ``true``: every dispatch has
+   a ``step_anatomy`` event whose phases sum to its wall within 1e-3 ms,
+   ``untracked`` is under 2 % of the wall, the goodput section has
+   ``e2e_vs_roofline`` in (0, 1] and p50/p99 for ``device_compute`` and
+   ``host_fetch``, the prefetch window's ``h2d_transfer`` share is below
+   the other's or under 0.5 %, each dispatch's ``device_compute`` holds
+   the device time between CUDA events around it on its stream, and each
+   flash kernel launches 12 times a step; it prints each window's phase
+   shares.  (b) Beside phase 11's jobs: a two-rank mnist world on phase
+   10's shards with ``--step_anatomy true --telemetry_dir --metrics_port
+   0``; two scrapes of the master's ``/metrics`` over HTTP show every
+   tracked phase's ``elasticdl_step_phase_ms_total``, not falling;
+   ``/healthz`` answers 200 with the JAX body's keys; the goodput section
+   has every generation of the step samples.
+
 Every process the smoke starts shares one bytecode cache of this run
 (``_bytecode_cache``): the card's machine writes none, and each new
 process would compile torch's sources again.
@@ -5755,6 +5774,11 @@ CHAOS_RUNS = (
 # job and, for preempt_one_worker, its baseline
 CHAOS_RUN_TIMEOUT_SECS = 300.0
 CHAOS_TRAJECTORY_TOLERANCE = 0.15  # the runner's default
+# the runs at once: all six on the card's machine; on the CPU, where the
+# tests rehearse the phase beside five other test workers, three (six
+# take 31 processes and 8.8 GiB of RSS at their peak, and each run's 3 s
+# heartbeat timeout and 5 s deadlines must hold under the host's load)
+CHAOS_CPU_WIDTH = 3
 
 
 # the sessions of the chaos runs still running, stopped at exit too (a
@@ -5879,17 +5903,27 @@ def check_chaos_case(name: str, row: dict, want_rc: int) -> list:
     return problems
 
 
+def chaos_runs(work_dir: str, device: str = "cuda") -> dict:
+    """Every run of :data:`CHAOS_RUNS`, side by side: all at once on the
+    card, :data:`CHAOS_CPU_WIDTH` at a time on the CPU; one row per plan,
+    ungated."""
+    width = len(CHAOS_RUNS) if device == "cuda" else CHAOS_CPU_WIDTH
+    rows = {}
+    for first in range(0, len(CHAOS_RUNS), width):
+        rows.update(_beside(**{
+            name: (lambda name=name, args=args: chaos_run(work_dir, name, args, device))
+            for name, args, _rc in CHAOS_RUNS[first:first + width]
+        }))
+    return rows
+
+
 def chaos_phase(work_dir: str, device: str = "cuda") -> dict:
-    """Phase 17: every run of :data:`CHAOS_RUNS` side by side, gated by
-    :func:`check_chaos_case`; one row per plan.  slow_network_mid_epoch's
-    calls must stay within their 5 s deadline beside the others' load:
-    its gate shows that none expired and that no worker was taken for
-    dead."""
+    """Phase 17: :func:`chaos_runs`, gated by :func:`check_chaos_case`;
+    one row per plan.  slow_network_mid_epoch's calls must stay within
+    their 5 s deadline beside the others' load: its gate shows that none
+    expired and that no worker was taken for dead."""
     t0 = time.monotonic()
-    rows = _beside(**{
-        name: (lambda name=name, args=args: chaos_run(work_dir, name, args, device))
-        for name, args, _rc in CHAOS_RUNS
-    })
+    rows = chaos_runs(work_dir, device)
     for name, row in rows.items():
         print(json.dumps({f"chaos_{name}": {
             k: v for k, v in row.items() if k != "log_tail"
@@ -5903,6 +5937,272 @@ def chaos_phase(work_dir: str, device: str = "cuda") -> dict:
             log(f"--- chaos {name}: {rows[name].get('log_tail', '')}")
         raise AssertionError(f"phase 17 failed its gates: {failed}")
     return {"secs": time.monotonic() - t0, "runs": rows}
+
+
+# ---- phase 18: the step anatomy, the metrics registry and /metrics ----------
+
+# the goodput smoke's gates (scripts/goodput_smoke.py): every dispatch's
+# phases sum to its wall within SUM_RESIDUAL_MS, untracked stays under
+# UNTRACKED_GATE of the wall, and staging lowers the consumer-visible
+# h2d share or leaves it negligible
+ANATOMY_SUM_RESIDUAL_MS = 1e-3
+ANATOMY_UNTRACKED_GATE = 0.02
+ANATOMY_H2D_NEGLIGIBLE = 0.005
+# a dispatch's device_compute must hold the device time between CUDA
+# events recorded around it on the stream it ran on (ms of slack for the
+# events' own resolution): a wait on another stream would leave it short
+ANATOMY_STREAM_SLACK_MS = 0.05
+# the keys of the JAX master's /healthz body
+# (elasticdl_tpu/telemetry/master_hooks.py::build_health_fn)
+HEALTHZ_KEYS = frozenset({
+    "status", "job_type", "generation", "model_version", "live_workers",
+    "num_live_workers", "quiescing", "last_step_age_secs", "degraded_network", "memory",
+})
+TRACKED_PHASES = ("host_fetch", "assemble", "h2d_transfer", "device_compute", "step_bookkeeping")
+ANATOMY_WINDOWS = (("prefetch_off", "false"), ("prefetch_on", "true"))
+# 18b's scrapes: the poll period, and how long the first scrape may wait
+# for every tracked phase to reach /metrics
+SCRAPE_POLL_SECS = 0.25
+SCRAPE_FIRST_SECS = 120.0
+
+
+def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg=None) -> dict:
+    """One Local train CLI run of phase 6's data with ``--step_anatomy``
+    (one epoch, 8 steps of 8 rows); its events, goodput section, kernel
+    launches and, per ``train_step`` call, the device milliseconds between
+    CUDA events recorded around it on the current stream."""
+    from unittest import mock
+
+    import torch
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+    from elasticdl_tpu_torch.telemetry.report import goodput_section
+
+    marks = []
+    train_step = SPMDTrainer.train_step
+
+    def marked(trainer, *args):
+        if device != "cuda":
+            return train_step(trainer, *args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(trainer, *args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    argv = _local_argv(
+        data, device, "--num_epochs", "1", "--step_anatomy", "true",
+        "--telemetry_dir", tel_dir, "--device_prefetch", prefetch, lm_cfg=lm_cfg,
+    )
+    with mock.patch.object(SPMDTrainer, "train_step", marked):
+        attn.reset_launch_counts()
+        t0 = time.monotonic()
+        rc = client.main(argv)
+        secs = time.monotonic() - t0
+        launches = dict(attn.launch_counts)
+    gpu_ms = []
+    for start, end in marks:
+        end.synchronize()
+        gpu_ms.append(start.elapsed_time(end))
+    events = read_jsonl(os.path.join(tel_dir, "events.jsonl"))
+    anat = [e for e in events if e.get("event") == "step_anatomy"]
+    goodput = goodput_section(events)
+    return {
+        "rc": rc, "secs": secs, "launches": launches, "gpu_ms": gpu_ms,
+        "dispatches": len(anat), "steps": sum(e["steps"] for e in anat),
+        "step_samples": sum(1 for e in events if e.get("event") == "step"),
+        "max_sum_residual_ms": max(
+            (abs(e["wall_ms"] - sum(e.get(f"{p}_ms", 0.0) for p in (*TRACKED_PHASES, "untracked")))
+             for e in anat), default=None,
+        ),
+        "device_compute_ms": [e.get("device_compute_ms", 0.0) for e in anat],
+        "goodput": goodput["overall"] if goodput else None,
+        # the steps after the first, whose bookkeeping builds the trainer
+        # and restores its checkpoint: the step's own shares
+        "steady": (goodput_section(anat[1:]) or {}).get("overall"),
+    }
+
+
+def check_anatomy_lm(row: dict, steps: int = LOCAL_STEPS, per_step: int = 12) -> list:
+    """18a's gates on its two windows; the problems found."""
+    problems = []
+    shares = {}
+    for name, _prefetch in ANATOMY_WINDOWS:
+        w = row[name]
+        if w["rc"] != 0 or w["dispatches"] != steps or w["steps"] != steps:
+            problems.append(f"{name}: rc {w['rc']}, {w['dispatches']} dispatches, {w['steps']} steps")
+            continue
+        if w["max_sum_residual_ms"] is None or w["max_sum_residual_ms"] >= ANATOMY_SUM_RESIDUAL_MS:
+            problems.append(f"{name}: phases off their wall by {w['max_sum_residual_ms']} ms")
+        good = w["goodput"]
+        if not good["untracked_share"] < ANATOMY_UNTRACKED_GATE:
+            problems.append(f"{name}: untracked share {good['untracked_share']}")
+        if not (good["e2e_vs_roofline"] and 0 < good["e2e_vs_roofline"] <= 1):
+            problems.append(f"{name}: e2e_vs_roofline {good['e2e_vs_roofline']}")
+        for phase in ("device_compute", "host_fetch"):
+            got = good["phases"].get(phase, {})
+            if got.get("p50_ms") is None or got.get("p99_ms") is None:
+                problems.append(f"{name}: no p50/p99 for {phase}")
+        if w["gpu_ms"]:
+            short = [
+                (c, g) for c, g in zip(w["device_compute_ms"], w["gpu_ms"])
+                if c < g - ANATOMY_STREAM_SLACK_MS
+            ]
+            if len(w["gpu_ms"]) != steps or short:
+                problems.append(f"{name}: device_compute short of its stream's time {short}")
+        want = {k: per_step * steps for k in FLASH_NAMES} if per_step else {}
+        if per_step and w["launches"] != want:
+            problems.append(f"{name}: launches {w['launches']}, not {want}")
+        shares[name] = good["phases"].get("h2d_transfer", {}).get("share") or 0.0
+    if len(shares) == 2 and not (
+        shares["prefetch_on"] < shares["prefetch_off"] or shares["prefetch_on"] < ANATOMY_H2D_NEGLIGIBLE
+    ):
+        problems.append(f"h2d share with prefetch {shares['prefetch_on']}, off {shares['prefetch_off']}")
+    return problems
+
+
+def anatomy_lm_run(work_dir: str, device: str = "cuda", lm_cfg=None) -> dict:
+    """18a: the LM of phase 6 (gpt2s at full width unless ``lm_cfg``)
+    through the Local train CLI with ``--step_anatomy`` and
+    ``--telemetry_dir``, a window with ``--device_prefetch false`` and one
+    with ``true``, gated by :func:`check_anatomy_lm`.  Its row gives each
+    window's phase shares of the step."""
+    import torch
+
+    data = _local_data(work_dir, lm_cfg=lm_cfg)
+    row = {"secs": 0.0}
+    for name, prefetch in ANATOMY_WINDOWS:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        row[name] = _anatomy_window(
+            data, device, os.path.join(work_dir, f"telemetry_{name}"), prefetch, lm_cfg=lm_cfg,
+        )
+        row["secs"] += row[name]["secs"]
+    layers = (lm_cfg or GPT2S)["num_layers"]
+    problems = check_anatomy_lm(row, per_step=layers if device == "cuda" else 0)
+    if problems:
+        raise AssertionError(f"phase 18a failed its gates: {problems}")
+    return row
+
+
+def _scrape(port: int, path: str) -> tuple:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+        return resp.status, resp.read().decode("utf-8")
+
+
+def _phase_totals(text: str) -> dict:
+    """``elasticdl_step_phase_ms_total{phase=...}`` samples of a scrape."""
+    out = {}
+    for match in re.finditer(r'^elasticdl_step_phase_ms_total\{phase="(\w+)"\} (\S+)$', text, re.M):
+        out[match.group(1)] = float(match.group(2))
+    return out
+
+
+def _scraper(master, out: dict):
+    """Scrape the master's /metrics while its world trains: the first
+    scrape that shows every tracked phase, then the first later one in
+    which a phase total rose (or the last before the endpoint closed),
+    and /healthz once."""
+    try:
+        deadline = time.monotonic() + SCRAPE_FIRST_SECS
+        while master.metrics_port is None and time.monotonic() < deadline:
+            time.sleep(SCRAPE_POLL_SECS)
+        port = out["port"] = master.metrics_port
+        while time.monotonic() < deadline:
+            _status, text = _scrape(port, "/metrics")
+            first = _phase_totals(text)
+            if set(TRACKED_PHASES) <= set(first):
+                out["first"] = first
+                break
+            time.sleep(SCRAPE_POLL_SECS)
+        else:
+            return
+        status, body = _scrape(port, "/healthz")
+        out["healthz"] = {"status": status, "body": json.loads(body)}
+        while master.metrics_port is not None:
+            time.sleep(SCRAPE_POLL_SECS)
+            try:
+                _status, text = _scrape(port, "/metrics")
+            except OSError:  # the job ended and its endpoint closed
+                break
+            second = out["second"] = _phase_totals(text)
+            if any(second.get(p, 0.0) > v for p, v in first.items()):
+                break
+    except Exception as ex:  # noqa: BLE001 — the gates report it
+        out.setdefault("error", repr(ex))
+
+
+def check_anatomy_world(row: dict) -> list:
+    """18b's gates; the problems found."""
+    problems = []
+    if row["rc"] != 0 or row["violations"]:
+        problems.append(f"rc {row['rc']}, violations {row['violations']}")
+    first, second = row.get("first"), row.get("second")
+    if not first or not second:
+        problems.append(f"not two scrapes of every tracked phase: {row.get('error')}")
+    else:
+        missing = [p for p in TRACKED_PHASES if p not in first or p not in second]
+        fell = [p for p in first if second.get(p, 0.0) < first[p]]
+        if missing or fell:
+            problems.append(f"phase totals missing {missing} or falling {fell}")
+    health = row.get("healthz") or {}
+    if health.get("status") != 200 or set(health.get("body", {})) != HEALTHZ_KEYS:
+        problems.append(f"/healthz {health}")
+    generations = row.get("goodput_generations") or {}
+    if not generations or set(generations) != set(row["step_generations"]) or any(
+        not g["dispatches"] for g in generations.values()
+    ):
+        problems.append(
+            f"goodput generations {sorted(generations)}, step samples' {row['step_generations']}"
+        )
+    return problems
+
+
+def anatomy_world_run(work_dir: str, data: dict, device: str = "cuda", cfg=None) -> dict:
+    """18b: a two-rank mnist world on ``data`` (phase 10's shards) with
+    ``--step_anatomy``, ``--telemetry_dir`` and ``--metrics_port 0``; the
+    master's /metrics scraped over HTTP while it trains, gated by
+    :func:`check_anatomy_world`."""
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+    from elasticdl_tpu_torch.telemetry.report import goodput_section
+
+    cfg = cfg or ELASTIC_MNIST
+    tel_dir = os.path.join(work_dir, "telemetry")
+    scraped: dict = {}
+    threads = []
+
+    def on_build(master):
+        thread = threading.Thread(target=_scraper, args=(master, scraped), daemon=True)
+        thread.start()
+        threads.append(thread)
+
+    t0 = time.monotonic()
+    run = _distributed_run(
+        cfg, data, device, work_dir, "anatomy", on_build=on_build,
+        extra=("--step_anatomy", "true", "--telemetry_dir", tel_dir, "--metrics_port", "0"),
+    )
+    for thread in threads:
+        thread.join(timeout=30)
+    events = read_jsonl(os.path.join(tel_dir, "events.jsonl"))
+    goodput = goodput_section(events) or {}
+    row = {
+        "secs": time.monotonic() - t0, "rc": run["row"]["rc"],
+        "violations": run["row"]["violations"],
+        **{k: scraped.get(k) for k in ("first", "second", "healthz", "error")},
+        "step_generations": sorted({e.get("generation", 0) for e in events if e.get("event") == "step"}),
+        "goodput_generations": goodput.get("generations"),
+    }
+    problems = check_anatomy_world(row)
+    if problems:
+        raise AssertionError(f"phase 18b failed its gates: {problems}")
+    return row
 
 
 class _PhaseClock:
@@ -6091,14 +6391,17 @@ def main() -> int:
             )
 
         # 11a-b's mnist worlds, 11c's DeepFM task stream and the LM's
-        # jobs side by side
+        # jobs side by side, and 18b's anatomy world beside them (no rate
+        # of 18b's is a yardstick: its anatomy waits on every dispatch)
         beside = _beside(
             mnist=mnist_eval_jobs,
             deepfm=lambda: task_stream_zoo_run(os.path.join(work_dir, "deepfm"), TS_DEEPFM),
             lm=lambda: task_stream_lm_run(os.path.join(work_dir, "lm")),
+            anatomy=lambda: anatomy_world_run(os.path.join(work_dir, "anatomy"), mnist_shards),
         )
         eval_rows["deepfm_task_stream"] = beside["deepfm"]
         eval_lm = eval_rows["lm"] = beside["lm"]
+        anatomy_world = beside["anatomy"]
     print(json.dumps({"evaluate_predict": eval_rows}), flush=True)
     phases.done("11_evaluate_predict")
 
@@ -6196,6 +6499,30 @@ def main() -> int:
     print(json.dumps({"chaos": {"device": smi, "secs": chaos_rows["secs"]}}), flush=True)
     phases.done("17_chaos")
 
+    # ---- 18. the step anatomy: (a) the gpt2s LM through the Local CLI
+    # alone, its shares being the finding; (b) ran beside phase 11
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_anatomy_") as work_dir:
+        _release_memory("cuda")
+        anatomy_lm = anatomy_lm_run(work_dir)
+    anatomy_launches = {
+        k: sum(anatomy_lm[name]["launches"][k] for name, _p in ANATOMY_WINDOWS)
+        for k in FLASH_NAMES
+    }
+    print(json.dumps({"anatomy": {
+        "device": smi, "lm": {
+            "secs": anatomy_lm["secs"],
+            **{name: {
+                "secs": anatomy_lm[name]["secs"],
+                "goodput": anatomy_lm[name]["goodput"],
+                "steady": anatomy_lm[name]["steady"],
+                "device_compute_ms": anatomy_lm[name]["device_compute_ms"],
+                "stream_gpu_ms": anatomy_lm[name]["gpu_ms"],
+            } for name, _p in ANATOMY_WINDOWS},
+        },
+        "world": anatomy_world,
+    }}), flush=True)
+    phases.done("18_anatomy")
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -6205,6 +6532,7 @@ def main() -> int:
             "launches": train_launches[name] + local_launches[name]
             + stacked_launches[name] + dp_lm["launches"][name]
             + eval_lm["launches"][name] + replica_lm["launches"][name]
+            + anatomy_launches[name]
             + (serve_launches + serve_rpc_launches if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],

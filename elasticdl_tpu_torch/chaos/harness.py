@@ -32,10 +32,14 @@ The port's master and workers write ``master_restart``, ``worker_rehome``,
 (``chaos/hooks.py::append_event``), whose observations carry
 ``"observation"`` where the JAX telemetry log's carry ``"event"``; the
 checks and the report's sections (``telemetry/report.py``) read both.
-Left for their slices, and refused with ``NotImplementedError`` naming
-it: streaming runs, ``live_push_addr``, and the ``drop_stream_window``
-and ``drop_shard_parts`` corruptions (slice 9).  The JAX package's
-``--telemetry_dir`` and its trace come with slice 10.
+The job runs with ``--telemetry_dir <workdir>/telemetry``, as the JAX
+harness's does: the master writes its lifecycle there too, the workers
+their ``step`` samples and their mirrored netem firings, and the
+report's ``master_ha`` section reads the step gap of each outage from
+it.  Left for their slices, and refused with ``NotImplementedError``
+naming it: streaming runs, ``live_push_addr``, and the
+``drop_stream_window`` and ``drop_shard_parts`` corruptions (slice 9).
+The JAX package's trace comes with slice 10b.
 
 Clock note: workers stamp their events with ``time.monotonic()``, which
 is machine-wide on Linux, so the master-side latencies subtract worker
@@ -615,8 +619,7 @@ def run_master_lives(
 
 def _master_args(config: ChaosJobConfig, train_dir: str, ckpt_dir: str) -> list[str]:
     """The master's argv for ``config``'s job: the JAX harness's flags,
-    with ``--device`` where it passes ``--jax_platform`` and no
-    ``--telemetry_dir`` (slice 10)."""
+    with ``--device`` where it passes ``--jax_platform``."""
     envs = [
         f"{chaos_hooks.PLAN_ENV}={os.path.join(config.workdir, 'chaos_plan.json')}",
         f"{chaos_hooks.EVENTS_ENV}={os.path.join(config.workdir, 'chaos_events.jsonl')}",
@@ -645,6 +648,8 @@ def _master_args(config: ChaosJobConfig, train_dir: str, ckpt_dir: str) -> list[
         "--checkpoint_dir", ckpt_dir,
         "--checkpoint_steps", str(config.checkpoint_steps),
         "--heartbeat_timeout_secs", str(config.heartbeat_timeout_secs),
+        # the telemetry event log beside the chaos artifacts
+        "--telemetry_dir", os.path.join(config.workdir, "telemetry"),
         *(
             ["--replication", "true", "--replication_steps", str(config.replication_steps)]
             if config.replication else []
@@ -944,7 +949,10 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
     # a reused work directory starts afresh: a leftover checkpoint would
     # resume at the last run's version, and a stale journal would restore
     # the last run's dispatch state into the first master
-    for stale in (os.path.join(config.workdir, "ckpt"), config.journal_dir):
+    for stale in (
+        os.path.join(config.workdir, "ckpt"), config.journal_dir,
+        os.path.join(config.workdir, "telemetry"),
+    ):
         shutil.rmtree(stale, ignore_errors=True)
     gen = synthetic.gen_frappe if config.dataset == "frappe" else synthetic.gen_mnist
     train = gen(
@@ -961,14 +969,20 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
     netem.uninstall()
     built: list = []
 
+    shims: list = []
+
     def on_build(master):
         if not built:
             # duplicate delivery fires in this process's handlers: the
             # shim is installed once per run and kept across master lives
             # (a new one would reset its counters and fire exhausted
-            # faults again)
-            netem.install_master_from_plan(config.plan, events_path)
+            # faults again); only its telemetry sink follows the master
+            shims.append(netem.install_master_from_plan(
+                config.plan, events_path, telemetry_sink=master.telemetry.events.emit,
+            ))
             _install_corruption(master, checker, config.corrupt)
+        elif shims[0] is not None:
+            shims[0].set_telemetry_sink(master.telemetry.events.emit)
         built.append(master)
 
     def on_crash():
@@ -991,6 +1005,14 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
     counters = master.task_d.counters(TaskType.TRAINING)
     fault_events, observations = _read_events(events_path)
     events = fault_events + observations
+    # the telemetry log: the masters' lifecycle (written by a thread of
+    # each, flushed here: a killed life never reached its job_end) and
+    # the workers' step samples
+    from elasticdl_tpu_torch.telemetry.events import EVENTS_FILENAME, read_jsonl
+
+    for life in masters:
+        life.telemetry.events.flush()
+    telemetry_events = read_jsonl(os.path.join(config.workdir, "telemetry", EVENTS_FILENAME))
 
     # latencies: the first kill-type firing, its detection, the first step
     kill_at = next(
@@ -1084,7 +1106,7 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
     multislice = multislice_section(events) if config.num_slices > 1 else None
     if multislice is not None:
         report["multislice"] = multislice
-    master_ha = master_ha_section(events) if config.master_ha else None
+    master_ha = master_ha_section(events + telemetry_events) if config.master_ha else None
     if master_ha is not None:
         report["master_ha"] = master_ha
     if config.master_ha:

@@ -1,5 +1,4 @@
-"""Worker-side fault injector; a copy of ``elasticdl_tpu/chaos/hooks.py``
-(the telemetry event log it also writes to comes with slice 10).
+"""Worker-side fault injector; a copy of ``elasticdl_tpu/chaos/hooks.py``.
 
 The master's harness exports two environment variables to every worker
 subprocess (via the instance manager's env plumbing):
@@ -27,7 +26,7 @@ plan is installed:
   before a push leaves, then an observation of each push (its version,
   checksum, bytes, costs and whether the neighbor accepted it) and of a
   restore from peer RAM.  The JAX package writes the push and restore
-  to its telemetry event log (slice 10 here); the port's chaos event log
+  to its telemetry event log; the port's chaos event log
   carries them, so ``chaos/invariants.py::check_replication_no_lost_steps``
   reads one log.
 
@@ -116,6 +115,14 @@ class ChaosInjector:
             **extra,
         }
         logger.warning("CHAOS firing %s: %s", fault.fault_id, event)
+        # mirrored into the telemetry event log first (a no-op without
+        # it), with this record's stamps, so a report reads one firing
+        from elasticdl_tpu_torch.telemetry import worker_hooks
+
+        worker_hooks.emit_event(
+            "fault_injected", fault_id=fault.fault_id, kind=fault.kind,
+            time=event["time"], monotonic=event["monotonic"], **extra,
+        )
         # fsync: a firing may be the process's last act before SIGKILL
         append_event(self._events_path, event, fsync=True)
 

@@ -30,9 +30,10 @@ in the JAX package, so one plan gives the same delays in both.
 The injected errors are the port's own :class:`RpcError` codes; the JAX
 package's wear ``grpc.RpcError``'s surface.  Every firing is recorded to
 the chaos event log with an fsync (the process may be about to die of
-it).  The JAX package also mirrors each firing into its telemetry event
-log and opens an ``rpc_degraded`` span for a window fault: both come
-with slice 10.  An armed worker also records its RPC outcome counters
+it), and mirrored into the telemetry event log as ``rpc_fault_injected``
+(by the master-side shim's sink, or a worker's ``worker_hooks``).  The
+JAX package also opens an ``rpc_degraded`` span for a window fault: the
+port's spans come with slice 10b.  An armed worker also records its RPC outcome counters
 after each failure (``rpc_stats`` observations): a worker that the fault
 gets evicted never ships them on a heartbeat, so the harness merges them
 as a heartbeat would; the JAX report counts only what heartbeats
@@ -176,16 +177,26 @@ class NetemShim:
             **extra,
         }
         logger.warning("CHAOS netem firing %s: %s", fault.fault_id, event)
-        sink = self._telemetry_sink
-        if sink is not None:  # a master-side shim's mirror
-            sink(
-                "rpc_fault_injected",
-                fault_id=fault.fault_id,
-                **{
-                    k: v for k, v in event.items()
-                    if k not in ("fault_id", "worker_id", "process_id")
-                },
-            )
+        # the telemetry mirror: the master-side shim's sink, or this
+        # worker process's recorder (a no-op when telemetry is off).  A
+        # failure here must not reach the caller through the RPC seam
+        fields = {
+            k: v for k, v in event.items()
+            if k not in ("fault_id", "worker_id", "process_id")
+        }
+        try:
+            if self._telemetry_sink is not None:
+                self._telemetry_sink(
+                    "rpc_fault_injected", fault_id=fault.fault_id, **fields
+                )
+            else:
+                from elasticdl_tpu_torch.telemetry import worker_hooks
+
+                worker_hooks.emit_event(
+                    "rpc_fault_injected", fault_id=fault.fault_id, **fields
+                )
+        except Exception:  # noqa: BLE001 — telemetry never breaks injection
+            logger.exception("Netem telemetry mirror failed")
         # fsync: a blackholed worker may be about to die of this fault
         chaos_hooks.append_event(self._events_path, event, fsync=True)
 

@@ -21,7 +21,7 @@ fault-free trajectory.  ``--corrupt double_report`` (and the other
 purpose: a corrupted run must exit 1.
 
 Left for their slices: streaming plans and corruptions (slice 9, refused
-naming it), the report's ``trace`` section (slice 10), and the fleet
+naming it), the report's ``trace`` section (slice 10b), and the fleet
 plans of ``--list`` (slice 11).
 """
 

@@ -8,7 +8,7 @@ from the output and label tensors the workers report; the
 ``add_evaluation_task_if_needed`` queues step-based ones when a reported
 model version crosses a ``--evaluation_steps`` milestone.  The
 evaluation tasks themselves are created in the task dispatcher.  The
-port has no TensorBoard service yet (slice 10): the master passes None,
+port has no TensorBoard service yet (slice 10b): the master passes None,
 as the JAX master does when ``--tensorboard_log_dir`` is empty.
 """
 

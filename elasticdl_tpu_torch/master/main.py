@@ -26,7 +26,8 @@ def worker_envs(args) -> dict[str, str]:
     """The environment the master adds to every worker's: ``--envs``,
     the RPC retry budget and deadlines, the device pipeline's flags
     (``--device_prefetch``, ``--boundary_fusion``, ``--pipeline_depth``),
-    and with ``--master_journal_dir`` the master's address file (which
+    the telemetry directory and ``--step_anatomy``, and with
+    ``--master_journal_dir`` the master's address file (which
     also implies the retry budget that carries a worker across a master
     outage).  They travel by env, never argv, so that every process of a
     world resolves them alike and worker argv is the same with or
@@ -34,9 +35,16 @@ def worker_envs(args) -> dict[str, str]:
     from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV, addr_file_path
     from elasticdl_tpu_torch.rpc.deadline import DEADLINE_SECS_ENV
     from elasticdl_tpu_torch.rpc.retry import DEFAULT_RETRY_SECS, RETRY_SECS_ENV
+    from elasticdl_tpu_torch.telemetry.anatomy import STEP_ANATOMY_ENV
+    from elasticdl_tpu_torch.telemetry.worker_hooks import TELEMETRY_DIR_ENV
     from elasticdl_tpu_torch.trainer import device_pipeline as dp
 
     envs = dict(args.envs_dict)
+    if args.telemetry_dir:
+        # workers append their step samples to the shared event log
+        envs.setdefault(TELEMETRY_DIR_ENV, args.telemetry_dir)
+    if args.step_anatomy:
+        envs.setdefault(STEP_ANATOMY_ENV, "1")
     if args.device_prefetch:
         envs.setdefault(dp.DEVICE_PREFETCH_ENV, "1")
     if args.boundary_fusion:

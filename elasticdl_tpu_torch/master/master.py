@@ -41,7 +41,8 @@ re-homes is declared dead, and the normal failure path re-forms the
 world or relaunches it.  ``request_crash`` kills a master in process
 with SIGKILL semantics (the chaos harness's master kill).  The restart
 and each re-home go to the chaos event log (``ELASTICDL_TPU_CHAOS_EVENTS``
-in ``--envs``), where the JAX package writes them to its telemetry.
+in ``--envs``), and to the telemetry event log as the JAX package writes
+them.
 
 A lockstep job keeps warm standby processes (``--standby_workers``,
 ``-1``: one per process of the world), and a re-formed world is handed
@@ -59,10 +60,18 @@ to the chaos event log, as the restart and re-homes do.  A master
 restored from a journal keeps the slice map and the parked flag, and
 refills its pool with its next world.
 
+Telemetry (``telemetry/master_hooks.py::MasterTelemetry``) rides the
+dispatcher's and the servicer's observers: the job, task, worker-death,
+re-formation, restart, re-home, slice-loss, resize and autoscale events
+go to ``<--telemetry_dir>/events.jsonl`` (the chaos event log keeps its
+own records of the same), and ``/metrics`` and ``/healthz`` are served
+on ``--metrics_port`` (0, the default, picks a free port; a negative
+port serves none) at ``--metrics_host``.
+
 Left out until the slices that bring them: the device mesh's DCN
 planning (slice 8: the port's world is one flat process group), the
 streaming backlog (slice 9), SLOs, live push, the TensorBoard service
-and telemetry (slice 10).
+and tracing (slice 10b).
 """
 
 from __future__ import annotations
@@ -153,7 +162,7 @@ class Master:
         ):
             eval_only = self.job_type == JobType.EVALUATION_ONLY
             self.evaluation_service = EvaluationService(
-                None,  # the TensorBoard service comes with slice 10
+                None,  # the TensorBoard service comes with slice 10b
                 self.task_d,
                 self._spec.eval_metrics_fn,
                 start_delay_secs=args.evaluation_start_delay_secs,
@@ -198,6 +207,12 @@ class Master:
             self.servicer.set_replica_directory(self.replica_directory)
         self._server = None
         self._port = None
+        # telemetry: the registry, the event log and /metrics
+        from elasticdl_tpu_torch.telemetry.master_hooks import MasterTelemetry
+
+        self.telemetry = MasterTelemetry(args.telemetry_dir or "")
+        self.telemetry.attach(self.task_d, self.servicer)
+        self._telemetry_server = None
         self.instance_manager = (
             instance_manager_factory(self) if instance_manager_factory else None
         )
@@ -339,6 +354,11 @@ class Master:
             "stage_lost": stage_lost,
         }
         self._record_event("master_restart", cluster_version=generation, **self.restore_info)
+        self.telemetry.master_restart(generation)
+        self.telemetry.journal_replay(
+            generation, self.restore_info["replay_secs"], self.restore_info["pending"],
+            self.restore_info["active"], snap["epoch"], stage_lost=stage_lost,
+        )
         logger.warning(
             "Master restored from journal: generation %d, epoch %d, %d pending "
             "/ %d active task(s), expecting %s to re-home",
@@ -421,6 +441,9 @@ class Master:
             cluster_version=self.servicer.cluster_version, kept=list(kept),
             requeued=list(requeued), handshake_secs=now - started_at,
         )
+        self.telemetry.worker_rehome(
+            worker_id, self.servicer.cluster_version, len(kept), len(requeued)
+        )
 
     def _check_rehome_deadline(self):
         """Run-loop tick: a restored master waits a bounded grace for its
@@ -451,6 +474,7 @@ class Master:
             "Workers %s never re-homed after the master restart; recovering "
             "their tasks", missing,
         )
+        self.telemetry.worker_dead(missing, self.servicer.cluster_version)
         self._handle_dead_workers(missing)
 
     def request_crash(self, site: str = "tick"):
@@ -471,6 +495,7 @@ class Master:
         if self._server is not None:
             self._server.stop(grace=0)
             self._server = None
+        self._stop_telemetry_server()
         if self.journal is not None:
             self.journal.abort()
         raise SimulatedMasterCrash(site)
@@ -480,6 +505,18 @@ class Master:
     @property
     def port(self):
         return self._port
+
+    @property
+    def metrics_port(self) -> int | None:
+        """The bound port of ``/metrics`` and ``/healthz``; None when a
+        negative ``--metrics_port`` disabled them."""
+        server = self._telemetry_server
+        return server.port if server is not None else None
+
+    def _stop_telemetry_server(self):
+        if self._telemetry_server is not None:
+            self._telemetry_server.stop()
+            self._telemetry_server = None
 
     def prepare(self, port: int | None = None):
         """Start the control-plane server, then the workers (a restored
@@ -499,6 +536,19 @@ class Master:
             from elasticdl_tpu_torch.master.journal import write_master_addr
 
             write_master_addr(self._journal_dir, f"localhost:{self._port}")
+        if self._args.metrics_port is not None and self._args.metrics_port >= 0:
+            from elasticdl_tpu_torch.telemetry.httpd import TelemetryHTTPServer
+
+            self._telemetry_server = TelemetryHTTPServer(
+                self.telemetry.registry,
+                health_fn=self.telemetry.build_health_fn(
+                    self.job_type.value, lambda: self.instance_manager
+                ),
+                port=self._args.metrics_port,
+                host=self._args.metrics_host or "127.0.0.1",
+            )
+            self._telemetry_server.start()
+        self.telemetry.job_start(self.job_type.value, self._args.num_workers or 0)
         im = self.instance_manager
         if im is None:
             return
@@ -583,6 +633,7 @@ class Master:
                         self.servicer.forget_worker(ghost)
                     dead = [w for w in dead if w in live]
                 if dead:
+                    self.telemetry.worker_dead(dead, self.servicer.cluster_version)
                     self._handle_dead_workers(dead)
                 elif self._reform_requested is not None:
                     with self._reform_request_lock:
@@ -620,6 +671,9 @@ class Master:
                     if pull_at is not None:
                         event = self.reform_events[-1]
                         event["latency_secs"] = pull_at - event["detected_at"]
+                        self.telemetry.reform_latency(
+                            event["cluster_version"], event["latency_secs"]
+                        )
                         logger.info(
                             "World re-formed in %.2fs (cluster version %d)",
                             event["latency_secs"], event["cluster_version"],
@@ -697,6 +751,7 @@ class Master:
         new_version = self.servicer.bump_cluster_version()
         all_ids = set(dead) | set(im.worker_ids())
         old_world_size = len(all_ids)
+        self.telemetry.reform_start(new_version, dead, reason, old_world_size)
         worker_slices = im.worker_slices() if hasattr(im, "worker_slices") else {}
         # the LIVE world's slice count comes from its slice map ({}: one
         # slice); world_num_slices is the NEXT world's, which a capacity
@@ -728,6 +783,9 @@ class Master:
                 "mesh_resize", generation=new_version, old_world_size=old_world_size,
                 new_world_size=new_world_size, old_slices=old_slices, new_slices=new_slices,
             )
+            self.telemetry.mesh_resize(
+                new_version, old_world_size, new_world_size, old_slices, new_slices
+            )
         try:
             im.reform_world(
                 new_version,
@@ -748,6 +806,7 @@ class Master:
         if self.autoscaler is not None:
             self.autoscaler.note_reform()
         self._record_world()
+        self.telemetry.reform_complete(new_version, old_world_size, new_world_size)
         event = {
             "detected_at": t0,
             "cluster_version": new_version,
@@ -826,6 +885,9 @@ class Master:
             dead_workers=sorted(dead), old_slices=old_slices, new_slices=new_slices,
             parked=park, detected_at=detected_at,
         )
+        self.telemetry.slice_loss(
+            new_version, lost, sorted(dead), old_slices, new_slices, park
+        )
         logger.warning(
             "Slice loss: slice(s) %s fully dead; shrinking the next world from %d "
             "to %d slice(s)%s", lost, old_slices, new_slices,
@@ -876,6 +938,7 @@ class Master:
         self._record_event(
             "autoscale_decision", generation=self.servicer.cluster_version, **decision
         )
+        self.telemetry.autoscale_decision(self.servicer.cluster_version, **decision)
         logger.warning(
             "Autoscale %s: %d -> %d slice(s) (%s)", decision["action"],
             decision["from_slices"], decision["to_slices"], decision["reason"],
@@ -931,6 +994,9 @@ class Master:
             "secs": time.monotonic() - t0,
         }
         logger.info("Replica harvest for generation %d: %s", new_version, found)
+        self.telemetry.replica_harvest(
+            new_version, found["complete"], found["version"], old_world_size
+        )
         return found
 
     def request_reform(self, reason: str = "elective"):
@@ -961,6 +1027,8 @@ class Master:
             # a clean end is journaled: a relaunch knows there is nothing
             # to recover, and waits for no re-homes
             self.journal.record_job_end(1 if self._job_failed else 0)
+        self.telemetry.job_end(1 if self._job_failed else 0)
+        self._stop_telemetry_server()
 
     def job_summary(self) -> dict:
         out = {"job_type": self.job_type.value, "epoch": self.task_d.epoch}

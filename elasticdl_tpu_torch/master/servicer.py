@@ -34,10 +34,14 @@ mailbox (``post_world_assignment``, ``get_world_assignment``,
 ``drain_standbys``) is the RPC form of the world assignment a local
 standby reads on its stdin.
 
-Left out until the slices that need them: the profiler command and the
-telemetry fan-in of step phases and memory (the device pipeline's
-staging totals are kept, per worker).  Heartbeats are applied under one
-lock (the JAX package coalesces them for fleets of thousands).
+Heartbeats also carry the telemetry fan-in that ``/metrics`` mirrors
+(``telemetry/master_hooks.py``): the step-anatomy phase totals, the
+device pipeline's staging totals and the RPC outcome totals, each
+max-merged per worker and summed across workers as it rises, and the
+step of the fleet's progress (``last_step_age_secs``).  Left out until
+the slices that need them: the profiler command and the memory ledger's
+fan-in (slice 10b).  Heartbeats are applied under one lock (the JAX
+package coalesces them for fleets of thousands).
 """
 
 from __future__ import annotations
@@ -49,7 +53,11 @@ from dataclasses import asdict
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.utils.constants import TaskType
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
-from elasticdl_tpu_torch.utils.merge import max_merge_counters
+from elasticdl_tpu_torch.utils.merge import max_merge_counters, max_merge_phase_stats
+
+
+# the RPC outcome counters whose rise marks a degraded link on /healthz
+_OUTAGE_CLASS_COUNTERS = frozenset({"deadline_exceeded", "unavailable"})
 
 
 class MasterServicer:
@@ -88,8 +96,18 @@ class MasterServicer:
         # summed across workers (rpc/stats.py)
         self._worker_rpc_stats: dict[int, dict[str, int]] = {}  # guarded-by: _lock
         self._rpc_totals: dict[str, int] = {}  # guarded-by: _lock
-        # the device pipeline's staging totals, max-merged per worker
+        # the device pipeline's staging totals and the step-anatomy
+        # phase totals, max-merged per worker and summed across workers
         self._worker_prefetch_stats: dict[int, dict[str, int]] = {}  # guarded-by: _lock
+        self._prefetch_totals: dict[str, int] = {}  # guarded-by: _lock
+        self._worker_phase_stats: dict[int, dict] = {}  # guarded-by: _lock
+        self._phase_totals: dict[str, dict] = {}  # guarded-by: _lock
+        # the fleet's highest heartbeat step and when it last rose (the
+        # /healthz progress clock); when an outage-class RPC counter
+        # last rose (the /healthz degraded-link flag)
+        self._last_step_sample = -1  # guarded-by: _lock
+        self._last_step_sample_at: float | None = None  # guarded-by: _lock
+        self._net_degraded_at: float | None = None  # guarded-by: _lock
         # task ids whose evaluation metrics were accumulated: a second
         # report for a lease still active (a lost reply, a client retry)
         # is dropped
@@ -404,17 +422,34 @@ class MasterServicer:
     def heartbeat(self, request: msg.HeartbeatRequest) -> msg.HeartbeatResponse:
         self._note_served()
         with self._lock:
-            self._heartbeats[request.worker_id] = self._clock()
+            now = self._clock()
+            first_contact = request.worker_id not in self._heartbeats
+            self._heartbeats[request.worker_id] = now
+            if request.step > self._last_step_sample:
+                # progress, not liveness: the clock resets only when
+                # the fleet's step advances
+                self._last_step_sample = int(request.step)
+                self._last_step_sample_at = now
             if request.rpc:
-                max_merge_counters(
+                rose = max_merge_counters(
                     self._worker_rpc_stats.setdefault(request.worker_id, {}),
                     request.rpc,
+                    watch=_OUTAGE_CLASS_COUNTERS,
                     totals=self._rpc_totals,
+                )
+                if rose and not first_contact:
+                    self._net_degraded_at = now
+            if request.phases:
+                max_merge_phase_stats(
+                    self._worker_phase_stats.setdefault(request.worker_id, {}),
+                    request.phases,
+                    totals=self._phase_totals,
                 )
             if request.prefetch:
                 max_merge_counters(
                     self._worker_prefetch_stats.setdefault(request.worker_id, {}),
                     request.prefetch,
+                    totals=self._prefetch_totals,
                 )
         # the directory synchronizes itself: outside the lock
         generation = self._cluster_version
@@ -621,6 +656,58 @@ class MasterServicer:
         them."""
         with self._lock:
             return {wid: dict(stats) for wid, stats in self._worker_prefetch_stats.items()}
+
+    def prefetch_stats_totals(self) -> dict[str, int]:
+        """Fleet-wide staging totals: per-worker maxima summed (what
+        /metrics mirrors onto ``elasticdl_device_prefetch_*``)."""
+        with self._lock:
+            return dict(self._prefetch_totals)
+
+    def phase_stats_totals(self) -> dict[str, dict]:
+        """Fleet-wide step-anatomy phase totals, ``{phase: {"ms",
+        "count", "buckets"}}`` (what /metrics mirrors onto the
+        ``elasticdl_step_phase_*`` families)."""
+        with self._lock:
+            return {
+                phase: {
+                    "ms": agg["ms"],
+                    "count": agg["count"],
+                    "buckets": dict(agg["buckets"]),
+                }
+                for phase, agg in self._phase_totals.items()
+            }
+
+    def heartbeat_ages(self) -> dict[int, float]:
+        """Seconds since each live worker's last liveness signal."""
+        now = self._clock()
+        with self._lock:
+            return {
+                wid: max(0.0, now - at)
+                for wid, at in self._heartbeats.items()
+                if wid not in self._marked_dead
+            }
+
+    def last_step_age_secs(self) -> float | None:
+        """Seconds since the fleet's heartbeat step last advanced; None
+        before the first advance (a hung job keeps heartbeating while
+        this grows)."""
+        with self._lock:
+            at = self._last_step_sample_at
+        return None if at is None else max(0.0, self._clock() - at)
+
+    # how recently an outage-class RPC counter must have risen for
+    # /healthz to flag the network as degraded
+    NETWORK_DEGRADED_WINDOW_SECS = 60.0
+
+    def network_degraded(self, window_secs: float | None = None) -> bool:
+        """Whether a worker-shipped deadline_exceeded or unavailable total
+        rose within the window."""
+        with self._lock:
+            at = self._net_degraded_at
+        if at is None:
+            return False
+        window = self.NETWORK_DEGRADED_WINDOW_SECS if window_secs is None else window_secs
+        return self._clock() - at <= window
 
     @property
     def duplicate_eval_drops(self) -> int:

@@ -25,6 +25,7 @@ waits for worlds of a card per process.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch.distributed as dist
 
 from elasticdl_tpu_torch.layers.attention import dropout_seed
 from elasticdl_tpu_torch.parallel.elastic import local_batch_ranges
+from elasticdl_tpu_torch.telemetry import compile_tracker
 from elasticdl_tpu_torch.trainer.state import TrainState, make_capturable
 from elasticdl_tpu_torch.trainer.step import (
     build_eval_step,
@@ -210,6 +212,7 @@ class SPMDTrainer:
     def train_step(self, features, labels, weights=None) -> dict:
         """One optimizer step; returns ``{"loss": 0-d f32 tensor}`` on
         the device (read it with ``float()``, which waits for the step)."""
+        compile_tracker.note_shape(_shape_key(1, (features, labels, weights)))
         _state, metrics = self._train_step(self.state, features, labels, weights)
         self.dispatch_counts["single_steps"] += 1
         return metrics
@@ -225,6 +228,7 @@ class SPMDTrainer:
         update; single-step runs never get there and keep the optimizer
         as built."""
         k = int(tree_leaves(features)[0].shape[0])
+        compile_tracker.note_shape(_shape_key(k, (features, labels, weights)))
         if self.device.type != "cuda" or self.process_group is not None:
             self.dispatch_counts["eager_groups"] += 1
             return self._eager_steps(k, features, labels, weights)
@@ -245,7 +249,9 @@ class SPMDTrainer:
             return metrics
         graph = self._graphs[key]
         if graph is None:
+            t0 = time.monotonic()
             graph = self._graphs[key] = _StepsGraph(self, k, inputs)
+            compile_tracker.note_compile(time.monotonic() - t0)
             self.dispatch_counts["graph_captures"] += 1
         metrics = graph.replay(inputs)
         self.dispatch_counts["graph_replays"] += 1
@@ -283,6 +289,12 @@ class SPMDTrainer:
     def step(self) -> int:
         """Model version: optimizer steps taken."""
         return self.state.step
+
+
+def _shape_key(k: int, tree) -> tuple:
+    """A dispatch's input shapes and dtypes (``telemetry/compile_tracker.py``
+    counts each new one)."""
+    return (k, tuple((tuple(x.shape), x.dtype) for x in tree_leaves(tree) if x is not None))
 
 
 class _StepsGraph:

@@ -116,10 +116,11 @@ class HeartbeatRequest:
     """The JAX package's heartbeat, every field kept.  The port's workers
     fill ``worker_id``, ``step``, ``timestamp``, ``rpc`` (the client's
     outcome totals, ``rpc/stats.py``), ``prefetch`` (the device
-    pipeline's staging totals) and, with ``--replication``, ``replica``
-    (the replicator's advertisement: its replica server's address and
-    holdings); ``phases`` and ``memory`` come with the telemetry slice,
-    and stay empty."""
+    pipeline's staging totals), ``phases`` (the step anatomy's totals,
+    ``{}`` without ``--step_anatomy``) and, with ``--replication``,
+    ``replica`` (the replicator's advertisement: its replica server's
+    address and holdings); ``memory`` comes with slice 10b's ledger, and
+    stays empty."""
 
     worker_id: int
     step: int = 0
@@ -308,7 +309,7 @@ class PredictRequest:
     rows: int = 0
     # trace context ({"trace_id", "span_id"}) of the client's root
     # span, which the JAX package's router and replica spans parent
-    # into; the port carries it and records no spans until slice 10
+    # into; the port carries it and records no spans until slice 10b
     trace: dict = field(default_factory=dict)
 
 
@@ -363,10 +364,10 @@ class ServingStatusResponse:
     # monotone per-phase {ms, count, buckets} serving-request totals in
     # the step-anatomy heartbeat shape (bucket keys stringified for the
     # wire), max-merged per replica (the router's SLO watchdog, which
-    # reads them in the JAX package, comes with slice 10)
+    # reads them in the JAX package, comes with slice 10b)
     phases: dict = field(default_factory=dict)
     # memory-ledger snapshot {"at", "current", "peak"} — NON-monotone,
-    # merged last-writer-wins.  The port's ledger comes with slice 10,
+    # merged last-writer-wins.  The port's ledger comes with slice 10b,
     # so its replicas leave it empty
     memory: dict = field(default_factory=dict)
 
@@ -382,7 +383,7 @@ class SwapModelRequest:
     min_version: int = -1
     # trace context of the operator's swap request (the JAX package's
     # fan-out and model_swap spans parent into it; carried, unused,
-    # until slice 10)
+    # until slice 10b)
     trace: dict = field(default_factory=dict)
     # live train->serve push (streaming subsystem): a non-empty
     # ``payload`` carries an encoded replica snapshot

@@ -39,6 +39,7 @@ import socket
 import socketserver
 import struct
 import threading
+import time
 import traceback
 
 from elasticdl_tpu_torch.rpc import messages as msg
@@ -166,6 +167,16 @@ def _recv_sized(sock: socket.socket) -> bytes:
 
 _client_fault_shim = None
 _server_fault_shim = None
+# the telemetry hook of per-method handler latency
+# (telemetry/master_hooks.py registers it)
+_server_rpc_observer = None
+
+
+def set_server_rpc_observer(observer):
+    """``observer(method, seconds)`` after every server-side handler of
+    this process; None removes it."""
+    global _server_rpc_observer
+    _server_rpc_observer = observer
 
 
 def set_client_fault_shim(shim):
@@ -198,6 +209,7 @@ class _Handler(socketserver.BaseRequestHandler):
             status = StatusCode.UNIMPLEMENTED
             body = f"{server.service_name}/{name}".encode("utf-8")
         else:
+            t0 = time.monotonic()
             try:
                 request = msg.decode(payload)
                 handler = getattr(server.servicer, name)
@@ -213,6 +225,12 @@ class _Handler(socketserver.BaseRequestHandler):
                 status = StatusCode.INTERNAL
                 body = traceback.format_exc().encode("utf-8")
                 logger.exception("RPC handler %s failed", name)
+            observer = _server_rpc_observer
+            if observer is not None:
+                try:
+                    observer(name, time.monotonic() - t0)
+                except Exception:  # noqa: BLE001 — telemetry never breaks an RPC
+                    pass
         if len(body) > MAX_MESSAGE_BYTES:
             # the caller would refuse it unread: say so, in a few bytes
             logger.error(

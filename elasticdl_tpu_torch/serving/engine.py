@@ -44,7 +44,7 @@ Every completed request also lands in monotone per-phase totals
 (``phase_totals_snapshot``: ms, count and the ``SERVING_LATENCY_BUCKETS``
 histogram), which ride the ``serving_status`` reply the router probes
 with.  Not in this slice: trace spans, the event log, the Prometheus
-registry and the memory ledger (slice 10).
+registry and the memory ledger (slice 10b).
 """
 
 from __future__ import annotations

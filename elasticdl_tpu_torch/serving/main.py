@@ -22,7 +22,7 @@ Every flag defaults to a served-locally-sane value; the serving CLI is
 its own argparse surface.  The telemetry flags (``--metrics_port``,
 ``--metrics_addr_file``, ``--slo_config``, ``--telemetry_dir``) parse as
 in the JAX package and raise ``NotImplementedError`` when set: the
-port's serving metrics, /healthz and SLO watchdog come with slice 10.
+port's serving metrics, /healthz and SLO watchdog come with slice 10b.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ DEFAULT_DEADLINE_SECS = 5.0
 PORT_FILE_WAIT_SECS = 120.0
 
 _TELEMETRY = (
-    "it comes with slice 10, telemetry, tracing and profiling "
+    "it comes with slice 10b, serving telemetry, tracing and profiling "
     "(ROADMAP.md queue 1)"
 )
 
@@ -126,17 +126,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--metrics_port",
         type=int,
         default=-1,
-        help="/metrics + /healthz port (not ported: slice 10)",
+        help="/metrics + /healthz port (not ported: slice 10b)",
     )
     parser.add_argument(
-        "--slo_config", default="", help="SLO watchdog (not ported: slice 10)"
+        "--slo_config", default="", help="SLO watchdog (not ported: slice 10b)"
     )
     parser.add_argument(
-        "--telemetry_dir", default="", help="not ported: slice 10"
+        "--telemetry_dir", default="", help="not ported: slice 10b"
     )
     parser.add_argument("--addr_file", default="")
     parser.add_argument(
-        "--metrics_addr_file", default="", help="not ported: slice 10"
+        "--metrics_addr_file", default="", help="not ported: slice 10b"
     )
     # spawned-replica internals
     parser.add_argument("--role", default="frontend", choices=["frontend", "replica"])

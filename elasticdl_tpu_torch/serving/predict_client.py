@@ -8,7 +8,7 @@ same ``dataset_fn`` decode and sends every batch to a running serving
 endpoint (router or single replica — same protocol), so one exported
 model serves both the online and the batch workload.  Outputs flow
 through ``prediction_outputs_processor`` exactly as on the offline
-path.  The JAX client's trace spans come with slice 10.
+path.  The JAX client's trace spans come with slice 10b.
 """
 
 from __future__ import annotations

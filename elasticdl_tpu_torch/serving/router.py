@@ -18,7 +18,7 @@ outcomes; ``swap_model`` is a versioned put, so a replica that already
 took the version absorbs the re-delivery.
 
 The JAX router records a span per routing attempt and ticks an SLO
-watchdog after each probe sweep; both come to the port with slice 10
+watchdog after each probe sweep; both come to the port with slice 10b
 (:meth:`ServingRouter._route_span` is a no-op, :attr:`watchdog` stays
 None unless a caller sets one).
 """
@@ -115,7 +115,7 @@ class ServingRouter:
         self._fleet_phases: dict[str, dict] = {}
         # optional SLO watchdog (anything with ``tick()``), ticked at
         # the end of every probe sweep; the port's serving/watchdog.py
-        # comes with slice 10, so nothing sets it yet
+        # comes with slice 10b, so nothing sets it yet
         self.watchdog = None
 
     # ---- registry ----------------------------------------------------------
@@ -269,7 +269,7 @@ class ServingRouter:
 
     def _route_span(self, ctx, attempt, t0, replica_id, error="", **attrs):
         """One routing attempt as a child span of the request's trace in
-        the JAX package; the port records no spans until slice 10."""
+        the JAX package; the port records no spans until slice 10b."""
         del ctx, attempt, t0, replica_id, error, attrs
 
     def predict(self, request: msg.PredictRequest) -> msg.PredictResponse:

@@ -1,7 +1,12 @@
-"""The run report's sections that the chaos harness embeds: the first
-part of ``elasticdl_tpu/telemetry/report.py`` (the rest comes with slice
-10).
+"""The run report's sections: the part of ``elasticdl_tpu/telemetry/report.py``
+that the port's runs feed (the report CLI and its other sections come
+with slice 10b).
 
+- :func:`goodput_section`: the step anatomy's ledger per generation
+  (``telemetry/anatomy.py``'s ``step_anatomy`` events): the phases'
+  totals, shares and p50/p95/p99, the sum-exact residual check, a
+  measured ``e2e_vs_roofline``, MFU (or why it is absent) and the
+  stragglers;
 - :func:`multislice_section`: every whole-slice loss, mesh resize and
   autoscale decision, and the replica pushes of multi-slice worlds by
   source slice;
@@ -20,13 +25,226 @@ absorb: its ``master_restart`` carries the replay (``replay_secs``,
 ``pending``, ``active``) that JAX logs apart as ``journal_replay``; its
 ``worker_rehome`` lists the leases kept and requeued, where JAX counts
 them, and also records the refused (fenced) handshakes, which are not
-re-homes; and it has no ``step`` samples until slice 10, so an outage's
-step gap is None.
+re-homes.  The port's master writes ``master_restart`` and
+``worker_rehome`` to both logs when ``--telemetry_dir`` is set; a run's
+events may hold both, and each restart and re-home is counted once (the
+telemetry log's record wins).
 """
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
+
+
+def percentile(samples: list[float], q: float) -> float:
+    """Nearest-rank percentile (q in [0, 100]) — exact over raw samples,
+    no interpolation surprises in tiny runs."""
+    if not samples:
+        raise ValueError("no samples")
+    ordered = sorted(samples)
+    rank = max(1, math.ceil(q / 100.0 * len(ordered)))
+    return ordered[min(rank, len(ordered)) - 1]
+
+
+# step-anatomy goodput: the phase taxonomy the events carry (one
+# definition site: telemetry/anatomy.py); device-path = everything the
+# dispatch spends on the device side of the pipeline
+_GOODPUT_DEVICE_PATH = ("assemble", "h2d_transfer", "device_compute")
+_GOODPUT_STRAGGLER_FACTOR = 1.5
+
+
+def _phase_samples(anat_events: list[dict]) -> dict[str, list[float]]:
+    from elasticdl_tpu_torch.telemetry.anatomy import ALL_PHASES
+
+    samples: dict[str, list[float]] = {}
+    for event in anat_events:
+        for phase in ALL_PHASES:
+            value = event.get(f"{phase}_ms")
+            if value is not None:
+                samples.setdefault(phase, []).append(float(value))
+    return samples
+
+
+def _goodput_generation(anat_events: list[dict]) -> dict:
+    """Goodput stats for ONE generation's ``step_anatomy`` events."""
+    samples = _phase_samples(anat_events)
+    wall_ms = sum(float(e.get("wall_ms", 0.0)) for e in anat_events)
+    records = sum(int(e.get("records", 0)) for e in anat_events)
+    steps = sum(int(e.get("steps", 0)) for e in anat_events)
+    phases = {}
+    for phase, values in samples.items():
+        total = sum(values)
+        phases[phase] = {
+            "total_ms": round(total, 3),
+            "share": round(total / wall_ms, 4) if wall_ms else None,
+            "p50_ms": round(percentile(values, 50), 3),
+            "p95_ms": round(percentile(values, 95), 3),
+            "p99_ms": round(percentile(values, 99), 3),
+        }
+    # the sum-exact contract, verified not assumed: the per-event
+    # residual between wall and the phase sum (incl. untracked) is
+    # float noise only
+    residual = max(
+        (
+            abs(
+                float(e.get("wall_ms", 0.0))
+                - sum(
+                    float(e.get(f"{p}_ms", 0.0))
+                    for p in samples
+                )
+            )
+            for e in anat_events
+        ),
+        default=0.0,
+    )
+    host_ms = sum(samples.get("host_fetch", []))
+    device_path_ms = sum(
+        sum(samples.get(p, [])) for p in _GOODPUT_DEVICE_PATH
+    )
+    untracked_ms = sum(samples.get("untracked", []))
+    out = {
+        "dispatches": len(anat_events),
+        "steps": steps,
+        "records": records,
+        "wall_ms_total": round(wall_ms, 3),
+        "phases": phases,
+        "max_sum_residual_ms": round(residual, 6),
+        "untracked_share": round(untracked_ms / wall_ms, 4)
+        if wall_ms
+        else None,
+        # live e2e-vs-roofline: the binding path's busy time (host
+        # fetch wait vs the device path) over end-to-end wall — 1.0
+        # means zero overlap slack, the same meaning as bench.py's
+        # budget ratio but MEASURED per dispatch instead of inferred
+        # from separate ceiling runs
+        "e2e_vs_roofline": round(
+            max(host_ms, device_path_ms) / wall_ms, 4
+        )
+        if wall_ms
+        else None,
+        "binding": (
+            "host_fetch" if host_ms > device_path_ms else "device_path"
+        ),
+    }
+    # async-dispatch overlap visibility: how much of device_compute was
+    # the enqueue call vs waiting for results
+    enqueue_ms = sum(float(e.get("enqueue_ms", 0.0)) for e in anat_events)
+    ready_ms = sum(float(e.get("ready_wait_ms", 0.0)) for e in anat_events)
+    if enqueue_ms or ready_ms:
+        out["device_compute_split_ms"] = {
+            "enqueue": round(enqueue_ms, 3),
+            "ready_wait": round(ready_ms, 3),
+        }
+    # model-FLOPs MFU, when the model cost and the device peak are known
+    flops = next(
+        (
+            e["flops_per_record"]
+            for e in anat_events
+            if e.get("flops_per_record")
+        ),
+        None,
+    )
+    peak = next(
+        (
+            e["peak_flops_per_chip"]
+            for e in anat_events
+            if e.get("peak_flops_per_chip")
+        ),
+        None,
+    )
+    n_chips = next(
+        (e["n_chips"] for e in anat_events if e.get("n_chips")), 1
+    )
+    device_secs = sum(samples.get("device_compute", [])) / 1000.0
+    if flops is None:
+        out["mfu"] = None
+        out["mfu_reason"] = "model FLOPs unknown (not in the zoo cost table)"
+    elif peak is None:
+        out["mfu"] = None
+        out["mfu_reason"] = (
+            "device peak FLOPs unknown "
+            "(set ELASTICDL_TPU_PEAK_FLOPS_PER_CHIP)"
+        )
+    elif device_secs <= 0:
+        out["mfu"] = None
+        out["mfu_reason"] = "no device_compute time measured"
+    else:
+        out["mfu"] = round(
+            flops * records / (device_secs * peak * n_chips), 4
+        )
+    # per-host straggler attribution: whose device_compute vs
+    # host_fetch lags the fleet — the "which worker, which phase"
+    # answer the barrier-wait split alone can't give
+    by_worker: dict = defaultdict(list)
+    for event in anat_events:
+        by_worker[event.get("worker_id", 0)].append(event)
+    if len(by_worker) > 1:
+        # a straggler is a worker whose dispatch WALL lags the fleet
+        # (each phase alone can be bimodal across a healthy fleet);
+        # the lagging phase then names WHY — compute-bound vs
+        # input-bound — which is the actionable half of the answer
+        gen_wall = percentile(
+            [float(e.get("wall_ms", 0.0)) for e in anat_events], 50
+        )
+        gen_compute = percentile(
+            samples.get("device_compute", [0.0]), 50
+        )
+        gen_fetch = percentile(samples.get("host_fetch", [0.0]), 50)
+        workers = {}
+        for worker_id, worker_events in sorted(by_worker.items()):
+            worker_samples = _phase_samples(worker_events)
+            wall_p50 = percentile(
+                [float(e.get("wall_ms", 0.0)) for e in worker_events], 50
+            )
+            compute_p50 = percentile(
+                worker_samples.get("device_compute", [0.0]), 50
+            )
+            fetch_p50 = percentile(
+                worker_samples.get("host_fetch", [0.0]), 50
+            )
+            entry = {
+                "wall_p50_ms": round(wall_p50, 3),
+                "device_compute_p50_ms": round(compute_p50, 3),
+                "host_fetch_p50_ms": round(fetch_p50, 3),
+                "straggler": bool(
+                    gen_wall
+                    and wall_p50 > _GOODPUT_STRAGGLER_FACTOR * gen_wall
+                ),
+            }
+            if entry["straggler"]:
+                compute_lag = (
+                    compute_p50 / gen_compute if gen_compute else 0.0
+                )
+                fetch_lag = fetch_p50 / gen_fetch if gen_fetch else 0.0
+                entry["lagging_phase"] = (
+                    "device_compute"
+                    if compute_lag >= fetch_lag
+                    else "host_fetch"
+                )
+            workers[worker_id] = entry
+        out["workers"] = workers
+    return out
+
+
+def goodput_section(events: list[dict]) -> dict | None:
+    """Live goodput ledger from per-dispatch ``step_anatomy`` events
+    (telemetry/anatomy.py): per-generation phase percentiles, the
+    sum-exact residual check, a MEASURED ``e2e_vs_roofline``, MFU for
+    zoo models with known costs, and per-host straggler attribution.
+    None (key absent) when the run never recorded anatomy, so
+    anatomy-less reports are unchanged."""
+    anat = [e for e in events if e.get("event") == "step_anatomy"]
+    if not anat:
+        return None
+    by_gen: dict[int, list[dict]] = defaultdict(list)
+    for event in anat:
+        by_gen[event.get("generation", 0)].append(event)
+    generations = {
+        gen: _goodput_generation(by_gen[gen]) for gen in sorted(by_gen)
+    }
+    overall = _goodput_generation(anat)
+    return {"generations": generations, "overall": overall}
 
 
 def _kind(event: dict):
@@ -105,6 +323,14 @@ def _replay(restart: dict, replays: list[dict], at: float, until: float) -> tupl
     return None, None, None
 
 
+def _one_log(events: list[dict], kind: str) -> list[dict]:
+    """The records of ``kind``, from one log: the telemetry log's
+    (``"event"``) where it has any, else the chaos log's."""
+    found = [e for e in events if _kind(e) == kind]
+    telemetry = [e for e in found if "event" in e]
+    return telemetry or found
+
+
 def master_ha_section(events: list[dict]) -> dict | None:
     """Master-downtime stats, one entry per ``master_restart``: the step
     gap the outage caused (the last ``step`` sample before the restore
@@ -112,8 +338,8 @@ def master_ha_section(events: list[dict]) -> dict | None:
     every re-home.  None when no master restarted."""
     restarts = sorted(
         (
-            e for e in events
-            if _kind(e) == "master_restart" and e.get("monotonic") is not None
+            e for e in _one_log(events, "master_restart")
+            if e.get("monotonic") is not None
         ),
         key=lambda e: e["monotonic"],
     )
@@ -129,8 +355,8 @@ def master_ha_section(events: list[dict]) -> dict | None:
     )
     rehomes = sorted(
         (
-            e for e in events
-            if _kind(e) == "worker_rehome" and e.get("accepted", True) is not False
+            e for e in _one_log(events, "worker_rehome")
+            if e.get("accepted", True) is not False
         ),
         key=lambda e: e.get("monotonic", 0.0),
     )

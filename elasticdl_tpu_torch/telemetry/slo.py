@@ -3,7 +3,7 @@
 (``master/autoscaler.py``) reads.
 
 The rest of the SLO engine (the declarative objectives, the burn-rate
-detectors, the incidents) comes with slice 10, telemetry.
+detectors, the incidents) comes with slice 10b.
 """
 
 from __future__ import annotations

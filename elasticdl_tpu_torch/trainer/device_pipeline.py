@@ -162,8 +162,8 @@ def staging_budget_bytes(device=None) -> int | None:
 def stage_depth(anatomy=None, depth=None) -> int:
     """The retire window of a dispatch loop: ``depth``
     (``--pipeline_depth``, default :data:`RETIRE_WINDOW`), or 1 under a
-    step anatomy, whose per-group walls need a barrier per group (the
-    anatomy comes with slice 10; the executor passes none)."""
+    step anatomy (``--step_anatomy``), whose per-group walls need a
+    barrier per group."""
     if anatomy is None:
         return RETIRE_WINDOW if depth is None else depth
     return 1
@@ -298,6 +298,13 @@ class StagedGroup:
         self._placed = placed
         self._ready = ready
         self._release = release
+
+    def wait_copied(self):
+        """Wait for the group's copies on the staging stream (nothing on
+        the CPU): under a step anatomy the consumer-visible
+        ``h2d_transfer`` holds them."""
+        if self._ready is not None:
+            self._ready.synchronize()
 
     def take(self):
         """The placed buffers, exactly once: the current stream waits for
@@ -520,26 +527,38 @@ class DeviceStager:
 
     # ---- consumer ----------------------------------------------------------
 
-    def next_event(self):
+    def next_event(self, anatomy=None):
         """The next stream event as ``(kind, payload)``: a staged group, a
         :class:`TaskMark`, DONE, or a producer-side ERROR (returned, not
         raised: the cross-task consumer decides).  The wait is the
-        consumer's share of the staging (the ``stall_ms`` total)."""
+        consumer's share of the staging (the ``stall_ms`` total); under a
+        step ``anatomy`` it is the ``h2d_transfer`` phase, with the wait
+        for a staged group's copies to end."""
         if self._done:
             return _STAGE_KIND_DONE, None
-        t0 = time.monotonic()
-        kind, payload = self._q.get()
-        _note_stall(time.monotonic() - t0)
+        if anatomy is None:
+            t0 = time.monotonic()
+            kind, payload = self._q.get()
+            _note_stall(time.monotonic() - t0)
+        else:
+            from elasticdl_tpu_torch.telemetry.anatomy import PHASE_H2D_TRANSFER
+
+            with anatomy.phase(PHASE_H2D_TRANSFER):
+                t0 = time.monotonic()
+                kind, payload = self._q.get()
+                if kind == _STAGE_KIND_GROUP:
+                    payload.wait_copied()
+                _note_stall(time.monotonic() - t0)
         if kind in (_STAGE_KIND_DONE, _STAGE_KIND_ERROR):
             self._done = True
         return kind, payload
 
-    def next_staged(self) -> StagedGroup | None:
+    def next_staged(self, anatomy=None) -> StagedGroup | None:
         """The next :class:`StagedGroup` in stream order, or None at the
         end; an upstream error is raised here, in its position.  Marks are
         skipped."""
         while True:
-            kind, payload = self.next_event()
+            kind, payload = self.next_event(anatomy)
             if kind == _STAGE_KIND_DONE:
                 return None
             if kind == _STAGE_KIND_ERROR:
@@ -588,14 +607,16 @@ def _wait(event):
 
 class _DispatchEngine:
     """The dispatch half of both pipelined loops: one take per group,
-    the hooks' cadence, and the retire window (a deque of CUDA events)."""
+    the hooks' cadence, the retire window (a deque of CUDA events), and
+    under a step ``anatomy`` each group's timed dispatch and commit."""
 
-    def __init__(self, get_trainer, depth, pre_batch, post_group, ctx):
+    def __init__(self, get_trainer, depth, pre_batch, post_group, ctx, anatomy=None):
         self._get_trainer = get_trainer
         self._depth = depth
         self._pre = pre_batch
         self._post = post_group
         self._ctx = ctx
+        self._anatomy = anatomy
         self._inflight: deque = deque()
         self.processed = 0
 
@@ -617,17 +638,38 @@ class _DispatchEngine:
                 self._pre(features)
         trainer = self._get_trainer()
         note_boundary_dispatch()
-        if staged.kind == StagedGroup.KIND_STACKED:
-            with self._ctx():
-                trainer.train_steps_stacked(*staged.take())
-        else:
-            for placed in staged.take():
+        anatomy = self._anatomy
+        if anatomy is None:
+            if staged.kind == StagedGroup.KIND_STACKED:
                 with self._ctx():
-                    trainer.train_step(*placed)
-        self._retire_push(trainer)
+                    trainer.train_steps_stacked(*staged.take())
+            else:
+                for placed in staged.take():
+                    with self._ctx():
+                        trainer.train_step(*placed)
+            self._retire_push(trainer)
+        else:
+            # each dispatch waits for its stream: nothing is in flight
+            from elasticdl_tpu_torch.telemetry.anatomy import timed_device_dispatch
+
+            if staged.kind == StagedGroup.KIND_STACKED:
+                placed = staged.take()
+                with self._ctx():
+                    timed_device_dispatch(
+                        anatomy, lambda: trainer.train_steps_stacked(*placed), trainer.device
+                    )
+            else:
+                for placed in staged.take():
+                    with self._ctx():
+                        timed_device_dispatch(
+                            anatomy, lambda placed=placed: trainer.train_step(*placed),
+                            trainer.device,
+                        )
         self.processed += staged.records
         if self._post is not None:
             self._post()
+        if anatomy is not None:
+            anatomy.commit(steps=staged.steps, records=staged.records, step=trainer.step)
 
     def drain(self):
         # the boundary barrier: every dispatched group retires before the
@@ -647,6 +689,7 @@ def run_pipelined_steps(
     dispatch_ctx: Callable | None = None,
     deterministic_auto: bool = False,
     pipeline_depth: int | None = None,
+    anatomy=None,
 ) -> int:
     """The ``--device_prefetch`` body of ``run_stacked_steps``: the same
     grouping, hooks (``pre_batch`` once per step before its group,
@@ -654,23 +697,51 @@ def run_pipelined_steps(
     staged off-thread:
 
     - the FIRST group runs on this thread (its ``pre_batch`` builds the
-      trainer the stager places for), then a :class:`DeviceStager`
-      stages every later group;
+      trainer the stager places for), and a :class:`DeviceStager`, started
+      before it dispatches, stages every later group;
     - dispatches retire behind in a window of :func:`stage_depth`, which
       drains before this returns, so the caller's task report never
-      covers a group still running."""
+      covers a group still running.
+
+    Under a step ``anatomy`` the window is 1, the first group's fetch,
+    assembly and copies are timed on this thread, and a staged group's
+    ``h2d_transfer`` is the consumer's wait for it and its copies."""
     ctx = dispatch_ctx or contextlib.nullcontext
     rows = int(canonical_rows)
-    depth = stage_depth(None, pipeline_depth)
-    engine = _DispatchEngine(get_trainer, depth, pre_batch, post_group, ctx)
+    depth = stage_depth(anatomy, pipeline_depth)
+    if anatomy is not None:
+        from elasticdl_tpu_torch.telemetry.anatomy import (
+            PHASE_ASSEMBLE,
+            PHASE_H2D_TRANSFER,
+            PHASE_HOST_FETCH,
+            wait_for_device,
+        )
+
+        pre_batch = anatomy.wrapped_hook(pre_batch)
+        post_group = anatomy.wrapped_hook(post_group)
+    engine = _DispatchEngine(get_trainer, depth, pre_batch, post_group, ctx, anatomy)
     it = iter(batches)
+
+    def pull():
+        if anatomy is None:
+            return next(it, None)
+        with anatomy.phase(PHASE_HOST_FETCH):
+            return next(it, None)
+
+    def place(trainer, kind, assembled):
+        if anatomy is None:
+            return _place_assembled(trainer, kind, assembled)
+        with anatomy.phase(PHASE_H2D_TRANSFER):
+            placed = _place_assembled(trainer, kind, assembled)
+            wait_for_device(trainer.device)
+        return placed
 
     # ---- the first group, on this thread (it builds the trainer) -----------
     warm: list = []
     warm_prestacked = None
     ended = False
     while True:
-        item = next(it, None)
+        item = pull()
         if item is None:
             ended = True
             break
@@ -688,48 +759,66 @@ def run_pipelined_steps(
         warm.append((features, labels, batch_rows(labels)))
         if len(warm) == k:
             break
-    if warm:
-        trainer = get_trainer()
-        kind, assembled = assemble_canonical_group(trainer, warm, k, rows)
-        engine.dispatch(
-            StagedGroup(
-                kind, _place_assembled(trainer, kind, assembled),
-                steps=len(warm), records=sum(n for _f, _l, n in warm),
-                hook_features=(),
-            ),
-            run_hooks=False,  # they ran as the batches arrived
+    def start_stager():
+        return DeviceStager(
+            get_trainer, it, k, rows, deterministic_auto=deterministic_auto,
+            depth=max(1, depth - 1),
         )
-    if warm_prestacked is not None:
-        if pre_batch is not None:
-            for _ in range(warm_prestacked.num_steps):
-                pre_batch(warm_prestacked.sample_features)
-        trainer = get_trainer()
-        engine.dispatch(
-            StagedGroup(
-                StagedGroup.KIND_STACKED,
-                trainer.place_group(*_assemble_prestacked(warm_prestacked)),
-                steps=warm_prestacked.num_steps,
-                records=warm_prestacked.num_records, hook_features=(),
-            ),
-            run_hooks=False,
-        )
-    if ended:
-        engine.drain()
-        return engine.processed
 
-    # ---- steady state: stage off-thread, retire behind ---------------------
-    stager = DeviceStager(
-        get_trainer, it, k, rows, deterministic_auto=deterministic_auto,
-        depth=max(1, depth - 1),
-    )
+    stager = None
     try:
+        if warm:
+            trainer = get_trainer()
+            if anatomy is None:
+                kind, assembled = assemble_canonical_group(trainer, warm, k, rows)
+            else:
+                with anatomy.phase(PHASE_ASSEMBLE):
+                    kind, assembled = assemble_canonical_group(trainer, warm, k, rows)
+            placed = place(trainer, kind, assembled)
+            if not ended:
+                # the stager starts once the first group is on the device
+                # and before it dispatches: the second group is staged
+                # while the first computes (a task of two groups overlaps
+                # too), and its copies do not contend with the first's
+                stager = start_stager()
+            engine.dispatch(
+                StagedGroup(
+                    kind, placed,
+                    steps=len(warm), records=sum(n for _f, _l, n in warm),
+                    hook_features=(),
+                ),
+                run_hooks=False,  # they ran as the batches arrived
+            )
+        if warm_prestacked is not None:
+            if pre_batch is not None:
+                for _ in range(warm_prestacked.num_steps):
+                    pre_batch(warm_prestacked.sample_features)
+            trainer = get_trainer()
+            engine.dispatch(
+                StagedGroup(
+                    StagedGroup.KIND_STACKED,
+                    place(trainer, StagedGroup.KIND_STACKED, _assemble_prestacked(warm_prestacked)),
+                    steps=warm_prestacked.num_steps,
+                    records=warm_prestacked.num_records, hook_features=(),
+                ),
+                run_hooks=False,
+            )
+        if ended:
+            return engine.processed
+
+        # ---- steady state: stage off-thread, retire behind -----------------
+        if stager is None:
+            # a ready-made first group built the trainer in hooks of its
+            # own, so its stager starts after it
+            stager = start_stager()
         while True:
-            staged = stager.next_staged()
+            staged = stager.next_staged(anatomy)
             if staged is None:
                 break
             engine.dispatch(staged)
     finally:
-        stager.close()
+        if stager is not None:
+            stager.close()
         engine.drain()
     return engine.processed
 
@@ -747,6 +836,7 @@ def run_pipelined_task_stream(
     task_start: Callable | None = None,
     task_done: Callable | None = None,
     pipeline_depth: int | None = None,
+    anatomy=None,
 ) -> int:
     """The ``--boundary_fusion`` task loop: one persistent
     :class:`DeviceStager` walks the whole task stream, so the next
@@ -775,14 +865,18 @@ def run_pipelined_task_stream(
         get_trainer, batches, k, pre_batch=pre_batch, post_group=post_group,
         dispatch_ctx=dispatch_ctx, deterministic_auto=deterministic_auto,
         canonical_rows=canonical_rows, pipeline_depth=pipeline_depth,
+        anatomy=anatomy,
     )
     note_task_boundary()
     if task_done is not None:
         task_done(tid, task, total)
 
     ctx = dispatch_ctx or contextlib.nullcontext
-    depth = stage_depth(None, pipeline_depth)
-    engine = _DispatchEngine(get_trainer, depth, pre_batch, post_group, ctx)
+    depth = stage_depth(anatomy, pipeline_depth)
+    if anatomy is not None:
+        pre_batch = anatomy.wrapped_hook(pre_batch)
+        post_group = anatomy.wrapped_hook(post_group)
+    engine = _DispatchEngine(get_trainer, depth, pre_batch, post_group, ctx, anatomy)
 
     def flatten():
         # on the stager's thread: marks delimit the tasks in the stream
@@ -800,7 +894,7 @@ def run_pipelined_task_stream(
     task_records = 0
     try:
         while True:
-            kind, payload = stager.next_event()
+            kind, payload = stager.next_event(anatomy)
             if kind == _STAGE_KIND_DONE:
                 break
             if kind == _STAGE_KIND_ERROR:

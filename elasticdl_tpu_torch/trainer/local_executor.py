@@ -11,9 +11,17 @@ dispatch (one CUDA graph replay on the card), with ``--device_prefetch``
 staging the next group while the current one computes
 (``trainer/device_pipeline.py``).  Periodic checkpoints, a final
 evaluation and an export close the run.
+
+With ``--telemetry_dir D`` every step's sample goes to
+``D/events.jsonl`` (``telemetry/worker_hooks.py``), and with
+``--step_anatomy`` every dispatch group's sum-exact phases too
+(``telemetry/anatomy.py``), which ``telemetry/report.py::goodput_section``
+reads.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,6 +31,8 @@ from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
+from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
+from elasticdl_tpu_torch.telemetry import worker_hooks
 from elasticdl_tpu_torch.trainer import metrics as metrics_lib
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -144,6 +154,14 @@ class LocalExecutor:
             keep_checkpoint_max=args.keep_checkpoint_max,
         )
         self._timing = Timing(enabled=args.log_level == "DEBUG", logger=logger)
+        # per-step samples in the run's event log (--telemetry_dir, or the
+        # environment a master exported), and the per-dispatch anatomy
+        worker_hooks.install(
+            args.telemetry_dir or os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, "")
+        )
+        anatomy_mod.install_if_enabled(
+            args.step_anatomy, model_def=args.model_def, device=self._device
+        )
         self._last_eval_milestone = 0
 
     def _reader(self, data_origin: str):
@@ -226,13 +244,19 @@ class LocalExecutor:
             lambda: self._trainer,
             batches,
             self._steps_per_dispatch,
-            pre_batch=lambda _features: self._ensure_trainer(),
+            pre_batch=self._pre_batch,
             post_group=self._post_step_hooks,
             dispatch_ctx=lambda: self._timing.record("batch_process"),
             canonical_rows=self._canonical_rows,
             device_prefetch=self._device_prefetch,
             pipeline_depth=self._pipeline_depth,
+            anatomy=anatomy_mod.get_recorder(),
         )
+
+    def _pre_batch(self, _features):
+        self._ensure_trainer()
+        # one early return when telemetry is off
+        worker_hooks.record_step(self._version, self._args.minibatch_size)
 
     def _post_step_hooks(self):
         # milestone-crossing, not exact-multiple, as in the JAX package:
@@ -350,12 +374,13 @@ class LocalExecutor:
                     lambda: self._trainer,
                     iter(prefetcher),
                     self._steps_per_dispatch,
-                    pre_batch=lambda _features: self._ensure_trainer(),
+                    pre_batch=self._pre_batch,
                     post_group=self._post_step_hooks,
                     dispatch_ctx=lambda: self._timing.record("batch_process"),
                     canonical_rows=self._canonical_rows,
                     task_done=lambda tid, _task, _n: dispatcher.report(tid, True),
                     pipeline_depth=self._pipeline_depth,
+                    anatomy=anatomy_mod.get_recorder(),
                 )
             else:
                 for tid, task, batches in prefetcher:
@@ -376,6 +401,7 @@ class LocalExecutor:
         logger.info(
             "Training complete: %d records, %d steps", total, self._version
         )
+        worker_hooks.publish_timing(self._timing)
         self._timing.report_timing(reset=True)
         if self._checkpointer.enabled and self._trainer is not None:
             self._checkpointer.save_now(self._trainer, skip_if_current=True)

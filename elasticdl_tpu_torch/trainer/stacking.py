@@ -203,6 +203,7 @@ def run_stacked_steps(
     deterministic_auto: bool = False,
     device_prefetch: bool = False,
     pipeline_depth: int | None = None,
+    anatomy=None,
 ) -> int:
     """Drive ``batches`` (host ``(features, labels)`` pairs and
     :class:`PreStacked` groups) through the trainer in groups of ``k``
@@ -220,7 +221,15 @@ def run_stacked_steps(
     a staging thread while the current group computes, and dispatches
     retire behind in a window of ``pipeline_depth``
     (``trainer/device_pipeline.py``); the same grouping, hooks and
-    accounting, and the window drains before this returns."""
+    accounting, and the window drains before this returns.
+
+    ``anatomy`` (an installed ``telemetry.anatomy.AnatomyRecorder``, or
+    None): every dispatch group's wall time is split into its phases
+    (fetch waits at the stream's seam, the hooks as bookkeeping,
+    assembly, the waited-for copies, the dispatch and the wait for its
+    stream) and committed after the group; the same dispatches run.
+    Without it the loop takes one ``is None`` branch per group and reads
+    no clock."""
     from elasticdl_tpu_torch.trainer import device_pipeline
 
     if device_prefetch:
@@ -229,10 +238,29 @@ def run_stacked_steps(
             pre_batch=pre_batch, post_group=post_group,
             dispatch_ctx=dispatch_ctx, deterministic_auto=deterministic_auto,
             canonical_rows=canonical_rows, pipeline_depth=pipeline_depth,
+            anatomy=anatomy,
         )
     ctx = dispatch_ctx or contextlib.nullcontext
     group: list = []
     processed = 0
+    if anatomy is not None:
+        from elasticdl_tpu_torch.telemetry.anatomy import (
+            PHASE_ASSEMBLE,
+            PHASE_H2D_TRANSFER,
+            timed_device_dispatch,
+            wait_for_device,
+        )
+
+        batches = anatomy.wrap_fetches(batches)
+        pre_batch = anatomy.wrapped_hook(pre_batch)
+        post_group = anatomy.wrapped_hook(post_group)
+
+    def placed_timed(trainer, place):
+        # the copies, waited for: the h2d phase holds the transfer
+        with anatomy.phase(PHASE_H2D_TRANSFER):
+            placed = place()
+            wait_for_device(trainer.device)
+        return placed
 
     def flush():
         nonlocal processed
@@ -240,18 +268,40 @@ def run_stacked_steps(
             return
         trainer = get_trainer()
         device_pipeline.note_boundary_dispatch()
-        kind, assembled = assemble_canonical_group(trainer, group, k, canonical_rows)
-        if kind == "stacked":
-            with ctx():
-                trainer.train_steps_stacked(*trainer.place_group(*assembled))
-        else:
-            for placed in assembled:
+        steps = len(group)
+        records = sum(n for _f, _l, n in group)
+        if anatomy is None:
+            kind, assembled = assemble_canonical_group(trainer, group, k, canonical_rows)
+            if kind == "stacked":
                 with ctx():
-                    trainer.train_step(*trainer.place_step(*placed))
-        processed += sum(n for _f, _l, n in group)
+                    trainer.train_steps_stacked(*trainer.place_group(*assembled))
+            else:
+                for placed in assembled:
+                    with ctx():
+                        trainer.train_step(*trainer.place_step(*placed))
+        else:
+            with anatomy.phase(PHASE_ASSEMBLE):
+                kind, assembled = assemble_canonical_group(trainer, group, k, canonical_rows)
+            if kind == "stacked":
+                placed = placed_timed(trainer, lambda: trainer.place_group(*assembled))
+                with ctx():
+                    timed_device_dispatch(
+                        anatomy, lambda: trainer.train_steps_stacked(*placed), trainer.device
+                    )
+            else:
+                for single in assembled:
+                    placed = placed_timed(trainer, lambda single=single: trainer.place_step(*single))
+                    with ctx():
+                        timed_device_dispatch(
+                            anatomy, lambda placed=placed: trainer.train_step(*placed),
+                            trainer.device,
+                        )
+        processed += records
         group.clear()
         if post_group is not None:
             post_group()
+        if anatomy is not None:
+            anatomy.commit(steps=steps, records=records, step=trainer.step)
 
     for item in batches:
         if isinstance(item, PreStacked):
@@ -263,13 +313,25 @@ def run_stacked_steps(
                     pre_batch(item.sample_features)
             trainer = get_trainer()
             device_pipeline.note_boundary_dispatch()
-            with ctx():
-                trainer.train_steps_stacked(*trainer.place_group(
+            if anatomy is None:
+                with ctx():
+                    trainer.train_steps_stacked(*trainer.place_group(
+                        item.features, item.labels, prestacked_weights(item)
+                    ))
+            else:
+                # a ready-made group has no assembly: placement, compute
+                placed = placed_timed(trainer, lambda: trainer.place_group(
                     item.features, item.labels, prestacked_weights(item)
                 ))
+                with ctx():
+                    timed_device_dispatch(
+                        anatomy, lambda: trainer.train_steps_stacked(*placed), trainer.device
+                    )
             processed += item.num_records
             if post_group is not None:
                 post_group()
+            if anatomy is not None:
+                anatomy.commit(steps=item.num_steps, records=item.num_records, step=trainer.step)
             continue
         features, labels = item
         if pre_batch is not None:

@@ -233,15 +233,17 @@ def _add_train_params(parser: argparse.ArgumentParser):
     parser.add_argument("--tensorboard_log_dir", default="")
     parser.add_argument(
         "--telemetry_dir", default="",
-        help="Structured event log directory (not ported)",
+        help="Directory of the run's structured event log (events.jsonl)",
     )
     parser.add_argument(
         "--metrics_port", type=int, default=0,
-        help="Port of the master's /metrics endpoint (not ported)",
+        help="Port of the master's /metrics and /healthz endpoint (0 picks a "
+        "free port; negative disables it)",
     )
     parser.add_argument(
         "--metrics_host", default="127.0.0.1",
-        help="Bind address of /metrics (not ported)",
+        help="Bind address of /metrics (loopback by default: the endpoint "
+        "is unauthenticated)",
     )
     parser.add_argument(
         "--trace_sample_rate", type=float, default=None, required=False,
@@ -249,7 +251,9 @@ def _add_train_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--step_anatomy", type=parse_bool, default=None, required=False,
-        help="Per-dispatch time anatomy (not ported)",
+        help="Split every dispatch's wall time into sum-exact phases "
+        "(step_anatomy events, /metrics); every dispatch then waits for its "
+        "device work",
     )
     parser.add_argument(
         "--device_prefetch", type=parse_bool, default=None, required=False,
@@ -666,18 +670,14 @@ _MESH = _comes_with(
     "slice 8, sequence, tensor and pipeline parallelism (the port's "
     "world is one flat process group)"
 )
-_TELEMETRY = _comes_with("slice 10, telemetry, tracing and profiling")
+_TELEMETRY = _comes_with("slice 10b, tracing, profiling, SLOs and TensorBoard")
 _K8S = _comes_with("slice 9, Kubernetes submission")
 _STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
     "mesh_shape": _MESH,
     "dcn_mesh_shape": _MESH,
-    "telemetry_dir": _TELEMETRY,
     "tensorboard_log_dir": _TELEMETRY,
-    "metrics_port": _TELEMETRY,
-    "metrics_host": _TELEMETRY,
     "trace_sample_rate": _TELEMETRY,
-    "step_anatomy": _TELEMETRY,
     "profile_dir": _TELEMETRY,
     "profile_steps": _TELEMETRY,
     "slo_config": _TELEMETRY,

@@ -112,6 +112,8 @@ from elasticdl_tpu_torch.replication.service import start_replica_server
 from elasticdl_tpu_torch.replication.store import ReplicaStore
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
+from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
+from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -227,6 +229,16 @@ class LockstepWorker:
             self._process_id, self._cluster_version, self._worker_id,
             slice_id=self._slice_id,
         )
+        # telemetry (no-op unless the master exported its directory): a
+        # re-formed world installs a fresh recorder of its generation;
+        # the anatomy's phase totals ride the heartbeat; the chief ships
+        # compile deltas with its task reports
+        worker_hooks.install_from_env(
+            worker_id=self._worker_id, process_id=self._process_id,
+            generation=self._cluster_version,
+        )
+        anatomy_mod.install_from_env(model_def=args.model_def, device=world.device)
+        self._compile_deltas = compile_tracker.ExecCounterReporter()
         self._checkpointer = PeriodicCheckpointer(
             args.checkpoint_dir,
             args.checkpoint_steps,
@@ -263,11 +275,13 @@ class LockstepWorker:
         counters = {FAIL_COUNT: fail_count} if fail_count else {}
         if include_timing:
             counters.update(self._timing.exec_counters())
+        compiles = self._compile_deltas.attach(counters)
         self._master.report_task_result(
             msg.ReportTaskResultRequest(
                 task_id=task_id, err_message=err_msg, exec_counters=counters
             )
         )
+        self._compile_deltas.commit(compiles)
 
     def _report_version(self):
         if self._is_chief and self._trainer is not None:
@@ -365,6 +379,9 @@ class LockstepWorker:
     def _train_task(self, task):
         def _pre(_features):
             self._ensure_trainer()
+            # every process steps through the global batch: records is
+            # the global minibatch (one early return when telemetry is off)
+            worker_hooks.record_step(self._trainer.step, self._minibatch_size)
             if self._chaos is not None:
                 # per-step arming point: step-scheduled faults fire at
                 # the exact model version the plan names
@@ -386,6 +403,9 @@ class LockstepWorker:
                 # dispatched, and drains before this returns
                 device_prefetch=self._device_prefetch,
                 pipeline_depth=self._pipeline_depth,
+                # the anatomy changes timing only, never shapes or the
+                # dispatch count: the world's schedule stays agreed
+                anatomy=anatomy_mod.get_recorder(),
             )
         device_pipeline.note_task_boundary()
         # the version before the task's report: a version that crosses an
@@ -491,8 +511,8 @@ class LockstepWorker:
     # ---- main loop ---------------------------------------------------------
 
     def _heartbeat(self):
-        """One heartbeat, with the RPC outcome and staging totals and the
-        replicator's advertisement; the reply's peer map goes to the
+        """One heartbeat, with the RPC outcome, anatomy phase and staging
+        totals and the replicator's advertisement; the reply's peer map goes to the
         replicator."""
         replicator = self._replicator
         try:
@@ -503,6 +523,7 @@ class LockstepWorker:
                     timestamp=time.time(),
                     replica=replicator.advertisement() if replicator else {},
                     rpc=rpc_stats.snapshot(),
+                    phases=anatomy_mod.heartbeat_snapshot(),
                     prefetch=device_pipeline.heartbeat_snapshot(),
                 )
             )

@@ -36,10 +36,14 @@ presenting the generation it held across the outage and the ledger
 advance only on acceptance, and presented leases the master did not
 re-accept leave the ledger.
 
+Telemetry, when the master exported its directory and
+``--step_anatomy``: each training dispatch's sum-exact phases go to the
+event log and, as totals, on the heartbeat; compile deltas ride the task
+reports.
+
 Unlike the JAX worker, this one writes a last checkpoint when its stream
 ends (as the port's lockstep worker and Local executor do).  Left out
-until slice 10: the step anatomy, tracing, profiling and compile
-counters.
+until slice 10b: tracing and profiling.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
+from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
+from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline as dp
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -155,6 +161,10 @@ class Worker:
             args.checkpoint_steps,
             keep_checkpoint_max=args.keep_checkpoint_max,
         )
+        # telemetry: no-ops unless the master exported them
+        worker_hooks.install_from_env(worker_id=self._worker_id)
+        anatomy_mod.install_from_env(model_def=args.model_def, device=self._device)
+        self._compile_deltas = compile_tracker.ExecCounterReporter()
 
     # ---- master protocol ---------------------------------------------------
 
@@ -175,11 +185,13 @@ class Worker:
             # training reports only, so evaluation and save reports never
             # absorb training's buckets
             counters.update(self._timing.exec_counters())
+        compiles = self._compile_deltas.attach(counters)
         self._master.report_task_result(
             msg.ReportTaskResultRequest(
                 task_id=task_id, err_message=err_msg, exec_counters=counters
             )
         )
+        self._compile_deltas.commit(compiles)
         # only after the report returned: a lease whose report died with
         # the master is still in flight, and is presented on re-homing
         self._inflight_leases.discard(task_id)
@@ -249,20 +261,25 @@ class Worker:
         attempt only (its buffers belong to that dispatch); a retry
         places it again from the host arrays."""
         err = ""
+        anatomy = anatomy_mod.get_recorder()
         for attempt in range(MAX_MINIBATCH_RETRY_NUM):
             try:
                 self._ensure_trainer()
                 if task_type == int(TaskType.TRAINING):
                     with self._timing.record("batch_process"):
                         if staged is not None and attempt == 0:
-                            self._trainer.train_step(*staged.take()[0])
-                        else:
+                            self._dispatch(
+                                anatomy, self._trainer.train_step, staged.take()[0]
+                            )
+                        elif anatomy is None:
                             n = batch_rows(labels)
                             self._trainer.train_step(
                                 self._place(features),
                                 self._place(labels),
                                 self._trainer.place_mask(n, self._canonical_rows),
                             )
+                        else:
+                            self._anatomized_train_step(anatomy, features, labels)
                 elif task_type == int(TaskType.PREDICTION):
                     self._predict_minibatch(features)
                 else:
@@ -277,23 +294,56 @@ class Worker:
         """A ``PreStacked`` group of k steps (one dispatch) under the
         retry and staging contract of :meth:`_process_minibatch`."""
         err = ""
+        anatomy = anatomy_mod.get_recorder()
         for attempt in range(MAX_MINIBATCH_RETRY_NUM):
             try:
                 self._ensure_trainer()
+                trainer = self._trainer
                 with self._timing.record("batch_process"):
                     if staged is not None and attempt == 0:
-                        self._trainer.train_steps_stacked(*staged.take())
+                        placed = staged.take()
+                    elif anatomy is None:
+                        placed = trainer.place_group(
+                            group.features, group.labels, prestacked_weights(group)
+                        )
                     else:
-                        self._trainer.train_steps_stacked(
-                            *self._trainer.place_group(
+                        with anatomy.phase(anatomy_mod.PHASE_H2D_TRANSFER):
+                            placed = trainer.place_group(
                                 group.features, group.labels, prestacked_weights(group)
                             )
-                        )
+                            anatomy_mod.wait_for_device(trainer.device)
+                    self._dispatch(anatomy, trainer.train_steps_stacked, placed)
                 return ""
             except Exception as ex:  # noqa: BLE001 — reported with the task
                 err = str(ex)
                 traceback.print_exc()
         return err
+
+    def _dispatch(self, anatomy, step, placed):
+        """``step(*placed)``; under a step anatomy timed as its
+        ``device_compute`` (enqueue, then the wait for its stream)."""
+        if anatomy is None:
+            step(*placed)
+        else:
+            anatomy_mod.timed_device_dispatch(
+                anatomy, lambda: step(*placed), self._trainer.device
+            )
+
+    def _anatomized_train_step(self, anatomy, features, labels):
+        """The train step of a host batch with its segments timed: the
+        pad (assemble), the waited-for copies (h2d) and the dispatch."""
+        trainer = self._trainer
+        rows = self._canonical_rows
+        with anatomy.phase(anatomy_mod.PHASE_ASSEMBLE):
+            padded = (
+                trainer.pad_to(features, rows),
+                trainer.pad_to(labels, rows),
+                trainer.row_mask(batch_rows(labels), rows),
+            )
+        with anatomy.phase(anatomy_mod.PHASE_H2D_TRANSFER):
+            placed = trainer.place_step(*padded)
+            anatomy_mod.wait_for_device(trainer.device)
+        self._dispatch(anatomy, trainer.train_step, placed)
 
     def _predict_minibatch(self, features):
         n = batch_rows(features)
@@ -337,8 +387,20 @@ class Worker:
             first_task, self._task_batches, max_buffered_batches=max(4, 2 * k_bound)
         )
         total = 0
+        anatomy = anatomy_mod.get_recorder()
 
-        def account(n, err):
+        def account(n, err, steps=1):
+            # the report and its task-boundary work are the dispatch's
+            # bookkeeping; under a step anatomy the dispatch commits here
+            if anatomy is None:
+                settle(n, err)
+                return
+            with anatomy.phase(anatomy_mod.PHASE_STEP_BOOKKEEPING):
+                settle(n, err)
+            trainer = self._trainer
+            anatomy.commit(steps=steps, records=n, step=trainer.step if trainer else None)
+
+        def settle(n, err):
             nonlocal total
             total += n
             if tds.report_record_done(n, err):
@@ -353,16 +415,18 @@ class Worker:
                     self._evaluate_only()
 
         def run_serial(task, batches):
+            if anatomy is not None:
+                batches = anatomy.wrap_fetches(batches)
             for batch in batches:
                 dp.note_boundary_dispatch()
                 if isinstance(batch, PreStacked):
                     err = self._process_stacked_group(batch)
-                    n = batch.num_records
+                    n, steps = batch.num_records, batch.num_steps
                 else:
                     features, labels = batch
                     err = self._process_minibatch(task.type, features, labels)
-                    n = batch_rows(labels)
-                account(n, err)
+                    n, steps = batch_rows(labels), 1
+                account(n, err, steps)
 
         def handle_staged(task, staged):
             if staged.error is not None:
@@ -383,16 +447,16 @@ class Worker:
                 err = self._process_minibatch(
                     task.type, features, labels, staged=staged_arg
                 )
-            account(staged.records, err)
+            account(staged.records, err, staged.steps)
 
         def run_staged(task, batches):
             # plain batches stage as groups of one, PreStacked groups whole
             stager = dp.DeviceStager(
                 lambda: self._trainer, iter(batches), 1, self._canonical_rows,
-                depth=dp.stage_depth(None, self._pipeline_depth),
+                depth=dp.stage_depth(anatomy, self._pipeline_depth),
             )
             try:
-                for staged in stager:
+                while (staged := stager.next_staged(anatomy)) is not None:
                     handle_staged(task, staged)
             finally:
                 stager.close()
@@ -409,12 +473,12 @@ class Worker:
 
             stager = dp.DeviceStager(
                 lambda: self._trainer, feed(), 1, self._canonical_rows,
-                depth=dp.stage_depth(None, self._pipeline_depth),
+                depth=dp.stage_depth(anatomy, self._pipeline_depth),
             )
             task = None
             try:
                 while True:
-                    kind, payload = stager.next_event()
+                    kind, payload = stager.next_event(anatomy)
                     if kind == dp._STAGE_KIND_DONE:
                         break
                     if kind == dp._STAGE_KIND_ERROR:
@@ -642,6 +706,7 @@ class Worker:
                             step=self._trainer.step if self._trainer else 0,
                             timestamp=time.time(),
                             rpc=rpc_stats.snapshot(),
+                            phases=anatomy_mod.heartbeat_snapshot(),
                             prefetch=dp.heartbeat_snapshot(),
                         )
                     )

@@ -225,14 +225,13 @@ def test_report_sections_read_the_ports_event_log(section):
                 e["kept"], e["requeued"] = [7] * e["kept"], [8] * e["requeued"]
         port_events.append({"observation": "worker_rehome", "worker_id": 3, "accepted": False,
                             "monotonic": 14.2})
-        # the port's log has no step samples until slice 10
+        # the step samples give each outage's downtime, as in the JAX report
         got = report.master_ha_section(port_events)
-        for entry in ref["restarts"]:
-            entry["downtime_secs"] = None
-        ref["total_downtime_secs"] = None
-        port_events = [e for e in port_events if e["observation"] != "step"]
-        assert report.master_ha_section(port_events) == ref
+        assert got == ref
         assert got["restarts"][0]["downtime_secs"] == 5.0
+        # the port's master writes the restarts and re-homes to both logs
+        # under --telemetry_dir: each is counted once
+        assert report.master_ha_section(port_events + _events(section)) == ref
         return
     assert getattr(report, f"{section}_section")(port_events) == ref
 
@@ -377,7 +376,10 @@ def test_the_masters_argv_carries_the_jax_harnesses_settings(tmp_path, case):
     for key in SETTINGS + ("evaluation_steps",) * (case == "extra"):
         assert getattr(args, key) == getattr(ref, key), key
     assert (args.training_data, args.checkpoint_dir, args.device) == ("/data", "/ckpt", "cuda")
-    assert "--telemetry_dir" not in argv and "--jax_platform" not in argv
+    # the telemetry event log beside the chaos artifacts, as the JAX
+    # harness places it
+    assert args.telemetry_dir == ref.telemetry_dir == os.path.join(config.workdir, "telemetry")
+    assert "--jax_platform" not in argv
     # the workers' environment: the plan, the event log and the ring
     # corruption, as the JAX harness exports them (its platform pins aside)
     ref_envs = {k: v for k, v in ref.envs_dict.items() if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}

@@ -8,14 +8,16 @@ and ``--list`` must print the JAX runner's Plans block and its
 Invariants block (the fleet simulator's invariants and plans wait for
 slice 11).  The runner's own default, ``--device cuda``, refuses a
 machine without a card.  Then the CLI runs end to end with ``--device
-cpu`` as ``chip_smoke.py``'s phase 17 runs it, six subprocesses side by
-side, each with its own work directory: ``preempt_one_worker`` with its
+cpu`` as ``chip_smoke.py``'s phase 17 runs it, six subprocesses, three
+at a time on the CPU (``chip_smoke.CHAOS_CPU_WIDTH``), each with its own
+work directory: ``preempt_one_worker`` with its
 baseline (exit 0, every invariant PASS, ``trajectory_parity`` within the
 default 0.15, ``chaos_result.json`` written), ``--corrupt double_report``
 (exit 1, ``exactly_once`` FAIL), ``dup_report_storm`` (exit 0,
 reports deduplicated), ``slow_network_mid_epoch`` (exit 0, no
 re-formation), and the phase's gates on all six, each shown to trip on
-a row that breaks it.
+a row that breaks it.  The runs are gated test by test: a run that
+misses a gate fails the tests of that run, not every test of the file.
 """
 
 from __future__ import annotations
@@ -155,14 +157,14 @@ WANT_RC = {name: rc for name, _argv, rc in chip_smoke.CHAOS_RUNS}
 
 @pytest.fixture(scope="module")
 def phase(tmp_path_factory):
-    """``chip_smoke.py``'s phase 17 on the CPU: six runner CLI runs side
-    by side, each gated (``chip_smoke.check_chaos_case``)."""
+    """``chip_smoke.py``'s phase 17 on the CPU: the six runner CLI runs,
+    three at a time; each test gates the runs it reads
+    (``chip_smoke.check_chaos_case``)."""
     root = tmp_path_factory.mktemp("chaos_runner")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "1")
-        out = chip_smoke.chaos_phase(str(root), device="cpu")
-    out["root"] = str(root)
-    return out
+        runs = chip_smoke.chaos_runs(str(root), device="cpu")
+    return {"runs": runs, "root": str(root)}
 
 
 def _run(phase, name: str) -> SimpleNamespace:
@@ -262,5 +264,7 @@ BREAKS = [
 def test_each_phase17_gate_trips(phase, case):
     name, breaks = BREAKS[case]
     row = copy.deepcopy(phase["runs"][name])
+    # the run passes its gates, and the break trips one of them
+    assert chip_smoke.check_chaos_case(name, row, WANT_RC[name]) == [], row.get("log_tail", row)
     breaks(row)
     assert chip_smoke.check_chaos_case(name, row, WANT_RC[name])

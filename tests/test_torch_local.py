@@ -311,9 +311,8 @@ def test_api_refuses_jobs_without_their_data():
 # a value other than the default for every flag the port parses but
 # cannot act on yet
 UNPORTED_VALUES = {
-    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "telemetry_dir": "/t", "tensorboard_log_dir": "/tb", "metrics_port": "9",
-    "metrics_host": "0.0.0.0", "trace_sample_rate": "1.0", "step_anatomy": "true",
-    "profile_dir": "/p", "profile_steps": "2", "slo_config": "default",
+    "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "tensorboard_log_dir": "/tb",
+    "trace_sample_rate": "1.0", "profile_dir": "/p", "profile_steps": "2", "slo_config": "default",
     "instance_backend": "k8s", "namespace": "ns",
     "docker_image": "img", "docker_image_repository": "repo",
     "docker_base_image": "base", "worker_resource_request": "cpu=2",
@@ -377,6 +376,99 @@ def test_ported_training_flag_builds_an_executor(runs, flag, value):
     ))
     assert flag not in port_args.UNPORTED_FLAGS
     port_le.LocalExecutor(args)
+
+
+def _telemetry_dir_reaches_the_step_log(runs, tmp_path):
+    from elasticdl_tpu_torch.telemetry import worker_hooks
+
+    data = runs["data"]
+    port_le.LocalExecutor(port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu",
+        "--telemetry_dir", str(tmp_path),
+    )))
+    worker_hooks.record_step(3, 8)
+    worker_hooks.uninstall()
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+
+    (event,) = read_jsonl(str(tmp_path / "events.jsonl"))
+    assert event["event"] == "step" and event["step"] == 3 and event["records"] == 8
+
+
+def _step_anatomy_installs_the_recorder(runs, tmp_path):
+    from elasticdl_tpu_torch.telemetry import anatomy
+
+    data = runs["data"]
+    port_le.LocalExecutor(port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu", "--step_anatomy", "true",
+    )))
+    assert anatomy.get_recorder() is not None
+    port_le.LocalExecutor(port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu",
+    )))
+    assert anatomy.get_recorder() is None  # a run without it clears it
+
+
+def _master_endpoint(runs, *flags):
+    import json
+    import urllib.request
+
+    from elasticdl_tpu_torch.master.main import build_master
+
+    data = runs["data"]
+    master = build_master(port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu",
+        "--num_workers", "0", "--port", "0", *flags,
+    )))
+    master.prepare()
+    try:
+        port = master.metrics_port
+        host = master._telemetry_server._server.server_address[0]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
+            health = json.loads(resp.read())
+    finally:
+        master.request_stop()
+        master.stop()
+    return port, host, health
+
+
+def _metrics_port_serves_there(runs, tmp_path):
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    port, _host, health = _master_endpoint(runs, "--metrics_port", str(free))
+    assert port == free and health["status"] == "ok"
+
+
+def _metrics_host_is_the_bind_address(runs, tmp_path):
+    _port, host, health = _master_endpoint(runs, "--metrics_host", "localhost")
+    assert host == "127.0.0.1" and health["job_type"] == "training_with_evaluation"
+
+
+# the four telemetry flags slice 10a ports, each shown reaching its feature
+TELEMETRY_FLAG_CASES = {
+    "telemetry_dir": _telemetry_dir_reaches_the_step_log,
+    "step_anatomy": _step_anatomy_installs_the_recorder,
+    "metrics_port": _metrics_port_serves_there,
+    "metrics_host": _metrics_host_is_the_bind_address,
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TELEMETRY_FLAG_CASES))
+def test_a_ported_telemetry_flag_reaches_its_feature(runs, tmp_path, flag):
+    assert flag not in port_args.UNPORTED_FLAGS
+    TELEMETRY_FLAG_CASES[flag](runs, tmp_path)
+
+
+@pytest.mark.parametrize("flag, value", [
+    ("tensorboard_log_dir", "/tb"), ("trace_sample_rate", "1.0"), ("profile_dir", "/p"),
+    ("profile_steps", "2"), ("slo_config", "default"),
+])
+def test_the_telemetry_flags_left_name_slice_10b(flag, value):
+    args = port_args.parse_master_args(["--model_def", LM_DEF, f"--{flag}", value])
+    with pytest.raises(NotImplementedError, match=f"--{flag}=.*slice 10b"):
+        port_args.check_ported_flags(args)
 
 
 def test_one_device_mesh_and_defaults_build_an_executor(runs):

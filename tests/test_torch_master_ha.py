@@ -659,8 +659,11 @@ def test_lockstep_lingers_under_master_ha_and_leaves_once_fenced(monkeypatch, tm
 def _task_stream(master, leases=(), generation=0):
     from elasticdl_tpu_torch.worker.worker import Worker
 
+    from elasticdl_tpu_torch.telemetry.compile_tracker import ExecCounterReporter
+
     worker = Worker.__new__(Worker)
     worker._worker_id, worker._master = 7, master
+    worker._compile_deltas = ExecCounterReporter()
     worker._inflight_leases = set(leases)
     worker._master_boot_id, worker._master_cluster_version = "b1", generation
     worker._trainer, worker._stopped = None, False

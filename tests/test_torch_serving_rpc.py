@@ -725,7 +725,7 @@ def test_serving_main_swaps_by_rpc_under_load_on_the_cpu(tmp_path):
     ("slo_config", "default"), ("telemetry_dir", "/tmp/t"),
 ])
 def test_telemetry_flags_raise_naming_slice_10(flag, value):
-    with pytest.raises(NotImplementedError, match=f"--{flag}=.*slice 10"):
+    with pytest.raises(NotImplementedError, match=f"--{flag}=.*slice 10b"):
         serving_main.main(["--model_dir", "/nowhere", f"--{flag}", value])
 
 
