@@ -2329,10 +2329,11 @@ def _graph_checks(rec, cfg: dict, stacked: dict, device: str) -> dict:
     spec = get_model_spec("", cfg["model_def"], model_params=parse_params_dict(cfg["model_params"]))
 
     def make_trainer():
-        # the executor's start: its seed, its bf16 features, its parse
+        # the executor's start: its seed, its tables built on the
+        # device, its bf16 features, its parse
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = spec.build_model()
+            model = spec.build_model(device=device)
         return SPMDTrainer(
             model, spec.loss, spec.optimizer(), compute_dtype=torch.bfloat16,
             device=device, device_parse=spec.device_parse,
@@ -4387,10 +4388,10 @@ HA_MNIST = dict(ELASTIC_MNIST, name="mnist_ha", min_accuracy=0.99)
 HA_GRACE_SECS = 5.0
 # the four jobs of the phase, by the key its report files them under
 HA_CASES = ("mid_epoch", "during_reform", "task_stream", "real_kill")
-# 14c's epochs: the task-stream worker re-homes at its next heartbeat
-# (every 5 s), at most about 4 s after the relaunch when a beat fell in
-# the outage; 20 epochs leave it over 6 s of training after the
-# relaunch at 41 000 records/s, the fastest 14c ran on the H100
+# 14c's epochs: the task-stream worker re-homes before its first retried
+# call reaches the relaunched master, and at the latest at its next
+# heartbeat (every 5 s); 20 epochs leave it over 6 s of training after
+# the relaunch at 41 000 records/s, the fastest 14c ran on the H100
 HA_TASK_STREAM_EPOCHS = 20
 # 14d's job seconds past which it prints its master logs' tails
 HA_SLOW_SECS = 90.0
@@ -6205,6 +6206,518 @@ def anatomy_world_run(work_dir: str, data: dict, device: str = "cuda", cfg=None)
     return row
 
 
+# ---- 19. decode and generate; row-sharded embedding tables ----------------
+
+# 19a: gpt2s generates (bench.py:266's width, seeded weights): 4 rows, a
+# prompt of 32 tokens, 96 greedy steps, then top-k 40 at temperature 0.8
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 32, 96
+GEN_TOP_K, GEN_TEMPERATURE = 40, 0.8
+# bf16: the decode step's logits against the flash-kernel full forward's
+# over the same sequence.  The two compute the attention differently
+# (f32 scores over the bf16 cache against the kernel's bf16 P.V) and
+# round activations to bf16 at other places over 12 blocks: each logit
+# within PLAIN_MAX_ERR (0.25), their mean within PLAIN_MEAN_ERR; a greedy
+# token must equal the full forward's argmax wherever that forward's
+# top-2 margin exceeds twice the bound (there no pair of logits within
+# the bound can swap)
+GEN_LOGIT_MAX_ERR, GEN_LOGIT_MEAN_ERR = PLAIN_MAX_ERR, PLAIN_MEAN_ERR
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cached_logits(decode, tokens, device: str):
+    """Each decode step's last-position logits (f32) over ``tokens`` fed
+    one at a time through ``decode`` (a decode-mode LM), and each step's
+    synced wall ms."""
+    import torch
+
+    cache = decode.init_cache(tokens.shape[0])
+    out, ms = [], []
+    with torch.inference_mode():
+        for i in range(tokens.shape[1] - 1):
+            _sync(device)
+            t0 = time.perf_counter()
+            out.append(decode({"tokens": tokens[:, i:i + 1]}, cache=cache)[:, -1].float())
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(out, 1), ms
+
+
+def generate_lm(device: str = "cuda", cfg=None, batch: int = GEN_BATCH,
+                prompt_len: int = GEN_PROMPT, steps: int = GEN_STEPS) -> dict:
+    """Phase 19a: ``long_seq_transformer.generate`` at gpt2s's width from
+    its flax tree (``utils/flax_weights.py``), greedy and sampled.
+    Gates: int64 tokens of ``(batch, prompt_len + steps)`` on the card;
+    each greedy token is the argmax of a cached replay of its step, and
+    the full forward's (the flash kernel's, its launches counted) wherever
+    that forward's top-2 margin exceeds twice the logit bound; the cached
+    logits within the bound of the full forward's; the same seed gives
+    the same sampled tokens and another seed others; every sampled token
+    lies in its step's top ``GEN_TOP_K``.  Times: p50 ms per decode step
+    (synced) and the greedy run's tokens/s with the weights on the card."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models import long_seq_transformer as lm
+    from elasticdl_tpu_torch.ops import attention as attn
+    from elasticdl_tpu_torch.utils import flax_weights
+
+    cfg = cfg or GPT2S
+    t_phase = time.monotonic()
+    # seeded weights drawn on the device
+    model = lm.custom_model(**cfg).to(device)
+    lm.init_weights(model, torch.Generator(device=device).manual_seed(0))
+    model = model.eval()
+    params = flax_weights.flax_flat_from_torch(model)
+    prompt = np.random.RandomState(0).randint(0, cfg["vocab_size"], (batch, prompt_len))
+    total = prompt_len + steps
+
+    greedy = lm.generate(params, prompt, steps, device=device, **cfg)
+    if greedy.dtype != torch.int64 or tuple(greedy.shape) != (batch, total) \
+            or greedy.device.type != torch.device(device).type:
+        raise AssertionError(f"generate returned {greedy.dtype} {tuple(greedy.shape)} "
+                             f"on {greedy.device}")
+    np.testing.assert_array_equal(greedy[:, :prompt_len].cpu().numpy(), prompt)
+    # the weights already on the card: the greedy rate
+    _sync(device)
+    t0 = time.perf_counter()
+    again = lm.generate(None, prompt, steps, model=model)
+    _sync(device)
+    greedy_secs = time.perf_counter() - t0
+    if not torch.equal(again, greedy):
+        raise AssertionError("greedy generate from the model differs from the flax tree's")
+
+    decode = lm.TransformerLM(**cfg, decode=True, max_decode_len=total)
+    decode.load_state_dict(model.state_dict())
+    decode = decode.to(device).eval()
+    cached, step_ms = _cached_logits(decode, greedy, device)
+    attn.reset_launch_counts()
+    with torch.inference_mode():
+        full = model({"tokens": greedy[:, :-1]}).float()
+    full_launches = dict(attn.launch_counts)
+    err = (cached - full).abs()
+    gen_cached = cached[:, prompt_len - 1:]
+    gen_full = full[:, prompt_len - 1:]
+    tokens = greedy[:, prompt_len:]
+    top2 = gen_full.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * GEN_LOGIT_MAX_ERR
+    row = {
+        "tokens": int(tokens.numel()),
+        "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+        "greedy_is_cached_argmax": bool(torch.equal(gen_cached.argmax(-1), tokens)),
+        "margin_decided": int(decided.sum()),
+        "decided_equal_full_argmax": bool(
+            torch.equal(gen_full.argmax(-1)[decided], tokens[decided])
+        ),
+        "full_forward_launches": full_launches,
+    }
+
+    def sample(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return lm.generate(None, prompt, steps, model=model, temperature=GEN_TEMPERATURE,
+                           top_k=GEN_TOP_K, rng=gen)
+
+    a, b, c = sample(1), sample(1), sample(2)
+    sampled_logits, _ms = _cached_logits(decode, a, device)
+    steps_logits = sampled_logits[:, prompt_len - 1:]
+    kth = steps_logits.topk(GEN_TOP_K, dim=-1).values[..., -1]
+    picked = steps_logits.gather(-1, a[:, prompt_len:, None])[..., 0]
+    row.update(
+        same_seed_same_tokens=bool(torch.equal(a, b)),
+        other_seed_other_tokens=not bool(torch.equal(a, c)),
+        sampled_in_top_k=bool((picked >= kth).all()),
+        sampled_tokens=int(a[:, prompt_len:].numel()),
+        decode_step_ms_p50=statistics.median(step_ms),
+        decode_step_ms_p90=sorted(step_ms)[int(0.9 * (len(step_ms) - 1))],
+        greedy_secs=greedy_secs,
+        greedy_tokens_per_s=batch * steps / greedy_secs,
+        secs=time.monotonic() - t_phase,
+    )
+    print(json.dumps({"generate": row}), flush=True)
+    if (
+        row["max_abs_err"] > GEN_LOGIT_MAX_ERR or row["mean_abs_err"] > GEN_LOGIT_MEAN_ERR
+        or not row["greedy_is_cached_argmax"] or not row["decided_equal_full_argmax"]
+        or row["margin_decided"] == 0
+        or not row["same_seed_same_tokens"] or not row["other_seed_other_tokens"]
+        or not row["sampled_in_top_k"]
+        or (device == "cuda" and full_launches["flash_fwd"] != cfg["num_layers"])
+    ):
+        raise AssertionError(f"phase 19a failed its gates: {row}")
+    return row
+
+
+SHARDED_DEF = "deepfm_sharded_embedding.deepfm_sharded_embedding.custom_model"
+# 19b: bench.py's deepfm_100m (bench.py:201-216): a 100M x 64 f32 table
+# (25.6 GB) and a 100M x 1 bias table on one card, ids over the whole
+# vocabulary, 4096 rows a step, SGD; 4 shards of one 6-step task each, so
+# the timed window (the tasks after the first) holds 18 steps
+DEEPFM_100M = dict(
+    name="deepfm_100m", model_def=SHARDED_DEF, gen="gen_frappe",
+    gen_kwargs={"vocab_size": 100_000_000}, model_params="input_dim=100000000",
+    train_records=98304, eval_records=0, shards=4, batch=4096,
+    records_per_task=24576, wire=("feature", "int32"),
+)
+# the host's RSS may grow by at most this share of the table during the
+# run: a table built on the host, or copied through it, would take all
+HOST_RSS_SHARE_GATE = 0.25
+# the first step's check: rows of the batch and rows outside it
+FIRST_STEP_TOUCHED, FIRST_STEP_UNTOUCHED = 1024, 4096
+FIRST_STEP_GRAD_RTOL, FIRST_STEP_GRAD_ATOL = 1e-5, 1e-8
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no VmRSS in /proc/self/status")
+
+
+class _RssPeak:
+    """The largest RSS of this process while it runs (sampled)."""
+
+    def __init__(self, every_secs: float = 0.1):
+        self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(every_secs,), daemon=True)
+
+    def _run(self, every):
+        while not self._stop.wait(every):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def first_step_check(cfg: dict, device: str = "cuda", seed: int = 5) -> dict:
+    """Phase 19b's bare first step of ``cfg``'s model, built on the card:
+    the SGD step through ``SPMDTrainer`` against its plain version, the
+    same loss on a minitable of the batch's rows.  Sampled rows of the
+    batch move by exactly ``-lr * grad`` (bitwise), their gradient is the
+    plain version's within ``FIRST_STEP_GRAD_RTOL``/``ATOL``, and sampled
+    rows outside it stay bitwise equal."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models.deepfm_functional_api import DeepFM
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.local_executor import build_optimizer
+    from elasticdl_tpu_torch.trainer.step import weighted_mean_loss
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    params = dict(p.split("=") for p in cfg["model_params"].split(";"))
+    vocab = int(params["input_dim"])
+    spec = get_model_spec("", cfg["model_def"], model_params={"input_dim": vocab})
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = spec.build_model(device=device)
+    table = model.embedding.embedding
+    if table.device.type != torch.device(device).type:
+        raise AssertionError(f"the table was built on {table.device}")
+    trainer = SPMDTrainer(model, spec.loss, build_optimizer(spec), device=device)
+    lr = trainer.state.optimizer.param_groups[0]["lr"]
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, vocab, (cfg["batch"], 10)).astype(np.int32)
+    labels = rng.randint(0, 2, cfg["batch"]).astype(np.int32)
+    weights = np.ones(cfg["batch"], np.float32)
+    uniq = np.unique(ids)
+    touched = np.sort(rng.choice(uniq, FIRST_STEP_TOUCHED, replace=False))
+    outside = rng.randint(0, table.shape[0], 2 * FIRST_STEP_UNTOUCHED)
+    outside = np.setdiff1d(outside, uniq)[:FIRST_STEP_UNTOUCHED]
+    rows_t = torch.from_numpy(touched).to(device)
+    rows_u = torch.from_numpy(outside).to(device)
+    tables = {"embedding": table, "id_bias": model.id_bias.embedding}
+    before = {k: (t.detach()[rows_t].clone(), t.detach()[rows_u].clone()) for k, t in tables.items()}
+
+    # the plain version: the same model on a minitable of the batch's rows,
+    # behind row 0 (id 0 is the padding id, which the batch never holds)
+    uniq = np.concatenate([[0], uniq])
+    plain = DeepFM(input_dim=len(uniq)).to(device)
+    with torch.no_grad():
+        uniq_d = torch.from_numpy(uniq).to(device).long()
+        for name, t in tables.items():
+            getattr(plain, name).embedding = torch.nn.Parameter(t.detach()[uniq_d].clone())
+        for name in ("dense_hidden", "dense_out"):
+            getattr(plain, name).load_state_dict(getattr(model, name).state_dict())
+    local_ids = torch.from_numpy(np.searchsorted(uniq, ids).astype(np.int32)).to(device)
+    out = plain({"feature": local_ids}, training=True)
+    loss = weighted_mean_loss(
+        spec.loss, torch.from_numpy(labels).to(device), out, torch.from_numpy(weights).to(device)
+    )
+    loss.backward()
+    plain_grads = {
+        k: getattr(plain, k).embedding.grad[torch.from_numpy(np.searchsorted(uniq, touched)).to(device)]
+        for k in tables
+    }
+
+    placed = trainer.place_batch(({"feature": ids}, labels, weights))
+    metrics = trainer.train_step(*placed)
+    row = {"loss": float(metrics["loss"]), "plain_loss": float(loss), "lr": lr,
+           "touched_rows": len(touched), "untouched_rows": len(outside)}
+    for name, t in tables.items():
+        grad = t.grad[rows_t]
+        after_t, after_u = t.detach()[rows_t], t.detach()[rows_u]
+        was_t, was_u = before[name]
+        row[name] = {
+            "moved_by_minus_lr_grad": bool(torch.equal(after_t, was_t.add(grad, alpha=-lr))),
+            "untouched_equal": bool(torch.equal(after_u, was_u)),
+            "grad_max_abs_diff_to_plain": float((grad - plain_grads[name]).abs().max()),
+            "grad_close_to_plain": bool(torch.allclose(
+                grad, plain_grads[name], rtol=FIRST_STEP_GRAD_RTOL, atol=FIRST_STEP_GRAD_ATOL
+            )),
+            "grad_nonzero": bool((grad != 0).any()),
+        }
+    del trainer, model, tables, plain, placed
+    _release_memory(device)
+    if abs(row["loss"] - row["plain_loss"]) > 1e-5 or not all(
+        row[k][g] for k in ("embedding", "id_bias")
+        for g in ("moved_by_minus_lr_grad", "untouched_equal", "grad_close_to_plain",
+                  "grad_nonzero")
+    ):
+        raise AssertionError(f"the first step failed its gates: {row}")
+    return row
+
+
+def deepfm_100m_run(work_dir: str, device: str = "cuda", cfg=None) -> dict:
+    """Phase 19b: ``cfg``'s bare first step (:func:`first_step_check`),
+    then ``cfg`` (bench's deepfm_100m) through the Local train CLI on one
+    card.  Gates: every step ran, its ids on the card at the wire dtype;
+    finite losses; the tables were built on the card (on a card, the
+    host's RSS grew by less than ``HOST_RSS_SHARE_GATE`` of the table);
+    peak device memory under the card's.  Prints records/s and the
+    peak."""
+    import numpy as np
+    import torch
+
+    cfg = cfg or DEEPFM_100M
+    t_phase = time.monotonic()
+    first_step = first_step_check(cfg, device)
+    data = _zoo_data(work_dir, cfg)
+    _release_memory(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rec = _ZooRecorder(device, cfg["wire"][0], keep_batches=False)
+    rss0 = _rss_bytes()
+    with _RssPeak() as rss:
+        window = _timed_zoo_run(cfg, data, device, rec=rec)
+    table = rec.executor._trainer.state.model.embedding.embedding
+    table_bytes = table.numel() * table.element_size()
+    row = dict(
+        window, data_secs=data["secs"], steps=sum(rec.dispatch_steps),
+        table_shape=list(table.shape), table_device=table.device.type,
+        table_bytes=table_bytes,
+        wire=sorted({(str(d), t) for d, t in rec.wire}),
+        losses_finite=all(bool(torch.isfinite(x)) for x in rec.losses),
+        host_rss_growth_bytes=rss.peak - rss0, host_rss_peak_bytes=rss.peak,
+    )
+    del table
+    rec.executor = rec.result = None
+    _release_memory(device)
+    if device == "cuda":
+        row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        row["device_total_bytes"] = torch.cuda.get_device_properties(0).total_memory
+    row["first_step"] = first_step
+    row["secs"] = time.monotonic() - t_phase
+    print(json.dumps({"deepfm_100m": row}), flush=True)
+    want_steps = cfg["train_records"] // cfg["batch"]
+    wire_dtype = str(np.dtype(cfg["wire"][1]))
+    if (
+        row["steps"] != want_steps or not row["losses_finite"]
+        or row["table_device"] != torch.device(device).type
+        or row["wire"] != [(f"torch.{wire_dtype}", device)]
+        or (device == "cuda"
+            and row["host_rss_growth_bytes"] > HOST_RSS_SHARE_GATE * table_bytes)
+        or (device == "cuda" and row["peak_device_bytes"] >= row["device_total_bytes"])
+    ):
+        raise AssertionError(f"phase 19b failed its gates: {row}")
+    return row
+
+
+# 19c: a two-rank world of deepfm_sharded_embedding at DeepFM's vocabulary
+# (5 383 padded to 5 504: 2 752 rows a rank), 512 rows a step, tasks of 2
+# steps, replicated, process 1 SIGKILLed at step 6 (the last push before
+# it restores, the disk holding version 4), held to the Local run of the
+# same job; and the runner's --corrupt drop_shard_parts
+SHARDED_DEEPFM = dict(
+    ELASTIC_DEEPFM, name="deepfm_sharded", model_def=SHARDED_DEF, gen_kwargs={},
+    model_params="", train_records=8192, eval_records=2048, records_per_task=1024,
+    checkpoint_steps=4, epochs=1,
+)
+SHARDED_KILL_STEP = 6
+SHARDED_TABLES = ("params/embedding/embedding", "params/id_bias/embedding")
+SHARDED_ROWS = 5504
+DROP_SHARD_PARTS_ARGV = ("--corrupt", "drop_shard_parts", "--num-records", "384",
+                         "--num-epochs", "1")
+
+
+def _assembled_dumps(dumps: list) -> dict:
+    """A sharded world's state from its processes' dumps: process 0's
+    dense values, each table assembled from every process's rows."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.utils.save_utils import assemble_embedding_tables
+
+    out = {k: v for k, v in dumps[0].items() if not k.startswith("emb_")}
+    parts = {
+        t: (np.concatenate([d[f"emb_ids/{t}"] for d in dumps]),
+            np.concatenate([d[f"emb_rows/{t}"] for d in dumps]))
+        for t in SHARDED_TABLES
+    }
+    out.update(assemble_embedding_tables(parts))
+    return out
+
+
+def _shard_layout_ok(dumps: list) -> bool:
+    """Each process dumped only its rows of each table, and the same dense
+    values as every other process."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.embeddings import shard_row_ranges
+
+    ranges = shard_row_ranges(SHARDED_ROWS, len(dumps))
+    dense = [sorted(k for k in d if not k.startswith("emb_")) for d in dumps]
+    return len(dumps) == ELASTIC_WORKERS and all(
+        np.array_equal(d[f"emb_ids/{t}"], np.arange(lo, hi))
+        and d[f"emb_rows/{t}"].shape[0] == hi - lo
+        for d, (lo, hi) in zip(dumps, ranges) for t in SHARDED_TABLES
+    ) and all(names == dense[0] for names in dense) and all(
+        np.array_equal(dumps[0][k], d[k]) for d in dumps[1:] for k in dense[0]
+    )
+
+
+def sharded_preempt_run(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
+    """19c's preempted world: gates rc 0, one re-formation, every record
+    once, no invariant violation; each rank holding only its rows; the
+    re-formed world restored from peer RAM at the last accepted push, its
+    chief placing every row of both tables by row id
+    (``replication_no_lost_steps`` PASS); the final two-part checkpoint
+    the world's final state, restored bitwise by a Local trainer; the
+    final state within ``PARITY_RTOL``/``PARITY_ATOL`` of the Local run
+    of the same job."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import client
+    from elasticdl_tpu_torch.chaos.invariants import check_replication_no_lost_steps
+    from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.trainer.checkpointing import restore_trainer_state
+    from elasticdl_tpu_torch.trainer.local_executor import build_optimizer
+    from elasticdl_tpu_torch.trainer.state import state_to_checkpoint
+    from elasticdl_tpu_torch.utils import save_utils
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    plan = replication_plan("preempt_after_replication", SHARDED_KILL_STEP)
+    run = _distributed_run(cfg, data, device, work_dir, "sharded", plan=plan, extra=REPLICATION)
+    events, row = run["events"], dict(run["row"])
+    kill = next(e for e in events if e.get("fault_id"))
+    pushed = [e for e in _observed(events, "replica_push") if e["monotonic"] <= kill["monotonic"]]
+    # the killed process's last accepted push (the chief's of the same
+    # version may land just after the kill: its local commit counts)
+    last = max((e["step"] for e in pushed if e["ok"] and e["process_id"] == 1), default=None)
+    harvest = row["reform_events"][0].get("harvest", {}) if row["reform_events"] else {}
+    restores = _observed(events, "replica_restore")
+    final = _assembled_dumps(run["dumps"])
+    world_ckpt, _extra = save_utils.restore_checkpoint(run["ckpt"])
+    spec = get_model_spec("", cfg["model_def"])
+    with _LOCAL_LOCK:
+        local = SPMDTrainer(spec.build_model(device=device), spec.loss, build_optimizer(spec),
+                            device=device)
+        restore_trainer_state(local, argparse.Namespace(
+            checkpoint_dir=run["ckpt"], checkpoint_dir_for_init=""))
+        local_state = state_to_checkpoint(local.state)
+        del local
+    row.update(
+        kill_step=kill["step"], last_accepted_push=last, harvest=harvest,
+        pushes_before_kill=len(pushed),
+        pushed_sharded_rows=sorted({e.get("sharded_rows") for e in pushed}),
+        restored_from=_restored_from(events),
+        restore_sharded_rows=restores[0].get("sharded_rows") if restores else None,
+        no_lost_steps=check_replication_no_lost_steps(events),
+        shard_layout_ok=_shard_layout_ok(run["dumps"]),
+        checkpoint_is_final_state=set(world_ckpt) == set(final) and all(
+            np.array_equal(world_ckpt[k], final[k]) for k in final),
+        local_restore_is_final_state=set(local_state) == set(final) and all(
+            np.array_equal(local_state[k], final[k]) for k in final),
+    )
+    row["accuracy"] = _evaluate_checkpoint(cfg, data, device, run["ckpt"]).get(cfg["accuracy_key"])
+    del row["dumps_bitwise_equal"]  # sharded ranks hold other rows: see shard_layout_ok
+    # the world against the Local run of the same job (both from the
+    # seeded start, the tables built on the card): restored from peer RAM
+    # at the exact step, it retrains the records Local trains, in order
+    local_ckpt = os.path.join(work_dir, "ckpt_local")
+    with _LOCAL_LOCK:
+        row["local_rc"] = client.main(
+            _zoo_argv(cfg, data, device) + ["--checkpoint_dir", local_ckpt])
+    local, _extra = save_utils.restore_checkpoint(local_ckpt)
+    worst = {k: float(np.max(np.abs(final[k].astype(np.float64) - v))) for k, v in local.items()}
+    row.update(max_abs_diff_to_local=max(worst.values()), worst_key=max(worst, key=worst.get))
+    _release_memory(device)
+    print(json.dumps({"sharded_preempt": row}), flush=True)
+    for key, want in local.items():
+        np.testing.assert_allclose(final[key], want, rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   err_msg=key)
+    if (
+        row["rc"] != 0 or len(row["reform_events"]) != 1 or kill["step"] != SHARDED_KILL_STEP
+        or row["total_records"] != cfg["train_records"] * cfg["epochs"] or row["violations"]
+        or last is None or not harvest.get("complete") or harvest.get("version") != last
+        or row["restored_from"] != f"replica@{last}" or len(restores) != 1
+        or row["restore_sharded_rows"] != len(SHARDED_TABLES) * SHARDED_ROWS
+        or row["pushed_sharded_rows"] != [len(SHARDED_TABLES) * SHARDED_ROWS // 2]
+        or (row["no_lost_steps"] or {}).get("status") != "PASS"
+        or not row["shard_layout_ok"] or not row["checkpoint_is_final_state"]
+        or not row["local_restore_is_final_state"] or row["local_rc"] != 0
+        or set(local) != set(final)
+    ):
+        raise AssertionError(f"19c: the sharded world failed its gates: {row}")
+    return row
+
+
+def drop_shard_parts_run(work_dir: str, device: str = "cuda") -> dict:
+    """19c's ``python -m elasticdl_tpu_torch.chaos.runner --corrupt
+    drop_shard_parts``: exit 1, with ``replication_no_lost_steps`` failing
+    on the pushes that carried no table rows."""
+    row = chaos_run(work_dir, "drop_shard_parts", DROP_SHARD_PARTS_ARGV, device)
+    report_path = os.path.join(work_dir, "drop_shard_parts", "report.json")
+    violations = []
+    if os.path.exists(report_path):
+        with open(report_path) as f:
+            violations = [v for i in json.load(f)["invariants"] for v in i["violations"]]
+    row["sharded_violations"] = [v for v in violations if "sharded table rows" in v]
+    print(json.dumps({"drop_shard_parts": {k: v for k, v in row.items() if k != "rpc"}}),
+          flush=True)
+    if row["rc"] != 1 or (row.get("invariants") or {}).get("replication_no_lost_steps") != "FAIL" \
+            or not row["sharded_violations"]:
+        raise AssertionError(f"19c: --corrupt drop_shard_parts did not trip: {row}")
+    return row
+
+
+def sharded_world_phase(work_dir: str, device: str = "cuda") -> dict:
+    """Phase 19c: the preempted sharded world (held to Local) and the
+    drop_shard_parts runner, side by side."""
+    t0 = time.monotonic()
+    data = _zoo_data(work_dir, SHARDED_DEEPFM)
+    rows = _beside(
+        preempt=lambda: sharded_preempt_run(
+            os.path.join(work_dir, "preempt"), SHARDED_DEEPFM, data, device),
+        drop=lambda: drop_shard_parts_run(os.path.join(work_dir, "drop"), device),
+    )
+    rows["secs"] = time.monotonic() - t0
+    return rows
+
+
 class _PhaseClock:
     """Each phase's wall seconds, from the end of the one before."""
 
@@ -6420,7 +6933,11 @@ def main() -> int:
                 os.path.join(work_dir, "torn"), REPLICA_MNIST, mnist_shards
             ),
             lm=lambda: replica_lm_run(os.path.join(work_dir, "lm")),
+            # 19c, the sharded DeepFM worlds and the drop_shard_parts
+            # runner: no second of theirs is a yardstick
+            sharded=lambda: sharded_world_phase(os.path.join(work_dir, "sharded")),
         )
+        sharded_world = beside["sharded"]
         hot = beside["hot"]
         replica_rows["hot_restore"] = hot["row"]
         replica_rows["torn_push"] = beside["torn"]
@@ -6523,6 +7040,26 @@ def main() -> int:
     }}), flush=True)
     phases.done("18_anatomy")
 
+    # ---- 19. (a) gpt2s generates with KV caches; (b) bench's deepfm_100m
+    # trains on one card, its tables built there; (c) the sharded worlds,
+    # run beside phase 12
+    _release_memory("cuda")
+    generated = generate_lm()
+    gen_launches = generated["full_forward_launches"]["flash_fwd"]
+    phases.done("19a_generate")
+    _release_memory("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_100m_") as work_dir:
+        deepfm_100m = deepfm_100m_run(work_dir)
+    phases.done("19b_deepfm_100m")
+    print(json.dumps({"phase19": {
+        "device": smi, "generate": generated, "deepfm_100m": deepfm_100m,
+        "sharded_world": {
+            "secs": sharded_world["secs"],
+            **{k: {f: v for f, v in sharded_world[k].items() if f not in ("rpc", "fired")}
+               for k in ("preempt", "drop")},
+        },
+    }}), flush=True)
+
     def row(name, source, replaces, measured):
         return {
             "name": name,
@@ -6533,7 +7070,8 @@ def main() -> int:
             + stacked_launches[name] + dp_lm["launches"][name]
             + eval_lm["launches"][name] + replica_lm["launches"][name]
             + anatomy_launches[name]
-            + (serve_launches + serve_rpc_launches if name == "flash_fwd" else 0),
+            + (serve_launches + serve_rpc_launches + gen_launches
+               if name == "flash_fwd" else 0),
             "max_abs_err": measured["max_abs_err"],
             "ms": measured["kernel_ms"],
             "plain_ms": measured["plain_ms"],

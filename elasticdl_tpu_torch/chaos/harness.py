@@ -37,8 +37,8 @@ harness's does: the master writes its lifecycle there too, the workers
 their ``step`` samples and their mirrored netem firings, and the
 report's ``master_ha`` section reads the step gap of each outage from
 it.  Left for their slices, and refused with ``NotImplementedError``
-naming it: streaming runs, ``live_push_addr``, and the
-``drop_stream_window`` and ``drop_shard_parts`` corruptions (slice 9).
+naming it: streaming runs, ``live_push_addr`` and the
+``drop_stream_window`` corruption (slice 9b).
 The JAX package's trace comes with slice 10b.
 
 Clock note: workers stamp their events with ``time.monotonic()``, which
@@ -93,8 +93,14 @@ _KILL_KINDS = frozenset(
 # environment (``cross_slice_replica_coverage`` must flag it);
 # ``drop_dedup`` counts a duplicated report twice (``exactly_once`` and
 # ``duplicate_delivery_exactly_once`` must trip; it needs a plan with
-# net_duplicate faults).  ``drop_shard_parts`` and
-# ``drop_stream_window`` need slice 9's sharded tables and streams.
+# net_duplicate faults); ``drop_shard_parts`` strips the sharded table
+# rows from every replica push through the workers' environment while
+# the push still reports a state with sharded rows, the shape of "a
+# shard's only replica died" (``replication_no_lost_steps`` and the
+# sharded extension of ``cross_slice_replica_coverage`` must trip; it
+# needs replication and a model whose tables are row-sharded, such as
+# ``deepfm_sharded_embedding`` on ``frappe``).  ``drop_stream_window``
+# needs the streams of slice 9b.
 CORRUPTIONS = (
     "",
     "double_report",
@@ -108,8 +114,8 @@ CORRUPTIONS = (
 )
 
 # what slice 9 brings; refused until then
-_SLICE_9 = "slice 9 (streaming, sharded embeddings) brings it"
-_SLICE_9_CORRUPTIONS = ("drop_shard_parts", "drop_stream_window")
+_SLICE_9 = "slice 9b (streaming) brings it"
+_SLICE_9_CORRUPTIONS = ("drop_stream_window",)
 
 # model-zoo presets: the model_def's synthetic dataset
 DATASETS = ("mnist", "frappe")
@@ -628,6 +634,10 @@ def _master_args(config: ChaosJobConfig, train_dir: str, ckpt_dir: str) -> list[
         from elasticdl_tpu_torch.replication.replicator import SAME_SLICE_RING_ENV
 
         envs.append(f"{SAME_SLICE_RING_ENV}=1")
+    if config.corrupt == "drop_shard_parts":
+        from elasticdl_tpu_torch.replication.replicator import DROP_SHARD_PARTS_ENV
+
+        envs.append(f"{DROP_SHARD_PARTS_ENV}=1")
 
     def optional(flag: str, value) -> list[str]:
         return [flag, str(value)] if value is not None else []
@@ -675,8 +685,8 @@ def _install_corruption(master, checker: InvariantChecker, mode: str):
     - ``drop_dedup``: the dispatcher's task-id dedup is off: a report for
       a lease no longer active (a duplicated delivery) counts again.
 
-    ``journal_rollback`` and ``same_slice_ring`` act elsewhere (between
-    master lives, in the workers' environment)."""
+    ``journal_rollback``, ``same_slice_ring`` and ``drop_shard_parts``
+    act elsewhere (between master lives, in the workers' environment)."""
     from elasticdl_tpu_torch.utils.constants import TaskType
 
     if not mode:
@@ -874,6 +884,15 @@ def _refuse_misconfigured(config: ChaosJobConfig):
         raise ValueError(
             "--corrupt same_slice_ring requires replication on and num_slices > 1 "
             "(it forces the slice-blind replica ring)"
+        )
+    if config.corrupt == "drop_shard_parts" and not config.replication:
+        # without replication no push happens, and the corrupted run
+        # would pass green (a model without row-sharded tables shows at
+        # run time: its pushes carry has_sharded False)
+        raise ValueError(
+            "--corrupt drop_shard_parts requires replication on and a model "
+            "whose tables are row-sharded (it strips sharded rows from the "
+            "replica push payloads)"
         )
     if any(f.kind == FaultKind.SLICE_LOSS for f in config.plan.faults) and config.num_slices <= 1:
         raise ValueError(

@@ -18,11 +18,14 @@ data and shuffle seeds), and the ``trajectory_parity`` invariant bounds
 their accuracy delta: a preempted and re-formed job must reproduce the
 fault-free trajectory.  ``--corrupt double_report`` (and the other
 :data:`~elasticdl_tpu_torch.chaos.harness.CORRUPTIONS`) breaks the run on
-purpose: a corrupted run must exit 1.
+purpose: a corrupted run must exit 1.  ``--corrupt drop_shard_parts``
+needs row-sharded state, so it runs ``deepfm_sharded_embedding`` on
+``gen_frappe`` records with replication on (:data:`SHARDED_JOB`); the
+JAX runner, which always runs mnist, refuses it for want of replication.
 
-Left for their slices: streaming plans and corruptions (slice 9, refused
-naming it), the report's ``trace`` section (slice 10b), and the fleet
-plans of ``--list`` (slice 11).
+Left for their slices: streaming plans and corruptions (slice 9b,
+refused naming it), the report's ``trace`` section (slice 10b), and the
+fleet plans of ``--list`` (slice 11).
 """
 
 from __future__ import annotations
@@ -195,6 +198,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# the job --corrupt drop_shard_parts runs: a model whose tables a world
+# row-shards, on the dataset that feeds it, replicated
+SHARDED_JOB = dict(
+    model_def="deepfm_sharded_embedding.deepfm_sharded_embedding.custom_model",
+    dataset="frappe",
+)
+
+
 def job_config(args, workdir: str):
     """The faulted job's configuration: the plan's replication, slices,
     master HA and RPC posture, as the JAX runner's ``_run`` sets them."""
@@ -205,7 +216,7 @@ def job_config(args, workdir: str):
     if plan.name in STREAMING_PLANS:
         raise NotImplementedError(
             f"plan {plan.name!r} runs a streaming job, which is not ported: "
-            "slice 9 (streaming, sharded embeddings) brings it"
+            "slice 9b (streaming) brings it"
         )
     replication = args.replication == "on" or (
         args.replication == "auto" and plan.name in REPLICATION_PLANS
@@ -215,6 +226,9 @@ def job_config(args, workdir: str):
         args.num_slices if args.num_slices is not None else slice_config.get("num_slices", 1)
     )
     network_config = NETWORK_PLANS.get(plan.name, {})
+    sharded = args.corrupt == "drop_shard_parts"
+    if sharded:
+        replication = True
     return ChaosJobConfig(
         plan=plan,
         workdir=os.path.join(workdir, "chaos"),
@@ -232,6 +246,7 @@ def job_config(args, workdir: str):
         rpc_retry_secs=network_config.get("rpc_retry_secs"),
         task_timeout_secs=network_config.get("task_timeout_secs"),
         device=args.device,
+        **(SHARDED_JOB if sharded else {}),
     )
 
 

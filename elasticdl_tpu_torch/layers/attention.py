@@ -18,13 +18,21 @@ counterpart of the JAX package's ``fold_in(PRNGKey(0), step)``: a step's
 masks are the same whenever it is replayed and fresh at every step.  The
 bits differ from JAX's.
 
-Not in this slice: decode mode with a KV cache, and the MoE MLP
-(``num_experts > 0`` raises).
+Decode mode (``decode=True``, ``max_decode_len``) attends one token per
+call over a KV cache, as the JAX layer's ``_decode_attend`` does.  The
+flax ``cache`` collection becomes an explicit :class:`KVCache` that the
+caller creates and passes in (plain tensors, no hidden module state);
+the cursor ``decode_pos`` is the caller's too (the LM's one cursor).
+The decode attention is plain torch ops in f32, as in JAX, where it is
+jnp outside any Pallas kernel.
+
+Not ported yet: the MoE MLP (``num_experts > 0`` raises).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -106,9 +114,32 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
+@dataclass
+class KVCache:
+    """One attention layer's decode cache: ``k`` and ``v`` of shape
+    ``(batch, max_decode_len, kv_heads, head_dim)`` in the compute dtype
+    (the JAX layer's ``cache/k`` and ``cache/v``).  A decode call writes
+    its step's K/V at the cursor in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def empty(cls, batch: int, max_decode_len: int, kv_heads: int,
+              head_dim: int, dtype, device=None) -> "KVCache":
+        shape = (batch, max_decode_len, kv_heads, head_dim)
+        return cls(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+
 class MultiHeadSelfAttention(nn.Module):
     """x: (batch, seq, embed) -> (batch, seq, embed).  ``num_kv_heads``
-    > 0 gives grouped-query attention (fewer K/V heads than Q heads)."""
+    > 0 gives grouped-query attention (fewer K/V heads than Q heads).
+    ``decode=True``: one token per call, attending over ``cache`` (a
+    :class:`KVCache` of ``max_decode_len`` positions) up to and
+    including ``decode_pos``."""
 
     def __init__(
         self,
@@ -117,6 +148,8 @@ class MultiHeadSelfAttention(nn.Module):
         causal: bool = False,
         num_kv_heads: int = 0,
         dtype=None,
+        decode: bool = False,
+        max_decode_len: int = 0,
     ):
         super().__init__()
         if embed_dim % num_heads:
@@ -128,6 +161,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.causal = causal
         self.dtype = to_torch_dtype(dtype)
+        self.decode = decode
+        self.max_decode_len = max_decode_len
         q_width = num_heads * self.head_dim
         kv_width = self.num_kv_heads * self.head_dim
         self.query = nn.Linear(embed_dim, q_width)
@@ -135,7 +170,19 @@ class MultiHeadSelfAttention(nn.Module):
         self.value = nn.Linear(embed_dim, kv_width)
         self.out = nn.Linear(q_width, embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def empty_cache(self, batch: int, dtype, device=None) -> KVCache:
+        """A zeroed :class:`KVCache` for this layer's decode mode."""
+        if not self.max_decode_len:
+            raise ValueError("decode=True needs max_decode_len")
+        return KVCache.empty(
+            batch, self.max_decode_len, self.num_kv_heads, self.head_dim,
+            dtype, device,
+        )
+
+    def forward(
+        self, x: torch.Tensor, decode_pos: int | None = None,
+        cache: KVCache | None = None,
+    ) -> torch.Tensor:
         batch, seq, _ = x.shape
 
         def proj(layer, heads):
@@ -146,9 +193,38 @@ class MultiHeadSelfAttention(nn.Module):
         q = proj(self.query, self.num_heads)
         k = proj(self.key, self.num_kv_heads)
         v = proj(self.value, self.num_kv_heads)
-        out = attention_ops.attention(q, k, v, causal=self.causal)
+        if self.decode:
+            if decode_pos is None:
+                raise ValueError("decode mode needs decode_pos")
+            out = self._decode_attend(q, k, v, decode_pos, cache)
+        else:
+            out = attention_ops.attention(q, k, v, causal=self.causal)
         out = out.to(x.dtype).reshape(batch, seq, self.num_heads * self.head_dim)
         return dense(out, self.out, self.dtype)
+
+    def _decode_attend(self, q, k, v, pos: int, cache: KVCache | None):
+        """One decode step: write this step's K/V into ``cache`` at
+        ``pos``, then attend the single query over the filled prefix
+        (positions past the cursor are masked), in f32."""
+        if not self.max_decode_len:
+            raise ValueError("decode=True needs max_decode_len")
+        if q.shape[1] != 1:
+            raise ValueError(
+                f"decode mode consumes one token per call, got seq {q.shape[1]}"
+            )
+        if cache is None:
+            raise ValueError("decode mode needs the layer's KVCache")
+        cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+        kf, vf = attention_ops.repeat_kv_heads(q, cache.k, cache.v)
+        scale = 1.0 / torch.sqrt(torch.tensor(self.head_dim, dtype=torch.float32))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) * scale.to(q.device)
+        # the filled prefix, this step included
+        valid = torch.arange(self.max_decode_len, device=q.device) <= pos
+        scores = torch.where(valid, scores, attention_ops._NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vf.float())
+        return out.to(q.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -166,6 +242,8 @@ class TransformerBlock(nn.Module):
         num_experts: int = 0,
         num_kv_heads: int = 0,
         dtype=None,
+        decode: bool = False,
+        max_decode_len: int = 0,
     ):
         super().__init__()
         if num_experts > 0:
@@ -176,7 +254,7 @@ class TransformerBlock(nn.Module):
         self.ln1 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
         self.attn = MultiHeadSelfAttention(
             embed_dim, num_heads, causal=causal, num_kv_heads=num_kv_heads,
-            dtype=dtype,
+            dtype=dtype, decode=decode, max_decode_len=max_decode_len,
         )
         self.ln2 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
         self.mlp_up = nn.Linear(embed_dim, embed_dim * mlp_ratio)
@@ -184,9 +262,12 @@ class TransformerBlock(nn.Module):
         self.dropout_rate = dropout_rate
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, generator: torch.Generator | None = None,
+        decode_pos: int | None = None, cache: KVCache | None = None,
     ) -> torch.Tensor:
-        y = self.attn(layer_norm(x, self.ln1, self.dtype))
+        y = self.attn(
+            layer_norm(x, self.ln1, self.dtype), decode_pos=decode_pos, cache=cache
+        )
         x = x + dropout(y, self.dropout_rate, generator)
         y = layer_norm(x, self.ln2, self.dtype)
         y = F.gelu(dense(y, self.mlp_up, self.dtype), approximate="tanh")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from elasticdl_tpu_torch.embeddings.sharded import shard_tables
 from elasticdl_tpu_torch.layers.attention import dropout_seed
 from elasticdl_tpu_torch.parallel.elastic import local_batch_ranges
 from elasticdl_tpu_torch.telemetry import compile_tracker
@@ -56,6 +57,7 @@ class SPMDTrainer:
         device_parse: Callable | None = None,
         remat: bool = False,
         process_group=None,
+        sharding_rules=(),
     ):
         """``model`` comes with its weights (torch modules initialise
         eagerly; the JAX trainer inits from a sample batch instead) and
@@ -67,9 +69,15 @@ class SPMDTrainer:
         backward (``build_train_step``).  ``process_group``: this trainer
         is one process of that data-parallel world (module docstring);
         the caller restores every process from one checkpoint or calls
-        :meth:`broadcast_state`."""
+        :meth:`broadcast_state`.  ``sharding_rules`` (the model's, on
+        this world): with a process group of two or more, the tables they
+        row-shard keep only this process's rows
+        (``embeddings/sharded.py``; :attr:`sharded_tables`)."""
         self.device = resolve_device(device)
-        self.state = TrainState.create(model.to(self.device), tx)
+        model = model.to(self.device)
+        # the tables' shards, before the optimizer takes the parameters
+        self.sharded_tables = shard_tables(model, sharding_rules, process_group)
+        self.state = TrainState.create(model, tx)
         self.process_group = process_group
         if process_group is None:
             self._rank, self._world_size = 0, 1
@@ -273,8 +281,12 @@ class SPMDTrainer:
             return self.state.step
         src = dist.get_global_rank(self.process_group, 0)
         step = torch.tensor([self.state.step], dtype=torch.int64, device=self.device)
+        # a row-sharded table's rows are each process's own
+        params = [
+            p for p in self.state.model.parameters() if not getattr(p, "row_sharded", False)
+        ]
         with torch.no_grad():
-            for tensor in [step, *self.state.model.parameters(), *self.state.model.buffers()]:
+            for tensor in [step, *params, *self.state.model.buffers()]:
                 dist.broadcast(tensor.data, src, group=self.process_group)
         self.state.step = int(step.item())
         return self.state.step

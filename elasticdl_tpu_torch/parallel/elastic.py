@@ -25,6 +25,13 @@ layers that mix rows (BatchNorm's statistics, dropout's mask) read
 An evaluation or prediction batch runs the same split, and
 :func:`gather_rows_to_chief` brings every process's output rows to
 process 0, in global batch order.
+
+A row-sharded table (``embeddings/sharded.py``) is each process's own:
+:func:`state_checkpoint_parts` carries it as ``(ids, rows)`` parts,
+:func:`scatter_table_rows_from_chief` hands each process its rows of a
+replica stage that process 0 fetched, and
+:func:`gather_sharded_tables_to_chief` brings the tables whole to
+process 0 for an export.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import datetime
 import socket
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -177,6 +185,64 @@ def gather_rows_to_chief(tree, group):
     return out if chief else None
 
 
+def gather_sharded_tables_to_chief(model, group) -> dict | None:
+    """Every row-sharded table of ``model`` whole, as ``{flax name: f32
+    host array}``, on process 0 of ``group``; None on the others.  Each
+    process's rows travel padded to the widest shard (through host
+    memory on gloo, as :func:`gather_rows_to_chief`).  Collective; used
+    where a whole model leaves the world (an export)."""
+    from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
+
+    world = dist.get_world_size(group)
+    chief = dist.get_rank(group) == 0
+    dst = dist.get_global_rank(group, 0)
+    on_host = dist.get_backend(group) == BACKEND_GLOO
+    out = {}
+    for name, (param, shard) in sorted(sharded_tables(model).items()):
+        width = shard.widest
+        rows = param.detach().float()
+        if on_host:
+            rows = rows.cpu()
+        buf = rows.new_zeros((width, rows.shape[1]))
+        buf[: rows.shape[0]] = rows
+        bufs = [torch.empty_like(buf) for _ in range(world)] if chief else None
+        dist.gather(buf, bufs, dst=dst, group=group)
+        if chief:
+            whole = torch.cat(
+                [b[: hi - lo] for b, (lo, hi) in zip(bufs, shard.ranges)], 0
+            )
+            out[name[len("params/"):]] = whole.cpu().numpy()
+    return out if chief else None
+
+
+def scatter_table_rows_from_chief(model, parts, group):
+    """Give every process of ``group`` its rows of each row-sharded table
+    from ``parts`` (``{name: (ids, rows)}``, on process 0; None on the
+    others), picked by global row id: the rest of a replica restore that
+    process 0 fetched for the world.  Collective."""
+    from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
+    from elasticdl_tpu_torch.utils.save_utils import select_rows
+
+    chief = dist.get_rank(group) == 0
+    src = dist.get_global_rank(group, 0)
+    on_host = dist.get_backend(group) == BACKEND_GLOO
+    for name, (param, shard) in sorted(sharded_tables(model).items()):
+        width = shard.widest
+        device = torch.device("cpu") if on_host else param.device
+        out = torch.empty((width, param.shape[1]), dtype=param.dtype, device=device)
+        chunks = None
+        if chief:
+            ids, rows = parts[name]
+            chunks = []
+            for lo, hi in shard.ranges:
+                chunk = torch.zeros((width, param.shape[1]), dtype=param.dtype)
+                chunk[: hi - lo] = torch.from_numpy(select_rows(name, ids, rows, lo, hi))
+                chunks.append(chunk.to(device))
+        dist.scatter(out, chunks, src=src, group=group)
+        with torch.no_grad():
+            param.copy_(out[: shard.hi - shard.lo].to(param.device))
+
+
 def state_checkpoint_parts(state, mesh=None, materialize_dense: bool = True):
     """Split the live state into ``(dense, parts)``, the counterpart of
     the JAX package's ``state_checkpoint_parts`` (:160), with its
@@ -186,24 +252,47 @@ def state_checkpoint_parts(state, mesh=None, materialize_dense: bool = True):
 
     ``dense`` is the name-keyed flat layout of a checkpoint
     (``trainer/state.py::state_to_checkpoint``: ``params/...`` and
-    ``batch_stats/...``), so a replica restore and a disk restore apply
-    one format through one function
+    ``batch_stats/...``) without the row-sharded tables, so a replica
+    restore and a disk restore apply one format through one function
     (``trainer/checkpointing.py::apply_restored_values``).  It is read
     from this process's copy of the state, a device-to-host copy on the
     calling thread after the step's work on the current stream, and
     skipped when ``materialize_dense`` is False (only the chief's share
     carries it; the others would discard it).
 
-    ``parts`` is empty: every leaf of the port's state is replicated on
-    every process of a world until sharded tables come (slice 9), so no
-    collective runs here and ``mesh`` (the world's group, or None) is
-    not read."""
+    ``parts`` holds every table that ``embeddings/sharded.py`` sharded:
+    the global row ids ``[lo, hi)`` of this process's shard and its rows.
+    The port's shards are disjoint, one owner a range, so JAX's rule that
+    the lowest process owning a replicated range writes it is the
+    owner's.  No collective runs, and ``mesh`` (the world's group, or
+    None) is not read."""
     del mesh
     # trainer.state imports the layers, which import this module
+    from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
     from elasticdl_tpu_torch.trainer.state import state_to_checkpoint
 
-    dense = state_to_checkpoint(state) if materialize_dense else {}
-    return dense, {}
+    tables = sharded_tables(state.model)
+    dense = state_to_checkpoint(state, skip=set(tables)) if materialize_dense else {}
+    parts = {}
+    for name, (param, shard) in tables.items():
+        ids = np.arange(shard.lo, shard.hi, dtype=np.int64)
+        rows = param.detach().to("cpu", torch.float32, copy=True).numpy()
+        parts[name] = (ids, rows)
+    return dense, parts
+
+
+def local_table_row_ranges(state, mesh=None) -> dict:
+    """``{table name: [(lo, hi)]}``, the rows of each row-sharded table
+    this process holds: the keep filter a restore passes to
+    ``utils/save_utils.py::restore_checkpoint_parts``, so no process
+    accumulates a whole table (the JAX package's, :250)."""
+    del mesh
+    from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
+
+    return {
+        name: [(shard.lo, shard.hi)]
+        for name, (_param, shard) in sharded_tables(state.model).items()
+    }
 
 
 def batch_divisor(num_processes: int) -> int:

@@ -21,11 +21,17 @@ is the map), so a whole-slice loss never takes a shard and its only
 replica together; each push observation carries its source and target
 slices, which ``chaos/harness.py::check_cross_slice_coverage`` audits.
 
-Left out until the slices that bring them: the chaos corruption modes
-(``same_slice_ring``, ``drop_shard_parts``: with the rest of the chaos
-harness), and the telemetry spans and events (the push and restore
-observations go to the chaos event log, ``chaos/hooks.py``, when a plan
-is installed).
+With row-sharded tables each process's share carries its ``(ids,
+rows)`` parts, and its ``replica_push`` observation counts them
+(``has_sharded``, ``sharded_tables``, ``sharded_rows``); process 0's
+restore applies its own rows and hands every other process its rows by
+row id (``parallel/elastic.py::scatter_table_rows_from_chief``).  The
+chaos harness's ``drop_shard_parts`` corruption strips the rows from
+every push after they are counted (:data:`DROP_SHARD_PARTS_ENV`).
+
+Left out until slice 10b: the telemetry spans and events (the push and
+restore observations go to the chaos event log, ``chaos/hooks.py``, when
+a plan is installed).
 """
 
 from __future__ import annotations
@@ -62,6 +68,13 @@ def _parts_row_count(parts) -> int:
         return 0
     return sum(len(ids) for ids, _ in parts.values())
 
+
+# the chaos harness's ``drop_shard_parts`` corruption: strip the sharded
+# table rows from every pushed blob AFTER the push's ``has_sharded`` is
+# read off the real state, so the observation honestly reports a state
+# with sharded rows whose replica carries none: the shape of "a shard's
+# only replica died", which the sharded coverage checks must flag
+DROP_SHARD_PARTS_ENV = "ELASTICDL_TPU_CHAOS_DROP_SHARD_PARTS"
 
 # the chaos harness's ``same_slice_ring`` corruption: the slice-blind
 # (i+1) % n neighbor even in a multi-slice world, so that the
@@ -217,6 +230,13 @@ class PeerReplicator:
             trainer.state, mesh, materialize_dense=self._process_id == 0
         )
         snapshot_ms = _ms_since(t0)
+        # the sharded coverage, read before any corruption
+        has_sharded = bool(parts)
+        sharded_tables = len(parts)
+        sharded_rows = _parts_row_count(parts)
+        if has_sharded and os.environ.get(DROP_SHARD_PARTS_ENV, ""):
+            parts = {}
+            sharded_rows = 0
         t0 = time.perf_counter()
         blob = encode_snapshot(dense, parts)
         shard = ReplicaShard(
@@ -256,9 +276,11 @@ class PeerReplicator:
             target_slice=self._slice_of(self.neighbor),
             num_slices=len(set(self._slice_map)) if self._slice_map else 1,
             checksum=shard.checksum,
-            has_sharded=bool(parts),
-            sharded_tables=len(parts),
-            sharded_rows=_parts_row_count(parts),
+            # has_sharded: the live state's; sharded_rows: what the push
+            # carried (has_sharded with zero rows is a lost table replica)
+            has_sharded=has_sharded,
+            sharded_tables=sharded_tables,
+            sharded_rows=sharded_rows,
         )
 
     def _push(self, shard: ReplicaShard) -> tuple[bool, str]:
@@ -332,25 +354,20 @@ class PeerReplicator:
         self._client = None
 
 
-def restore_from_replica(
-    trainer,
+def fetch_restore_stage(
     master,
     cluster_version: int,
     process_id: int = 0,
     min_version: int | None = None,
-) -> int | None:
-    """Restore the trainer from the master's harvested replica stage.
-
-    Returns the restored step, or None when there is no stage for this
-    generation, or one that must not be used (the caller falls back to
-    the disk path): a stage older than ``min_version`` (the newest DISK
-    checkpoint: possible only when ``replication_steps`` is coarser than
-    ``checkpoint_steps``), so the replica path never loses work
-    relative to disk; or one that fails its checksum.
-
-    In the port only process 0 asks (the world then broadcasts its
-    state), and its request releases the stage from master RAM.
-    """
+):
+    """The master's harvested replica stage for this generation (its
+    ``RestoreStateResponse``), or None when there is none or it must not
+    be used (the caller falls back to the disk path): a stage older than
+    ``min_version`` (the newest DISK checkpoint: possible only when
+    ``replication_steps`` is coarser than ``checkpoint_steps``), so the
+    replica path never loses work relative to disk; or one that fails
+    its checksum.  In the port only process 0 asks, and its request
+    releases the stage from master RAM."""
     try:
         resp = master.get_restore_state(
             msg.GetRestoreStateRequest(
@@ -374,15 +391,27 @@ def restore_from_replica(
     if blob_checksum(resp.payload) != resp.checksum:
         logger.warning("Replica restore stage failed its checksum; restoring from disk")
         return None
+    return resp
+
+
+def apply_restore_stage(
+    trainer, resp, cluster_version: int, process_id: int = 0, decoded=None
+) -> dict:
+    """Load a fetched stage (``decoded``: its ``(dense, parts)``, when
+    the caller decoded it already) into the trainer and record the
+    restore; returns the stage's table parts (a trainer holding
+    row-sharded tables took its own rows; the caller hands the other
+    processes theirs)."""
     version = int(resp.version)
     t0 = time.perf_counter()
-    dense, parts = decode_snapshot(resp.payload)
+    dense, parts = decoded if decoded is not None else decode_snapshot(resp.payload)
     apply_restored_values(trainer, dense, parts, version)
     restore_ms = _ms_since(t0)
     observed = {}
-    if chaos_hooks.get_injector() is not None:
+    if chaos_hooks.get_injector() is not None and not parts:
         # what the chaos event log proves: the state now held is the
-        # stage's, bit for bit (re-snapshotted and re-encoded)
+        # stage's, bit for bit (re-snapshotted and re-encoded; a process
+        # holding a shard cannot re-encode the whole stage)
         again, again_parts = elastic.state_checkpoint_parts(trainer.state)
         observed["restored_checksum"] = blob_checksum(encode_snapshot(again, again_parts))
     chaos_hooks.notify_replica_restore(
@@ -402,4 +431,21 @@ def restore_from_replica(
         cluster_version,
         restore_ms,
     )
-    return version
+    return parts
+
+
+def restore_from_replica(
+    trainer,
+    master,
+    cluster_version: int,
+    process_id: int = 0,
+    min_version: int | None = None,
+) -> int | None:
+    """Restore the trainer from the master's harvested replica stage:
+    :func:`fetch_restore_stage`, then :func:`apply_restore_stage`.
+    Returns the restored step, or None without a usable stage."""
+    resp = fetch_restore_stage(master, cluster_version, process_id, min_version)
+    if resp is None:
+        return None
+    apply_restore_stage(trainer, resp, cluster_version, process_id)
+    return int(resp.version)

@@ -344,6 +344,17 @@ class RpcClient:
 
             retryable_methods = DEFAULT_IDEMPOTENT
         self._retryable = frozenset(retryable_methods) & set(methods)
+        self._reconnect_hook = None
+        self._reconnect_exempt: frozenset[str] = frozenset()
+
+    def set_reconnect_hook(self, hook, exempt=()):
+        """``hook()`` runs before each retry of a retryable call that
+        failed, except for the ``exempt`` methods (the ones the hook
+        itself sends): a worker re-homes there, so that nothing else it
+        sends reaches a relaunched master first.  A hook that raises a
+        retryable error makes the call back off and try again."""
+        self._reconnect_hook = hook
+        self._reconnect_exempt = frozenset(exempt)
 
     @property
     def addr(self) -> str:
@@ -440,12 +451,21 @@ class RpcClient:
                 _note_rpc_failure(ex)
             return retryable
 
+        hook = None if name in self._reconnect_exempt else self._reconnect_hook
+        failed = []
+
+        def attempt_once():
+            if failed and hook is not None:
+                hook()
+            return self._invoke(name, payload, timeout)
+
         def on_retry(attempt, _ex):
+            failed.append(attempt)
             rpc_stats.note_retry()
             self._maybe_reresolve(attempt)
 
         out = call_with_retry(
-            lambda: self._invoke(name, payload, timeout),
+            attempt_once,
             self._retry,
             is_retryable=is_retryable,
             on_retry=on_retry,

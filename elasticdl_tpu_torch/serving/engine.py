@@ -147,6 +147,11 @@ class ServingEngine:
         self._predict_fn = build_predict_step(
             device_parse=self._spec.device_parse
         )
+        # the model's sharding rules on a replica's one card (the JAX
+        # engine places tables by them): one process shards nothing, so
+        # a row-sharded model's tables are served whole, and a hot swap
+        # keeps their layout and the dispatched shapes
+        self.sharding_rules = self._spec.rules_for(1)
         # the served (model, version) pair, replaced whole: a reader
         # takes one attribute load, so it never pairs one version's
         # weights with another's number.  The model is None until the

@@ -1,21 +1,29 @@
 """Periodic checkpoints and resume; the counterpart of
-``elasticdl_tpu/trainer/checkpointing.py`` for dense state.  In a
-multi-process world process 0 writes every checkpoint as one part, and
-restores it for all (``worker/lockstep.py``).  Saves and restores call
-the chaos hooks (``chaos/hooks.py``), a no-op without a fault plan.
+``elasticdl_tpu/trainer/checkpointing.py``.  In a multi-process world
+whose state is all replicated, process 0 writes every checkpoint as one
+part and restores it for all (``worker/lockstep.py``).  With row-sharded
+tables every process writes its part (``num_parts`` the world size;
+process 0's carries the dense values) and restores its own rows by id,
+so a checkpoint restores under another world size.  Saves and restores
+call the chaos hooks (``chaos/hooks.py``), a no-op without a fault plan.
 
-The host snapshot of the weights (``state_to_checkpoint``: device to
-host copies, flax names and layouts) is taken on the training thread;
-only the disk write moves to a writer thread, which touches numpy arrays
-and never the device.
+The host snapshot of the weights
+(``parallel/elastic.py::state_checkpoint_parts``: device to host copies,
+flax names and layouts) is taken on the training thread; only the disk
+write moves to a writer thread, which touches numpy arrays and never the
+device.
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
+
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
-from elasticdl_tpu_torch.trainer.state import checkpoint_to_state, state_to_checkpoint
+from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
+from elasticdl_tpu_torch.parallel import elastic
+from elasticdl_tpu_torch.trainer.state import checkpoint_to_state
 from elasticdl_tpu_torch.utils import save_utils
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
@@ -29,12 +37,18 @@ class PeriodicCheckpointer:
         checkpoint_dir: str,
         checkpoint_steps: int,
         keep_checkpoint_max: int = 3,
+        process_id: int = 0,
+        num_parts: int = 1,
     ):
+        """``process_id`` writes part ``process_id`` of ``num_parts``
+        (a sharded world's parts: one a process)."""
         self._saver = (
             save_utils.CheckpointSaver(checkpoint_dir, keep_checkpoint_max)
             if checkpoint_dir
             else None
         )
+        self._process_id = process_id
+        self._num_parts = max(1, num_parts)
         self._steps = checkpoint_steps or 0
         self._last_milestone = 0
         self._last_saved_version = -1
@@ -71,12 +85,16 @@ class PeriodicCheckpointer:
         if skip_if_current and version == self._last_saved_version:
             return
         chaos_hooks.notify_checkpoint_save(int(version))
-        dense = state_to_checkpoint(trainer.state)  # host arrays, owned
+        # host arrays, owned; a process other than 0 writes its table
+        # parts alone
+        dense, parts = elastic.state_checkpoint_parts(
+            trainer.state, materialize_dense=self._process_id == 0
+        )
         self._last_saved_version = version
         self.flush()
         self._writer = threading.Thread(
             target=self._write_guarded,
-            args=(version, dense),
+            args=(version, dense, parts),
             name=f"ckpt-writer-{version}",
             daemon=True,
         )
@@ -108,9 +126,15 @@ class PeriodicCheckpointer:
                 "(original exception follows)"
             )
 
-    def _write_guarded(self, version, dense):
+    def _write_guarded(self, version, dense, parts):
         try:
-            self._saver.save(version, dense=dense, extra={"model_version": version})
+            self._saver.save(
+                version, dense=dense, embeddings=parts,
+                part=self._process_id, num_parts=self._num_parts,
+                extra={"model_version": version},
+                # concurrent part writers must not race retention deletes
+                enforce_retention=self._process_id == 0,
+            )
         except BaseException as e:  # noqa: BLE001 — re-raised in flush()
             self._write_error = e
 
@@ -119,16 +143,22 @@ def apply_restored_values(trainer, dense: dict, parts: dict, restored_step: int)
     """Load restored values into the trainer: the shared back half of the
     disk restore and the peer-replica hot restore
     (``replication/replicator.py``).  ``dense`` holds checkpoint-named
-    arrays (loaded in place, ``checkpoint_to_state``); the step counter
-    lands at ``restored_step`` exactly.  ``parts`` (row-sharded table
-    rows) raise until sharded tables come (slice 9), as in
-    ``utils/save_utils.py``."""
-    if parts:
-        raise NotImplementedError(
-            f"sharded table parts {sorted(parts)} are not ported: they come "
-            "with slice 9 (ROADMAP.md queue 1)"
-        )
-    checkpoint_to_state(trainer.state, dense)
+    arrays (loaded in place, ``checkpoint_to_state``), ``parts`` table
+    ``(ids, rows)`` parts; the step counter lands at ``restored_step``
+    exactly.  A table the trainer holds row-sharded takes its rows
+    ``[lo, hi)`` by global row id, from the parts or from a whole table
+    in ``dense`` (a checkpoint of another world size, or the JAX
+    package's); any other table in ``parts`` is assembled whole."""
+    values = dict(dense)
+    parts = dict(parts or {})
+    for name, (param, shard) in sharded_tables(trainer.state.model).items():
+        if name in parts:
+            ids, rows = parts.pop(name)
+            values[name] = save_utils.select_rows(name, ids, rows, shard.lo, shard.hi)
+        elif name in values:
+            values[name] = np.asarray(values[name])[shard.lo:shard.hi]
+    values.update(save_utils.assemble_embedding_tables(parts))
+    checkpoint_to_state(trainer.state, values)
     trainer.state.step = int(restored_step)
 
 
@@ -148,10 +178,13 @@ def restore_trainer_state(trainer, args) -> int | None:
     )
     if not restore_dir:
         return None
-    dense, extra = save_utils.restore_checkpoint(restore_dir)
+    # a process holding shards keeps only its rows, part by part
+    dense, parts, extra = save_utils.restore_checkpoint_parts(
+        restore_dir, table_row_ranges=elastic.local_table_row_ranges(trainer.state)
+    )
     version = int(extra.get("model_version", 0) or 0)
     restored_step = version if resume else 0
-    apply_restored_values(trainer, dense, {}, restored_step)
+    apply_restored_values(trainer, dense, parts, restored_step)
     chaos_hooks.notify_checkpoint_restore(version)
     logger.info(
         "Restored state at version %d from %s%s",

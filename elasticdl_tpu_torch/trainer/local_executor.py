@@ -122,7 +122,8 @@ class LocalExecutor:
         # the caller's generator as it was
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(INIT_SEED)
-            self._model = self._spec.build_model()
+            # its tables built on the device
+            self._model = self._spec.build_model(device=self._device)
         self._tx = build_optimizer(self._spec, args.learning_rate)
         self._train_reader = self._reader(args.training_data)
         self._eval_reader = self._reader(args.validation_data)
@@ -216,6 +217,8 @@ class LocalExecutor:
             device=self._device,
             device_parse=self._spec.device_parse,
             remat=bool(self._args.remat),
+            # one process: no rule shards (the JAX executor's call)
+            sharding_rules=self._spec.rules_for(1),
         )
         version = restore_trainer_state(self._trainer, self._args)
         if version is not None:

@@ -156,13 +156,16 @@ def make_capturable(optimizer: torch.optim.Optimizer, device) -> bool:
     return on_device
 
 
-def state_to_checkpoint(state: TrainState) -> dict[str, np.ndarray]:
+def state_to_checkpoint(state: TrainState, skip=()) -> dict[str, np.ndarray]:
     """The model's weights as one flat ``params/<flax name>`` dict of f32
     arrays in flax's layouts, with its state beside the parameters under
-    its collection's name: the JAX package's checkpoint layout."""
+    its collection's name: the JAX package's checkpoint layout.  Names
+    in ``skip`` are left out (and never copied to the host)."""
     out = {
         f"params/{k}": v
-        for k, v in flax_weights.flax_flat_from_torch(state.model).items()
+        for k, v in flax_weights.flax_flat_from_torch(
+            state.model, skip={n[len("params/"):] for n in skip}
+        ).items()
     }
     out.update(flax_weights.flax_state_from_torch(state.model))
     return out

@@ -157,6 +157,11 @@ def build_train_step(
         named = [
             (n, p) for n, p in state.model.named_parameters() if p.requires_grad
         ]
+        # the last step's gradients go before this one's are made: a
+        # 100M-row table's dense gradient is 25.6 GB, and two of them
+        # beside the table would not fit one card
+        for _, p in named:
+            p.grad = None
         if process_group is None:
             loss = forward_loss(state, features, labels, weights, next_generator)
             grads = torch.autograd.grad(
@@ -182,26 +187,34 @@ def build_train_step(
                 grads = torch.autograd.grad(
                     loss, [p for _, p in named], allow_unused=True
                 )
-            grads = all_reduce_gradients(grads, process_group)
+            # a row-sharded table's gradient is already the world's (the
+            # lookup's exchange carried each row's to its owner)
+            grads = all_reduce_gradients(
+                grads, process_group,
+                skip=[getattr(p, "row_sharded", False) for _, p in named],
+            )
         state.apply_gradients({n: g for (n, _), g in zip(named, grads)})
         return state, {"loss": loss.detach()}
 
     return train_step
 
 
-def all_reduce_gradients(grads, process_group) -> list:
+def all_reduce_gradients(grads, process_group, skip=None) -> list:
     """SUM-all-reduce ``grads`` (``None`` for unused parameters, the same
     on every process) over ``process_group`` in f32, as one flat buffer:
-    one collective per step."""
-    present = [g for g in grads if g is not None]
+    one collective per step.  A gradient whose ``skip`` flag is set (a
+    row-sharded table's) is returned as it is and never enters the
+    buffer."""
+    skip = skip or [False] * len(grads)
+    present = [g for g, s in zip(grads, skip) if g is not None and not s]
     if not present:
         return list(grads)
     flat = torch.cat([g.reshape(-1).float() for g in present])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=process_group)
     out, offset = [], 0
-    for g in grads:
-        if g is None:
-            out.append(None)
+    for g, s in zip(grads, skip):
+        if g is None or s:
+            out.append(g)
             continue
         out.append(flat[offset:offset + g.numel()].view(g.shape).to(g.dtype))
         offset += g.numel()

@@ -41,12 +41,18 @@ def export_model(
     model_params: dict | None = None,
     model_zoo: str = "",
     model_version: int = 0,
+    tables: dict | None = None,
 ) -> str:
     """Write ``model`` as an export the JAX package can load:
     ``model_def``/``model_params`` must name the same model in both
-    packages' zoos."""
+    packages' zoos.  ``tables``: whole tables by flax name, for a model
+    that holds them row-sharded
+    (``parallel/elastic.py::gather_sharded_tables_to_chief``)."""
     os.makedirs(output_dir, exist_ok=True)
-    np.savez(os.path.join(output_dir, "params.npz"), **flax_flat_from_torch(model))
+    tables = tables or {}
+    flat = flax_flat_from_torch(model, skip=set(tables))
+    flat.update(tables)
+    np.savez(os.path.join(output_dir, "params.npz"), **flat)
     model_state = flax_state_from_torch(model)
     if model_state:
         np.savez(os.path.join(output_dir, "model_state.npz"), **model_state)

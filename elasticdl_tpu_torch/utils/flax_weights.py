@@ -241,6 +241,12 @@ def _entries(model: nn.Module) -> list[_Entry]:
     raise TypeError(f"no flax weight mapping for {type(model).__name__}")
 
 
+def param_entries(model: nn.Module) -> list[_Entry]:
+    """The model's parameter mapping: one entry per parameter, its torch
+    ``state_dict`` key beside its flax name."""
+    return [e for e in _entries(model) if e.collection == PARAMS]
+
+
 def _load(entries, flat, what) -> dict[str, torch.Tensor]:
     state = {}
     for e in entries:
@@ -285,14 +291,14 @@ def _host(tensor: torch.Tensor) -> np.ndarray:
     return tensor.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
-def flax_flat_from_torch(model: nn.Module) -> dict[str, np.ndarray]:
+def flax_flat_from_torch(model: nn.Module, skip=()) -> dict[str, np.ndarray]:
     """The inverse: flat flax-named f32 parameter arrays from ``model``'s
     weights, each a host copy that no later update of the model
-    changes."""
+    changes; flax names in ``skip`` are left out."""
     state = model.state_dict()
     return {
         e.flax_key: _to_flax(e, _host(state[e.torch_key]))
-        for e in _entries(model) if e.collection == PARAMS
+        for e in param_entries(model) if e.flax_key not in skip
     }
 
 

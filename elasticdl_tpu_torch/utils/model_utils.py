@@ -86,11 +86,29 @@ class ModelSpec:
     learning_rate_scheduler: Any | None = None
     prediction_outputs_processor: Any | None = None
     custom_data_reader: Callable | None = None
+    # optional module hook ``sharding_rules(mesh) -> [Rule]``: the
+    # model's forced layout (``deepfm_sharded_embedding`` row-shards its
+    # tables over a world); callers pass ``parallel.mesh.world_mesh``
+    sharding_rules: Callable | None = None
     model_params: dict = field(default_factory=dict)
     module: Any = None
 
-    def build_model(self):
-        return self.model_fn(**self.model_params)
+    def build_model(self, device=None):
+        """The model, its embedding tables built on ``device`` (None:
+        the CPU; ``layers/embedding.py::tables_on``)."""
+        from elasticdl_tpu_torch.layers.embedding import tables_on
+
+        with tables_on(device):
+            return self.model_fn(**self.model_params)
+
+    def rules_for(self, num_processes: int) -> tuple:
+        """The model's sharding rules on a world of ``num_processes``
+        (none without the hook)."""
+        if self.sharding_rules is None:
+            return ()
+        from elasticdl_tpu_torch.parallel.mesh import world_mesh
+
+        return tuple(self.sharding_rules(world_mesh(num_processes)))
 
 
 def resolve_model_spec(
@@ -141,6 +159,7 @@ def resolve_model_spec(
             processor_cls() if processor_cls is not None else None
         ),
         custom_data_reader=_get(custom_data_reader),
+        sharding_rules=_get("sharding_rules"),
         module=module,
     )
 

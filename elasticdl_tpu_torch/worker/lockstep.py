@@ -97,17 +97,27 @@ import torch.distributed as dist
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
+from elasticdl_tpu_torch.embeddings.sharded import tables_to_shard
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
 from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV
 from elasticdl_tpu_torch.master.task_dispatcher import FAIL_COUNT
 from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
-from elasticdl_tpu_torch.parallel.elastic import batch_divisor, gather_rows_to_chief
+from elasticdl_tpu_torch.parallel.elastic import (
+    batch_divisor,
+    gather_rows_to_chief,
+    gather_sharded_tables_to_chief,
+    scatter_table_rows_from_chief,
+    state_checkpoint_parts,
+)
 from elasticdl_tpu_torch.replication.replicator import (
     PeerReplicator,
+    apply_restore_stage,
+    fetch_restore_stage,
     replica_host,
     restore_from_replica,
 )
+from elasticdl_tpu_torch.replication.blob import decode_snapshot
 from elasticdl_tpu_torch.replication.service import start_replica_server
 from elasticdl_tpu_torch.replication.store import ReplicaStore
 from elasticdl_tpu_torch.rpc import messages as msg
@@ -125,7 +135,7 @@ from elasticdl_tpu_torch.trainer.stacking import (
     choose_stack_k,
     run_stacked_steps,
 )
-from elasticdl_tpu_torch.trainer.state import Modes, state_to_checkpoint
+from elasticdl_tpu_torch.trainer.state import Modes
 from elasticdl_tpu_torch.utils import save_utils
 from elasticdl_tpu_torch.utils.args import derive_job_type
 from elasticdl_tpu_torch.utils.constants import JobType, TaskType
@@ -185,10 +195,18 @@ class LockstepWorker:
             eval_metrics_fn=args.eval_metrics_fn,
         )
         # the Local executor's seeded start: every process builds the same
-        # weights, and process 0's are broadcast all the same
+        # weights (its tables on its device), and process 0's are
+        # broadcast all the same
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(INIT_SEED)
-            self._model = self._spec.build_model()
+            self._model = self._spec.build_model(device=world.device)
+        # the model's sharding rules on this world: tables they row-shard
+        # hold each process's rows, which every process checkpoints and
+        # restores itself (one checkpoint part a process)
+        self._sharding_rules = self._spec.rules_for(world.num_processes)
+        self._sharded = world.num_processes > 1 and bool(
+            tables_to_shard(self._model, self._sharding_rules)
+        )
         # one reader serves every task of the job: a task names its shard
         self._reader = create_data_reader(
             args.prediction_data
@@ -243,6 +261,8 @@ class LockstepWorker:
             args.checkpoint_dir,
             args.checkpoint_steps,
             keep_checkpoint_max=args.keep_checkpoint_max,
+            process_id=self._process_id,
+            num_parts=world.num_processes if self._sharded else 1,
         )
         # peer state replication: a replica server and ring pusher per
         # process, in worlds of two or more (a lone process has no peer
@@ -268,6 +288,12 @@ class LockstepWorker:
     @property
     def _is_chief(self) -> bool:
         return self._process_id == 0
+
+    @property
+    def _writes_checkpoints(self) -> bool:
+        """Process 0 writes a replicated state's checkpoints; every
+        process writes its part of a sharded one."""
+        return self._is_chief or self._sharded
 
     def _report_task_result(self, task_id, err_msg="", fail_count=0, include_timing=False):
         if not self._is_chief:
@@ -311,8 +337,11 @@ class LockstepWorker:
             device_parse=self._spec.device_parse,
             remat=bool(self._args.remat),
             process_group=self._world.group,
+            sharding_rules=self._sharding_rules,
         )
-        if self._is_chief:
+        if self._sharded:
+            self._restore_sharded_state()
+        elif self._is_chief:
             self._restore_state()
         version = self._trainer.broadcast_state()
         self._checkpointer.note_restored_version(version)
@@ -340,11 +369,57 @@ class LockstepWorker:
                 return
         restore_trainer_state(self._trainer, self._args)
 
-    def _maybe_checkpoint(self):
-        """At task boundaries: the periodic checkpoint, by process 0
-        alone, then the replication due, on every process (the cadence
-        is a function of the shared step)."""
+    def _restore_sharded_state(self):
+        """A world holding row-sharded tables: process 0 chooses the
+        source (the replica stage first, when at least as new as the
+        newest disk checkpoint; then the disk) and tells the world.  From
+        the stage, process 0 loads it and hands each process its rows by
+        row id; from the disk, every process reads its own rows (and the
+        dense values, which the broadcast then makes process 0's)."""
+        source = torch.zeros(1, dtype=torch.int64, device=self._trainer.device)
+        stage = None
         if self._is_chief:
+            ckpt_dir = self._args.checkpoint_dir
+            if self._args.replication:
+                disk_floor = save_utils.latest_version(ckpt_dir) if ckpt_dir else None
+                stage = fetch_restore_stage(
+                    self._master, self._cluster_version, self._process_id,
+                    min_version=disk_floor,
+                )
+            if stage is not None:
+                stage = (stage, decode_snapshot(stage.payload))
+                missing = set(self._trainer.sharded_tables) - set(stage[1][1])
+                if missing:
+                    # a replica set without a table's rows would restore
+                    # the dense values beside freshly built tables
+                    logger.warning(
+                        "Replica stage at version %d lacks the rows of %s; "
+                        "restoring from disk instead",
+                        int(stage[0].version), sorted(missing),
+                    )
+                    stage = None
+            source[0] = 1 if stage is not None else 2
+        dist.broadcast(source, dist.get_global_rank(self._world.group, 0),
+                       group=self._world.group)
+        if int(source.item()) == 1:
+            parts = None
+            if self._is_chief:
+                parts = apply_restore_stage(
+                    self._trainer, stage[0], self._cluster_version,
+                    self._process_id, decoded=stage[1],
+                )
+            scatter_table_rows_from_chief(
+                self._trainer.state.model, parts, self._world.group
+            )
+        else:
+            restore_trainer_state(self._trainer, self._args)
+
+    def _maybe_checkpoint(self):
+        """At task boundaries: the periodic checkpoint (by process 0
+        alone, or by every process of a sharded state), then the
+        replication due, on every process (the cadence is a function of
+        the shared step)."""
+        if self._writes_checkpoints:
             self._checkpointer.maybe_save(self._trainer)
         if self._replicator is not None:
             if not self._replicator.knows_neighbor():
@@ -496,6 +571,12 @@ class LockstepWorker:
             # a restart after training drained has no trainer yet: the
             # export is the restored state
             self._ensure_trainer()
+            # row-sharded tables leave the world whole, through process 0
+            tables = None
+            if self._sharded:
+                tables = gather_sharded_tables_to_chief(
+                    self._trainer.state.model, self._world.group
+                )
             if self._is_chief:
                 path = task.extended.get("saved_model_path", "") or self._args.output
                 export_model(
@@ -505,6 +586,7 @@ class LockstepWorker:
                     model_params=self._args.model_params_dict,
                     model_zoo=self._args.model_zoo,
                     model_version=self._trainer.step,
+                    tables=tables,
                 )
         self._report_task_result(task.task_id)
 
@@ -655,7 +737,7 @@ class LockstepWorker:
                         task.task_id, f"unknown task type {task.type}"
                     )
             if (
-                self._is_chief
+                self._writes_checkpoints
                 and self._checkpointer.enabled
                 and self._trainer is not None
                 and self._job_type
@@ -751,9 +833,12 @@ class LockstepWorker:
         if not out_dir or self._trainer is None:
             return
         os.makedirs(out_dir, exist_ok=True)
-        np.savez(
-            os.path.join(out_dir, name), **state_to_checkpoint(self._trainer.state)
-        )
+        # a row-sharded table as this process's (ids, rows), under the
+        # checkpoint's part names
+        dense, parts = state_checkpoint_parts(self._trainer.state)
+        for table, (ids, rows) in parts.items():
+            dense[f"emb_ids/{table}"], dense[f"emb_rows/{table}"] = ids, rows
+        np.savez(os.path.join(out_dir, name), **dense)
 
     @property
     def trainer(self):

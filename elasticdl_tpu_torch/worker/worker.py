@@ -29,12 +29,16 @@ while the current one computes (``trainer/device_pipeline.py``);
 staged batch dispatches once; its retry places it again from the host.
 
 Master high availability (``--master_journal_dir``): every lease the
-worker holds an unreported task for is in its lease ledger; the
-heartbeat notices a relaunched master's new boot id and re-homes,
-presenting the generation it held across the outage and the ledger
+worker holds an unreported task for is in its lease ledger; a heartbeat
+notices a relaunched master's new boot id and re-homes, presenting the
+generation it held across the outage and the ledger
 (``_note_master_boot``).  The boot id and the master's generation
 advance only on acceptance, and presented leases the master did not
-re-accept leave the ledger.
+re-accept leave the ledger.  Every other call that failed beats first
+before its retry (the client's reconnect hook), so a report or a lease
+request reaches a relaunched master only after the handshake: the
+ledger it presents still holds the leases of the outage.  The JAX
+worker re-homes only at its next heartbeat.
 
 Telemetry, when the master exported its directory and
 ``--step_anatomy``: each training dispatch's sum-exact phases go to the
@@ -58,10 +62,12 @@ import torch
 
 from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
 from elasticdl_tpu_torch.layers.attention import to_torch_dtype
+from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV
 from elasticdl_tpu_torch.ops.attention import dump_launch_counts_if_requested
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
+from elasticdl_tpu_torch.rpc.service import RpcError, StatusCode
 from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
 from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline as dp
@@ -121,7 +127,8 @@ class Worker:
         # the Local executor's seeded start
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(INIT_SEED)
-            self._model = self._spec.build_model()
+            # its tables built on the device
+            self._model = self._spec.build_model(device=self._device)
         self._task_data_service = TaskDataService(
             self,
             training_with_evaluation=(
@@ -143,6 +150,10 @@ class Worker:
         self._inflight_leases: set[int] = set()
         self._master_boot_id: str | None = None
         self._master_cluster_version = 0
+        # one handshake at a time: the heartbeat thread and the task
+        # threads' reconnect hook both re-home
+        self._rehome_lock = threading.Lock()
+        self._install_reconnect_hook()
         # shape-canonical batching on one device
         self._canonical_rows = canonical_batch_rows(self._minibatch_size, 1)
         self._steps_per_dispatch = args.steps_per_dispatch or 1
@@ -240,6 +251,8 @@ class Worker:
             device=self._device,
             device_parse=self._spec.device_parse,
             remat=bool(self._args.remat),
+            # one process: no rule shards (the JAX executor's call)
+            sharding_rules=self._spec.rules_for(1),
         )
         version = restore_trainer_state(self._trainer, self._args)
         if version is not None:
@@ -653,8 +666,9 @@ class Worker:
             self._master_boot_id = boot_id
             return True
         generation = self._master_cluster_version
-        # the boot id advances ONLY on acceptance below: this runs on the
-        # heartbeat thread while the task threads change the ledger, and
+        # the boot id advances ONLY on acceptance below: this runs under
+        # _rehome_lock on the heartbeat thread or in a task thread's
+        # reconnect hook while the task threads change the ledger, and
         # any surprise must leave it so that the next beat retries
         try:
             leases = sorted(self._inflight_leases)
@@ -692,28 +706,53 @@ class Worker:
         self._master_boot_id = boot_id
         return True
 
+    def _beat(self) -> bool:
+        """One heartbeat, with the RPC outcome and staging totals; the
+        reply's boot id drives re-homing.  False while a re-home is
+        pending."""
+        resp = self._master.heartbeat(
+            msg.HeartbeatRequest(
+                worker_id=self._worker_id,
+                step=self._trainer.step if self._trainer else 0,
+                timestamp=time.time(),
+                rpc=rpc_stats.snapshot(),
+                phases=anatomy_mod.heartbeat_snapshot(),
+                prefetch=dp.heartbeat_snapshot(),
+            )
+        )
+        if resp is None:
+            return True
+        with self._rehome_lock:
+            # re-home BEFORE adopting the beat's generation: the fence
+            # must see the generation held across the outage
+            if not self._note_master_boot(resp.boot_id):
+                return False
+            self._master_cluster_version = int(resp.cluster_version)
+        return True
+
+    def _install_reconnect_hook(self):
+        """Under master HA (the master exported its address file), a
+        failed call of a ``MasterClient`` re-homes before its retry."""
+        if os.environ.get(MASTER_ADDR_FILE_ENV) and hasattr(self._master, "set_reconnect_hook"):
+            self._master.set_reconnect_hook(
+                self._rehome_before_retry, exempt=("heartbeat", "rehome_worker")
+            )
+
+    def _rehome_before_retry(self):
+        """The client's reconnect hook: a call that failed beats before
+        it is sent again, and is held back while the re-home is
+        pending."""
+        if not self._beat():
+            raise RpcError(StatusCode.UNAVAILABLE, "re-homing with a relaunched master")
+
     def _start_heartbeats(self, interval_secs: float = HEARTBEAT_INTERVAL_SECS):
         """Liveness across long compute gaps (every ``get_task`` counts
-        too), with the RPC outcome and staging totals; the reply's boot
-        id drives re-homing."""
+        too)."""
 
         def beat():
             while not self._stopped:
                 try:
-                    resp = self._master.heartbeat(
-                        msg.HeartbeatRequest(
-                            worker_id=self._worker_id,
-                            step=self._trainer.step if self._trainer else 0,
-                            timestamp=time.time(),
-                            rpc=rpc_stats.snapshot(),
-                            phases=anatomy_mod.heartbeat_snapshot(),
-                            prefetch=dp.heartbeat_snapshot(),
-                        )
-                    )
-                    # re-home BEFORE adopting the beat's generation: the
-                    # fence must see the generation held across the outage
-                    if resp is not None and self._note_master_boot(resp.boot_id):
-                        self._master_cluster_version = int(resp.cluster_version)
+                    self._beat()
                 except Exception:  # noqa: BLE001 — the master may be gone
                     pass
                 time.sleep(interval_secs)

@@ -585,3 +585,22 @@ def test_a_failed_capture_raises_and_never_falls_back(cuda):
         trainer.train_steps_stacked(*trainer.place_group(*group))
     assert trainer.dispatch_counts["graph_replays"] == 0
     assert trainer.step == 2  # the failed group took no step
+
+
+def test_tables_build_on_the_card_from_a_device_generator(cuda):
+    """A model's embedding tables are allocated and filled on the card
+    (``ModelSpec.build_model(device=...)``): from U[0, 0.05), and the same
+    under the same seed."""
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    spec = get_model_spec("", "deepfm_sharded_embedding.deepfm_sharded_embedding.custom_model")
+    tables = []
+    for _ in range(2):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = spec.build_model(device=cuda)
+        table = model.embedding.embedding
+        assert table.is_cuda and tuple(table.shape) == (5504, 64)
+        assert 0.0 <= float(table.min()) and float(table.max()) < 0.05
+        tables.append(table)
+    assert torch.equal(*tables)

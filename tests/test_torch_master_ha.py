@@ -667,6 +667,7 @@ def _task_stream(master, leases=(), generation=0):
     worker._inflight_leases = set(leases)
     worker._master_boot_id, worker._master_cluster_version = "b1", generation
     worker._trainer, worker._stopped = None, False
+    worker._rehome_lock = threading.Lock()
     return worker
 
 
@@ -688,6 +689,54 @@ def test_task_stream_rehome_presents_its_lease_ledger():
     assert worker._inflight_leases == {22}
     assert worker._note_master_boot("b2")
     assert [r.lease_ids for r in master.requests] == [[22]]
+
+
+def test_task_stream_worker_rehomes_before_its_retried_report(monkeypatch, tmp_path):
+    """A report that died with the master reaches the relaunched master
+    (found through the address file) only after the handshake, which
+    still presents its lease."""
+    import socket
+
+    from elasticdl_tpu_torch.rpc.retry import RetryPolicy
+    from elasticdl_tpu_torch.rpc.service import MASTER_RETRYABLE_METHODS, MasterClient, create_server
+
+    calls = []
+
+    class Relaunched:
+        def heartbeat(self, request):
+            calls.append("heartbeat")
+            return port_msg.HeartbeatResponse(cluster_version=0, boot_id="b2")
+
+        def rehome_worker(self, request):
+            calls.append(("rehome_worker", sorted(request.lease_ids)))
+            return port_msg.RehomeResponse(
+                accepted=True, cluster_version=0, boot_id="b2",
+                accepted_leases=list(request.lease_ids),
+            )
+
+        def report_task_result(self, request):
+            calls.append(("report_task_result", request.task_id))
+
+    with socket.socket() as sock:  # the dead master's address
+        sock.bind(("localhost", 0))
+        dead = sock.getsockname()[1]
+    server = create_server(Relaunched(), 0)
+    server.start()
+    try:
+        monkeypatch.setenv(port_journal.MASTER_ADDR_FILE_ENV, str(tmp_path / "master_addr"))
+        client = MasterClient(
+            f"localhost:{dead}", retry=RetryPolicy(max_attempts=20, base_delay_secs=0.0),
+            retryable_methods=MASTER_RETRYABLE_METHODS,
+            resolve_addr=lambda: f"localhost:{server.port}",
+        )
+        worker = _task_stream(client, leases={21, 22})
+        worker._timing = SimpleNamespace(exec_counters=lambda: {})
+        worker._install_reconnect_hook()
+        worker.report_task_result(21)
+    finally:
+        server.stop()
+    assert calls == ["heartbeat", ("rehome_worker", [21, 22]), ("report_task_result", 21)]
+    assert worker._master_boot_id == "b2" and worker._inflight_leases == {22}
 
 
 def test_heartbeat_presents_pre_outage_generation_to_rehome():

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s phase 14c and 14d at a small size on the CPU
 (14a and 14b run in ``tests/test_torch_master_ha.py``): one task-stream
 worker through a master kill at a tick, its leases presented on
-re-homing at its next heartbeat; and a real SIGKILL
+re-homing before its first retried call; and a real SIGKILL
 of ``python -m elasticdl_tpu_torch.master.main``, whose orphaned workers
 re-home into the relaunched process and are adopted, read from the
 journal and the chaos event log.  Each row goes through the phase's own

@@ -263,7 +263,8 @@ def test_no_lost_steps_check_is_the_jax_harnesses(tmp_path, case, verdict):
 
 
 def test_no_lost_steps_check_audits_sharded_rows():
-    """The sharded-table branch (no port state has sharded rows yet)."""
+    """The sharded-table branch (``tests/test_torch_embeddings_sharded.py``
+    runs it on a sharded world's real pushes)."""
     events = [
         {"observation": "replica_push", "step": 6, "monotonic": 1.0, "has_sharded": True,
          "sharded_rows": 0},
@@ -742,13 +743,6 @@ def test_restore_from_replica_falls_through_without_a_usable_stage():
 
     assert restore_from_replica(trainer, _Gone(), cluster_version=1) is None
     assert trainer.step == 0
-
-
-def test_sharded_parts_raise_until_they_are_ported():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        checkpointing.apply_restored_values(
-            _mnist_trainer(), {}, {"t": (np.arange(2), np.ones((2, 2)))}, 4
-        )
 
 
 def test_a_push_refused_by_the_cap_ends_in_a_disk_restore(tmp_path, monkeypatch):

@@ -689,6 +689,44 @@ def test_client_does_not_retry_non_outage_codes():
     assert calls == ["heartbeat"]
 
 
+def test_client_reconnect_hook_runs_before_each_retry_of_a_failed_call():
+    client = _client(
+        port_retry.RetryPolicy(max_attempts=10, base_delay_secs=0.0), MASTER_RETRYABLE_METHODS
+    )
+    order, down, hook_errors = [], {}, []
+
+    def invoke(name, _payload, timeout):
+        order.append(name)
+        if down.get(name):
+            down[name] -= 1
+            raise RpcError(StatusCode.UNAVAILABLE, "down")
+        return b""
+
+    def hook():
+        order.append("hook")
+        if hook_errors:
+            raise hook_errors.pop()
+
+    client._invoke = invoke
+    client.set_reconnect_hook(hook, exempt=("heartbeat",))
+    request = msg.ReportTaskResultRequest(task_id=1)
+    client._call("report_task_result", request)  # no failure: no hook
+    assert order == ["report_task_result"]
+    order.clear()
+    down["report_task_result"] = 2
+    client._call("report_task_result", request)
+    assert order == ["report_task_result", "hook", "report_task_result", "hook", "report_task_result"]
+    order.clear()
+    down["heartbeat"] = 1  # an exempt method retries without the hook
+    client._call("heartbeat", msg.HeartbeatRequest(worker_id=0))
+    assert order == ["heartbeat", "heartbeat"]
+    order.clear()
+    # a hook's retryable error makes the call back off and try again
+    down["get_task"], hook_errors[:] = 1, [RpcError(StatusCode.UNAVAILABLE, "re-homing")]
+    client._call("get_task", msg.GetTaskRequest(worker_id=0))
+    assert order == ["get_task", "hook", "hook", "get_task"]
+
+
 def test_client_applies_per_method_deadlines_and_counts_failures():
     recorded = []
 
