@@ -309,6 +309,25 @@ printed:
    ``/healthz`` answers 200 with the JAX body's keys; the goodput section
    has every generation of the step samples.
 
+19. decode and sharded tables — gpt2s generating with KV caches
+   (``generate_lm``), bench's ``deepfm_100m`` (``deepfm_100m_run``) and
+   the sharded worlds (``sharded_world_phase``, beside phase 12).
+
+20. streaming — ``scripts/streaming_smoke.py``'s stages at mnist's full
+   width over ``stream://mnist`` (:data:`STREAM`), each job in a
+   subprocess of its own: (a) alone, ``streaming_preempt_under_load``
+   (a rank SIGKILLed at step 3): exit 0, ``bounded_lag``,
+   ``replication_no_lost_steps`` and ``exactly_once`` PASS, the stream
+   drained and closed, the re-formed world restored from peer RAM; (b)
+   the ``drop_stream_window`` corruption: ``bounded_lag`` FAIL and the
+   run ends; (c) beside (b), a streaming job pushing into
+   ``serving.main`` under hammer: no failed request, the served version
+   past the boot export's and equal to the last push, a flat compile
+   count, a freshness ledger row per push (in the report's text too),
+   and the served rows within ``STREAM_SERVE_MAX_ABS_ERR`` of the pushed
+   state's direct forward.  It prints the host's µs a stream record, each
+   stage's wall, trained records a second and lag, and the ledger's rows.
+
 Every process the smoke starts shares one bytecode cache of this run
 (``_bytecode_cache``): the card's machine writes none, and each new
 process would compile torch's sources again.
@@ -5795,13 +5814,40 @@ def _stop_chaos_sessions():
             os.killpg(pid, signal.SIGKILL)
 
 
+def _session_run(cmd: list, log_path: str, timeout_secs: float) -> tuple:
+    """``cmd`` in a subprocess of its own session, its output to
+    ``log_path``; every process of the session is stopped after it, and
+    at this script's exit if that comes first.  Its exit code (None when
+    it ran past ``timeout_secs``) and wall seconds."""
+    import atexit
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    with open(log_path, "w") as log_file:
+        if not _CHAOS_SESSIONS:
+            atexit.register(_stop_chaos_sessions)
+        proc = subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+            start_new_session=True,
+        )
+        _CHAOS_SESSIONS.add(proc.pid)
+        try:
+            rc = proc.wait(timeout=timeout_secs)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            _CHAOS_SESSIONS.discard(proc.pid)
+    return rc, time.monotonic() - t0
+
+
 def chaos_run(work_dir: str, name: str, argv, device: str = "cuda") -> dict:
     """One chaos runner CLI run in a subprocess (and its own session, so
     that every process its job started is stopped after it); its exit
     code, wall seconds, report and ``chaos_result.json``."""
-    import atexit
-    import signal
-
     run_dir = os.path.join(work_dir, name)
     os.makedirs(run_dir, exist_ok=True)
     out = os.path.join(run_dir, "report.json")
@@ -5810,26 +5856,9 @@ def chaos_run(work_dir: str, name: str, argv, device: str = "cuda") -> dict:
         "--device", device, "--workdir", run_dir, "--output", out,
         "--run-timeout-secs", str(CHAOS_RUN_TIMEOUT_SECS),
     ]
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.monotonic()
-    with open(os.path.join(run_dir, "log.txt"), "w") as log:
-        if not _CHAOS_SESSIONS:
-            atexit.register(_stop_chaos_sessions)
-        proc = subprocess.Popen(
-            cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
-            start_new_session=True,
-        )
-        _CHAOS_SESSIONS.add(proc.pid)
-        try:
-            rc = proc.wait(timeout=2 * CHAOS_RUN_TIMEOUT_SECS + 120)
-        except subprocess.TimeoutExpired:
-            rc = None
-        finally:
-            with contextlib.suppress(ProcessLookupError):
-                os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            _CHAOS_SESSIONS.discard(proc.pid)
-    secs = time.monotonic() - t0
+    rc, secs = _session_run(
+        cmd, os.path.join(run_dir, "log.txt"), 2 * CHAOS_RUN_TIMEOUT_SECS + 120
+    )
     row = {"rc": rc, "secs": secs, "result_json": os.path.exists(
         os.path.join(run_dir, "chaos_result.json"))}
     if not os.path.exists(out):
@@ -6718,6 +6747,520 @@ def sharded_world_phase(work_dir: str, device: str = "cuda") -> dict:
     return rows
 
 
+# ---- phase 20: streaming -------------------------------------------------------
+
+# scripts/streaming_smoke.py's three stages at full width: mnist at
+# bench.py:175-180's 256 rows a step over stream://mnist, two lockstep
+# ranks (and their standbys) sharing the card, replicated, no checkpoint.
+# The source holds 4096 records at the start and publishes 1024 a second
+# (the watermark is the larger of the two) up to 49 152, so it closes 48
+# s in: a cold world's first window trains 19-26 s after its master with
+# the three jobs starting together, and a world trains 3-5 k records a
+# second, so it catches up 23-37 s in (measured on an H100) and then
+# trains at the source's pace until the close (65 536 records, 64 s, put
+# the smoke 42 s under its time limit on an H100 host).  Windows of 512
+# records (2 steps, the JAX smoke's 64 records at 32 rows) put
+# streaming_preempt_under_load's kill at step 3 after the first
+# replicated window, so the re-formed world restores from peer RAM.
+# The lag bound is a prediction, made before the card's first run of a
+# stream this long: the first step by 28 s with the three jobs starting
+# together, and a re-formation's stall of up to 8 s, at 1024 a second.
+# From the world's first trained window on, the lag grows by no more
+# than the source publishes while the killed world is down (kill to the
+# new world's first step) plus twice pace_records (the window in flight
+# at the kill and the new world's first windows: 1.4-2.4 s of the source
+# on an H100), and with the source still open it falls to within
+# pace_records (caught up) and stays there (1 298-1 580 records, 2.5-3
+# windows in flight, once caught up on an H100)
+STREAM = dict(
+    dataset="mnist", total=49152, rate=1024.0, initial=4096, batch=256,
+    records_per_task=512, lag_limit=36864, pace_records=3072, run_timeout_secs=300.0,
+    serve_rows=256, probe_rows=8, hammer_threads=2,
+)
+# the served rows after the last push against the pushed state's direct
+# forward in this process (f32, TF32 off on both sides; the replica pads
+# to its canonical rows, so the convolutions' algorithms may differ)
+STREAM_SERVE_MAX_ABS_ERR = 1e-4
+# each hammer request's rows, and the pause between a thread's requests
+HAMMER_ROWS = 3
+HAMMER_PAUSE_SECS = 0.05
+# the records of the probe rows and of the generation timing lie past
+# every stream's end
+PROBE_SEED, PROBE_FIRST = 11, 1 << 20
+STREAM_GEN_RECORDS = 4096
+
+
+def _stream_job(spec_path: str) -> None:
+    """A child of :func:`stream_run`: one streaming chaos job
+    (``chaos/harness.py::run_chaos_job``) whose master runs in this
+    process, its report written beside the spec.  With ``pushes_dir``
+    each live push's payload is kept there, so that the parent can
+    compare what serving answers with the pushed state."""
+    from elasticdl_tpu_torch.chaos.harness import ChaosJobConfig, run_chaos_job
+    from elasticdl_tpu_torch.chaos.plan import resolve_plan
+    from elasticdl_tpu_torch.streaming import live_push
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg = spec["cfg"]
+    if spec["pushes_dir"]:
+        os.makedirs(spec["pushes_dir"], exist_ok=True)
+        push = live_push.LivePusher._push
+
+        def keep(pusher, version, payload, stream_status):
+            with open(os.path.join(spec["pushes_dir"], f"v{version}.blob"), "wb") as f:
+                f.write(payload)
+            return push(pusher, version, payload, stream_status)
+
+        live_push.LivePusher._push = keep
+    report = run_chaos_job(ChaosJobConfig(
+        plan=resolve_plan(spec["plan"], 2), workdir=spec["workdir"], num_workers=2,
+        streaming=True, stream_total=cfg["total"], stream_rate=cfg["rate"],
+        stream_initial=cfg["initial"], stream_lag_limit=cfg["lag_limit"], replication=True,
+        minibatch_size=cfg["batch"], records_per_task=cfg["records_per_task"],
+        run_timeout_secs=cfg["run_timeout_secs"], corrupt=spec["corrupt"],
+        live_push_addr=spec["live_push_addr"], device=spec["device"],
+    ))
+    with open(spec["out"], "w") as f:
+        json.dump(report, f, default=str)
+
+
+def stream_pace(events: list, pace_records: int) -> dict:
+    """How the world kept up with the live source, from the master's
+    ``stream_watermark`` ticks, in seconds from the first tick: the first
+    tick with a trained record and its lag; how far the lag grew past
+    that; the first tick, with the source still open, whose lag is
+    within ``pace_records`` (caught up), the peak lag of the open ticks
+    from there on, and the records a second trained while catching up;
+    the tick at which the source closed."""
+    ticks = sorted((e for e in events if e.get("event") == "stream_watermark"),
+                   key=lambda e: e["monotonic"])
+    if not ticks:
+        return {"ticks": 0}
+    t0 = ticks[0]["monotonic"]
+
+    def lag(e):
+        return e["source_watermark"] - e["trained_watermark"]
+
+    closed = next((e for e in ticks if e["closed"]), None)
+    out: dict = {"ticks": len(ticks),
+                 "closed_secs": closed["monotonic"] - t0 if closed else None}
+    at = next((i for i, e in enumerate(ticks) if e["trained_watermark"] > 0), None)
+    if at is None:
+        return out
+    first, after = ticks[at], ticks[at:]
+    out["first_trained"] = {"secs": first["monotonic"] - t0, "lag": lag(first)}
+    out["lag_growth"] = max(lag(e) for e in after) - lag(first)
+    still_open = [e for e in after if not e["closed"]]
+    caught = next((i for i, e in enumerate(still_open) if lag(e) <= pace_records), None)
+    if caught is not None:
+        e = still_open[caught]
+        dt = e["monotonic"] - first["monotonic"]
+        out["caught_up"] = {
+            "secs": e["monotonic"] - t0, "source_watermark": e["source_watermark"],
+            "records_per_s": (e["trained_watermark"] - first["trained_watermark"]) / dt
+            if dt > 0 else None,
+        }
+        out["held_lag"] = max(lag(x) for x in still_open[caught:])
+    return out
+
+
+def _trained_rate(events: list) -> float | None:
+    """Records a second over the stream's ticks: from the first tick with
+    a trained record to the first at the total."""
+    ticks = [
+        (e["monotonic"], e["trained_watermark"]) for e in events
+        if e.get("event") == "stream_watermark" and e.get("trained_watermark", 0) > 0
+    ]
+    if len(ticks) < 2:
+        return None
+    (t0, w0), (t1, w1) = ticks[0], max(ticks, key=lambda t: (t[1], -t[0]))
+    return (w1 - w0) / (t1 - t0) if t1 > t0 else None
+
+
+def stream_run(work_dir: str, name: str, cfg: dict, device: str = "cuda", plan: str = "none",
+               corrupt: str = "", live_push_addr: str = "") -> dict:
+    """One streaming job (:func:`_stream_job`) in a subprocess and session
+    of its own; its row: exit code, seconds, the report's verdicts, the
+    final watermarks, the lag, the freshness ledger and the report's text
+    of it, the re-formations and the restores from peer RAM, and the
+    trained records a second."""
+    from elasticdl_tpu_torch.telemetry.events import EVENTS_FILENAME, read_jsonl
+    from elasticdl_tpu_torch.telemetry.report import streaming_lines
+
+    run_dir = os.path.join(work_dir, name)
+    os.makedirs(run_dir, exist_ok=True)
+    spec = {
+        "cfg": cfg, "plan": plan, "corrupt": corrupt, "live_push_addr": live_push_addr,
+        "device": device, "workdir": os.path.join(run_dir, "job"),
+        "out": os.path.join(run_dir, "report.json"),
+        "pushes_dir": os.path.join(run_dir, "pushes") if live_push_addr else "",
+    }
+    spec_path = os.path.join(run_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-c",
+           "import sys, chip_smoke; chip_smoke._stream_job(sys.argv[1])", spec_path]
+    rc, secs = _session_run(
+        cmd, os.path.join(run_dir, "log.txt"), cfg["run_timeout_secs"] + 120
+    )
+    row: dict = {"rc": rc, "secs": secs, "pushes_dir": spec["pushes_dir"],
+                 "log": os.path.join(run_dir, "log.txt")}
+    if not os.path.exists(spec["out"]):
+        with open(row["log"]) as f:
+            row["log_tail"] = f.read()[-3000:]
+        return row
+    with open(spec["out"]) as f:
+        report = json.load(f)
+    inv = {i["name"]: i for i in report["invariants"]}
+    streaming = report.get("streaming") or {}
+    events = read_jsonl(os.path.join(spec["workdir"], "telemetry", EVENTS_FILENAME))
+    row.update(
+        job_rc=report["rc"], timed_out=report["timed_out"], job_secs=report["wall_secs"],
+        records_ok=report["records_ok"], invariants_ok=report["invariants_ok"],
+        invariants={name: i["status"] for name, i in inv.items()},
+        bounded_lag={k: v for k, v in (inv.get("bounded_lag") or {}).items() if k != "name"},
+        final=streaming.get("final"), lag_records=streaming.get("lag_records"),
+        freshness=streaming.get("freshness"),
+        reforms=len(report["reforms"]),
+        restores=(report.get("replication") or {}).get("restores", []),
+        trained_records_per_s=_trained_rate(events),
+        pace=stream_pace(events, cfg["pace_records"]),
+        kill_to_step_secs=report.get("kill_to_step_secs"),
+        live_push_events=sum(1 for e in events if e.get("event") == "live_push"),
+        report_lines=streaming_lines(streaming) if streaming else [],
+    )
+    return row
+
+
+def check_stream_run(name: str, row: dict, cfg: dict) -> list:
+    """The gates of one of phase 20's streaming jobs; the problems found."""
+    if "invariants" not in row:
+        return [f"{name}: no report (exit code {row['rc']})"]
+    problems = []
+    if row["timed_out"] or row["rc"] != 0:
+        problems.append(f"{name}: timed out or the job's process failed (rc {row['rc']})")
+    inv = row["invariants"]
+    if name == "drop_window":
+        if inv.get("bounded_lag") != "FAIL" or row["invariants_ok"]:
+            problems.append(f"drop_window: bounded_lag {inv.get('bounded_lag')}, "
+                            f"invariants_ok {row['invariants_ok']}")
+        # with a bound under the stream's length, the stuck watermark
+        # trips the lag clause as well as the drain
+        violations = (row.get("bounded_lag") or {}).get("violations", [])
+        if 0 < cfg["lag_limit"] < cfg["total"] \
+                and not any(v.startswith("lag peaked") for v in violations):
+            problems.append(f"drop_window: the lag clause did not trip: {violations}")
+        return problems
+    if row["job_rc"] != 0 or not row["invariants_ok"] or set(inv.values()) != {"PASS"}:
+        problems.append(f"{name}: exit {row['job_rc']}, invariants {inv}")
+    final = row["final"] or {}
+    if final.get("trained_watermark") != cfg["total"] or not final.get("closed"):
+        problems.append(f"{name}: the stream did not drain: {final}")
+    if name == "preempt":
+        for gate in ("bounded_lag", "replication_no_lost_steps", "exactly_once"):
+            if inv.get(gate) != "PASS":
+                problems.append(f"preempt: {gate} {inv.get(gate)}")
+        if row["reforms"] < 1 or not any(r.get("generation", 0) >= 1 for r in row["restores"]):
+            problems.append(
+                f"preempt: no re-formed world restored from peer RAM ({row['reforms']} "
+                f"re-formation(s), restores {row['restores']})"
+            )
+    if cfg["pace_records"]:
+        problems += _pace_problems(name, row, cfg)
+    return problems
+
+
+def _pace_problems(name: str, row: dict, cfg: dict) -> list:
+    """The pace gates of a stream run that trains (module comment of
+    STREAM): the lag's growth from the first trained window, caught up
+    with the source still open, and held there."""
+    pace, bound = row.get("pace") or {}, cfg["pace_records"]
+    if "first_trained" not in pace:
+        return [f"{name}: no trained window in the stream's ticks: {pace}"]
+    problems = []
+    stall = row.get("kill_to_step_secs") if name == "preempt" else 0.0
+    if stall is None:
+        problems.append(f"{name}: no kill-to-step time for the lag's growth")
+    elif pace["lag_growth"] > cfg["rate"] * stall + 2 * bound:
+        problems.append(f"{name}: the lag grew {pace['lag_growth']} records past the first "
+                        f"window, over {cfg['rate']} a second x {stall} s down + 2 x {bound}")
+    if "caught_up" not in pace:
+        problems.append(f"{name}: the world never came within {bound} records of the "
+                        f"source while it was open: {pace}")
+    elif pace["held_lag"] > bound:
+        problems.append(f"{name}: the lag rose to {pace['held_lag']} after catching up "
+                        f"(bound {bound})")
+    return problems
+
+
+def stream_generation_us(n: int = STREAM_GEN_RECORDS) -> dict:
+    """The host's cost of stream records: a record's generation alone,
+    and through the classic path's mnist parse and batching, in µs a
+    record (the lockstep worker makes every global batch on each rank)."""
+    from elasticdl_tpu_torch.data.fast_pipeline import build_task_batches
+    from elasticdl_tpu_torch.streaming.reader import StreamDataReader, stream_record
+    from elasticdl_tpu_torch.trainer.state import Modes
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    t0 = time.perf_counter()
+    for i in range(n):
+        stream_record("mnist", PROBE_SEED, PROBE_FIRST + i)
+    gen = (time.perf_counter() - t0) / n * 1e6
+    origin = f"stream://mnist?seed={PROBE_SEED}"
+    task = type("Window", (), {"start": PROBE_FIRST, "end": PROBE_FIRST + n})
+    t0 = time.perf_counter()
+    for _batch in build_task_batches(
+        StreamDataReader(data_origin=origin), task, get_model_spec("", MNIST_DEF),
+        Modes.TRAINING, None, STREAM["batch"], shuffle_records=True, dispatch_device="cpu",
+    ):
+        pass
+    return {"generate_us": gen, "batched_us": (time.perf_counter() - t0) / n * 1e6}
+
+
+def live_push_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
+    """20c: ``serving.main`` (the frontend and one replica) over a boot
+    export at version 1, hammer threads keeping predict requests in
+    flight, and a streaming job pushing the replica ring's snapshots
+    into it; then the served rows against the last pushed state's direct
+    forward, the freshness ledger, and SIGTERM with no process left."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.replication.blob import decode_snapshot
+    from elasticdl_tpu_torch.rpc import messages as msg
+    from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+    from elasticdl_tpu_torch.serving.replica import ServingClient
+    from elasticdl_tpu_torch.streaming.reader import stream_record
+    from elasticdl_tpu_torch.utils.export_utils import build_with_weights, export_model
+    from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+
+    t_phase = time.monotonic()
+    spec = get_model_spec("", MNIST_DEF)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        boot_model = spec.build_model()
+    boot_dir = export_model(os.path.join(work_dir, "boot"), boot_model, MNIST_DEF,
+                            model_version=1)
+    addr_file = os.path.join(work_dir, "serving_addr")
+    log_path = os.path.join(work_dir, "frontend.log")
+    row: dict = {"device": device, "log": log_path}
+    t0 = time.monotonic()
+    with open(log_path, "w") as log_file:
+        frontend = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
+             "--model_dir", boot_dir, "--num_replicas", "1", "--addr_file", addr_file,
+             "--device", device, "--minibatch_size", str(cfg["serve_rows"]),
+             "--rpc_deadline_secs", str(SERVE_RPC_DEADLINE_SECS)],
+            cwd=REPO, env=dict(os.environ, **TF32_OFF), stdout=log_file,
+            stderr=subprocess.STDOUT,
+        )
+    kids: list = []
+    try:
+        while not os.path.exists(addr_file):
+            if frontend.poll() is not None or time.monotonic() - t0 > SERVE_CLI_UP_SECS:
+                raise AssertionError(f"20c: the frontend is not up (rc {frontend.poll()})")
+            time.sleep(0.05)
+        with open(addr_file) as f:
+            addr = f.read().strip()
+        row["frontend_up_secs"] = time.monotonic() - t0
+        kids = _serving_children(frontend.pid)
+        client = ServingClient(addr, deadlines=DeadlinePolicy.from_secs(30))
+
+        def images(first: int, n: int) -> dict:
+            return {"image": np.stack([
+                stream_record("mnist", PROBE_SEED, first + i)["image"] for i in range(n)
+            ])}
+
+        warm = client.predict(msg.PredictRequest(
+            request_id="warm", features=msg.pack_array_tree(images(PROBE_FIRST, HAMMER_ROWS))))
+        if warm.error:
+            raise AssertionError(f"20c: the warm-up predict failed: {warm.error}")
+        status0 = client.serving_status(msg.ServingStatusRequest())
+        row["boot_version"] = int(status0.model_version)
+        stop = threading.Event()
+        outcomes: list = []
+
+        def hammer(k: int):
+            i = 0
+            while not stop.is_set():
+                i += 1
+                features = images(PROBE_FIRST + 64 + HAMMER_ROWS * (i % 16), HAMMER_ROWS)
+                try:
+                    response = client.predict(msg.PredictRequest(
+                        request_id=f"hammer{k}-{i}", features=msg.pack_array_tree(features)))
+                    outcomes.append((response.model_version, response.error))
+                except Exception as ex:  # noqa: BLE001 — a failed request, recorded
+                    outcomes.append((None, repr(ex)))
+                time.sleep(HAMMER_PAUSE_SECS)
+
+        hammers = [threading.Thread(target=hammer, args=(k,)) for k in range(cfg["hammer_threads"])]
+        for t in hammers:
+            t.start()
+        try:
+            job = stream_run(work_dir, "live", cfg, device, live_push_addr=addr)
+        finally:
+            stop.set()
+            for t in hammers:
+                t.join()
+        row["job"] = job
+        status1 = client.serving_status(msg.ServingStatusRequest())
+        row.update(
+            served_version=int(status1.model_version),
+            compile_counts=[int(status0.compile_count), int(status1.compile_count)],
+            requests=len(outcomes),
+            failed_requests=sum(1 for _v, error in outcomes if error),
+            first_failures=[error for _v, error in outcomes if error][:3],
+            versions_served=sorted({v for v, error in outcomes if v is not None and not error}),
+        )
+        fresh = job.get("freshness") or {}
+        accepted = [r for r in fresh.get("ledger", []) if r["accepted"]]
+        row["ledger"] = fresh.get("ledger", [])
+        row["push_ms"] = sorted(r["swap_ms"] for r in accepted)
+        if accepted:
+            last = max(r["model_version"] for r in accepted)
+            row["last_pushed_version"] = last
+            blob = os.path.join(job["pushes_dir"], f"v{last}.blob")
+            dense, _parts = decode_snapshot(open(blob, "rb").read())
+            params = {k[len("params/"):]: v for k, v in dense.items() if k.startswith("params/")}
+            state = {k: v for k, v in dense.items() if not k.startswith("params/")}
+            model = build_with_weights(spec, params, state, torch.device(device))
+            probe = images(PROBE_FIRST + 4096, cfg["probe_rows"])
+            with torch.no_grad():
+                direct = model(spec.device_parse(
+                    {"image": torch.from_numpy(probe["image"]).to(device)})).float().cpu().numpy()
+            served = client.predict(msg.PredictRequest(
+                request_id="probe", features=msg.pack_array_tree(probe)))
+            if served.error:
+                raise AssertionError(f"20c: the probe predict failed: {served.error}")
+            row["probe_max_abs_err"] = float(np.max(np.abs(
+                np.asarray(msg.unpack_array_tree(served.outputs), np.float32) - direct)))
+            row["probe_version"] = int(served.model_version)
+        client.close()
+        pids = [frontend.pid, *kids]
+        t0 = time.monotonic()
+        frontend.send_signal(signal.SIGTERM)
+        row["exit"] = {"replicas": len(kids), "gone": _gone_within(pids, SERVE_CLI_EXIT_SECS),
+                       "secs": time.monotonic() - t0}
+    finally:
+        for pid in [frontend.pid, *kids]:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        frontend.wait()
+    row["secs"] = time.monotonic() - t_phase
+    return row
+
+
+def check_live_push(row: dict, cfg: dict) -> list:
+    """20c's gates on its row; the problems found."""
+    problems = check_stream_run("live", row["job"], cfg) if "job" in row else ["live: no job"]
+    if row.get("failed_requests") != 0 or not row.get("requests"):
+        problems.append(f"live: {row.get('failed_requests')} of {row.get('requests')} "
+                        f"requests failed: {row.get('first_failures')}")
+    ledger = row.get("ledger") or []
+    accepted = [r for r in ledger if r["accepted"]]
+    if not accepted or row.get("served_version", 0) <= row.get("boot_version", 0):
+        problems.append(f"live: the served version {row.get('served_version')} did not pass "
+                        f"the boot export's {row.get('boot_version')}")
+    elif row["served_version"] != row.get("last_pushed_version"):
+        problems.append(f"live: serving {row['served_version']}, the last accepted push "
+                        f"{row.get('last_pushed_version')}")
+    counts = row.get("compile_counts") or [None, -1]
+    if counts[0] != counts[1]:
+        problems.append(f"live: the compile count moved {counts}")
+    for r in accepted:
+        if r["trained_watermark"] < 0 or r["source_watermark"] < r["trained_watermark"] \
+                or r["staleness"] != r["source_watermark"] - r["trained_watermark"]:
+            problems.append(f"live: ledger row {r}")
+    if cfg["pace_records"]:
+        problems += _fresh_push_problems(accepted, cfg)
+    if row.get("job", {}).get("live_push_events") != len(ledger):
+        problems.append(f"live: {row.get('job', {}).get('live_push_events')} live_push events "
+                        f"against {len(ledger)} ledger rows")
+    lines = row.get("job", {}).get("report_lines") or []
+    if len([line for line in lines if line.strip().startswith("push v")]) != len(ledger):
+        problems.append(f"live: the report renders {lines}")
+    err = row.get("probe_max_abs_err")
+    if err is None or err > STREAM_SERVE_MAX_ABS_ERR \
+            or row.get("probe_version") != row.get("last_pushed_version"):
+        problems.append(f"live: served rows {err} from the pushed state's forward "
+                        f"(version {row.get('probe_version')})")
+    if row.get("exit", {}).get("replicas") != 1 or not row["exit"].get("gone"):
+        problems.append("live: processes left after SIGTERM")
+    return problems
+
+
+def _fresh_push_problems(accepted: list, cfg: dict) -> list:
+    """20c's pace gate: an accepted push, made with the source still
+    open, that served a model within ``pace_records`` of it."""
+    live = [r["staleness"] for r in accepted if r["source_watermark"] < cfg["total"]]
+    if any(s <= cfg["pace_records"] for s in live):
+        return []
+    return [f"live: no push within {cfg['pace_records']} records of the open source "
+            f"(staleness {live})"]
+
+
+def _stream_line(row: dict) -> dict:
+    """A stage's printed line: wall, records a second, lag, verdicts."""
+    keep = ("rc", "secs", "job_secs", "trained_records_per_s", "invariants", "bounded_lag",
+            "final", "lag_records", "pace", "kill_to_step_secs", "reforms", "restores",
+            "log_tail")
+    return {k: row[k] for k in keep if k in row}
+
+
+def streaming_runs(work_dir: str, device: str = "cuda", cfg: dict = STREAM) -> dict:
+    """Phase 20's three jobs side by side, ungated: (a)
+    streaming_preempt_under_load, (b) the drop_stream_window corruption
+    and (c) the live push into serving under hammer.  The source paces
+    each, so no job's seconds is a yardstick.  One row each, by name."""
+    return _beside(
+        preempt=lambda: stream_run(work_dir, "preempt", cfg, device,
+                                   plan="streaming_preempt_under_load"),
+        drop_window=lambda: stream_run(work_dir, "drop_window", cfg, device,
+                                       corrupt="drop_stream_window"),
+        live=lambda: live_push_run(os.path.join(work_dir, "live"), cfg, device),
+    )
+
+
+def check_streaming(rows: dict, cfg: dict = STREAM) -> dict:
+    """Phase 20's gates on :func:`streaming_runs`' rows; the problems
+    found, by job."""
+    return {
+        "preempt": check_stream_run("preempt", rows["preempt"], cfg),
+        "drop_window": check_stream_run("drop_window", rows["drop_window"], cfg),
+        "live": check_live_push(rows["live"], cfg),
+    }
+
+
+def streaming_phase(work_dir: str, device: str = "cuda", cfg: dict = STREAM) -> dict:
+    """Phase 20: the host's cost of a stream record, then
+    :func:`streaming_runs`, each stage's line printed, gated by
+    :func:`check_streaming`."""
+    t0 = time.monotonic()
+    host = stream_generation_us()
+    print(json.dumps({"stream_host_us_per_record": host}), flush=True)
+    rows = streaming_runs(work_dir, device, cfg)
+    rows["host_us_per_record"] = host
+    print(json.dumps({"stream_preempt": _stream_line(rows["preempt"])}), flush=True)
+    print(json.dumps({"stream_drop_window": _stream_line(rows["drop_window"])}), flush=True)
+    live = rows["live"]
+    print(json.dumps({"stream_live_push": {
+        **{k: v for k, v in live.items() if k not in ("job", "ledger")},
+        "job": _stream_line(live.get("job", {})),
+    }}), flush=True)
+    for line in live.get("ledger", []):
+        print(json.dumps({"stream_freshness_row": line}), flush=True)
+    rows["secs"] = time.monotonic() - t0
+    failed = {name: p for name, p in check_streaming(rows, cfg).items() if p}
+    if failed:
+        for name in ("preempt", "drop_window"):
+            log(f"--- stream {name}: {rows[name].get('log_tail', '')}")
+        raise AssertionError(f"phase 20 failed its gates: {failed}")
+    return rows
+
+
 class _PhaseClock:
     """Each phase's wall seconds, from the end of the one before."""
 
@@ -7059,6 +7602,19 @@ def main() -> int:
                for k in ("preempt", "drop")},
         },
     }}), flush=True)
+
+    # ---- 20. streaming: a preempted stream:// job, the
+    # drop_stream_window corruption and the live push into serving, side
+    # by side
+    _release_memory("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as work_dir:
+        stream_rows = streaming_phase(work_dir)
+    print(json.dumps({"streaming": {
+        "device": smi, "secs": stream_rows["secs"],
+        "preempt_secs": stream_rows["preempt"]["secs"],
+        "host_us_per_record": stream_rows["host_us_per_record"],
+    }}), flush=True)
+    phases.done("20_streaming")
 
     def row(name, source, replaces, measured):
         return {

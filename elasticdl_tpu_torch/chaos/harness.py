@@ -18,7 +18,12 @@ elastic contract end to end:
   ``duplicate_delivery_exactly_once`` (duplicated reports visibly
   deduplicated);
 - ``replication_no_lost_steps``, ``cross_slice_replica_coverage`` and
-  ``master_recovery`` where the configuration is in their contract.
+  ``master_recovery`` where the configuration is in their contract;
+- for a streaming run (``streaming=True``: a ``stream://`` origin of
+  ``stream_total`` records, no epochs, no checkpoints), ``bounded_lag``
+  (the lag stayed under its bound and the stream drained whole) and
+  ``freshness_monotone`` (the served model's trained watermark never
+  went back across the live pushes to ``live_push_addr``).
 
 :func:`run_master_lives` runs the master's lives: build a master, arm its
 kill (:class:`_MasterKillWatcher` at a step, or inside a re-formation),
@@ -36,10 +41,9 @@ The job runs with ``--telemetry_dir <workdir>/telemetry``, as the JAX
 harness's does: the master writes its lifecycle there too, the workers
 their ``step`` samples and their mirrored netem firings, and the
 report's ``master_ha`` section reads the step gap of each outage from
-it.  Left for their slices, and refused with ``NotImplementedError``
-naming it: streaming runs, ``live_push_addr`` and the
-``drop_stream_window`` corruption (slice 9b).
-The JAX package's trace comes with slice 10b.
+it, and a streaming run's report its ``streaming`` section (the final
+watermarks, the lag and the freshness ledger).  The JAX package's trace
+comes with slice 10b.
 
 Clock note: workers stamp their events with ``time.monotonic()``, which
 is machine-wide on Linux, so the master-side latencies subtract worker
@@ -100,7 +104,12 @@ _KILL_KINDS = frozenset(
 # sharded extension of ``cross_slice_replica_coverage`` must trip; it
 # needs replication and a model whose tables are row-sharded, such as
 # ``deepfm_sharded_embedding`` on ``frappe``).  ``drop_stream_window``
-# needs the streams of slice 9b.
+# (streaming runs only) takes the first leased stream window out of the
+# dispatcher's active set and marks it reported, so that neither the
+# lease timeout nor a worker's death requeues it: the trained watermark
+# stalls at the hole, and ``bounded_lag``'s final drain must trip (the
+# run still ends: ``finished()`` waits for the minted windows, not for
+# the trained watermark).
 CORRUPTIONS = (
     "",
     "double_report",
@@ -112,10 +121,6 @@ CORRUPTIONS = (
     "drop_shard_parts",
     "drop_stream_window",
 )
-
-# what slice 9 brings; refused until then
-_SLICE_9 = "slice 9b (streaming) brings it"
-_SLICE_9_CORRUPTIONS = ("drop_stream_window",)
 
 # model-zoo presets: the model_def's synthetic dataset
 DATASETS = ("mnist", "frappe")
@@ -169,27 +174,25 @@ class ChaosJobConfig:
     rpc_deadline_secs: float | None = None
     rpc_retry_secs: float | None = None
     task_timeout_secs: float | None = None
-    # streaming (watermark-lease) runs and the live train-to-serve push:
-    # slice 9
+    # streaming (watermark-lease) runs: a stream:// origin instead of
+    # generated shards, no epochs and no checkpoints (the replica ring is
+    # the only durability, so a streaming run wants replication); the
+    # records are accounted against the stream's total, and bounded_lag
+    # takes the place of epoch parity
     streaming: bool = False
-    stream_total: int = 0
-    stream_rate: float = 0.0
-    stream_initial: int = 0
+    stream_total: int = 0  # records the bounded prefix publishes
+    stream_rate: float = 0.0  # the watermark's advance, records a second
+    stream_initial: int = 0  # records published at the start
+    # bounded_lag's bound in records; 0: six windows, floored at 256
     stream_lag_limit: int = 0
+    # the live train-to-serve push's target ("host:port" of a serving
+    # frontend or replica); "" pushes nothing
     live_push_addr: str = ""
     device: str = "cuda"
 
     def __post_init__(self):
         if not self.journal_dir:
             self.journal_dir = os.path.join(self.workdir, "journal")
-        if self.streaming or self.live_push_addr:
-            raise NotImplementedError(
-                f"streaming chaos runs and live_push_addr are not ported: {_SLICE_9}"
-            )
-        if self.corrupt in _SLICE_9_CORRUPTIONS:
-            raise NotImplementedError(
-                f"--corrupt {self.corrupt} is not ported: {_SLICE_9}"
-            )
 
 
 def master_flags(config: ChaosJobConfig) -> list[str]:
@@ -655,8 +658,13 @@ def _master_args(config: ChaosJobConfig, train_dir: str, ckpt_dir: str) -> list[
         "--port", "0",
         "--distribution_strategy", "AllreduceStrategy",
         "--num_workers", str(config.num_workers),
-        "--checkpoint_dir", ckpt_dir,
-        "--checkpoint_steps", str(config.checkpoint_steps),
+        # a streaming run persists through the replica ring alone
+        *(
+            [] if config.streaming
+            else ["--checkpoint_dir", ckpt_dir, "--checkpoint_steps", str(config.checkpoint_steps)]
+        ),
+        *(["--streaming", "true"] if config.streaming else []),
+        *(["--live_push_addr", config.live_push_addr] if config.live_push_addr else []),
         "--heartbeat_timeout_secs", str(config.heartbeat_timeout_secs),
         # the telemetry event log beside the chaos artifacts
         "--telemetry_dir", os.path.join(config.workdir, "telemetry"),
@@ -683,7 +691,10 @@ def _install_corruption(master, checker: InvariantChecker, mode: str):
     - ``version_rollback``: once training passes version 4, a lower
       version is reported (state regression);
     - ``drop_dedup``: the dispatcher's task-id dedup is off: a report for
-      a lease no longer active (a duplicated delivery) counts again.
+      a lease no longer active (a duplicated delivery) counts again;
+    - ``drop_stream_window``: the first training lease vanishes from the
+      active set, pre-marked reported, so nothing ever requeues it (its
+      worker still trains it, and its report is dropped as a duplicate).
 
     ``journal_rollback``, ``same_slice_ring`` and ``drop_shard_parts``
     act elsewhere (between master lives, in the workers' environment)."""
@@ -693,8 +704,6 @@ def _install_corruption(master, checker: InvariantChecker, mode: str):
         return
     if mode not in CORRUPTIONS:
         raise ValueError(f"unknown corruption {mode!r}; valid: {CORRUPTIONS}")
-    if mode in _SLICE_9_CORRUPTIONS:
-        raise NotImplementedError(f"--corrupt {mode} is not ported: {_SLICE_9}")
     fired: list = []
     if mode in ("double_report", "lose_task"):
         task_d = master.task_d
@@ -756,6 +765,23 @@ def _install_corruption(master, checker: InvariantChecker, mode: str):
                 task_d._notify("on_task_reported", task_id, task, True, True)
 
         task_d.report = no_dedup_report
+    elif mode == "drop_stream_window":
+        task_d = master.task_d
+        orig_get = task_d.get
+
+        def dropping_get(worker_id):
+            task_id, task = orig_get(worker_id)
+            if not fired and task is not None and task.type == TaskType.TRAINING:
+                fired.append(task_id)
+                # a lost lease: gone from the active set and pre-marked
+                # reported, so neither the timeout reclaim nor a death's
+                # recovery requeues it
+                with task_d._lock:
+                    task_d._active.pop(task_id, None)
+                    task_d._reported_task_ids.add(task_id)
+            return task_id, task
+
+        task_d.get = dropping_get
 
 
 def _read_events(path: str) -> tuple[list[dict], list[dict]]:
@@ -894,6 +920,19 @@ def _refuse_misconfigured(config: ChaosJobConfig):
             "whose tables are row-sharded (it strips sharded rows from the "
             "replica push payloads)"
         )
+    if config.streaming and config.stream_total <= 0:
+        # an unbounded source never closes: finished() never fires and
+        # the run could only time out
+        raise ValueError(
+            "streaming chaos runs need a bounded prefix: set "
+            "ChaosJobConfig.stream_total > 0"
+        )
+    if config.corrupt == "drop_stream_window" and not config.streaming:
+        raise ValueError(
+            "--corrupt drop_stream_window requires a streaming run "
+            "(ChaosJobConfig.streaming=True) — epoch-mode runs have no "
+            "watermark accounting to falsify"
+        )
     if any(f.kind == FaultKind.SLICE_LOSS for f in config.plan.faults) and config.num_slices <= 1:
         raise ValueError(
             f"plan {config.plan.name!r} contains SLICE_LOSS faults but num_slices "
@@ -937,6 +976,72 @@ def _fault_violations(config: ChaosJobConfig, fault_events, reform_events) -> li
     return violations
 
 
+def _check_bounded_lag(
+    config: ChaosJobConfig, events: list[dict], final_status: dict | None
+) -> dict | None:
+    """A streaming run's counterpart of epoch parity: under fault the lag
+    behind the source stays within its bound, and the final drain is
+    whole (the trained watermark reaches the stream's total: a window
+    whose lease was lost for good leaves a hole the trained watermark
+    never crosses).  None for an epoch run."""
+    if not config.streaming:
+        return None
+    limit = config.stream_lag_limit or max(256, 6 * config.records_per_task)
+    lags = [int(e.get("lag_records", 0)) for e in events if e.get("event") == "stream_lag"]
+    violations = []
+    if not lags:
+        violations.append(
+            "streaming run produced no stream_lag events — watermark telemetry missing"
+        )
+    elif max(lags) > limit:
+        violations.append(
+            f"lag peaked at {max(lags)} records > bound {limit} — backlog not "
+            "bounded under fault"
+        )
+    trained = (final_status or {}).get("trained_watermark")
+    if config.stream_total and trained != config.stream_total:
+        violations.append(
+            f"final drain incomplete: trained watermark {trained} != stream total "
+            f"{config.stream_total} (a leased window was lost and never requeued)"
+        )
+    return {
+        "name": "bounded_lag",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+        "max_lag_records": max(lags) if lags else None,
+        "lag_limit_records": limit,
+    }
+
+
+def _check_freshness_monotone(config: ChaosJobConfig, events: list[dict]) -> dict | None:
+    """The served model's trained watermark never goes back across the
+    live pushes: an accepted push older than an earlier accepted one
+    means serving regressed to staler state.  PASS with ``pushes: 0`` on
+    a streaming run with no push target; None for an epoch run."""
+    if not config.streaming:
+        return None
+    pushes = sorted(
+        (e for e in events if e.get("event") == "live_push" and e.get("accepted")),
+        key=lambda e: e.get("monotonic", 0.0),
+    )
+    violations = []
+    high = None
+    for push in pushes:
+        trained = int(push.get("trained_watermark", -1))
+        if high is not None and trained < high:
+            violations.append(
+                f"served trained-watermark regressed: {trained} after {high} "
+                f"(model version {push.get('model_version')})"
+            )
+        high = trained if high is None else max(high, trained)
+    return {
+        "name": "freshness_monotone",
+        "status": "FAIL" if violations else "PASS",
+        "violations": violations,
+        "pushes": len(pushes),
+    }
+
+
 def run_chaos_job(config: ChaosJobConfig) -> dict:
     """Run one chaos job end to end; returns the report.  Its
     ``invariants_ok`` is the verdict; ``records_ok`` is the record
@@ -948,6 +1053,7 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
         master_ha_section,
         multislice_section,
         replication_section,
+        streaming_section,
     )
     from elasticdl_tpu_torch.utils.constants import TaskType
 
@@ -973,14 +1079,25 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
         os.path.join(config.workdir, "telemetry"),
     ):
         shutil.rmtree(stale, ignore_errors=True)
-    gen = synthetic.gen_frappe if config.dataset == "frappe" else synthetic.gen_mnist
-    train = gen(
-        os.path.join(config.workdir, "train"),
-        num_records=config.num_records, num_shards=2, seed=config.data_seed,
-    )
+    if config.streaming:
+        # no shards: a record is a pure function of (seed, index), so the
+        # origin is the dataset
+        train = (
+            f"stream://{config.dataset}?seed={config.data_seed}"
+            f"&total={config.stream_total}&rate={config.stream_rate}"
+            f"&initial={config.stream_initial}"
+        )
+    else:
+        gen = synthetic.gen_frappe if config.dataset == "frappe" else synthetic.gen_mnist
+        train = gen(
+            os.path.join(config.workdir, "train"),
+            num_records=config.num_records, num_shards=2, seed=config.data_seed,
+        )
     ckpt = os.path.join(config.workdir, "ckpt")
     argv = _master_args(config, train, ckpt)
-    expected_records = config.num_epochs * config.num_records
+    expected_records = (
+        config.stream_total if config.streaming else config.num_epochs * config.num_records
+    )
     checker = InvariantChecker(expected_records=expected_records)
 
     # start clean: an earlier run in this process may have left a seam
@@ -1074,6 +1191,11 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
         _check_no_lost_steps(config, events, fault_events),
         _check_cross_slice_coverage(config, events),
         _check_master_recovery(config, events_path, len(masters), events),
+        _check_bounded_lag(
+            config, telemetry_events,
+            master.task_d.stream_status() if config.streaming else None,
+        ),
+        _check_freshness_monotone(config, telemetry_events),
     ]
     for check in checks:
         if check is not None:
@@ -1128,6 +1250,11 @@ def run_chaos_job(config: ChaosJobConfig) -> dict:
     master_ha = master_ha_section(events + telemetry_events) if config.master_ha else None
     if master_ha is not None:
         report["master_ha"] = master_ha
+    if config.streaming:
+        report["streaming"] = {
+            "final": master.task_d.stream_status(),
+            **(streaming_section(telemetry_events) or {}),
+        }
     if config.master_ha:
         report["master_lives"] = len(masters)
     if not records_ok:

@@ -23,9 +23,14 @@ needs row-sharded state, so it runs ``deepfm_sharded_embedding`` on
 ``gen_frappe`` records with replication on (:data:`SHARDED_JOB`); the
 JAX runner, which always runs mnist, refuses it for want of replication.
 
-Left for their slices: streaming plans and corruptions (slice 9b,
-refused naming it), the report's ``trace`` section (slice 10b), and the
-fleet plans of ``--list`` (slice 11).
+``streaming_preempt_under_load`` runs as the JAX runner runs it: the
+runner has no streaming job, so the plan's preemption hits the default
+epoch job (a streaming run is ``chaos/harness.py``'s ``streaming=True``,
+as ``chip_smoke.py``'s phase 20 and the JAX streaming smoke run it), and
+``--corrupt drop_stream_window`` is refused for want of a streaming run.
+
+Left for their slices: the report's ``trace`` section (slice 10b), and
+the fleet plans of ``--list`` (slice 11).
 """
 
 from __future__ import annotations
@@ -116,9 +121,6 @@ INVARIANT_DESCRIPTIONS = {
 MASTER_HA_PLANS = frozenset(
     {"master_kill_mid_epoch", "master_kill_during_reform"}
 )
-
-# plans that need a streaming job: slice 9
-STREAMING_PLANS = frozenset({"streaming_preempt_under_load"})
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -213,11 +215,6 @@ def job_config(args, workdir: str):
     from elasticdl_tpu_torch.chaos.plan import resolve_plan
 
     plan = resolve_plan(args.plan, num_workers=args.num_workers)
-    if plan.name in STREAMING_PLANS:
-        raise NotImplementedError(
-            f"plan {plan.name!r} runs a streaming job, which is not ported: "
-            "slice 9b (streaming) brings it"
-        )
     replication = args.replication == "on" or (
         args.replication == "auto" and plan.name in REPLICATION_PLANS
     )

@@ -1,8 +1,10 @@
 """Data reader factory; the counterpart of ``elasticdl_tpu/data/factory.py``.
 
-A model module's ``custom_data_reader`` wins; otherwise the origin is a
-directory of EDLIO shards.  The JAX package's other sources (streams,
-ODPS tables, CSV files) raise here until the slice that ports them.
+A model module's ``custom_data_reader`` wins; a ``stream://`` origin is
+a :class:`~elasticdl_tpu_torch.streaming.reader.StreamDataReader`;
+otherwise the origin is a directory of EDLIO shards.  The JAX package's
+other sources (ODPS tables, CSV files) raise here until the slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ def create_data_reader(
             **kwargs,
         )
     if data_origin.startswith("stream://"):
-        raise NotImplementedError(
-            f"{data_origin!r}: stream sources come with the port's "
-            "streaming slice (ROADMAP.md queue 1, slice 9)"
-        )
+        from elasticdl_tpu_torch.streaming.reader import StreamDataReader
+
+        return StreamDataReader(data_origin=data_origin, **kwargs)
     if data_origin.startswith("odps://"):
         raise NotImplementedError(
             f"{data_origin!r}: ODPS tables come with the port's slice 9 "

@@ -11,9 +11,10 @@ run loop to re-form (``request_reform``), the path a capacity grant
 takes, so an autoscale resize is fenced, harvested, restored and
 accounted like any other elective re-formation.
 
-Every threshold defaults to off: with no ``--autoscale_*`` flag the
-master builds no autoscaler.  The streaming backlog (the lag behind a
-stream's watermark) comes with slice 9.
+Every threshold defaults to off: with no ``--autoscale_*`` flag (or,
+in watermark-lease mode, ``--stream_lag_tasks``) the master builds no
+autoscaler.  A streaming job's backlog is its lag behind the stream's
+watermark, in windows, which the master computes before ``evaluate``.
 """
 
 from __future__ import annotations
@@ -127,10 +128,16 @@ class Autoscaler:
 
 
 def build_autoscaler(args, fleet_slices: int) -> Autoscaler | None:
-    """An Autoscaler when an ``--autoscale_*`` SLO is set, else None (no
-    observer, no tick, no state)."""
+    """An Autoscaler when an ``--autoscale_*`` SLO (or, streaming,
+    ``--stream_lag_tasks``) is set, else None (no observer, no tick, no
+    state)."""
     p95 = getattr(args, "autoscale_p95_step_ms", None)
     backlog = getattr(args, "autoscale_backlog_tasks", None)
+    if bool(getattr(args, "streaming", False)):
+        # watermark-lease mode: --stream_lag_tasks is the backlog
+        # threshold (the lag in windows), falling back to the shared
+        # --autoscale_backlog_tasks
+        backlog = getattr(args, "stream_lag_tasks", None) or backlog
     if p95 is None and backlog is None:
         return None
     return Autoscaler(

@@ -476,8 +476,16 @@ def replay(records: list[dict]) -> dict | None:
             disp["epoch"] = int(rec["epoch"])
         elif kind == "tasks_created":
             tasks = rec.get("tasks", [])
+            windows = disp.get("stream") is not None and bool(tasks) and (
+                int(tasks[0]["type"]) == int(TaskType.TRAINING)
+            )
+            if windows:
+                # the live dispatcher's order: a mint's windows go under
+                # every window still pending (``_mint_stream_tasks_locked``)
+                disp["pending"][:0] = list(reversed(tasks))
             for t in tasks:
-                queue_for(int(t["type"])).append(t)
+                if not windows:
+                    queue_for(int(t["type"])).append(t)
                 disp["next_task_uid"] = max(
                     int(disp.get("next_task_uid", 0)), int(t.get("uid", 0))
                 )

@@ -24,7 +24,8 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
 def worker_envs(args) -> dict[str, str]:
     """The environment the master adds to every worker's: ``--envs``,
-    the RPC retry budget and deadlines, the device pipeline's flags
+    the RPC retry budget and deadlines (and the lockstep heartbeat's
+    cadence they imply), the device pipeline's flags
     (``--device_prefetch``, ``--boundary_fusion``, ``--pipeline_depth``),
     the telemetry directory and ``--step_anatomy``, and with
     ``--master_journal_dir`` the master's address file (which
@@ -33,7 +34,11 @@ def worker_envs(args) -> dict[str, str]:
     world resolves them alike and worker argv is the same with or
     without them."""
     from elasticdl_tpu_torch.master.journal import MASTER_ADDR_FILE_ENV, addr_file_path
-    from elasticdl_tpu_torch.rpc.deadline import DEADLINE_SECS_ENV
+    from elasticdl_tpu_torch.rpc.deadline import (
+        DEADLINE_SECS_ENV,
+        HEARTBEAT_INTERVAL_ENV,
+        heartbeat_interval_secs,
+    )
     from elasticdl_tpu_torch.rpc.retry import DEFAULT_RETRY_SECS, RETRY_SECS_ENV
     from elasticdl_tpu_torch.telemetry.anatomy import STEP_ANATOMY_ENV
     from elasticdl_tpu_torch.telemetry.worker_hooks import TELEMETRY_DIR_ENV
@@ -60,6 +65,15 @@ def worker_envs(args) -> dict[str, str]:
         )
     if args.rpc_deadline_secs is not None:
         envs.setdefault(DEADLINE_SECS_ENV, str(args.rpc_deadline_secs))
+        # a lockstep worker's beats come often enough that a beat the
+        # link swallows expires its deadline before the master's timeout
+        from elasticdl_tpu_torch.worker.lockstep import HEARTBEAT_INTERVAL_SECS
+
+        interval = heartbeat_interval_secs(
+            HEARTBEAT_INTERVAL_SECS, args.heartbeat_timeout_secs, args.rpc_deadline_secs
+        )
+        if interval != HEARTBEAT_INTERVAL_SECS:
+            envs.setdefault(HEARTBEAT_INTERVAL_ENV, str(interval))
     return envs
 
 

@@ -68,10 +68,23 @@ own records of the same), and ``/metrics`` and ``/healthz`` are served
 on ``--metrics_port`` (0, the default, picks a free port; a negative
 port serves none) at ``--metrics_host``.
 
+With ``--streaming`` the training origin is a ``stream://`` source
+(``streaming/source.py``): the dispatcher mints windows up to the
+source's watermark, with no epochs, and the run loop publishes the
+watermark pair and the lag at each tick (``stream_watermark`` and
+``stream_lag``, written only when a watermark moved).  The autoscaler
+then reads the lag, in windows, as its backlog.  A streaming job keeps
+no checkpoint: the replica ring is its only durability, so a
+re-formation that finds no complete replica set after windows were
+trained fails the job rather than start the model afresh.  With
+``--live_push_addr`` (and ``--replication``) a
+``streaming/live_push.py::LivePusher`` sends the ring's freshest
+complete snapshot to serving whenever the model version advances, on a
+thread of its own, so that a slow harvest never holds the run loop.
+
 Left out until the slices that bring them: the device mesh's DCN
-planning (slice 8: the port's world is one flat process group), the
-streaming backlog (slice 9), SLOs, live push, the TensorBoard service
-and tracing (slice 10b).
+planning (slice 8: the port's world is one flat process group), SLOs,
+the TensorBoard service and tracing (slice 10b).
 """
 
 from __future__ import annotations
@@ -104,6 +117,8 @@ STANDBY_REFILL_WAIT_SECS = 60.0
 # and a poll that fell between two of them would take a slice loss for a
 # crash of one process
 SLICE_DEATH_SETTLE_SECS = 2.0
+# how long the master's stop waits for a live push in flight
+LIVE_PUSH_JOIN_SECS = 60.0
 
 
 class SimulatedMasterCrash(BaseException):
@@ -145,14 +160,23 @@ class Master:
                 **args.data_reader_params_dict,
             ).create_shards()
 
+        # watermark-lease mode: windows minted up to the stream source's
+        # watermark replace the training shards (a stream has none)
+        self.stream_source = None
+        if args.streaming:
+            from elasticdl_tpu_torch.streaming.source import build_stream_source
+
+            self.stream_source = build_stream_source(args.training_data)
         self.task_d = TaskDispatcher(
-            shards_for(args.training_data),
+            {} if self.stream_source is not None else shards_for(args.training_data),
             shards_for(args.validation_data),
             shards_for(args.prediction_data),
             records_per_task=args.records_per_task,
             num_epochs=args.num_epochs,
             task_timeout_secs=args.task_timeout_secs,
             shuffle_seed=args.shuffle_seed,
+            stream_source=self.stream_source,
+            stream_origin=args.training_data if self.stream_source is not None else "",
         )
         self.evaluation_service = None
         if (
@@ -213,6 +237,28 @@ class Master:
         self.telemetry = MasterTelemetry(args.telemetry_dir or "")
         self.telemetry.attach(self.task_d, self.servicer)
         self._telemetry_server = None
+        # the live train-to-serve push harvests the replica ring: without
+        # --replication there is nothing to push
+        self.live_pusher = None
+        self._live_push_thread: threading.Thread | None = None
+        if args.live_push_addr:
+            if self.replica_directory is None:
+                logger.warning(
+                    "--live_push_addr set without --replication; live push disabled "
+                    "(the push harvests the replica ring)"
+                )
+            else:
+                from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+                from elasticdl_tpu_torch.streaming.live_push import LivePusher
+
+                self.live_pusher = LivePusher(
+                    args.live_push_addr,
+                    self.replica_directory,
+                    telemetry=self.telemetry,
+                    deadlines=DeadlinePolicy.from_secs(args.rpc_deadline_secs)
+                    if args.rpc_deadline_secs is not None
+                    else None,
+                )
         self.instance_manager = (
             instance_manager_factory(self) if instance_manager_factory else None
         )
@@ -654,6 +700,12 @@ class Master:
                     # the autoscaler only requests a resize; the next tick
                     # performs it through the elective path above
                     self._autoscale_tick()
+                if self.task_d.streaming:
+                    # the watermark pair and the lag (written only when a
+                    # watermark moved)
+                    self.telemetry.stream_tick(self.task_d.stream_status())
+                if self.live_pusher is not None and not dead:
+                    self._live_push_tick()
                 if self.relaunch_events and "latency_secs" not in self.relaunch_events[-1]:
                     # relaunch latency: detection to the new worker's
                     # first task lease
@@ -681,6 +733,11 @@ class Master:
                 time.sleep(poll_secs)
         except KeyboardInterrupt:
             logger.warning("Interrupted; shutting down")
+        if self.task_d.streaming:
+            # the loop can end on finished() before the tick that would
+            # write the drained pair: the log's last watermark is the
+            # final drain the bounded-lag check reads
+            self.telemetry.stream_tick(self.task_d.stream_status())
         self.stop()
         return 1 if self._job_failed else 0
 
@@ -764,6 +821,8 @@ class Master:
         # forgets them (the directory drops their addresses) and before
         # the relaunch kills them (their RAM dies with them)
         harvest = self._stage_replica_restore(new_version, dead, old_world_size)
+        if self._would_lose_trained_windows(harvest):
+            return
         for worker_id in all_ids:
             self.task_d.recover_tasks(worker_id)
             self.servicer.forget_worker(worker_id)
@@ -817,6 +876,30 @@ class Master:
             event["harvest"] = harvest
         self.reform_events.append(event)
         self._notify_reform(new_version, dead, reason)
+
+    def _would_lose_trained_windows(self, harvest: dict | None) -> bool:
+        """A streaming job keeps no checkpoint, so a world re-formed with
+        no complete replica set after windows were reported trained would
+        start the model afresh and silently drop them.  Fail the job
+        instead; True when it failed."""
+        if not self.task_d.streaming or (harvest or {}).get("complete"):
+            return False
+        if self._args.checkpoint_dir:
+            return False
+        reported = self.task_d.stream_reported_records()
+        if reported <= 0:
+            # nothing reported yet: the requeued windows retrain from the
+            # start, and nothing is lost
+            return False
+        logger.error(
+            "Giving up on the streaming job: the re-formed world would restore "
+            "nothing (no complete replica set, no checkpoint) but %d records are "
+            "reported trained (trained watermark %d)", reported,
+            self.task_d.stream_status()["trained_watermark"],
+        )
+        self._job_failed = True
+        self.request_stop()
+        return True
 
     def _notify_reform(self, new_version: int, dead: list[int], reason: str):
         for callback in self.reform_callbacks:
@@ -930,6 +1013,12 @@ class Master:
             return
         snap = self.task_d.snapshot()
         backlog = snap["pending"] + snap["pending_eval"]
+        if self.task_d.streaming:
+            # pending counts only the windows minted so far, which the
+            # leases bound: the backlog is the lag behind the source, in
+            # windows, so that one threshold serves both modes
+            per_task = max(1, int(self._args.records_per_task or 1))
+            backlog = int(self.task_d.stream_status()["lag"]) // per_task
         decision = self.autoscaler.evaluate(backlog, getattr(im, "world_num_slices", 1))
         if decision is None:
             return
@@ -944,6 +1033,33 @@ class Master:
             decision["from_slices"], decision["to_slices"], decision["reason"],
         )
         self.request_reform(f"autoscale:{decision['action']}")
+
+    def _live_push_tick(self):
+        """Run-loop tick: start a live push on its own thread unless one
+        is running (the pusher itself gates on the version and on its
+        attempt interval).  The harvest probes every replica server and
+        may wait out their deadlines, which must not hold the loop that
+        detects dead workers."""
+        im = self.instance_manager
+        if im is None or (
+            self._live_push_thread is not None and self._live_push_thread.is_alive()
+        ):
+            return
+        version = self.servicer.get_model_version()
+        if not self.live_pusher.push_due(version):
+            return  # nothing new to push: no thread
+        ids = im.worker_ids()
+        tick = dict(
+            model_version=version,
+            generation=self.servicer.cluster_version,
+            num_sources=getattr(im, "world_size", len(ids)),
+            live_worker_ids=ids,
+            stream_status=self.task_d.stream_status(),
+        )
+        self._live_push_thread = threading.Thread(
+            target=self.live_pusher.tick, kwargs=tick, name="live-push", daemon=True
+        )
+        self._live_push_thread.start()
 
     def _stage_replica_restore(
         self, new_version: int, dead: list[int], old_world_size: int
@@ -1009,6 +1125,10 @@ class Master:
         self._stop_requested = True
 
     def stop(self):
+        if self._live_push_thread is not None:
+            # a push in flight lands (or fails) before the workers whose
+            # replica servers it reads are stopped
+            self._live_push_thread.join(timeout=LIVE_PUSH_JOIN_SECS)
         if self.evaluation_service is not None:
             self.evaluation_service.stop()
         # any polling standby learns that the job is over

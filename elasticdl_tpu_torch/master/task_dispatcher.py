@@ -289,9 +289,9 @@ class TaskDispatcher:
         — the ragged tail is minted once the source closes, so window
         boundaries are stable across masters (journal replay mints
         nothing; minted windows ride ``tasks_created`` records like any
-        epoch slice).  Minted windows keep offset order: the pending
-        stack pops oldest-first so the trained watermark advances as a
-        prefix instead of stranding behind a hole."""
+        epoch slice).  Minted windows keep offset order across mints:
+        the pending stack pops oldest-first so the trained watermark
+        advances as a prefix instead of stranding behind a hole."""
         watermark = self._stream.watermark()
         closed = self._stream.closed()
         tasks: list[Task] = []
@@ -318,8 +318,13 @@ class TaskDispatcher:
             self._stream_next_offset = end
         if not tasks:
             return
-        # pending is a stack (pop from the end): reversed insert = FIFO
-        self._pending.extend(reversed(tasks))
+        # pending is a stack (pop from the end): the new windows go under
+        # every window still pending, in reverse, so leases follow offset
+        # order across mints too; a requeued window (appended) still goes
+        # first.  The JAX dispatcher stacks each mint on top, so a later
+        # mint's windows are leased before older ones and the trained
+        # watermark stalls behind the older windows until the newer drain
+        self._pending[:0] = reversed(tasks)
         logger.info(
             "Minted %d stream window(s) up to watermark %d (lag %d)",
             len(tasks),
@@ -692,6 +697,16 @@ class TaskDispatcher:
                 "next_offset": self._stream_next_offset,
                 "closed": self._stream.closed(),
             }
+
+    def stream_reported_records(self) -> int:
+        """The records of every window reported trained: the gap-free
+        prefix below the trained watermark and the windows reported past
+        a hole (out of order, or past a requeued window), which the
+        watermark has not crossed yet.  0 in epoch mode."""
+        with self._lock:
+            return self._trained_watermark + sum(
+                end - start for start, end in self._stream_completed.items()
+            )
 
     # lock-holding: _lock
     def _counters_for(self, task_type: TaskType) -> JobCounters:

@@ -172,6 +172,9 @@ class ServingEngine:
         self.rejected = 0
         self.swaps_applied = 0
         self.last_swap_ms = 0.0
+        # what the last swap came from (an export directory, or a live
+        # push with its watermark pair)
+        self.last_swap_source = ""
         # the input shapes dispatched to the model: the JAX engine's
         # compile count has no compiler to count here, and this is what
         # it shows there, one canonical shape whatever the traffic
@@ -469,6 +472,7 @@ class ServingEngine:
         secs = time.monotonic() - t0
         self.swaps_applied += 1
         self.last_swap_ms = secs * 1000.0
+        self.last_swap_source = source
         logger.info(
             "Hot model swap: version %d -> %d (%s, %.1fms)",
             old,

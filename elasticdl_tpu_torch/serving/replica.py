@@ -154,11 +154,15 @@ class ServingReplicaServicer:
                 flat_state = {
                     k: v for k, v in dense.items() if not k.startswith(prefix)
                 }
+                source = request.source or "live-push"
+                if request.trained_watermark >= 0:
+                    # the freshness pair rides the swap's log line
+                    source += (
+                        f" (trained watermark {request.trained_watermark}"
+                        f" / source {request.source_watermark})"
+                    )
                 accepted, version, reason = self.engine.swap_state_dicts(
-                    flat_params,
-                    flat_state,
-                    int(request.version),
-                    source=request.source or "live-push",
+                    flat_params, flat_state, int(request.version), source=source
                 )
             else:
                 accepted, version, reason = self.engine.swap_from_export(

@@ -13,10 +13,14 @@ nothing for ``/metrics`` being up.
 
 The families of the JAX package that wait for slice 10b are not
 registered here: the memory ledger's ``elasticdl_memory_bytes``, the SLO
-watchdog's ``elasticdl_slo_*``, the TensorBoard mirror, the streaming
-and live-push families (slice 9), the heartbeat fan-in and sweep
-counters (the port's servicer applies each beat inline), and the span
-tracer (spans are a no-op until then).
+watchdog's ``elasticdl_slo_*``, the TensorBoard mirror, the heartbeat
+fan-in and sweep counters (the port's servicer applies each beat
+inline), and the span tracer (spans are a no-op until then, so the live
+push has no ``live_push`` span).  In watermark-lease mode the stream's
+gauges (``elasticdl_stream_lag_records``, ``elasticdl_stream_watermark``)
+are refreshed at scrape time, :meth:`MasterTelemetry.stream_tick`
+writes the watermark pair and the lag, and
+:meth:`MasterTelemetry.live_push` the freshness ledger's rows.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from elasticdl_tpu_torch.telemetry.events import (
     EVENT_JOB_END,
     EVENT_JOB_START,
     EVENT_JOURNAL_REPLAY,
+    EVENT_LIVE_PUSH,
     EVENT_MASTER_RESTART,
     EVENT_MESH_RESIZE,
     EVENT_REFORM_COMPLETE,
@@ -35,6 +40,8 @@ from elasticdl_tpu_torch.telemetry.events import (
     EVENT_REFORM_START,
     EVENT_REPLICA_HARVEST,
     EVENT_SLICE_LOSS,
+    EVENT_STREAM_LAG,
+    EVENT_STREAM_WATERMARK,
     EVENT_TASK_DISPATCH,
     EVENT_TASK_DONE,
     EVENT_TASK_RECOVERED,
@@ -155,6 +162,9 @@ class MasterTelemetry:
         self._compile_tracker = compile_tracker
         self._task_d = None
         self._servicer = None
+        # the (source, trained) watermark pair last written: an idle
+        # stream writes nothing
+        self._last_stream_emit: tuple | None = None
         r.add_collect_callback(self._collect)
 
     # ---- wiring ------------------------------------------------------------
@@ -208,6 +218,22 @@ class MasterTelemetry:
                         "Worker wall-clock buckets (utils.timing_utils)",
                         labels={"bucket": key[len("time_") : -len("_ms")]},
                     ).set_total(value)
+            # the streaming backlog: the one registration site of the
+            # stream gauges, absent in epoch mode
+            if self._task_d.streaming:
+                status = self._task_d.stream_status()
+                self.registry.gauge(
+                    "elasticdl_stream_lag_records",
+                    "Streaming backlog: source watermark minus "
+                    "trained watermark, in records",
+                ).set(status["lag"])
+                for role in ("source", "trained"):
+                    self.registry.gauge(
+                        "elasticdl_stream_watermark",
+                        "Stream watermarks by role (source=records "
+                        "published, trained=gap-free trained prefix)",
+                        labels={"role": role},
+                    ).set(status[f"{role}_watermark"])
         # monotone: a re-formed generation's fresh per-process counters
         # never walk the exposed total back
         self._compiles.set_total(compiles)
@@ -513,4 +539,61 @@ class MasterTelemetry:
             complete=bool(complete),
             version=version,
             sources=sources,
+        )
+
+    def stream_tick(self, status: dict):
+        """A run-loop tick in watermark-lease mode: the watermark pair
+        and the lag derived from it, written only when the (source,
+        trained) pair moved, so an idle stream adds nothing to the log."""
+        key = (status["source_watermark"], status["trained_watermark"])
+        if key == self._last_stream_emit:
+            return
+        self._last_stream_emit = key
+        self.events.emit(
+            EVENT_STREAM_WATERMARK,
+            source_watermark=status["source_watermark"],
+            trained_watermark=status["trained_watermark"],
+            next_offset=status["next_offset"],
+            closed=bool(status["closed"]),
+        )
+        self.events.emit(
+            EVENT_STREAM_LAG,
+            lag_records=status["lag"],
+            source_watermark=status["source_watermark"],
+            trained_watermark=status["trained_watermark"],
+        )
+
+    def live_push(
+        self,
+        *,
+        model_version: int,
+        trained_watermark: int,
+        source_watermark: int,
+        accepted: bool,
+        replica: str,
+        swap_ms: float,
+        started_at: float,
+        reason: str = "",
+    ):
+        """One live train-to-serve push: a row of the freshness ledger.
+        ``staleness``: the records the served model is behind the source
+        when it goes live.  ``started_at`` times the JAX package's span,
+        which comes with slice 10b."""
+        self.registry.counter(
+            "elasticdl_stream_live_push_total",
+            "Live train->serve pushes (replica-ring commit fanned into "
+            "serving swap_state_dicts); accepted= marks the stale-"
+            "refused ones",
+            labels={"accepted": "true" if accepted else "false"},
+        ).inc()
+        self.events.emit(
+            EVENT_LIVE_PUSH,
+            model_version=model_version,
+            trained_watermark=trained_watermark,
+            source_watermark=source_watermark,
+            staleness=max(0, source_watermark - trained_watermark),
+            accepted=bool(accepted),
+            replica=replica,
+            swap_ms=swap_ms,
+            reason=reason,
         )

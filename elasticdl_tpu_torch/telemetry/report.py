@@ -13,7 +13,10 @@ with slice 10b).
 - :func:`master_ha_section`: one entry per master restart (the step gap
   of the outage, the journal replay, the re-homes and their leases);
 - :func:`replication_section`: pushes and hosts covered per generation,
-  the freshest shard versions, harvests and restores from peer RAM.
+  the freshest shard versions, harvests and restores from peer RAM;
+- :func:`streaming_section`: the watermarks, the lag's percentiles and
+  the freshness ledger of the live pushes, and :func:`streaming_lines`,
+  its text as the JAX report CLI renders it.
 
 Each reads a list of event records: the JAX package's telemetry event
 log, whose records name themselves under ``"event"``, or the port's chaos
@@ -425,3 +428,100 @@ def replication_section(events: list[dict]) -> dict | None:
         "restores": restores,
         "harvests": harvests,
     }
+
+
+def streaming_section(events: list[dict]) -> dict | None:
+    """A streaming run's aggregate: the watermarks' progress from the
+    ``stream_watermark`` and ``stream_lag`` ticks (the last pair, the
+    lag's percentiles and maximum: the bounded-lag evidence) and the
+    freshness ledger, one row per ``live_push`` with the trained
+    watermark at the swap beside the source watermark (``staleness``:
+    how many records behind the source the served model was when it went
+    live).  None when the run never streamed."""
+    ticks = sorted(
+        (e for e in events if e.get("event") == "stream_watermark"),
+        key=lambda e: e.get("monotonic", 0.0),
+    )
+    lags = [
+        float(e["lag_records"])
+        for e in events
+        if e.get("event") == "stream_lag" and "lag_records" in e
+    ]
+    pushes = sorted(
+        (e for e in events if e.get("event") == "live_push"),
+        key=lambda e: e.get("monotonic", 0.0),
+    )
+    if not ticks and not lags and not pushes:
+        return None
+    out: dict = {"watermark_ticks": len(ticks)}
+    if ticks:
+        last = ticks[-1]
+        out["source_watermark"] = int(last.get("source_watermark", 0))
+        out["trained_watermark"] = int(last.get("trained_watermark", 0))
+        out["closed"] = bool(last.get("closed", False))
+    if lags:
+        out["lag_records"] = {
+            "max": int(max(lags)),
+            "p50": round(percentile(lags, 50), 1),
+            "p95": round(percentile(lags, 95), 1),
+            "last": int(lags[-1]),
+        }
+    if pushes:
+        accepted = [e for e in pushes if e.get("accepted")]
+        staleness = [int(e.get("staleness", 0)) for e in accepted]
+        out["freshness"] = {
+            "pushes": len(pushes),
+            "accepted": len(accepted),
+            "refused": len(pushes) - len(accepted),
+            "max_staleness_records": max(staleness) if staleness else None,
+            "ledger": [
+                {
+                    "model_version": e.get("model_version"),
+                    "trained_watermark": e.get("trained_watermark"),
+                    "source_watermark": e.get("source_watermark"),
+                    "staleness": e.get("staleness"),
+                    "accepted": bool(e.get("accepted")),
+                    "swap_ms": e.get("swap_ms"),
+                    "monotonic": e.get("monotonic"),
+                }
+                for e in pushes
+            ],
+        }
+    return out
+
+
+def streaming_lines(streaming: dict) -> list[str]:
+    """:func:`streaming_section`'s text: the lines the JAX report CLI
+    prints for a run's streaming section."""
+    lines = [
+        "streaming: trained watermark {} / source {}{}".format(
+            streaming.get("trained_watermark", "?"),
+            streaming.get("source_watermark", "?"),
+            " (source closed)" if streaming.get("closed") else "",
+        )
+    ]
+    lag = streaming.get("lag_records")
+    if lag:
+        lines.append(
+            "  lag: max {} p50 {} p95 {} last {} record(s)".format(
+                lag["max"], lag["p50"], lag["p95"], lag["last"]
+            )
+        )
+    fresh = streaming.get("freshness")
+    if fresh:
+        lines.append(
+            "  freshness: {} push(es), {} accepted, {} refused, "
+            "max staleness {} record(s)".format(
+                fresh["pushes"], fresh["accepted"], fresh["refused"],
+                fresh["max_staleness_records"],
+            )
+        )
+        for row in fresh["ledger"]:
+            lines.append(
+                "    push v{}: trained {} / source {} (staleness {}){}".format(
+                    row["model_version"], row["trained_watermark"],
+                    row["source_watermark"], row["staleness"],
+                    "" if row["accepted"] else "  REFUSED",
+                )
+            )
+    return lines

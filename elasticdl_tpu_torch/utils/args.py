@@ -672,7 +672,6 @@ _MESH = _comes_with(
 )
 _TELEMETRY = _comes_with("slice 10b, tracing, profiling, SLOs and TensorBoard")
 _K8S = _comes_with("slice 9, Kubernetes submission")
-_STREAMING = _comes_with("slice 9, streaming")
 UNPORTED_FLAGS = {
     "mesh_shape": _MESH,
     "dcn_mesh_shape": _MESH,
@@ -696,9 +695,6 @@ UNPORTED_FLAGS = {
     "image_pull_policy": _K8S,
     "cluster_spec": _K8S,
     "yaml": _K8S,
-    "streaming": _STREAMING,
-    "stream_lag_tasks": _STREAMING,
-    "live_push_addr": _STREAMING,
     "donate_state": (
         "no slice will port it: eager PyTorch always updates the state "
         "in place"

@@ -122,6 +122,7 @@ from elasticdl_tpu_torch.replication.service import start_replica_server
 from elasticdl_tpu_torch.replication.store import ReplicaStore
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
+from elasticdl_tpu_torch.rpc.deadline import HEARTBEAT_INTERVAL_ENV
 from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
 from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline
@@ -152,7 +153,15 @@ from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
 # world's restored state to start_state_p{process_id}_g{generation}.npz
 DUMP_STATE_ENV = "ELASTICDL_TPU_DUMP_STATE"
 
+# the beat's cadence; a master with a tight RPC deadline sends a faster
+# one by env (rpc/deadline.py::heartbeat_interval_secs)
 HEARTBEAT_INTERVAL_SECS = 2.0
+
+
+def heartbeat_interval_from_env() -> float:
+    """The beat's cadence: the master's, by env, or the default."""
+    return float(os.environ.get(HEARTBEAT_INTERVAL_ENV, "") or HEARTBEAT_INTERVAL_SECS)
+
 
 # how long a process whose world broke keeps its replica server up for
 # the master's harvest (the master's re-formation kills it sooner)
@@ -687,7 +696,10 @@ class LockstepWorker:
                 return
             time.sleep(0.05)
 
-    def _start_heartbeats(self, interval_secs: float = HEARTBEAT_INTERVAL_SECS):
+    def _start_heartbeats(self, interval_secs: float | None = None):
+        if interval_secs is None:
+            interval_secs = heartbeat_interval_from_env()
+
         def beat():
             while not self._stopped:
                 if self._chaos is not None and self._chaos.heartbeat_suppressed():

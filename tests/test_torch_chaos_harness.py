@@ -10,9 +10,11 @@ dicts, as ``tests/test_netchaos.py:807-884`` holds the JAX ones; the
 sections also read the port's chaos event log, whose records say
 ``observation`` where the JAX log says ``event``.  Every corruption must
 trip what it trips in the JAX package, on a dispatcher driven alike in
-both; the master's argv of each configuration must parse to the JAX
-harness's settings; and what slice 9 brings is refused naming it.  No
-tolerance: every compared value is equal exactly.
+both; the master's argv of each configuration, streaming runs and the
+live push included, must parse to the JAX harness's settings.  No
+tolerance: every compared value is equal exactly.  The streaming checks
+and the ``drop_stream_window`` corruption are held to the JAX package's
+in ``tests/test_torch_streaming.py``.
 """
 
 from __future__ import annotations
@@ -313,6 +315,8 @@ def test_an_unknown_corruption_is_refused():
         ("slice_loss_mid_epoch", dict(), "SLICE_LOSS"),
         ("master_kill_mid_epoch", dict(), "MASTER_KILL"),
         ("preempt_one_worker", dict(dataset="cifar"), "dataset"),
+        ("none", dict(streaming=True, stream_total=0), "bounded prefix"),
+        ("preempt_one_worker", dict(corrupt="drop_stream_window"), "drop_stream_window"),
     ],
 )
 def test_a_run_that_would_pass_green_is_refused_as_in_jax(tmp_path, plan, kw, match):
@@ -323,29 +327,6 @@ def test_a_run_that_would_pass_green_is_refused_as_in_jax(tmp_path, plan, kw, ma
         harness.run_chaos_job(config)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(streaming=True, stream_total=64), dict(live_push_addr="localhost:1"),
-     dict(corrupt="drop_stream_window")],
-    ids=["streaming", "live_push", "drop_stream_window"],
-)
-def test_what_slice_9_brings_raises_naming_it(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        harness.ChaosJobConfig(plan=named_plan("none"), workdir=str(tmp_path), **kw)
-
-
-def test_the_slice_9_corruptions_raise_in_the_installer_too():
-    """``drop_stream_window`` still waits for slice 9b's streams;
-    ``drop_shard_parts`` acts in the workers' environment, so the
-    master's installer leaves the dispatcher as it is."""
-    d = TaskDispatcher({"s": (0, 64)}, records_per_task=64)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        harness._install_corruption(_FakeMaster(d), InvariantChecker(), "drop_stream_window")
-    report = d.report
-    harness._install_corruption(_FakeMaster(d), InvariantChecker(), "drop_shard_parts")
-    assert d.report == report
-
-
 # ---- the master's argv ------------------------------------------------------
 
 # the settings the JAX harness's argv sets, and the port's must equal
@@ -354,7 +335,7 @@ SETTINGS = (
     "shuffle_seed", "port", "distribution_strategy", "num_workers", "checkpoint_steps",
     "heartbeat_timeout_secs", "replication", "replication_steps", "master_journal_dir",
     "rehome_grace_secs", "standby_workers", "num_slices", "rpc_deadline_secs",
-    "rpc_retry_secs", "task_timeout_secs",
+    "rpc_retry_secs", "task_timeout_secs", "streaming", "live_push_addr",
 )
 
 ARGV_CASES = {
@@ -367,6 +348,10 @@ ARGV_CASES = {
     "same_slice_ring": ("slice_loss_mid_epoch", dict(num_slices=2, replication=True,
                                                      corrupt="same_slice_ring")),
     "extra": ("none", dict(extra_master_args=["--evaluation_steps", "8"])),
+    "streaming": ("streaming_preempt_under_load",
+                  dict(streaming=True, stream_total=256, replication=True)),
+    "live_push": ("none", dict(streaming=True, stream_total=256, replication=True,
+                               live_push_addr="localhost:1")),
 }
 
 
@@ -381,7 +366,9 @@ def test_the_masters_argv_carries_the_jax_harnesses_settings(tmp_path, case):
     args = parse_master_args(argv)
     for key in SETTINGS + ("evaluation_steps",) * (case == "extra"):
         assert getattr(args, key) == getattr(ref, key), key
-    assert (args.training_data, args.checkpoint_dir, args.device) == ("/data", "/ckpt", "cuda")
+    # a streaming run keeps no checkpoint
+    assert (args.training_data, args.device) == ("/data", "cuda")
+    assert args.checkpoint_dir == (ref.checkpoint_dir if config.streaming else "/ckpt")
     # the telemetry event log beside the chaos artifacts, as the JAX
     # harness places it
     assert args.telemetry_dir == ref.telemetry_dir == os.path.join(config.workdir, "telemetry")

@@ -76,9 +76,7 @@ VARIANTS = {
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize(
-    "plan", sorted(set(builtin_plans(2)) - set(runner.STREAMING_PLANS)) + ["random:1234"]
-)
+@pytest.mark.parametrize("plan", sorted(builtin_plans(2)) + ["random:1234"])
 def test_every_plan_configures_its_jobs_as_the_jax_runner(tmp_path, plan, variant):
     argv = ["--plan", plan, *VARIANTS[variant]]
     ref = _configs_of(jax_runner, jax_harness, argv, str(tmp_path))
@@ -105,10 +103,17 @@ def test_the_network_plans_posture_is_the_jax_runners():
         assert posture["task_timeout_secs"]
 
 
-def test_the_streaming_plan_is_refused_naming_slice_9(tmp_path):
-    args = runner.build_arg_parser().parse_args(["--plan", "streaming_preempt_under_load"])
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        runner.job_config(args, str(tmp_path))
+def test_a_stream_window_corruption_is_refused_as_the_jax_runner_refuses_it(tmp_path):
+    """The runner's job is never a streaming run (the JAX runner has none),
+    so ``--corrupt drop_stream_window`` is refused by both harnesses
+    before anything runs."""
+    argv = ["--corrupt", "drop_stream_window", "--no-baseline", "--num-records", "64"]
+    for module in (jax_runner, runner):
+        args = module.build_arg_parser().parse_args(argv)
+        if module is runner:
+            args.device = "cpu"
+        with pytest.raises(ValueError, match="requires a streaming run"):
+            module._run(args, str(tmp_path / module.__name__))
 
 
 def _blocks(text: str) -> dict:

@@ -409,10 +409,15 @@ def test_reader_factory_reads_recordio_dirs_and_refuses_other_sources(seq_dirs):
     want = JaxReader(data_dir=seq_dirs["port"]).create_shards()
     assert reader.create_shards() == want and len(want) == 2
     for origin, kwargs in (
-        ("stream://topic", {}), ("odps://project/tables/t", {}),
+        ("odps://project/tables/t", {}),
         ("/data/train.csv", {}), ("/data/train", {"reader_type": "CSV"}),
     ):
         with pytest.raises(NotImplementedError, match="slice 9"):
             create_data_reader(origin, **kwargs)
+    # a stream origin is the stream's reader, as in the JAX factory
+    from elasticdl_tpu_torch.streaming.reader import StreamDataReader
+
+    stream = create_data_reader("stream://mnist?seed=2", records_per_task=16)
+    assert isinstance(stream, StreamDataReader) and stream.spec.seed == 2
     custom = create_data_reader("x", records_per_task=3, custom_reader=lambda **kw: kw)
     assert custom == {"data_origin": "x", "records_per_task": 3}

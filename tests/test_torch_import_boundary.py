@@ -35,6 +35,8 @@ sys.meta_path.insert(0, _Block())
 import elasticdl_tpu_torch as port
 
 names = [m.name for m in pkgutil.walk_packages(port.__path__, "elasticdl_tpu_torch.")]
+# the streaming slice's modules are among them
+assert {"elasticdl_tpu_torch.streaming." + m for m in ("source", "reader", "live_push")} <= set(names)
 for name in names:
     importlib.import_module(name)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
@@ -70,7 +72,7 @@ def test_port_imports_with_jax_absent():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, leaked = proc.stdout.split(" ", 1)
-    assert int(count) >= 128  # every module of the slices so far was imported
+    assert int(count) >= 132  # every module of the slices so far was imported
     assert leaked.strip() == "[]"
 
 

@@ -319,8 +319,7 @@ UNPORTED_VALUES = {
     "worker_resource_limit": "cpu=2", "worker_pod_priority": "high",
     "master_resource_request": "cpu=2", "master_resource_limit": "cpu=2",
     "master_pod_priority": "high", "volume": "v", "image_pull_policy": "Never",
-    "cluster_spec": "spec.py", "yaml": "job.yaml", "streaming": "true",
-    "stream_lag_tasks": "2", "live_push_addr": "localhost:2",
+    "cluster_spec": "spec.py", "yaml": "job.yaml",
     "donate_state": "false", "compilation_cache_dir": "/c",
 }
 
@@ -348,9 +347,9 @@ def test_unported_flag_raises_at_executor_build(runs, flag, value):
 
 # the flags of stacked steps, remat and the device pipeline, ported; and
 # the evaluation service's time trigger, peer replication, the master
-# journal, standbys, slices and the autoscaler, and --serving_addr (read
-# by predict alone), which a Local run takes and, as the JAX package's
-# Local executor, does not read
+# journal, standbys, slices and the autoscaler, --serving_addr (read by
+# predict alone) and the master's streaming flags, which a Local run
+# takes and, as the JAX package's Local executor, does not read
 PORTED_CASES = [
     ("steps_per_dispatch", "2"), ("steps_per_dispatch", "auto"),
     ("remat", "true"), ("device_prefetch", "true"),
@@ -361,7 +360,8 @@ PORTED_CASES = [
     ("num_slices", "2"), ("min_slices", "2"), ("autoscale_p95_step_ms", "9"),
     ("autoscale_backlog_tasks", "2"), ("autoscale_cooldown_secs", "1"),
     ("autoscale_shrink", "true"), ("standby_workers", "0"),
-    ("serving_addr", "localhost:1"),
+    ("serving_addr", "localhost:1"), ("streaming", "true"), ("stream_lag_tasks", "2"),
+    ("live_push_addr", "localhost:2"),
 ]
 
 

@@ -439,3 +439,100 @@ def test_an_armed_worker_records_its_rpc_counters(tmp_path, monkeypatch):
     rpc_stats.note_failure("unavailable")  # unarmed: nothing more recorded
     with open(events) as f:
         assert len(f.readlines()) == 2
+
+
+# ---- the blackhole's race: a swallowed beat against the eviction -------------
+
+# blackhole_master_link's posture: the chaos job's liveness timeout, the
+# runner's RPC deadline, and the master's poll
+RACE_TIMEOUT_SECS = 3.0
+RACE_DEADLINE_SECS = 1.0
+RACE_POLL_SECS = 0.5
+# how late a loaded host may run the worker's count of an expired deadline
+# and still have it logged before the eviction's SIGKILL (an H100 run was
+# evicted 1.08 s after the fault, 0.08 s past a 1 s deadline)
+RACE_HOST_LAG_SECS = 0.5
+
+
+def _blackhole_race(interval: float, phase: float, poll_offset: float) -> tuple[float, float]:
+    """One worker between task pulls, so its beats are its only liveness:
+    its last beat lands at 0 s, the call at ``phase`` s (at the latest its
+    next beat, ``interval`` s later) opens a blackhole window, and the
+    master polls every ``RACE_POLL_SECS`` from ``poll_offset``.  Returns
+    (when the worker counts its first expired deadline, when the master
+    first finds it dead), through the real shim and servicer on one
+    scripted clock."""
+    now = [0.0]
+    servicer = MasterServicer(
+        32, TaskDispatcher({"s": (0, 64)}, records_per_task=64), clock=lambda: now[0]
+    )
+    servicer.heartbeat(msg.HeartbeatRequest(worker_id=1, step=3))
+    counted: list[float] = []
+    rpc_stats.set_observer(lambda _totals: counted.append(now[0]))
+
+    def sleep(secs):
+        now[0] += secs
+
+    shim = NetemShim(
+        [Fault(kind=FaultKind.NET_BLACKHOLE, fault_id="blackhole-p1", at_step=0,
+               process_id=1, duration_secs=60.0)],
+        process_id=1, worker_id=1, sleep=sleep, clock=lambda: now[0],
+    )
+    now[0] = phase
+    with pytest.raises(InjectedRpcError) as info:
+        shim.client_call("Master", "heartbeat", lambda: None, RACE_DEADLINE_SECS)
+    rpc_service._note_rpc_failure(info.value)
+    assert info.value.code() == StatusCode.DEADLINE_EXCEEDED
+    evicted_at = poll_offset
+    while True:
+        now[0] = evicted_at
+        if servicer.dead_workers(RACE_TIMEOUT_SECS) == [1]:
+            return counted[0], evicted_at
+        evicted_at += RACE_POLL_SECS
+
+
+def _worst_race_margin(interval: float) -> float:
+    margins = [
+        evicted - counted
+        for phase in (0.0, interval / 2, interval * 0.99, interval)
+        for offset in (0.0, 0.01, 0.25, 0.49)
+        for counted, evicted in [_blackhole_race(interval, phase, offset)]
+    ]
+    return min(margins)
+
+
+def test_the_blackhole_race_at_the_fixed_two_second_beat():
+    """At the lockstep worker's fixed 2 s beat, the beat the blackhole
+    swallows expires its 1 s deadline at the instant the master's 3 s
+    liveness timeout runs out: the eviction can come with no time for the
+    worker to count it.  This is how phase 17's blackhole run lost its
+    "deadline expired" gate on a loaded host."""
+    assert _worst_race_margin(2.0) < 0.05
+
+
+def test_the_master_paces_the_beat_so_the_deadline_is_counted_first(monkeypatch):
+    """The master's worker environment sets the beat's cadence from its
+    liveness timeout and its RPC deadline, and at that cadence the
+    swallowed beat's deadline is counted well before any eviction; with
+    no deadline, or one as long as the timeout, the beat keeps its 2 s."""
+    from elasticdl_tpu_torch.master.main import worker_envs
+    from elasticdl_tpu_torch.rpc.deadline import HEARTBEAT_INTERVAL_ENV
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+    from elasticdl_tpu_torch.worker import lockstep
+
+    def envs(*flags):
+        return worker_envs(parse_master_args(
+            ["--model_def", "m.custom_model", "--heartbeat_timeout_secs",
+             str(RACE_TIMEOUT_SECS), *flags]
+        ))
+
+    interval = float(envs("--rpc_deadline_secs", str(RACE_DEADLINE_SECS))[HEARTBEAT_INTERVAL_ENV])
+    assert interval == 1.0
+    assert _worst_race_margin(interval) >= RACE_HOST_LAG_SECS
+    assert HEARTBEAT_INTERVAL_ENV not in envs()
+    assert HEARTBEAT_INTERVAL_ENV not in envs("--rpc_deadline_secs", "5.0")
+    # the worker's beat thread takes the cadence from its environment
+    monkeypatch.setenv(HEARTBEAT_INTERVAL_ENV, str(interval))
+    assert lockstep.heartbeat_interval_from_env() == interval
+    monkeypatch.delenv(HEARTBEAT_INTERVAL_ENV)
+    assert lockstep.heartbeat_interval_from_env() == lockstep.HEARTBEAT_INTERVAL_SECS == 2.0
