@@ -267,11 +267,15 @@ printed:
    --num_replicas 2 --watch_model`` over the export of a short mnist
    training through the train CLI; ``python -m elasticdl_tpu_torch.client
    predict --serving_addr`` against it equal to the Local predict CLI
-   within ``PREDICT_MAX_ABS_ERR``; a newer export written into the watched
-   directory while a client keeps sending: no failed request, both
-   replicas at the new version; after SIGTERM the frontend and both
-   replicas gone within 10 s.  It prints the requests' latencies and
-   phases, each replica's swap ms and the watcher's swap latency.
+   within ``PREDICT_MAX_ABS_ERR``; one request traced end to end (the
+   frontend runs with ``--telemetry_dir``): the client's root span, the
+   router's ``route`` and the replica's ``queue``, ``engine`` and
+   ``serving_request`` in its trace, a dispatch group linked to it; a
+   newer export written into the watched directory while a client keeps
+   sending: no failed request, both replicas at the new version; after
+   SIGTERM the frontend and both replicas gone within 10 s.  It prints
+   the requests' latencies and phases, each replica's swap ms and the
+   watcher's swap latency.
 17. chaos — the chaos runner CLI, ``python -m
    elasticdl_tpu_torch.chaos.runner``, six runs side by side, each a
    subprocess with its own work directory and job (two lockstep mnist
@@ -286,9 +290,11 @@ printed:
    first re-formation evicting the blackholed worker); and
    ``slow_network_mid_epoch`` (exit 0, no re-formation, and no call past
    its 5 s deadline though it shares the host with the other five).
-   Each writes ``chaos_result.json``; one row per plan gives its wall
-   seconds, re-formation, detection and kill-to-step latencies, RPC
-   totals and accuracy.
+   Each writes ``chaos_result.json``, with its ``trace`` section: for
+   ``preempt_one_worker`` one re-formation, at least 90 % of its
+   downtime in named phases.  One row per plan gives its wall seconds,
+   re-formation, detection and kill-to-step latencies, RPC totals and
+   accuracy.
 
 18. anatomy — the step anatomy, the metrics registry and ``/metrics``.
    (a) Alone, after phase 17: phase 6's LM (gpt2s at full width, 8 rows
@@ -302,12 +308,22 @@ printed:
    the other's or under 0.5 %, each dispatch's ``device_compute`` holds
    the device time between CUDA events around it on its stream, and each
    flash kernel launches 12 times a step; it prints each window's phase
-   shares.  (b) Beside phase 11's jobs: a two-rank mnist world on phase
-   10's shards with ``--step_anatomy true --telemetry_dir --metrics_port
-   0``; two scrapes of the master's ``/metrics`` over HTTP show every
-   tracked phase's ``elasticdl_step_phase_ms_total``, not falling;
-   ``/healthz`` answers 200 with the JAX body's keys; the goodput section
-   has every generation of the step samples.
+   shares.  Then a third window, prefetch_off's job with
+   ``--trace_sample_rate 0.25 --profile_dir --profile_steps 2``: its
+   directory through ``trace export`` and ``trace analyze``
+   (:func:`check_trace_dir`: every span well formed, valid Chrome JSON,
+   the steady-state phases, the profiler window's events and span, and a
+   ``torch.profiler`` trace naming the three Hopper flash kernels); it
+   prints its dispatches' walls beside prefetch_off's and the profiled
+   steps' top device kernels.  (b) Beside phase 11's jobs: a two-rank
+   mnist world on phase 10's shards with ``--step_anatomy true
+   --telemetry_dir --metrics_port 0 --trace_sample_rate 1.0
+   --profile_dir``; two scrapes of the master's ``/metrics`` over HTTP
+   show every tracked phase's ``elasticdl_step_phase_ms_total``, not
+   falling; ``/healthz`` answers 200 with the JAX body's keys; the
+   goodput section has every generation of the step samples; the trace
+   gates of (a), and every task's trace holding the master's dispatch
+   span and a worker's.
 
 19. decode and sharded tables — gpt2s generating with KV caches
    (``generate_lm``), bench's ``deepfm_100m`` (``deepfm_100m_run``) and
@@ -2845,11 +2861,12 @@ def _job_recorder(expected_records=None, kill_at_version=None, on_build=None):
         if kill_at_version is not None:
             def kill(worker_id, version):
                 if built["killed"] is None and version >= kill_at_version:
-                    pid = master.instance_manager.worker_pid(worker_id)
                     built["killed"] = {
                         "worker_id": worker_id, "version": version, "at": time.monotonic(),
                     }
-                    os.kill(pid, signal.SIGKILL)
+                    # through the instance manager's handle: a worker it
+                    # has reaped already is not signalled
+                    master.instance_manager.signal_worker(worker_id, signal.SIGKILL)
 
             master.servicer.add_version_observer(kill)
         if on_build is not None:
@@ -4608,32 +4625,39 @@ def master_ha_run(
     return row
 
 
-def _worker_children(pid: int) -> list:
-    """The worker processes ``pid`` started (``/proc``: its children whose
-    command line runs the port's worker)."""
+def _held_children(pid: int, marker: bytes) -> list:
+    """The processes ``pid`` started whose command line holds ``marker``,
+    each held (``utils/proc.py``: its pid and start time) before its
+    command line is read and checked again after, so the handle names the
+    very process checked and a later signal never reaches a process that
+    took a freed pid."""
+    from elasticdl_tpu_torch.utils.proc import HeldProcess
+
     try:
         with open(f"/proc/{pid}/task/{pid}/children", encoding="ascii") as f:
             children = [int(c) for c in f.read().split()]
     except OSError:
         return []
-    workers = []
+    out = []
     for child in children:
+        held = HeldProcess(child)
         try:
             with open(f"/proc/{child}/status", encoding="ascii") as f:
                 tgid = next(int(line.split()[1]) for line in f if line.startswith("Tgid:"))
             with open(f"/proc/{child}/cmdline", "rb") as f:
-                # a process, not one of its threads, running the worker
-                if tgid == child and b"elasticdl_tpu_torch.worker.main" in f.read():
-                    workers.append(child)
+                # a process, not one of its threads, running ``marker``
+                if held.held and tgid == child and marker in f.read() and not held.exited():
+                    out.append(held)
+                    continue
         except (OSError, StopIteration, ValueError):
-            continue
-    return workers
+            pass
+        held.close()
+    return out
 
 
-def _pid_alive(pid: int) -> bool:
-    from elasticdl_tpu_torch.master.master import _AdoptedProcess
-
-    return _AdoptedProcess(pid).poll() is None
+def _worker_children(pid: int) -> list:
+    """The worker processes ``pid`` started, held (:func:`_held_children`)."""
+    return _held_children(pid, b"elasticdl_tpu_torch.worker.main")
 
 
 def _real_kill_lives(work_dir: str, cfg: dict, data: dict, device: str = "cuda") -> dict:
@@ -4667,8 +4691,9 @@ def _real_kill_lives(work_dir: str, cfg: dict, data: dict, device: str = "cuda")
         if version >= fault.at_step:
             break
         time.sleep(0.1)
-    old_pids = sorted(_worker_children(first.pid))
-    os.kill(first.pid, signal.SIGKILL)
+    old = _worker_children(first.pid)
+    old_pids = sorted(h.pid for h in old)
+    first.kill()
     crashed_at = time.monotonic()
     first_rc = first.wait()
     _record_master_kill(paths["events"], fault, crashed_at, step=version)
@@ -4685,14 +4710,13 @@ def _real_kill_lives(work_dir: str, cfg: dict, data: dict, device: str = "cuda")
     # the workers end at the stream's end; one that re-homed as the
     # relaunched master stopped may still be on its way out
     deadline = time.monotonic() + 30.0
-    while any(_pid_alive(p) for p in old_pids) and time.monotonic() < deadline:
+    while any(not h.exited() for h in old) and time.monotonic() < deadline:
         time.sleep(0.2)
-    left = [p for p in old_pids if _pid_alive(p)]
-    for pid in old_pids:
-        with contextlib.suppress(OSError):
-            if pid in left:
-                os.kill(pid, signal.SIGKILL)
-            os.waitpid(pid, os.WNOHANG)  # orphans this process may have inherited
+    left = sorted(h.pid for h in old if not h.exited())
+    for held in old:
+        # through the handle: a worker already reaped is not signalled
+        held.signal(signal.SIGKILL)
+        held.close()
     return {
         "paths": paths, "plan": plan, "fault": fault, "logs": logs, "version": version,
         "rc": rc, "first_rc": first_rc, "old_pids": old_pids, "left": left,
@@ -5534,51 +5558,62 @@ def _predict_batch(cfg: dict, data: dict, rows: int):
 
 
 def _serving_children(pid: int) -> list:
-    """The replica processes a serving frontend ``pid`` started (``/proc``:
-    its children, not their threads, whose command line is a replica's)."""
-    try:
-        with open(f"/proc/{pid}/task/{pid}/children", encoding="ascii") as f:
-            children = [int(c) for c in f.read().split()]
-    except OSError:
-        return []
-    out = []
-    for child in children:
-        try:
-            with open(f"/proc/{child}/status", encoding="ascii") as f:
-                tgid = next(int(line.split()[1]) for line in f if line.startswith("Tgid:"))
-            with open(f"/proc/{child}/cmdline", "rb") as f:
-                if tgid == child and b"--role\x00replica" in f.read():
-                    out.append(child)
-        except (OSError, StopIteration, ValueError):
-            continue
-    return out
+    """The replica processes a serving frontend ``pid`` started, held
+    (:func:`_held_children`)."""
+    return _held_children(pid, b"--role\x00replica")
 
 
-def _proc_running(pid: int) -> bool:
-    """Whether ``pid`` is a process that has not exited (a zombie has)."""
-    try:
-        with open(f"/proc/{pid}/stat", encoding="ascii") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-    except (OSError, IndexError):
-        return False
-
-
-def _gone_within(pids: list, secs: float) -> bool:
+def _gone_within(held: list, secs: float) -> bool:
+    """Whether every held process exits within ``secs``."""
     deadline = time.monotonic() + secs
     while time.monotonic() < deadline:
-        if not any(_proc_running(p) for p in pids):
+        if all(h.exited() for h in held):
             return True
         time.sleep(0.05)
     return False
+
+
+def _start_frontend(cmd: list, log_file, env: dict) -> tuple:
+    """``serving.main`` in a session of its own (no signal meant for this
+    process's group reaches it, nor one of its for ours), and a handle
+    on it (``utils/proc.py``) for :func:`_gone_within`."""
+    from elasticdl_tpu_torch.utils.proc import HeldProcess
+
+    frontend = subprocess.Popen(
+        cmd, cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        start_new_session=True,
+    )
+    return frontend, HeldProcess(frontend.pid)
+
+
+def _stop_serving(frontend, held_frontend, kids: list):
+    """Stop a frontend from :func:`_start_frontend` and its replicas,
+    signalling only what is still held: the frontend's session while its
+    leader is not reaped (its id and group are still this process's),
+    each replica through the handle taken while it ran (the frontend may
+    have reaped it, and its pid may belong to anyone now); then reap the
+    frontend."""
+    import signal
+
+    if frontend.returncode is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(frontend.pid, signal.SIGKILL)
+    for held in kids:
+        held.signal(signal.SIGKILL)
+        held.close()
+    frontend.wait()
+    held_frontend.close()
 
 
 def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST) -> dict:
     """Phase 16b: ``python -m elasticdl_tpu_torch.serving.main`` with two
     replicas and ``--watch_model`` over the export of a short mnist
     training through the CLI; ``python -m elasticdl_tpu_torch.client
-    predict --serving_addr`` against it, held to the Local predict CLI; a
-    newer export written into the watched directory under load; SIGTERM
-    and no process left."""
+    predict --serving_addr`` against it, held to the Local predict CLI;
+    one request traced end to end (the frontend runs with
+    ``--telemetry_dir``; :func:`traced_request_row`); a newer export
+    written into the watched directory under load; SIGTERM and no
+    process left."""
     import signal
 
     import numpy as np
@@ -5588,6 +5623,7 @@ def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST
     from elasticdl_tpu_torch.rpc import messages as msg
     from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
     from elasticdl_tpu_torch.serving.replica import ServingClient
+    from elasticdl_tpu_torch.telemetry.tracing import SPAN_PREDICT_REQUEST, SpanRecorder
     from elasticdl_tpu_torch.utils.export_utils import (
         export_model,
         load_exported_model,
@@ -5610,19 +5646,20 @@ def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST
     env = dict(os.environ, **TF32_OFF)
     addr_file = os.path.join(work_dir, "serving_addr")
     log_path = os.path.join(work_dir, "frontend.log")
+    tel_dir = os.path.join(work_dir, "telemetry")
     row: dict = {"device": device, "train_secs": train_secs, "version": version}
     t0 = time.monotonic()
     with open(log_path, "w") as log_file:
-        frontend = subprocess.Popen(
+        frontend, held_frontend = _start_frontend(
             [sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
              "--model_dir", export_dir, "--num_replicas", "2", "--watch_model",
              "--addr_file", addr_file, "--device", device,
-             "--minibatch_size", str(cfg["batch"]),
+             "--minibatch_size", str(cfg["batch"]), "--telemetry_dir", tel_dir,
              # the router's deadline must outlast a replica's first
              # request, which builds its model (the default 5 s, as in
              # the JAX package, re-routes it and the client retries)
              "--rpc_deadline_secs", str(SERVE_RPC_DEADLINE_SECS)],
-            cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+            log_file, env,
         )
     kids: list = []
     try:
@@ -5666,9 +5703,22 @@ def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST
             float(np.max(np.abs(remote - local))) if remote.shape == local.shape else None
         )
 
-        # a newer export into the watched directory, under load
+        # one request traced end to end: the client's root span here, by
+        # a recorder of this phase's own (other phases in this process
+        # install and clear the process's tracer)
         features = _predict_batch(cfg, data, cfg["batch"])
         serving = ServingClient(addr, deadlines=DeadlinePolicy.from_secs(30))
+        client_spans = SpanRecorder(
+            os.path.join(tel_dir, "client", "spans.jsonl"), role="client", sample_rate=1.0
+        )
+        with client_spans.span(SPAN_PREDICT_REQUEST, request_id="traced") as root:
+            traced = serving.predict(msg.PredictRequest(
+                request_id="traced", features=msg.pack_array_tree(features), trace=root.context,
+            ))
+        client_spans.flush()
+        row["traced_request"] = {"error": traced.error, "trace_id": root.trace_id}
+
+        # a newer export into the watched directory, under load
         outcomes: list = []
         stop = threading.Event()
 
@@ -5726,18 +5776,17 @@ def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST
         }
 
         # SIGTERM: the frontend and both replicas gone within 10 s
-        pids = [frontend.pid, *kids]
         t0 = time.monotonic()
         frontend.send_signal(signal.SIGTERM)
         row["exit"] = {
-            "replicas": len(kids), "gone": _gone_within(pids, SERVE_CLI_EXIT_SECS),
+            "replicas": len(kids),
+            "gone": _gone_within([held_frontend, *kids], SERVE_CLI_EXIT_SECS),
             "secs": time.monotonic() - t0, "rc": frontend.poll(),
         }
     finally:
-        for pid in [frontend.pid, *kids]:
-            with contextlib.suppress(OSError):
-                os.kill(pid, signal.SIGKILL)
-        frontend.wait()
+        _stop_serving(frontend, held_frontend, kids)
+    # the serving processes flushed their spans as they stopped
+    row["traced_request"].update(traced_request_row(tel_dir, row["traced_request"]["trace_id"]))
     row["secs"] = time.monotonic() - t_phase
     with open(log_path) as f:
         log("--- the serving frontend's log, its end\n" + f.read()[-3000:])
@@ -5748,9 +5797,58 @@ def serve_cli_mnist(work_dir: str, device: str = "cuda", cfg: dict = SERVE_MNIST
     return row
 
 
+def traced_request_row(tel_dir: str, trace_id: str) -> dict:
+    """One traced request read back from the client's and the serving
+    processes' span logs: its spans by name with their roles, whether
+    each is a child of the client's root, and the dispatch groups that
+    link to it; then the serving critical path of ``trace analyze`` over
+    the two logs together."""
+    from elasticdl_tpu_torch.telemetry import trace
+    from elasticdl_tpu_torch.telemetry.tracing import (
+        SPAN_PREDICT_REQUEST,
+        SPANS_FILENAME,
+        read_spans,
+    )
+
+    spans = read_spans(os.path.join(tel_dir, SPANS_FILENAME)) + read_spans(
+        os.path.join(tel_dir, "client", SPANS_FILENAME)
+    )
+    mine = [s for s in spans if s.get("trace_id") == trace_id]
+    root = next((s for s in mine if s.get("span") == SPAN_PREDICT_REQUEST), {})
+    merged = os.path.join(tel_dir, "merged")
+    os.makedirs(merged, exist_ok=True)
+    with open(os.path.join(merged, SPANS_FILENAME), "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(s) + "\n" for s in spans)
+    serving = trace.analyze_telemetry_dir(merged).get("serving") or {}
+    return {
+        "spans": sorted(f"{s.get('span')}@{s.get('role')}" for s in mine),
+        "children_of_root": sum(
+            1 for s in mine if root and s.get("parent_span_id") == root.get("span_id")
+        ),
+        "linked_dispatches": sum(
+            1 for s in spans if s.get("span") == "serving_dispatch"
+            and any(link.get("trace_id") == trace_id for link in s.get("links", []))
+        ),
+        "critical_path": {k: serving.get(k) for k in ("requests", "phases_secs", "coverage")},
+    }
+
+
+# the traced request's spans, each ``name@role``: the client's root, the
+# router's first attempt and the replica's queue, engine and request
+TRACED_REQUEST_SPANS = sorted((
+    "predict_request@client", "route@router", "queue@replica", "engine@replica",
+    "serving_request@replica",
+))
+
+
 def check_serve_cli_mnist(row: dict, cfg: dict = SERVE_MNIST) -> list:
     """Phase 16b's gates on its printed row; the failed ones, by name."""
     bad = []
+    traced = row.get("traced_request") or {}
+    if traced.get("error") or traced.get("spans") != TRACED_REQUEST_SPANS \
+            or traced.get("children_of_root") != len(TRACED_REQUEST_SPANS) - 1 \
+            or not traced.get("linked_dispatches"):
+        bad.append(f"the traced request's spans {traced}")
     if row.get("predicted_rows") != cfg["eval_records"] \
             or row.get("max_abs_err_to_local") is None \
             or row["max_abs_err_to_local"] > PREDICT_MAX_ABS_ERR:
@@ -5790,6 +5888,10 @@ CHAOS_RUNS = (
     ("blackhole_master_link", ("--plan", "blackhole_master_link", "--no-baseline"), 0),
     ("slow_network_mid_epoch", ("--plan", "slow_network_mid_epoch", "--no-baseline"), 0),
 )
+# the share of preempt_one_worker's re-formation downtime that the
+# runner's trace section must attribute to named phases (the JAX
+# package's acceptance, tests/test_tracing.py)
+CHAOS_TRACE_COVERAGE = 0.9
 # each job's cap (the runner's --run-timeout-secs); a run is the faulted
 # job and, for preempt_one_worker, its baseline
 CHAOS_RUN_TIMEOUT_SECS = 300.0
@@ -5822,6 +5924,8 @@ def _session_run(cmd: list, log_path: str, timeout_secs: float) -> tuple:
     import atexit
     import signal
 
+    from elasticdl_tpu_torch.utils.proc import HeldProcess
+
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.monotonic()
     with open(log_path, "w") as log_file:
@@ -5832,16 +5936,22 @@ def _session_run(cmd: list, log_path: str, timeout_secs: float) -> tuple:
             start_new_session=True,
         )
         _CHAOS_SESSIONS.add(proc.pid)
+        # wait for the leader's exit without reaping it: while it is not
+        # reaped its id, and so its session's group id, is this
+        # process's, and the group can be signalled
+        leader = HeldProcess(proc.pid)
+        deadline = time.monotonic() + timeout_secs
         try:
-            rc = proc.wait(timeout=timeout_secs)
-        except subprocess.TimeoutExpired:
-            rc = None
+            while not leader.exited() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            ended = leader.exited()
         finally:
             with contextlib.suppress(ProcessLookupError):
                 os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
             _CHAOS_SESSIONS.discard(proc.pid)
-    return rc, time.monotonic() - t0
+            rc = proc.wait()
+            leader.close()
+    return (rc if ended else None), time.monotonic() - t0
 
 
 def chaos_run(work_dir: str, name: str, argv, device: str = "cuda") -> dict:
@@ -5859,11 +5969,24 @@ def chaos_run(work_dir: str, name: str, argv, device: str = "cuda") -> dict:
     rc, secs = _session_run(
         cmd, os.path.join(run_dir, "log.txt"), 2 * CHAOS_RUN_TIMEOUT_SECS + 120
     )
-    row = {"rc": rc, "secs": secs, "result_json": os.path.exists(
-        os.path.join(run_dir, "chaos_result.json"))}
+    result_path = os.path.join(run_dir, "chaos_result.json")
+    row = {"rc": rc, "secs": secs, "result_json": os.path.exists(result_path)}
+    if row["result_json"]:
+        with open(result_path) as f:
+            # the causal trace's summary: each re-formation's phases
+            row["trace_gaps"] = [
+                {k: gap.get(k) for k in ("downtime_secs", "coverage", "phases_secs")}
+                for run in (json.load(f).get("trace") or {}).values()
+                for gap in run.get("reform_downtime", [])
+            ]
+    with open(os.path.join(run_dir, "log.txt"), errors="replace") as f:
+        lines = f.readlines()
+    # what a failed gate needs read: every warning, error and traceback
+    # line of the runner, its master and its workers (the master names
+    # each death's cause), then the log's end
+    notes = [ln for ln in lines if re.search(r"WARNING|ERROR|Traceback|Error:|CHAOS", ln)]
+    row["log_tail"] = "".join(notes)[-12000:] + "--- its end:\n" + "".join(lines)[-3000:]
     if not os.path.exists(out):
-        with open(os.path.join(run_dir, "log.txt")) as f:
-            row["log_tail"] = f.read()[-3000:]
         return row
     with open(out) as f:
         report = json.load(f)
@@ -5905,6 +6028,9 @@ def check_chaos_case(name: str, row: dict, want_rc: int) -> list:
             problems.append(f"trajectory_parity {inv.get('trajectory_parity')}, delta {delta}")
         if row["reforms"] != 1:
             problems.append(f"{row['reforms']} re-formations, not 1")
+        gaps = row.get("trace_gaps") or []
+        if len(gaps) != 1 or (gaps[0]["coverage"] or 0.0) < CHAOS_TRACE_COVERAGE:
+            problems.append(f"the trace section's re-formations {gaps}")
     elif name == "double_report":
         if row["invariants_ok"] or inv.get("exactly_once") != "FAIL":
             problems.append(f"exactly_once {inv.get('exactly_once')}")
@@ -5994,13 +6120,33 @@ ANATOMY_WINDOWS = (("prefetch_off", "false"), ("prefetch_on", "true"))
 # for every tracked phase to reach /metrics
 SCRAPE_POLL_SECS = 0.25
 SCRAPE_FIRST_SECS = 120.0
+# span tracing and the profiler window on phase 18's jobs: 18a's traced
+# window is prefetch_off's job with sampled spans (1 step in 4) and a
+# torch.profiler window over 2 of its 8 steps (steps 6 and 7: the
+# StepProfiler's flag window starts past step 5), so the steps before it
+# compare with prefetch_off's; 18b's world keeps every span
+TRACED_WINDOW = "traced"
+TRACE_SAMPLE_RATE_LM, TRACE_SAMPLE_RATE_WORLD = "0.25", "1.0"
+PROFILE_STEPS = 2
+# the dispatches whose wall times compare tracing off (prefetch_off's
+# job, run with no span tracer) and on (the traced window, 1 step in 4
+# sampled): past the first (the trainer's build and restore), before
+# the profiler's window
+TRACE_COMPARE_DISPATCHES = slice(1, 5)
 
 
-def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg=None) -> dict:
+def _anatomy_window(
+    data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg=None, extra=(),
+    tracer: bool = True,
+) -> dict:
     """One Local train CLI run of phase 6's data with ``--step_anatomy``
-    (one epoch, 8 steps of 8 rows); its events, goodput section, kernel
-    launches and, per ``train_step`` call, the device milliseconds between
-    CUDA events recorded around it on the current stream."""
+    (one epoch, 8 steps of 8 rows) and ``extra`` flags; its events,
+    goodput section, kernel launches, each dispatch's wall ms and, per
+    ``train_step`` call, the device milliseconds between CUDA events
+    recorded around it on the current stream.  ``tracer=False``: the job
+    runs with no span tracer at all (the executor installs one on every
+    ``--telemetry_dir``, at the default sample rate), so that its steps
+    are the tracing-off side of the overhead comparison."""
     from unittest import mock
 
     import torch
@@ -6008,6 +6154,7 @@ def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg
     from elasticdl_tpu_torch import client
     from elasticdl_tpu_torch.ops import attention as attn
     from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer
+    from elasticdl_tpu_torch.telemetry import tracing
     from elasticdl_tpu_torch.telemetry.events import read_jsonl
     from elasticdl_tpu_torch.telemetry.report import goodput_section
 
@@ -6026,9 +6173,15 @@ def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg
 
     argv = _local_argv(
         data, device, "--num_epochs", "1", "--step_anatomy", "true",
-        "--telemetry_dir", tel_dir, "--device_prefetch", prefetch, lm_cfg=lm_cfg,
+        "--telemetry_dir", tel_dir, "--device_prefetch", prefetch, *extra, lm_cfg=lm_cfg,
     )
-    with mock.patch.object(SPMDTrainer, "train_step", marked):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(SPMDTrainer, "train_step", marked))
+        if not tracer:
+            tracing.uninstall()
+            stack.enter_context(
+                mock.patch.object(tracing, "install", lambda *_a, **_k: tracing.uninstall())
+            )
         attn.reset_launch_counts()
         t0 = time.monotonic()
         rc = client.main(argv)
@@ -6043,6 +6196,7 @@ def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg
     goodput = goodput_section(events)
     return {
         "rc": rc, "secs": secs, "launches": launches, "gpu_ms": gpu_ms,
+        "spans_written": len(read_jsonl(os.path.join(tel_dir, "spans.jsonl"))),
         "dispatches": len(anat), "steps": sum(e["steps"] for e in anat),
         "step_samples": sum(1 for e in events if e.get("event") == "step"),
         "max_sum_residual_ms": max(
@@ -6050,6 +6204,7 @@ def _anatomy_window(data: dict, device: str, tel_dir: str, prefetch: str, lm_cfg
              for e in anat), default=None,
         ),
         "device_compute_ms": [e.get("device_compute_ms", 0.0) for e in anat],
+        "wall_ms": [e["wall_ms"] for e in anat],
         "goodput": goodput["overall"] if goodput else None,
         # the steps after the first, whose bookkeeping builds the trainer
         # and restores its checkpoint: the step's own shares
@@ -6099,25 +6254,200 @@ def anatomy_lm_run(work_dir: str, device: str = "cuda", lm_cfg=None) -> dict:
     """18a: the LM of phase 6 (gpt2s at full width unless ``lm_cfg``)
     through the Local train CLI with ``--step_anatomy`` and
     ``--telemetry_dir``, a window with ``--device_prefetch false`` and one
-    with ``true``, gated by :func:`check_anatomy_lm`.  Its row gives each
-    window's phase shares of the step."""
+    with ``true``, gated by :func:`check_anatomy_lm`; then the traced
+    window (:data:`TRACED_WINDOW`: prefetch_off's job with
+    ``--trace_sample_rate`` and ``--profile_dir``), its telemetry
+    directory exported and analyzed by ``telemetry/trace.py``, gated by
+    :func:`check_trace_dir`.  Its row gives each window's phase shares
+    of the step, and the traced window's step walls beside
+    prefetch_off's."""
     import torch
 
     data = _local_data(work_dir, lm_cfg=lm_cfg)
     row = {"secs": 0.0}
-    for name, prefetch in ANATOMY_WINDOWS:
+    profile_dir = os.path.join(work_dir, "profile")
+    traced = (
+        "--trace_sample_rate", TRACE_SAMPLE_RATE_LM, "--profile_dir", profile_dir,
+        "--profile_steps", str(PROFILE_STEPS),
+    )
+    for name, prefetch, extra in (*((n, p, ()) for n, p in ANATOMY_WINDOWS),
+                                  (TRACED_WINDOW, "false", traced)):
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
         row[name] = _anatomy_window(
             data, device, os.path.join(work_dir, f"telemetry_{name}"), prefetch, lm_cfg=lm_cfg,
+            extra=extra, tracer=name == TRACED_WINDOW,
         )
         row["secs"] += row[name]["secs"]
+    # the traced job's tracer outlives its executor: no later phase's
+    # spans go into this phase's directory
+    from elasticdl_tpu_torch.telemetry import tracing
+
+    tracing.uninstall()
     layers = (lm_cfg or GPT2S)["num_layers"]
     problems = check_anatomy_lm(row, per_step=layers if device == "cuda" else 0)
+    t0 = time.monotonic()
+    row["trace"] = trace_dir_row(
+        os.path.join(work_dir, f"telemetry_{TRACED_WINDOW}"), profile_dir, device
+    )
+    row["trace"]["secs"] = time.monotonic() - t0
+    row["trace_overhead"] = {
+        window: statistics.median(row[window]["wall_ms"][TRACE_COMPARE_DISPATCHES])
+        for window in ("prefetch_off", TRACED_WINDOW)
+        if len(row[window]["wall_ms"]) >= TRACE_COMPARE_DISPATCHES.stop
+    }
+    problems += check_trace_dir(
+        row["trace"], kernels=HOPPER_KERNELS if device == "cuda" else (),
+    )
+    if row[TRACED_WINDOW]["rc"] != 0:
+        problems.append(f"{TRACED_WINDOW}: rc {row[TRACED_WINDOW]['rc']}")
+    traced_off = {name: row[name]["spans_written"] for name, _p in ANATOMY_WINDOWS}
+    if any(traced_off.values()):
+        problems.append(f"spans written with no tracer: {traced_off}")
     if problems:
         raise AssertionError(f"phase 18a failed its gates: {problems}")
     return row
+
+
+def _span_problems(span: dict) -> list:
+    """What makes one span record malformed: the JAX package's fields,
+    ids of their widths, and a start no later than its end."""
+    bad = []
+    for key, width in (("trace_id", 32), ("span_id", 16)):
+        value = span.get(key)
+        if not isinstance(value, str) or len(value) != width or re.fullmatch(r"[0-9a-f]+", value) is None:
+            bad.append(key)
+    parent = span.get("parent_span_id")
+    if parent not in ("",) and not (isinstance(parent, str) and re.fullmatch(r"[0-9a-f]{16}", parent)):
+        bad.append("parent_span_id")
+    if not isinstance(span.get("span"), str) or not span.get("role"):
+        bad.append("name/role")
+    for key in ("worker_id", "process_id", "generation"):
+        if not isinstance(span.get(key), int):
+            bad.append(key)
+    start, end = span.get("start"), span.get("end")
+    if not isinstance(start, (int, float)) or not isinstance(end, (int, float)) or end < start:
+        bad.append("start/end")
+    return bad
+
+
+def _chrome_problems(chrome) -> list:
+    """What makes a Chrome trace-event document invalid for Perfetto: a
+    ``traceEvents`` list whose complete events carry numeric ``ts`` and a
+    non-negative ``dur``, a name, and integer ``pid`` and ``tid``."""
+    events = chrome.get("traceEvents") if isinstance(chrome, dict) else None
+    if not isinstance(events, list) or not events:
+        return ["no traceEvents"]
+    bad = [
+        e for e in events
+        if e.get("ph") == "X" and not (
+            isinstance(e.get("ts"), (int, float)) and isinstance(e.get("dur"), (int, float))
+            and e["dur"] >= 0 and e.get("name") and isinstance(e.get("pid"), int)
+            and isinstance(e.get("tid"), int)
+        )
+    ]
+    return [f"{len(bad)} malformed complete events, e.g. {bad[0]}"] if bad else []
+
+
+def trace_dir_row(tel_dir: str, profile_dir: str | None, device: str) -> dict:
+    """A traced job's telemetry directory read back: the span log (span
+    counts by name, malformed records), ``trace export``'s Chrome JSON
+    and ``trace analyze``'s analysis (``telemetry/trace.py``'s CLI, in
+    process), the profiler window's events and spans, and its
+    ``torch.profiler`` traces with their kernels by device time."""
+    import glob
+    from collections import Counter
+
+    from elasticdl_tpu_torch.telemetry import trace
+    from elasticdl_tpu_torch.telemetry.events import read_jsonl
+    from elasticdl_tpu_torch.telemetry.tracing import read_spans
+
+    spans = read_spans(os.path.join(tel_dir, "spans.jsonl"))
+    events = read_jsonl(os.path.join(tel_dir, "events.jsonl"))
+    out = os.path.join(tel_dir, "trace.json")
+    export_rc = trace.main(["export", tel_dir, "--output", out])
+    try:
+        with open(out, encoding="utf-8") as f:
+            chrome_problems = _chrome_problems(json.load(f))
+    except (OSError, ValueError) as ex:
+        chrome_problems = [repr(ex)]
+    runs = trace.analyze_run_dir(tel_dir)["runs"]
+    analysis = next(iter(runs.values()), {})
+    # each task's trace: the master's dispatch span and the roles in it
+    task_roles = {}
+    for root in (s for s in spans if s.get("span") == "task_lifecycle"):
+        task_roles.setdefault(root["trace_id"], set())
+    for span in spans:
+        if span.get("trace_id") in task_roles:
+            task_roles[span["trace_id"]].add(span.get("role"))
+    row = {
+        "spans": dict(Counter(s.get("span") for s in spans)),
+        "malformed": [(s.get("span"), bad) for s in spans if (bad := _span_problems(s))][:3],
+        "export_rc": export_rc, "chrome_problems": chrome_problems,
+        "steady_state": analysis.get("steady_state"),
+        "reform_downtime": analysis.get("reform_downtime"),
+        "task_traces": len(task_roles),
+        "task_traces_without_a_worker": sum(1 for r in task_roles.values() if "worker" not in r),
+        "profile_events": dict(Counter(
+            e["event"] for e in events if e.get("event", "").startswith("profile_window")
+        )),
+        "profile_traces": [],
+    }
+    for path in sorted(glob.glob(os.path.join(profile_dir or tel_dir, "**", "*.pt.trace.json"),
+                                 recursive=True)):
+        with open(path, encoding="utf-8") as f:
+            profiled = json.load(f)
+        kernels: Counter = Counter()
+        for e in profiled.get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                kernels[e.get("name", "")] += float(e.get("dur", 0.0))
+        total = sum(kernels.values())
+        row["profile_traces"].append({
+            "path": os.path.relpath(path, profile_dir or tel_dir),
+            "events": len(profiled.get("traceEvents", [])),
+            "kernel_us": round(total, 3),
+            # the step's top device kernels, by device time
+            "top_kernels": [
+                {"name": name[:120], "us": round(us, 3), "share": round(us / total, 4)}
+                for name, us in kernels.most_common(8)
+            ] if total else [],
+            "kernel_names": sorted(kernels),
+        })
+    return row
+
+
+def check_trace_dir(row: dict, kernels=(), world: bool = False) -> list:
+    """The trace gates of a traced phase-18 job: spans written and each
+    well formed; the export valid Chrome JSON; the analysis with its
+    steady-state phases; the profiler window's open and close events,
+    its span, and a ``torch.profiler`` trace (naming ``kernels`` among
+    its device kernels); in a world (``world``), every task's trace
+    holding the master's dispatch span and a worker's spans."""
+    problems = []
+    if not row["spans"] or row["malformed"]:
+        problems.append(f"spans {row['spans']}, malformed {row['malformed']}")
+    if row["export_rc"] != 0 or row["chrome_problems"]:
+        problems.append(f"trace export rc {row['export_rc']}: {row['chrome_problems']}")
+    steady = row.get("steady_state") or {}
+    if not steady or any("device_compute" not in g.get("phases", {}) for g in steady.values()):
+        problems.append(f"trace analyze: no steady-state phases {steady}")
+    if row["profile_events"].get("profile_window_open", 0) < 1 or (
+        row["profile_events"].get("profile_window_open")
+        != row["profile_events"].get("profile_window_close")
+    ) or row["spans"].get("profile_window", 0) < 1:
+        problems.append(f"profile window events {row['profile_events']}, "
+                        f"spans {row['spans'].get('profile_window')}")
+    if not row["profile_traces"] or any(t["events"] == 0 for t in row["profile_traces"]):
+        problems.append(f"no torch.profiler trace: {row['profile_traces']}")
+    names = [n for t in row["profile_traces"] for n in t["kernel_names"]]
+    missing = [k for k in kernels if not any(k in n for n in names)]
+    if missing:
+        problems.append(f"the profiler trace names no {missing}")
+    if world and (not row["task_traces"] or row["task_traces_without_a_worker"]):
+        problems.append(f"{row['task_traces_without_a_worker']} of {row['task_traces']} task "
+                        "traces hold no worker span")
+    return problems
 
 
 def _scrape(port: int, path: str) -> tuple:
@@ -6214,9 +6544,12 @@ def anatomy_world_run(work_dir: str, data: dict, device: str = "cuda", cfg=None)
         threads.append(thread)
 
     t0 = time.monotonic()
+    profile_dir = os.path.join(work_dir, "profile")
     run = _distributed_run(
         cfg, data, device, work_dir, "anatomy", on_build=on_build,
-        extra=("--step_anatomy", "true", "--telemetry_dir", tel_dir, "--metrics_port", "0"),
+        extra=("--step_anatomy", "true", "--telemetry_dir", tel_dir, "--metrics_port", "0",
+               "--trace_sample_rate", TRACE_SAMPLE_RATE_WORLD, "--profile_dir", profile_dir,
+               "--profile_steps", str(PROFILE_STEPS)),
     )
     for thread in threads:
         thread.join(timeout=30)
@@ -6229,7 +6562,8 @@ def anatomy_world_run(work_dir: str, data: dict, device: str = "cuda", cfg=None)
         "step_generations": sorted({e.get("generation", 0) for e in events if e.get("event") == "step"}),
         "goodput_generations": goodput.get("generations"),
     }
-    problems = check_anatomy_world(row)
+    row["trace"] = trace_dir_row(tel_dir, profile_dir, device)
+    problems = check_anatomy_world(row) + check_trace_dir(row["trace"], world=True)
     if problems:
         raise AssertionError(f"phase 18b failed its gates: {problems}")
     return row
@@ -7049,13 +7383,12 @@ def live_push_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
     row: dict = {"device": device, "log": log_path}
     t0 = time.monotonic()
     with open(log_path, "w") as log_file:
-        frontend = subprocess.Popen(
+        frontend, held_frontend = _start_frontend(
             [sys.executable, "-m", "elasticdl_tpu_torch.serving.main",
              "--model_dir", boot_dir, "--num_replicas", "1", "--addr_file", addr_file,
              "--device", device, "--minibatch_size", str(cfg["serve_rows"]),
              "--rpc_deadline_secs", str(SERVE_RPC_DEADLINE_SECS)],
-            cwd=REPO, env=dict(os.environ, **TF32_OFF), stdout=log_file,
-            stderr=subprocess.STDOUT,
+            log_file, dict(os.environ, **TF32_OFF),
         )
     kids: list = []
     try:
@@ -7139,16 +7472,15 @@ def live_push_run(work_dir: str, cfg: dict, device: str = "cuda") -> dict:
                 np.asarray(msg.unpack_array_tree(served.outputs), np.float32) - direct)))
             row["probe_version"] = int(served.model_version)
         client.close()
-        pids = [frontend.pid, *kids]
         t0 = time.monotonic()
         frontend.send_signal(signal.SIGTERM)
-        row["exit"] = {"replicas": len(kids), "gone": _gone_within(pids, SERVE_CLI_EXIT_SECS),
-                       "secs": time.monotonic() - t0}
+        row["exit"] = {
+            "replicas": len(kids),
+            "gone": _gone_within([held_frontend, *kids], SERVE_CLI_EXIT_SECS),
+            "secs": time.monotonic() - t0,
+        }
     finally:
-        for pid in [frontend.pid, *kids]:
-            with contextlib.suppress(OSError):
-                os.kill(pid, signal.SIGKILL)
-        frontend.wait()
+        _stop_serving(frontend, held_frontend, kids)
     row["secs"] = time.monotonic() - t_phase
     return row
 
@@ -7564,8 +7896,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_anatomy_") as work_dir:
         _release_memory("cuda")
         anatomy_lm = anatomy_lm_run(work_dir)
+    anatomy_windows = (*(name for name, _p in ANATOMY_WINDOWS), TRACED_WINDOW)
     anatomy_launches = {
-        k: sum(anatomy_lm[name]["launches"][k] for name, _p in ANATOMY_WINDOWS)
+        k: sum(anatomy_lm[name]["launches"][k] for name in anatomy_windows)
         for k in FLASH_NAMES
     }
     print(json.dumps({"anatomy": {
@@ -7577,9 +7910,19 @@ def main() -> int:
                 "steady": anatomy_lm[name]["steady"],
                 "device_compute_ms": anatomy_lm[name]["device_compute_ms"],
                 "stream_gpu_ms": anatomy_lm[name]["gpu_ms"],
-            } for name, _p in ANATOMY_WINDOWS},
+                "wall_ms": anatomy_lm[name]["wall_ms"],
+            } for name in anatomy_windows},
+            # the median wall of dispatches 2-5: prefetch_off's job with
+            # no span tracer against the traced window's (1 step in 4)
+            "trace_overhead_ms": anatomy_lm["trace_overhead"],
+            "trace": {**anatomy_lm["trace"], "profile_traces": [
+                {k: v for k, v in t.items() if k != "kernel_names"}
+                for t in anatomy_lm["trace"]["profile_traces"]
+            ]},
         },
-        "world": anatomy_world,
+        "world": {**anatomy_world, "trace": {
+            k: v for k, v in anatomy_world["trace"].items() if k != "profile_traces"
+        }},
     }}), flush=True)
     phases.done("18_anatomy")
 

@@ -42,8 +42,9 @@ harness's does: the master writes its lifecycle there too, the workers
 their ``step`` samples and their mirrored netem firings, and the
 report's ``master_ha`` section reads the step gap of each outage from
 it, and a streaming run's report its ``streaming`` section (the final
-watermarks, the lag and the freshness ledger).  The JAX package's trace
-comes with slice 10b.
+watermarks, the lag and the freshness ledger).  The master writes its
+spans there too (``spans.jsonl``), and the runner's ``trace`` section
+reads them.
 
 Clock note: workers stamp their events with ``time.monotonic()``, which
 is machine-wide on Linux, so the master-side latencies subtract worker

@@ -31,9 +31,10 @@ The injected errors are the port's own :class:`RpcError` codes; the JAX
 package's wear ``grpc.RpcError``'s surface.  Every firing is recorded to
 the chaos event log with an fsync (the process may be about to die of
 it), and mirrored into the telemetry event log as ``rpc_fault_injected``
-(by the master-side shim's sink, or a worker's ``worker_hooks``).  The
-JAX package also opens an ``rpc_degraded`` span for a window fault: the
-port's spans come with slice 10b.  An armed worker also records its RPC outcome counters
+(by the master-side shim's sink, or a worker's ``worker_hooks``).  A
+window fault also records an ``rpc_degraded`` span over its planned
+window when it opens (the victim may not live to see it close).  An
+armed worker also records its RPC outcome counters
 after each failure (``rpc_stats`` observations): a worker that the fault
 gets evicted never ships them on a heartbeat, so the harness merges them
 as a heartbeat would; the JAX report counts only what heartbeats
@@ -200,6 +201,26 @@ class NetemShim:
         # fsync: a blackholed worker may be about to die of this fault
         chaos_hooks.append_event(self._events_path, event, fsync=True)
 
+    def _record_window_span(self, armed: _Armed):
+        """One ``rpc_degraded`` span per window fault, recorded when it
+        opens over the planned window and flushed at once, for the same
+        reason as the fsync above."""
+        try:
+            from elasticdl_tpu_torch.telemetry import tracing
+
+            tracer = tracing.get_tracer()
+            if tracer is None:
+                return
+            start = time.monotonic()
+            tracer.record_span(
+                tracing.SPAN_RPC_DEGRADED, start,
+                start + (armed.fault.duration_secs or _DEFAULT_WINDOW_SECS),
+                kind=armed.fault.kind, fault_id=armed.fault.fault_id,
+            )
+            tracing.flush()
+        except Exception:  # noqa: BLE001 — tracing never breaks injection
+            logger.exception("Netem span recording failed")
+
     # ---- client seam --------------------------------------------------------
 
     def client_call(self, service: str, method: str, invoke, timeout):
@@ -209,6 +230,7 @@ class NetemShim:
         fault = armed.fault
         if fired and fault.kind in _WINDOW_KINDS:
             self._record(armed, method, duration_secs=fault.duration_secs)
+            self._record_window_span(armed)
         if fault.kind == FaultKind.NET_DELAY:
             # seeded jitter: uniform in [0, delay/2) on top of the base
             delay = (

@@ -29,8 +29,7 @@ epoch job (a streaming run is ``chaos/harness.py``'s ``streaming=True``,
 as ``chip_smoke.py``'s phase 20 and the JAX streaming smoke run it), and
 ``--corrupt drop_stream_window`` is refused for want of a streaming run.
 
-Left for their slices: the report's ``trace`` section (slice 10b), and
-the fleet plans of ``--list`` (slice 11).
+Left for its slice: the fleet plans of ``--list`` (the tooling slice).
 """
 
 from __future__ import annotations
@@ -302,9 +301,10 @@ def _run(args, workdir: str) -> dict:
 def write_result_json(report: dict, workdir: str) -> str:
     """The machine-readable verdict beside the run's artifacts
     (``chaos_result.json``): per-invariant PASS/FAIL, the latencies, and
-    the replication, slice, master-HA and RPC sections the run has.  The
-    JAX runner also writes the causal trace's summary (``trace``): slice
-    10."""
+    the replication, slice, master-HA and RPC sections the run has, and
+    the causal trace's summary (``trace``: each run's re-formation phase
+    breakdown, recovered task spans and master outages, from
+    ``telemetry/trace.py``)."""
     result = {
         "plan": report["plan"],
         "seed": report["seed"],
@@ -324,6 +324,20 @@ def write_result_json(report: dict, workdir: str) -> str:
     if report.get("master_ha") is not None:
         result["master_ha"] = report["master_ha"]
         result["master_lives"] = report.get("master_lives")
+    try:
+        from elasticdl_tpu_torch.telemetry.trace import analyze_run_dir
+
+        result["trace"] = {
+            rel: {
+                "reform_downtime": run["reform_downtime"],
+                "recovered_task_spans": run["recovered_task_spans"],
+                # a master outage's phases, only when the run had one
+                **({"master_outage": run["master_outage"]} if run.get("master_outage") else {}),
+            }
+            for rel, run in analyze_run_dir(workdir)["runs"].items()
+        }
+    except Exception:  # noqa: BLE001 — tracing never blocks the verdict
+        result["trace"] = {}
     path = os.path.join(workdir, "chaos_result.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(result, f, indent=2)

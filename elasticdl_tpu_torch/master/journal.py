@@ -1,7 +1,7 @@
 """Durable control-plane journal — master high availability's backbone;
 a copy of ``elasticdl_tpu/master/journal.py``, whole but for its
 memory-ledger registration (the port's ``telemetry/memory.py`` has no
-component registry until slice 10b).
+component registry until slice 10b-2).
 
 A write-ahead record of everything the master would otherwise lose with
 its RAM: the task dispatcher's full lifecycle (todo/doing sets, epoch

@@ -24,10 +24,12 @@ from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
 def worker_envs(args) -> dict[str, str]:
     """The environment the master adds to every worker's: ``--envs``,
-    the RPC retry budget and deadlines (and the lockstep heartbeat's
-    cadence they imply), the device pipeline's flags
+    the RPC retry budget and deadlines, the lockstep heartbeat's cadence
+    that the liveness timeout and the deadline imply, the device
+    pipeline's flags
     (``--device_prefetch``, ``--boundary_fusion``, ``--pipeline_depth``),
-    the telemetry directory and ``--step_anatomy``, and with
+    the telemetry directory, ``--trace_sample_rate`` and
+    ``--step_anatomy``, and with
     ``--master_journal_dir`` the master's address file (which
     also implies the retry budget that carries a worker across a master
     outage).  They travel by env, never argv, so that every process of a
@@ -41,13 +43,17 @@ def worker_envs(args) -> dict[str, str]:
     )
     from elasticdl_tpu_torch.rpc.retry import DEFAULT_RETRY_SECS, RETRY_SECS_ENV
     from elasticdl_tpu_torch.telemetry.anatomy import STEP_ANATOMY_ENV
+    from elasticdl_tpu_torch.telemetry.tracing import TRACE_SAMPLE_RATE_ENV
     from elasticdl_tpu_torch.telemetry.worker_hooks import TELEMETRY_DIR_ENV
     from elasticdl_tpu_torch.trainer import device_pipeline as dp
 
     envs = dict(args.envs_dict)
     if args.telemetry_dir:
-        # workers append their step samples to the shared event log
+        # workers append their step samples to the shared event log, and
+        # their spans to the shared span log at the master's sample rate
         envs.setdefault(TELEMETRY_DIR_ENV, args.telemetry_dir)
+        if args.trace_sample_rate is not None:
+            envs.setdefault(TRACE_SAMPLE_RATE_ENV, str(args.trace_sample_rate))
     if args.step_anatomy:
         envs.setdefault(STEP_ANATOMY_ENV, "1")
     if args.device_prefetch:
@@ -65,15 +71,16 @@ def worker_envs(args) -> dict[str, str]:
         )
     if args.rpc_deadline_secs is not None:
         envs.setdefault(DEADLINE_SECS_ENV, str(args.rpc_deadline_secs))
-        # a lockstep worker's beats come often enough that a beat the
-        # link swallows expires its deadline before the master's timeout
-        from elasticdl_tpu_torch.worker.lockstep import HEARTBEAT_INTERVAL_SECS
+    # a lockstep worker's beats come often enough that a late beat does
+    # not evict it, and that a beat the link swallows expires its
+    # deadline before the master's timeout
+    from elasticdl_tpu_torch.worker.lockstep import HEARTBEAT_INTERVAL_SECS
 
-        interval = heartbeat_interval_secs(
-            HEARTBEAT_INTERVAL_SECS, args.heartbeat_timeout_secs, args.rpc_deadline_secs
-        )
-        if interval != HEARTBEAT_INTERVAL_SECS:
-            envs.setdefault(HEARTBEAT_INTERVAL_ENV, str(interval))
+    interval = heartbeat_interval_secs(
+        HEARTBEAT_INTERVAL_SECS, args.heartbeat_timeout_secs, args.rpc_deadline_secs
+    )
+    if interval != HEARTBEAT_INTERVAL_SECS:
+        envs.setdefault(HEARTBEAT_INTERVAL_ENV, str(interval))
     return envs
 
 

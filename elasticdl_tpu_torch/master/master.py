@@ -83,8 +83,8 @@ complete snapshot to serving whenever the model version advances, on a
 thread of its own, so that a slow harvest never holds the run loop.
 
 Left out until the slices that bring them: the device mesh's DCN
-planning (slice 8: the port's world is one flat process group), SLOs,
-the TensorBoard service and tracing (slice 10b).
+planning (slice 8: the port's world is one flat process group), SLOs
+and the TensorBoard service (slice 10b-2).
 """
 
 from __future__ import annotations
@@ -186,7 +186,7 @@ class Master:
         ):
             eval_only = self.job_type == JobType.EVALUATION_ONLY
             self.evaluation_service = EvaluationService(
-                None,  # the TensorBoard service comes with slice 10b
+                None,  # the TensorBoard service comes with slice 10b-2
                 self.task_d,
                 self._spec.eval_metrics_fn,
                 start_delay_secs=args.evaluation_start_delay_secs,
@@ -234,7 +234,9 @@ class Master:
         # telemetry: the registry, the event log and /metrics
         from elasticdl_tpu_torch.telemetry.master_hooks import MasterTelemetry
 
-        self.telemetry = MasterTelemetry(args.telemetry_dir or "")
+        self.telemetry = MasterTelemetry(
+            args.telemetry_dir or "", trace_sample_rate=args.trace_sample_rate
+        )
         self.telemetry.attach(self.task_d, self.servicer)
         self._telemetry_server = None
         # the live train-to-serve push harvests the replica ring: without
@@ -400,6 +402,11 @@ class Master:
             "stage_lost": stage_lost,
         }
         self._record_event("master_restart", cluster_version=generation, **self.restore_info)
+        from elasticdl_tpu_torch.telemetry.tracing import SPAN_JOURNAL_REPLAY
+
+        self.telemetry.tracer.record_span(
+            SPAN_JOURNAL_REPLAY, self._restart_at, time.monotonic(), generation=generation
+        )
         self.telemetry.master_restart(generation)
         self.telemetry.journal_replay(
             generation, self.restore_info["replay_secs"], self.restore_info["pending"],
@@ -488,7 +495,8 @@ class Master:
             requeued=list(requeued), handshake_secs=now - started_at,
         )
         self.telemetry.worker_rehome(
-            worker_id, self.servicer.cluster_version, len(kept), len(requeued)
+            worker_id, self.servicer.cluster_version, len(kept), len(requeued),
+            started_at=started_at,
         )
 
     def _check_rehome_deadline(self):
@@ -635,6 +643,14 @@ class Master:
         else:
             im.start_workers()
             self._record_world()
+        if self._restart_at is not None:
+            from elasticdl_tpu_torch.telemetry.tracing import SPAN_MASTER_RESTART
+
+            self.telemetry.tracer.record_span(
+                SPAN_MASTER_RESTART, self._restart_at, time.monotonic(),
+                generation=self.servicer.cluster_version,
+            )
+            self.telemetry.tracer.flush()
 
     def _note_served(self):
         """Servicer served sink (a restored master's): the first served
@@ -679,6 +695,7 @@ class Master:
                         self.servicer.forget_worker(ghost)
                     dead = [w for w in dead if w in live]
                 if dead:
+                    self._log_death_causes(dead)
                     self.telemetry.worker_dead(dead, self.servicer.cluster_version)
                     self._handle_dead_workers(dead)
                 elif self._reform_requested is not None:
@@ -740,6 +757,21 @@ class Master:
             self.telemetry.stream_tick(self.task_d.stream_status())
         self.stop()
         return 1 if self._job_failed else 0
+
+    def _log_death_causes(self, dead: list[int]):
+        """Why each of ``dead`` is taken for dead: its exit code (a
+        negative one names the signal) or the age of its last liveness
+        signal."""
+        im = self.instance_manager
+        for worker_id in dead:
+            rc = im.exit_code(worker_id) if hasattr(im, "exit_code") else None
+            if rc is not None:
+                logger.warning("Worker %d exited with code %d", worker_id, rc)
+            else:
+                logger.warning(
+                    "Worker %d is running but sent no liveness signal for %.2f s",
+                    worker_id, self.servicer.liveness_age(worker_id),
+                )
 
     def _handle_dead_workers(self, dead: list[int]):
         """A lockstep world is one program: any death re-forms it whole.
@@ -809,6 +841,12 @@ class Master:
         all_ids = set(dead) | set(im.worker_ids())
         old_world_size = len(all_ids)
         self.telemetry.reform_start(new_version, dead, reason, old_world_size)
+        reform_trace = self.telemetry.reform_trace_context()
+        from elasticdl_tpu_torch.telemetry.tracing import (
+            SPAN_REFORM_FENCE,
+            SPAN_REFORM_RELAUNCH,
+        )
+
         worker_slices = im.worker_slices() if hasattr(im, "worker_slices") else {}
         # the LIVE world's slice count comes from its slice map ({}: one
         # slice); world_num_slices is the NEXT world's, which a capacity
@@ -816,17 +854,25 @@ class Master:
         old_slices = len(set(worker_slices.values())) or 1
         # a fully dead slice is lost capacity: the next world shrinks to
         # the surviving slices, and parks below --min_slices
-        park = self._plan_slice_topology(new_version, dead, old_slices, worker_slices, t0)
+        park = self._plan_slice_topology(
+            new_version, dead, old_slices, worker_slices, t0, reform_trace
+        )
         # harvest the survivors' replica shards BEFORE the loop below
         # forgets them (the directory drops their addresses) and before
         # the relaunch kills them (their RAM dies with them)
-        harvest = self._stage_replica_restore(new_version, dead, old_world_size)
+        harvest = self._stage_replica_restore(
+            new_version, dead, old_world_size, reform_trace
+        )
         if self._would_lose_trained_windows(harvest):
+            self.telemetry.reform_failed(new_version)
             return
-        for worker_id in all_ids:
-            self.task_d.recover_tasks(worker_id)
-            self.servicer.forget_worker(worker_id)
-        self.servicer.reset_step_stream()
+        with self.telemetry.tracer.span(
+            SPAN_REFORM_FENCE, trace_ctx=reform_trace, generation=new_version
+        ):
+            for worker_id in all_ids:
+                self.task_d.recover_tasks(worker_id)
+                self.servicer.forget_worker(worker_id)
+            self.servicer.reset_step_stream()
         # the master kill's "reform" site: generation bumped and
         # journaled, old world fenced and its tasks recovered, no new
         # world launched yet
@@ -843,16 +889,25 @@ class Master:
                 new_world_size=new_world_size, old_slices=old_slices, new_slices=new_slices,
             )
             self.telemetry.mesh_resize(
-                new_version, old_world_size, new_world_size, old_slices, new_slices
+                new_version, old_world_size, new_world_size, old_slices, new_slices,
+                dcn=None, started_at=t0, trace_ctx=reform_trace,
             )
+        # the relaunched world's workers adopt this re-formation's trace in
+        # their world_join spans (a cold spawn by env, a standby in its
+        # assignment line)
+        im.pending_world_trace = reform_trace
         try:
-            im.reform_world(
-                new_version,
-                # only failure recovery spends the crash-loop budget
-                count_against_budget=reason == "worker_failure",
-            )
+            with self.telemetry.tracer.span(
+                SPAN_REFORM_RELAUNCH, trace_ctx=reform_trace, generation=new_version
+            ):
+                im.reform_world(
+                    new_version,
+                    # only failure recovery spends the crash-loop budget
+                    count_against_budget=reason == "worker_failure",
+                )
         except RuntimeError as ex:
             logger.error("Giving up on the job: %s", ex)
+            self.telemetry.reform_failed(new_version)
             self._job_failed = True
             self.request_stop()
             return
@@ -934,7 +989,7 @@ class Master:
 
     def _plan_slice_topology(
         self, new_version: int, dead: list[int], old_slices: int,
-        worker_slices: dict[int, int], detected_at: float,
+        worker_slices: dict[int, int], detected_at: float, reform_trace: dict | None = None,
     ) -> bool:
         """Slice-loss accounting: slices whose EVERY process died are lost
         capacity, and the next world shrinks to the survivors.  A slice
@@ -969,7 +1024,8 @@ class Master:
             parked=park, detected_at=detected_at,
         )
         self.telemetry.slice_loss(
-            new_version, lost, sorted(dead), old_slices, new_slices, park
+            new_version, lost, sorted(dead), old_slices, new_slices, park,
+            started_at=detected_at, trace_ctx=reform_trace,
         )
         logger.warning(
             "Slice loss: slice(s) %s fully dead; shrinking the next world from %d "
@@ -1011,6 +1067,7 @@ class Master:
         im = self.instance_manager
         if im is None or not getattr(im, "lockstep", False):
             return
+        t0 = time.monotonic()
         snap = self.task_d.snapshot()
         backlog = snap["pending"] + snap["pending_eval"]
         if self.task_d.streaming:
@@ -1027,7 +1084,9 @@ class Master:
         self._record_event(
             "autoscale_decision", generation=self.servicer.cluster_version, **decision
         )
-        self.telemetry.autoscale_decision(self.servicer.cluster_version, **decision)
+        self.telemetry.autoscale_decision(
+            self.servicer.cluster_version, started_at=t0, **decision
+        )
         logger.warning(
             "Autoscale %s: %d -> %d slice(s) (%s)", decision["action"],
             decision["from_slices"], decision["to_slices"], decision["reason"],
@@ -1062,7 +1121,8 @@ class Master:
         self._live_push_thread.start()
 
     def _stage_replica_restore(
-        self, new_version: int, dead: list[int], old_world_size: int
+        self, new_version: int, dead: list[int], old_world_size: int,
+        reform_trace: dict | None = None,
     ) -> dict | None:
         """Harvest the freshest complete replica set from the surviving
         workers' RAM and stage it for generation ``new_version``; stages
@@ -1110,6 +1170,12 @@ class Master:
             "secs": time.monotonic() - t0,
         }
         logger.info("Replica harvest for generation %d: %s", new_version, found)
+        from elasticdl_tpu_torch.telemetry.tracing import SPAN_REPLICA_HARVEST
+
+        self.telemetry.tracer.record_span(
+            SPAN_REPLICA_HARVEST, t0, time.monotonic(), trace_ctx=reform_trace,
+            generation=new_version, complete=found["complete"], version=found["version"],
+        )
         self.telemetry.replica_harvest(
             new_version, found["complete"], found["version"], old_world_size
         )
@@ -1188,9 +1254,14 @@ class _AdoptedProcess:
     tells them apart)."""
 
     def __init__(self, pid: int):
+        from elasticdl_tpu_torch.utils.proc import HeldProcess
+
         self.pid = pid
-        self._rc: int | None = None
-        self.exit_unknown = False
+        # held by its start time from the adoption on: a signal never
+        # reaches a later holder of the pid
+        self._held = HeldProcess(pid)
+        self._rc: int | None = None if self._held.held else -1
+        self.exit_unknown = not self._held.held
 
     def _reap(self) -> bool:
         """A master killed in process leaves its workers children of this
@@ -1208,23 +1279,23 @@ class _AdoptedProcess:
             return self._rc
         if self._reap():
             return self._rc
-        try:
-            os.kill(self.pid, 0)
-        except (ProcessLookupError, PermissionError):
-            # gone, or the pid now belongs to someone else (reuse)
+        # exited since the reap above: reaped here when it is this
+        # process's child, else its exit code is not this process's to
+        # read (a zombie of another parent, or gone)
+        if self._held.exited() and not self._reap():
             self._rc, self.exit_unknown = -1, True
-            return self._rc
-        # a zombie exited since the reap above: reaped here when it is
-        # this process's child, else its parent has not reaped it yet
-        if _is_zombie(self.pid) and not self._reap():
-            self._rc, self.exit_unknown = -1, True
+        if self._rc is not None:
+            self._held.close()
         return self._rc
 
     def _signal(self, sig):
-        try:
-            os.kill(self.pid, sig)
-        except (ProcessLookupError, PermissionError):
-            self._rc = self._rc if self._rc is not None else -1
+        # a process known to be gone is not signalled at all; one found
+        # gone here is reaped when it is this process's child
+        if self._rc is None and not self._held.signal(sig):
+            self.poll()
+
+    def send_signal(self, sig):
+        self._signal(sig)
 
     def terminate(self):
         self._signal(signal.SIGTERM)
@@ -1239,16 +1310,6 @@ class _AdoptedProcess:
                 raise subprocess.TimeoutExpired(f"pid {self.pid}", timeout)
             time.sleep(0.05)
         return self._rc
-
-
-def _is_zombie(pid: int) -> bool:
-    """Whether ``pid`` has exited and waits for its parent to reap it
-    (``/proc``; False where there is none)."""
-    try:
-        with open(f"/proc/{pid}/stat", encoding="ascii") as f:
-            return f.read().rpartition(")")[2].split()[0] == "Z"
-    except (OSError, IndexError):
-        return False
 
 
 class LocalInstanceManager:
@@ -1297,6 +1358,9 @@ class LocalInstanceManager:
         self._fleet_slices = num_slices
         self._procs_per_slice = num_workers // num_slices
         self._world_slices = num_slices
+        # the open re-formation's trace context, handed to the next
+        # world's processes (the master sets it before a relaunch)
+        self.pending_world_trace: dict | None = None
         # worker_id -> slice_id of the live world (the master's slice-loss
         # accounting and the journal's world record read it)
         self._worker_slices: dict[int, int] = {}
@@ -1383,6 +1447,23 @@ class LocalInstanceManager:
             proc = self._procs.get(worker_id)
         return proc.pid if proc is not None else None
 
+    def exit_code(self, worker_id: int) -> int | None:
+        """The worker's exit code once its process has ended, else None."""
+        with self._lock:
+            proc = self._procs.get(worker_id)
+        return proc.poll() if proc is not None else None
+
+    def signal_worker(self, worker_id: int, sig: int) -> bool:
+        """Send ``sig`` to a worker through its handle, which signals
+        nothing once the process is reaped (its pid may be another's by
+        then).  False when no such worker is tracked."""
+        with self._lock:
+            proc = self._procs.get(worker_id)
+        if proc is None:
+            return False
+        proc.send_signal(sig)
+        return True
+
     def adopt_worker(self, worker_id: int, pid: int) -> bool:
         """Track a worker a PREVIOUS master spawned (it re-homed after a
         master restart): from here it is polled, fenced and killed like
@@ -1421,6 +1502,7 @@ class LocalInstanceManager:
 
         n = self._world_size
         coordinator = f"localhost:{elastic.pick_coordinator_port()}"
+        trace, self.pending_world_trace = self.pending_world_trace, None
         # slice coordinates ride the world kwargs only in a multi-slice
         # world: a one-slice worker's argv is the slice-blind one
         assign = slice_assignments(n, self._world_slices) if self._world_slices > 1 else None
@@ -1436,6 +1518,8 @@ class LocalInstanceManager:
             if assign is not None:
                 world["slice_id"] = assign[process_id]
                 world["num_slices"] = self._world_slices
+            if trace:
+                world["trace"] = dict(trace)
             worker_id = self._claim_worker_id()
             if assign is not None:
                 with self._lock:
@@ -1444,11 +1528,18 @@ class LocalInstanceManager:
                 self._start(worker_id, **world)
 
     def _spawn(self, worker_id: int, stdin_pipe: bool = False, **world_kwargs):
+        # the re-formation's trace context travels by env, not argv (a
+        # dict, and argv is the flags' round trip)
+        trace = world_kwargs.pop("trace", None)
         argv = self._build_argv(
             worker_id, f"localhost:{self._master.port}", **world_kwargs
         )
         env = dict(os.environ)
         env.update(self._envs)
+        if trace:
+            from elasticdl_tpu_torch.telemetry.tracing import TRACE_PARENT_ENV
+
+            env[TRACE_PARENT_ENV] = json.dumps(trace)
         # the port importable whatever the master's working directory
         import elasticdl_tpu_torch
 

@@ -38,9 +38,12 @@ Heartbeats also carry the telemetry fan-in that ``/metrics`` mirrors
 (``telemetry/master_hooks.py``): the step-anatomy phase totals, the
 device pipeline's staging totals and the RPC outcome totals, each
 max-merged per worker and summed across workers as it rises, and the
-step of the fleet's progress (``last_step_age_secs``).  Left out until
-the slices that need them: the profiler command and the memory ledger's
-fan-in (slice 10b).  Heartbeats are applied under one lock (the JAX
+step of the fleet's progress (``last_step_age_secs``).  Every beat's
+response carries the live on-demand profiler command
+(:meth:`MasterServicer.request_profile`, ``utils/profiling.py``), and
+every leased task's response the trace context of its dispatch span
+(``telemetry/tracing.py``).  Left out until slice 10b-2: the memory
+ledger's fan-in.  Heartbeats are applied under one lock (the JAX
 package coalesces them for fleets of thousands).
 """
 
@@ -145,6 +148,14 @@ class MasterServicer:
         # the leases a restored master's journal held at the outage: the
         # ones a re-homing handshake settles (None: not restored, all)
         self._outage_leases: set[int] | None = None
+        # ``fn(task_id) -> dict``: the dispatch span's trace context, so
+        # every TaskResponse carries the trace it belongs to
+        self._trace_provider = None
+        # the on-demand profiler command (request_profile): the latest
+        # armed window, sent on every heartbeat response until its TTL
+        # lapses; published as an immutable dict, read without the lock
+        self._profile_command: dict | None = None  # guarded-by: _lock (writes)
+        self._profile_window_seq = 0  # guarded-by: _lock
         if evaluation_service is not None:
             evaluation_service.set_master_servicer(self)
 
@@ -188,6 +199,19 @@ class MasterServicer:
         """``sink(event, **fields)``: the chaos event log."""
         self._event_sink = sink
 
+    def set_trace_provider(self, provider):
+        """``provider(task_id) -> dict``: the task's trace context."""
+        self._trace_provider = provider
+
+    def _trace_for(self, task_id: int) -> dict:
+        if self._trace_provider is None:
+            return {}
+        try:
+            return self._trace_provider(task_id) or {}
+        except Exception:  # noqa: BLE001 — tracing never breaks RPCs
+            logger.exception("Trace provider failed")
+            return {}
+
     def set_served_sink(self, sink):
         """``sink()`` at the first worker call served from here on
         (``get_task``, ``get_step_task``, ``heartbeat``,
@@ -226,7 +250,8 @@ class MasterServicer:
                 self._first_lease_at.setdefault(request.worker_id, self._clock())
             self._journal_durable()
             return msg.task_to_response(
-                task_id, task, self._version, self._minibatch_size
+                task_id, task, self._version, self._minibatch_size,
+                trace=self._trace_for(task_id),
             )
         if (not self._task_d.finished()) or (
             self._task_d.invoke_deferred_callback()
@@ -262,7 +287,8 @@ class MasterServicer:
                 task_id, task = self._task_d.get(request.worker_id)
             if task is not None:
                 resp = msg.task_to_response(
-                    task_id, task, self._version, self._minibatch_size
+                    task_id, task, self._version, self._minibatch_size,
+                    trace=self._trace_for(task_id),
                 )
                 self._memoize_stream(request.seq, resp, request.cluster_version)
                 # durable before any process of the world sees it
@@ -463,7 +489,54 @@ class MasterServicer:
             cluster_version=generation,
             replica_peers=replica_peers,
             boot_id=self._boot_id,
+            profile=self._live_profile_command(),
         )
+
+    # ---- on-demand profiler windows -----------------------------------------
+
+    # how long a request_profile command rides heartbeat responses: a
+    # few beats of every worker.  While it lives, a second request is
+    # absorbed (the same window id); with the workers' window_id dedup
+    # that makes the method safe to deliver twice
+    PROFILE_COMMAND_TTL_SECS = 30.0
+
+    def _live_profile_command(self) -> dict:
+        """The unexpired profile command for a heartbeat response ({}
+        otherwise): a reference read and a clock compare, no lock."""
+        cmd = self._profile_command
+        if cmd is None or self._clock() - cmd["issued_at"] >= self.PROFILE_COMMAND_TTL_SECS:
+            return {}
+        return {k: cmd[k] for k in ("window_id", "num_steps", "out_dir")}
+
+    def request_profile(
+        self, request: msg.RequestProfileRequest
+    ) -> msg.RequestProfileResponse:
+        """Arm an on-demand profiler window: the command rides every
+        heartbeat response until its TTL lapses, and each worker opens
+        one capture into its telemetry dir at its next step.  Arming
+        while a command is still sent returns that window's id."""
+        with self._lock:
+            now = self._clock()
+            cmd = self._profile_command
+            if cmd is not None and now - cmd["issued_at"] < self.PROFILE_COMMAND_TTL_SECS:
+                return msg.RequestProfileResponse(
+                    accepted=True, window_id=cmd["window_id"],
+                    reason="window already being distributed (absorbed)",
+                )
+            self._profile_window_seq += 1
+            try:
+                num_steps = max(1, int(request.num_steps))
+            except (TypeError, ValueError):
+                num_steps = 5
+            self._profile_command = {
+                "window_id": self._profile_window_seq,
+                "num_steps": num_steps,
+                "out_dir": str(request.out_dir or ""),
+                "issued_at": now,
+            }
+            window_id = self._profile_window_seq
+        logger.info("On-demand profile window %d armed (%d steps)", window_id, num_steps)
+        return msg.RequestProfileResponse(accepted=True, window_id=window_id)
 
     # ---- master high availability: the re-homing handshake -----------------
 
@@ -633,6 +706,13 @@ class MasterServicer:
                     if now - at > timeout_secs
                 )
             return sorted(dead)
+
+    def liveness_age(self, worker_id: int) -> float:
+        """Seconds since the worker's last liveness signal (NaN when it
+        sent none)."""
+        with self._lock:
+            at = self._heartbeats.get(worker_id)
+        return float("nan") if at is None else self._clock() - at
 
     def forget_worker(self, worker_id: int):
         with self._lock:

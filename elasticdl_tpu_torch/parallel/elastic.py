@@ -109,14 +109,22 @@ def initialize_world(
         torch.cuda.set_device(rank_dev)
     host, _, port = coordinator_addr.rpartition(":")
     timeout = datetime.timedelta(seconds=timeout_secs)
-    store = dist.TCPStore(
-        host or "localhost", int(port), num_processes,
-        is_master=process_id == 0, timeout=timeout,
-    )
-    dist.init_process_group(
-        backend, store=store, rank=process_id, world_size=num_processes,
-        timeout=timeout,
-    )
+    # the re-formation phase's span (nothing when tracing is off): the
+    # rendezvous waits for every peer of the (re-)formed world, so its
+    # length is the world-formation term of the downtime
+    from elasticdl_tpu_torch.telemetry.tracing import SPAN_WORLD_INITIALIZE, trace_span
+
+    with trace_span(
+        SPAN_WORLD_INITIALIZE, num_processes=num_processes, process_id=process_id
+    ):
+        store = dist.TCPStore(
+            host or "localhost", int(port), num_processes,
+            is_master=process_id == 0, timeout=timeout,
+        )
+        dist.init_process_group(
+            backend, store=store, rank=process_id, world_size=num_processes,
+            timeout=timeout,
+        )
     logger.info(
         "Joined distributed world: process %d/%d on %s, backend %s "
         "(rule: nccl when every process has a card of its own, gloo when "

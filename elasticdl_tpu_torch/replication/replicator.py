@@ -29,9 +29,10 @@ row id (``parallel/elastic.py::scatter_table_rows_from_chief``).  The
 chaos harness's ``drop_shard_parts`` corruption strips the rows from
 every push after they are counted (:data:`DROP_SHARD_PARTS_ENV`).
 
-Left out until slice 10b: the telemetry spans and events (the push and
-restore observations go to the chaos event log, ``chaos/hooks.py``, when
-a plan is installed).
+A push is a ``replica_push`` span and a restore a ``replica_restore``
+span (``telemetry/tracing.py``); the push and restore observations go to
+the chaos event log (``chaos/hooks.py``) when a plan is installed.  Left
+out until slice 10b-2: the telemetry events of the two.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from elasticdl_tpu_torch.replication.service import ReplicaClient
 from elasticdl_tpu_torch.replication.store import ReplicaShard, ReplicaStore
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc.deadline import DeadlinePolicy
+from elasticdl_tpu_torch.telemetry import tracing
 from elasticdl_tpu_torch.trainer.checkpointing import apply_restored_values
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 
@@ -223,6 +225,7 @@ class PeerReplicator:
     def replicate_now(self, trainer, mesh=None):
         version = int(trainer.step)
         self._last_version = version
+        started_at = time.monotonic()
         t0 = time.perf_counter()
         # the disk checkpoint's split: the chief's shard carries the
         # replicated dense leaves, every shard its own table rows
@@ -257,6 +260,13 @@ class PeerReplicator:
         chaos_hooks.notify_replica_push(version)
         t0 = time.perf_counter()
         ok, reason = self._push(shard)
+        # the push's span: the snapshot, the encode and the send
+        tracer = tracing.get_tracer()
+        if tracer is not None:
+            tracer.record_span(
+                tracing.SPAN_REPLICA_PUSH, started_at, time.monotonic(), step=version,
+                target=self.neighbor,
+            )
         self.last_push = {
             "version": version,
             "bytes": len(blob),
@@ -404,8 +414,11 @@ def apply_restore_stage(
     processes theirs)."""
     version = int(resp.version)
     t0 = time.perf_counter()
-    dense, parts = decoded if decoded is not None else decode_snapshot(resp.payload)
-    apply_restored_values(trainer, dense, parts, version)
+    # a re-formation's phase: a restore from peer RAM takes the place of
+    # checkpoint_restore_state's disk read on the downtime's path
+    with tracing.trace_span(tracing.SPAN_REPLICA_RESTORE, step=version):
+        dense, parts = decoded if decoded is not None else decode_snapshot(resp.payload)
+        apply_restored_values(trainer, dense, parts, version)
     restore_ms = _ms_since(t0)
     observed = {}
     if chaos_hooks.get_injector() is not None and not parts:

@@ -93,34 +93,45 @@ class DeadlinePolicy:
             return None
 
 
-# ---- the heartbeat's cadence under a deadline --------------------------------
+# ---- the heartbeat's cadence under a timeout and a deadline ------------------
 
 # the beat interval a lockstep worker takes from its master, by env (the
 # master knows its liveness timeout and the deadline it exports)
 HEARTBEAT_INTERVAL_ENV = "ELASTICDL_TPU_HEARTBEAT_INTERVAL_SECS"
 # the fastest cadence the rule below asks for
 MIN_HEARTBEAT_INTERVAL_SECS = 0.25
+# the beats a liveness timeout spans at least: a beat may then run two
+# intervals late before a live worker is taken for dead
+BEATS_PER_TIMEOUT = 3.0
 
 
 def heartbeat_interval_secs(
     default_secs: float, timeout_secs: float | None, deadline_secs: float | None
 ) -> float:
-    """The beat interval that lets a worker see its link die before the
-    master declares the worker dead.
+    """The beat interval that keeps a live worker from being evicted and
+    lets a worker see its link die before the master declares it dead.
 
     Between task pulls the heartbeat is the worker's only liveness
-    signal.  If the link goes silent just after a beat, the next beat
-    leaves an interval later and its deadline expires one deadline after
-    that, while the master evicts ``timeout_secs`` after the last beat
-    it got.  At the default 2 s cadence with a 1 s deadline and a 3 s
-    timeout those two instants coincide, and the eviction's SIGKILL can
+    signal, and the master evicts ``timeout_secs`` after the last beat it
+    got.  A beat that runs later than ``timeout_secs`` minus the interval
+    (a stalled process, a starved thread, a master that did not serve it
+    in time) evicts a live worker: at the default 2 s cadence and a 3 s
+    timeout that is 1 s, which a host loaded by a job's start (every
+    process importing torch) can exceed.  So the interval is at most a
+    third of the timeout, and a beat may run two intervals late.
+
+    If the link goes silent just after a beat, the next beat leaves an
+    interval later and its deadline expires one deadline after that.  At
+    the default 2 s cadence with a 1 s deadline and a 3 s timeout that
+    instant and the eviction coincide, and the eviction's SIGKILL can
     land before the worker has counted its first expired deadline.  So
-    under a deadline shorter than the timeout the interval is at most
-    half of what the deadline leaves of the timeout: a swallowed beat
-    then expires at least that half before the eviction.  Otherwise, or
-    with no deadline or no timeout, the default."""
-    if not timeout_secs or deadline_secs is None or deadline_secs >= timeout_secs:
+    under a deadline shorter than the timeout the interval is also at
+    most half of what the deadline leaves of the timeout: a swallowed
+    beat then expires at least that half before the eviction.  With no
+    timeout, the default."""
+    if not timeout_secs:
         return default_secs
-    return max(
-        MIN_HEARTBEAT_INTERVAL_SECS, min(default_secs, (timeout_secs - deadline_secs) / 2.0)
-    )
+    cap = timeout_secs / BEATS_PER_TIMEOUT
+    if deadline_secs is not None and deadline_secs < timeout_secs:
+        cap = min(cap, (timeout_secs - deadline_secs) / 2.0)
+    return max(MIN_HEARTBEAT_INTERVAL_SECS, min(default_secs, cap))

@@ -119,7 +119,7 @@ class HeartbeatRequest:
     pipeline's staging totals), ``phases`` (the step anatomy's totals,
     ``{}`` without ``--step_anatomy``) and, with ``--replication``,
     ``replica`` (the replicator's advertisement: its replica server's
-    address and holdings); ``memory`` comes with slice 10b's ledger, and
+    address and holdings); ``memory`` comes with slice 10b-2's ledger, and
     stays empty."""
 
     worker_id: int
@@ -308,8 +308,7 @@ class PredictRequest:
     features: bytes = b""  # pack_array_tree frames
     rows: int = 0
     # trace context ({"trace_id", "span_id"}) of the client's root
-    # span, which the JAX package's router and replica spans parent
-    # into; the port carries it and records no spans until slice 10b
+    # span, which the router's and the replica's spans parent into
     trace: dict = field(default_factory=dict)
 
 
@@ -364,10 +363,10 @@ class ServingStatusResponse:
     # monotone per-phase {ms, count, buckets} serving-request totals in
     # the step-anatomy heartbeat shape (bucket keys stringified for the
     # wire), max-merged per replica (the router's SLO watchdog, which
-    # reads them in the JAX package, comes with slice 10b)
+    # reads them in the JAX package, comes with slice 10b-2)
     phases: dict = field(default_factory=dict)
     # memory-ledger snapshot {"at", "current", "peak"} — NON-monotone,
-    # merged last-writer-wins.  The port's ledger comes with slice 10b,
+    # merged last-writer-wins.  The port's ledger comes with slice 10b-2,
     # so its replicas leave it empty
     memory: dict = field(default_factory=dict)
 
@@ -381,9 +380,8 @@ class SwapModelRequest:
 
     model_dir: str = ""
     min_version: int = -1
-    # trace context of the operator's swap request (the JAX package's
-    # fan-out and model_swap spans parent into it; carried, unused,
-    # until slice 10b)
+    # trace context of the operator's swap request: each replica's
+    # model_swap span parents into it
     trace: dict = field(default_factory=dict)
     # live train->serve push (streaming subsystem): a non-empty
     # ``payload`` carries an encoded replica snapshot
@@ -413,6 +411,27 @@ class SwapModelResponse:
     replicas: list = field(default_factory=list)
 
 
+@dataclass
+class RequestProfileRequest:
+    """Arm an on-demand profiler window on the running job: the master
+    rides the command down on every heartbeat response until the
+    distribution TTL lapses, and each worker opens one
+    ``num_steps``-step capture into its telemetry dir (or ``out_dir``
+    when given).  Arming while a window is already being distributed is
+    absorbed (the response carries the existing window id), so a
+    re-delivered arm is safe to retry."""
+
+    num_steps: int = 5
+    out_dir: str = ""
+
+
+@dataclass
+class RequestProfileResponse:
+    accepted: bool = False
+    window_id: int = 0
+    reason: str = ""
+
+
 MESSAGE_TYPES = {
     cls.__name__: cls
     for cls in (
@@ -440,6 +459,8 @@ MESSAGE_TYPES = {
         ServingStatusResponse,
         SwapModelRequest,
         SwapModelResponse,
+        RequestProfileRequest,
+        RequestProfileResponse,
     )
 }
 

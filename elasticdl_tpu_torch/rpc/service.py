@@ -59,6 +59,7 @@ _METHODS = (
     "get_world_assignment",
     "get_restore_state",
     "rehome_worker",
+    "request_profile",
 )
 
 # every master method here is retry-safe (rpc/retry.py's contract), so
@@ -507,3 +508,8 @@ class MasterClient(RpcClient):
 
     def rehome_worker(self, request: msg.RehomeRequest) -> msg.RehomeResponse:
         return self._call("rehome_worker", request)
+
+    def request_profile(
+        self, request: msg.RequestProfileRequest
+    ) -> msg.RequestProfileResponse:
+        return self._call("request_profile", request)

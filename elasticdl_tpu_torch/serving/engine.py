@@ -43,8 +43,13 @@ shapes_dispatched`), which stays 1.
 Every completed request also lands in monotone per-phase totals
 (``phase_totals_snapshot``: ms, count and the ``SERVING_LATENCY_BUCKETS``
 histogram), which ride the ``serving_status`` reply the router probes
-with.  Not in this slice: trace spans, the event log, the Prometheus
-registry and the memory ledger (slice 10b).
+with.  With a tracer installed (``serving/main.py --telemetry_dir``) a
+traced request records its ``queue`` and ``engine`` spans (they
+partition its wall) and its ``serving_request`` span in the client's
+trace, an untraced one a sampled ``serving_request``; each dispatch
+group a ``serving_dispatch`` span linked to its members' traces; each
+swap a ``model_swap`` span.  Not in this slice: the event log, the
+Prometheus registry and the memory ledger (slice 10b-2).
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from elasticdl_tpu_torch.telemetry.anatomy import (
     PHASE_QUEUE_WAIT,
     PHASE_UNTRACKED,
 )
+from elasticdl_tpu_torch.telemetry import tracing
 from elasticdl_tpu_torch.telemetry.registry import SERVING_LATENCY_BUCKETS
 from elasticdl_tpu_torch.trainer.step import build_predict_step
 from elasticdl_tpu_torch.utils.device import resolve_device
@@ -215,9 +221,10 @@ class ServingEngine:
             if self._served[0] is not None:
                 return
             flat_params, flat_state = self._pending_flats
-            model = build_with_weights(
-                self._spec, flat_params, flat_state, self.device
-            )
+            with tracing.trace_span(tracing.SPAN_TRAINER_BUILD):
+                model = build_with_weights(
+                    self._spec, flat_params, flat_state, self.device
+                )
             self._feature_spec = self._spec_of(sample_features)
             self._pending_flats = None
             self._served = (model, self._served[1])
@@ -330,6 +337,7 @@ class ServingEngine:
             PHASE_D2H_TRANSFER: t4 - t3,
         }
         self.dispatches += 1
+        self._record_dispatch_span(tickets, group, t0, t4, version)
         offset = 0
         for ticket, lo, hi in group.segments:
             n = hi - lo
@@ -359,6 +367,56 @@ class ServingEngine:
         self.requests_served += 1
         self.rows_served += ticket.rows
         self._note_phase_totals(phases, total)
+        self._record_request_spans(ticket)
+
+    def _record_request_spans(self, ticket):
+        tracer = tracing.get_tracer()
+        if tracer is None:
+            return
+        if not ticket.trace:
+            tracer.record_span(
+                tracing.SPAN_SERVING_REQUEST, ticket.submitted_at, ticket.finished_at,
+                sampled=True, rows=int(ticket.rows), model_version=int(ticket.model_version),
+            )
+            return
+        # a traced request (the client opted in) records in its own
+        # trace: queue (submit to first dispatch) and engine (first
+        # dispatch to delivery) partition its wall
+        first = ticket.first_dispatch_at or ticket.finished_at
+        tracer.record_span(
+            tracing.SPAN_SERVING_QUEUE, ticket.submitted_at, first, trace_ctx=ticket.trace,
+            request_id=ticket.request_id, rows=int(ticket.rows),
+        )
+        tracer.record_span(
+            tracing.SPAN_SERVING_ENGINE, first, ticket.finished_at, trace_ctx=ticket.trace,
+            request_id=ticket.request_id, dispatches=int(ticket.dispatches),
+            model_version=int(ticket.model_version),
+        )
+        tracer.record_span(
+            tracing.SPAN_SERVING_REQUEST, ticket.submitted_at, ticket.finished_at,
+            trace_ctx=ticket.trace, request_id=ticket.request_id, rows=int(ticket.rows),
+            model_version=int(ticket.model_version),
+        )
+
+    def _record_dispatch_span(self, tickets, group, t0, t4, version):
+        """One ``serving_dispatch`` span per group, linked (not parented:
+        one group serves many traces) to each member request's trace;
+        recorded whenever a member is traced, else sampled."""
+        tracer = tracing.get_tracer()
+        if tracer is None:
+            return
+        links = [
+            {"trace_id": t.trace.get("trace_id", ""), "span_id": t.trace.get("span_id", "")}
+            for t in tickets
+            if t.trace
+        ]
+        if not links and not tracer.should_sample(tracing.SPAN_SERVING_DISPATCH):
+            return
+        tracer.record_span(
+            tracing.SPAN_SERVING_DISPATCH, t0, t4, requests=len(tickets),
+            n_real=int(group.n_real), canonical_rows=int(self.canonical_rows),
+            model_version=int(version), links=links,
+        )
 
     def _note_phase_totals(self, phases: dict, total: float):
         """Accumulate one completed request into the monotone probe-beat
@@ -411,7 +469,7 @@ class ServingEngine:
 
     # ---- hot swap ----------------------------------------------------------
 
-    def swap_from_export(self, model_dir: str, min_version: int = -1):
+    def swap_from_export(self, model_dir: str, min_version: int = -1, trace=None):
         """Swap to the model exported at ``model_dir``.  Refuses another
         model, an export older than ``min_version``, and a version that
         would not ADVANCE the served one (the staleness guard that makes
@@ -430,11 +488,11 @@ class ServingEngine:
                 f"export version {version} < required {min_version}"
             )
         flat_params, flat_state = load_flats(model_dir)
-        return self._swap_flats(flat_params, flat_state, version, model_dir)
+        return self._swap_flats(flat_params, flat_state, version, model_dir, trace)
 
     def swap_state_dicts(
         self, flat_params: dict, flat_state: dict, version: int,
-        source: str = "in-memory",
+        source: str = "in-memory", trace=None,
     ):
         """Swap from flat name-keyed arrays in the JAX package's layout
         (flax names, ``params/`` stripped; the state under its
@@ -442,9 +500,9 @@ class ServingEngine:
         a replication blob all carry, so a training job's state can feed
         a serving replica without touching disk.  An empty
         ``flat_state`` keeps the served model's state."""
-        return self._swap_flats(flat_params, flat_state, int(version), source)
+        return self._swap_flats(flat_params, flat_state, int(version), source, trace)
 
-    def _swap_flats(self, flat_params, flat_state, version, source):
+    def _swap_flats(self, flat_params, flat_state, version, source, trace=None):
         t0 = time.monotonic()
         with self._swap_lock:
             model, old = self._served
@@ -473,6 +531,14 @@ class ServingEngine:
         self.swaps_applied += 1
         self.last_swap_ms = secs * 1000.0
         self.last_swap_source = source
+        tracer = tracing.get_tracer()
+        if tracer is not None:
+            # with an operator's trace context the swap joins the
+            # fan-out's trace (one swap is one trace across replicas)
+            tracer.record_span(
+                tracing.SPAN_MODEL_SWAP, t0, t0 + secs, trace_ctx=trace or None,
+                replica_id=self.replica_id, model_version=int(version),
+            )
         logger.info(
             "Hot model swap: version %d -> %d (%s, %.1fms)",
             old,

@@ -19,10 +19,14 @@ or gets SIGTERM or SIGINT, terminates them, and a replica whose parent
 is gone (a frontend killed outright) stops by itself.
 
 Every flag defaults to a served-locally-sane value; the serving CLI is
-its own argparse surface.  The telemetry flags (``--metrics_port``,
-``--metrics_addr_file``, ``--slo_config``, ``--telemetry_dir``) parse as
-in the JAX package and raise ``NotImplementedError`` when set: the
-port's serving metrics, /healthz and SLO watchdog come with slice 10b.
+its own argparse surface.  ``--telemetry_dir`` (or the inherited
+``ELASTICDL_TPU_TELEMETRY_DIR``) installs the span tracer in the
+frontend (role ``router``) and in each replica (role ``replica``, by
+env), so one predict request is one trace in ``spans.jsonl``.  The
+other telemetry flags (``--metrics_port``, ``--metrics_addr_file``,
+``--slo_config``) parse as in the JAX package and raise
+``NotImplementedError`` when set: the port's serving metrics, /healthz
+and SLO watchdog come with slice 10b-2.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ DEFAULT_DEADLINE_SECS = 5.0
 PORT_FILE_WAIT_SECS = 120.0
 
 _TELEMETRY = (
-    "it comes with slice 10b, serving telemetry, tracing and profiling "
+    "it comes with slice 10b-2, serving metrics and the SLO watchdog "
     "(ROADMAP.md queue 1)"
 )
 
@@ -126,17 +130,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--metrics_port",
         type=int,
         default=-1,
-        help="/metrics + /healthz port (not ported: slice 10b)",
+        help="/metrics + /healthz port (not ported: slice 10b-2)",
     )
     parser.add_argument(
-        "--slo_config", default="", help="SLO watchdog (not ported: slice 10b)"
+        "--slo_config", default="", help="SLO watchdog (not ported: slice 10b-2)"
     )
     parser.add_argument(
-        "--telemetry_dir", default="", help="not ported: slice 10b"
+        "--telemetry_dir", default="",
+        help="Write the serving spans (spans.jsonl) into this directory",
     )
     parser.add_argument("--addr_file", default="")
     parser.add_argument(
-        "--metrics_addr_file", default="", help="not ported: slice 10b"
+        "--metrics_addr_file", default="", help="not ported: slice 10b-2"
     )
     # spawned-replica internals
     parser.add_argument("--role", default="frontend", choices=["frontend", "replica"])
@@ -152,7 +157,6 @@ def check_ported_flags(args) -> None:
         ("metrics_port", lambda v: v < 0),
         ("metrics_addr_file", lambda v: not v),
         ("slo_config", lambda v: not v),
-        ("telemetry_dir", lambda v: not v),
     ):
         value = getattr(args, flag)
         if not unset(value):
@@ -185,13 +189,31 @@ def _wait_for_signal(still_ok=lambda: True):
             return
 
 
+def _install_telemetry(args) -> str:
+    """The span tracer of this serving process, from ``--telemetry_dir``
+    or the inherited env; the directory ("" for none).  Spans carry the
+    serving role, so the trace export lays out one track per replica
+    and one for the router."""
+    from elasticdl_tpu_torch.telemetry import tracing, worker_hooks
+
+    telemetry_dir = args.telemetry_dir or os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, "")
+    tracing.install(
+        telemetry_dir,
+        role="replica" if args.role == "replica" else "router",
+        worker_id=args.replica_id,
+    )
+    return telemetry_dir
+
+
 # ---- replica role ------------------------------------------------------------
 
 
 def run_replica(args) -> int:
     from elasticdl_tpu_torch.serving.engine import ExportDirWatcher
     from elasticdl_tpu_torch.serving.replica import ServingReplica
+    from elasticdl_tpu_torch.telemetry import tracing
 
+    _install_telemetry(args)
     parent = os.getppid()
     replica = ServingReplica(
         args.model_dir,
@@ -216,6 +238,9 @@ def run_replica(args) -> int:
         if watcher is not None:
             watcher.close()
         replica.close()
+        # the replica buffers its queue, engine and dispatch spans: a
+        # graceful stop must not strand the tail of the request traces
+        tracing.flush()
     return 0
 
 
@@ -256,8 +281,14 @@ def _replica_argv(args, i: int, workdir: str) -> list[str]:
 
 
 def _spawn_replicas(args, workdir: str) -> list[subprocess.Popen]:
+    env = None
+    if args.telemetry_dir:
+        # by env, as the JAX frontend passes it: the argv stays the same
+        from elasticdl_tpu_torch.telemetry.worker_hooks import TELEMETRY_DIR_ENV
+
+        env = dict(os.environ, **{TELEMETRY_DIR_ENV: args.telemetry_dir})
     return [
-        subprocess.Popen(_replica_argv(args, i, workdir))
+        subprocess.Popen(_replica_argv(args, i, workdir), env=env)
         for i in range(args.num_replicas)
     ]
 
@@ -307,7 +338,9 @@ def run_frontend(args) -> int:
         SERVING_SERVICE_NAME,
     )
     from elasticdl_tpu_torch.serving.router import ServingRouter
+    from elasticdl_tpu_torch.telemetry import tracing
 
+    _install_telemetry(args)
     deadlines = (
         DeadlinePolicy.from_secs(args.rpc_deadline_secs)
         if args.rpc_deadline_secs
@@ -368,6 +401,8 @@ def run_frontend(args) -> int:
         router.close()
         _stop_replicas(procs)
         shutil.rmtree(workdir, ignore_errors=True)
+        # the router's route spans survive a graceful stop too
+        tracing.flush()
     return 0
 
 

@@ -8,17 +8,35 @@ same ``dataset_fn`` decode and sends every batch to a running serving
 endpoint (router or single replica — same protocol), so one exported
 model serves both the online and the batch workload.  Outputs flow
 through ``prediction_outputs_processor`` exactly as on the offline
-path.  The JAX client's trace spans come with slice 10b.
+path.  With a telemetry dir in the environment each request's
+``predict_request`` span is the root of its trace: its context rides
+the request, and the router's and the replica's spans join it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 
 from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
+
+
+def _client_tracer():
+    """The process tracer, installing one as role ``client`` when a
+    telemetry dir is configured and none is installed (the predict CLI
+    has no master to do it); None when tracing is off."""
+    from elasticdl_tpu_torch.telemetry import tracing, worker_hooks
+
+    tracer = tracing.get_tracer()
+    if tracer is not None:
+        return tracer
+    telemetry_dir = os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, "")
+    if not telemetry_dir:
+        return None
+    return tracing.install(telemetry_dir, role="client")
 
 
 def run_remote_predict(args) -> dict:
@@ -57,7 +75,11 @@ def run_remote_predict(args) -> dict:
         prediction_shards=reader.create_shards(),
         records_per_task=args.records_per_task,
     )
+    from elasticdl_tpu_torch.telemetry.tracing import SPAN_PREDICT_REQUEST
+
+    tracer = _client_tracer()
     requests = rows = failures = 0
+    failed_trace_ids: list[str] = []
     model_version = -1
     try:
         while True:
@@ -74,20 +96,35 @@ def run_remote_predict(args) -> dict:
                 dispatch_device="cpu",
             ):
                 requests += 1
+                request_id = f"predict-{tid}-{requests}"
+                # the client's root span is the trace: the router's and
+                # the replica's spans parent under it, so one keep-or-drop
+                # decision here covers the whole trace
+                span = None
+                if tracer is not None and tracer.should_sample(SPAN_PREDICT_REQUEST):
+                    span = tracer.start_span(SPAN_PREDICT_REQUEST, request_id=request_id)
                 response = _predict_with_retry(
                     client,
                     msg.PredictRequest(
-                        request_id=f"predict-{tid}-{requests}",
+                        request_id=request_id,
                         features=msg.pack_array_tree(features),
+                        trace=span.context if span is not None else {},
                     ),
                 )
                 if response is None or response.error:
                     failures += 1
+                    if span is not None:
+                        # a failed traced request stays findable: the span
+                        # carries the error, the raise below the trace id
+                        failed_trace_ids.append(span.trace_id)
+                        span.end(error=response.error if response else "empty response")
                     logger.error(
                         "Remote predict failed: %s",
                         response.error if response else "empty response",
                     )
                     continue
+                if span is not None:
+                    span.end(rows=int(response.rows), model_version=int(response.model_version))
                 rows += int(response.rows)
                 model_version = max(model_version, response.model_version)
                 if spec.prediction_outputs_processor is not None:
@@ -98,12 +135,20 @@ def run_remote_predict(args) -> dict:
             dispatcher.report(tid, True)
     finally:
         client.close()
+        if tracer is not None:
+            tracer.flush()
     if failures:
         # the offline path processes every batch or raises; a silently
-        # incomplete output set exiting 0 would be strictly worse
+        # incomplete output set exiting 0 would be strictly worse, and
+        # with tracing on the raise names the failed traces
+        traced = (
+            " (failed trace ids: " + ", ".join(failed_trace_ids[:8])
+            + (", ..." if len(failed_trace_ids) > 8 else "") + ")"
+            if failed_trace_ids else ""
+        )
         raise RuntimeError(
             f"remote predict incomplete: {failures}/{requests} batches "
-            f"failed against {args.serving_addr} (see log)"
+            f"failed against {args.serving_addr} (see log){traced}"
         )
     logger.info(
         "Remote predict: %d requests / %d rows against %s "

@@ -78,7 +78,7 @@ class ServingReplicaServicer:
                 # (and poison) a valid request's dispatch group
                 self.engine.ensure_built(features)
             features = self.engine.conform(features)
-            ticket = self.batcher.submit(request.request_id, features)
+            ticket = self.batcher.submit(request.request_id, features, trace=request.trace)
         except ServingOverloadError as ex:
             # rejected == load shed by the bounded queue, ONLY: a
             # malformed request lands in errors below
@@ -162,11 +162,13 @@ class ServingReplicaServicer:
                         f" / source {request.source_watermark})"
                     )
                 accepted, version, reason = self.engine.swap_state_dicts(
-                    flat_params, flat_state, int(request.version), source=source
+                    flat_params, flat_state, int(request.version), source=source,
+                    trace=request.trace,
                 )
             else:
                 accepted, version, reason = self.engine.swap_from_export(
-                    request.model_dir, min_version=request.min_version
+                    request.model_dir, min_version=request.min_version,
+                    trace=request.trace,
                 )
         except (OSError, ValueError, KeyError) as ex:
             return msg.SwapModelResponse(

@@ -17,10 +17,10 @@ swaps fan out to every registered replica and report per-replica
 outcomes; ``swap_model`` is a versioned put, so a replica that already
 took the version absorbs the re-delivery.
 
-The JAX router records a span per routing attempt and ticks an SLO
-watchdog after each probe sweep; both come to the port with slice 10b
-(:meth:`ServingRouter._route_span` is a no-op, :attr:`watchdog` stays
-None unless a caller sets one).
+Each routing attempt of a traced request is a span of that request's
+trace (:meth:`ServingRouter._route_span`).  The JAX router also ticks an
+SLO watchdog after each probe sweep; that comes to the port with slice
+10b-2 (:attr:`watchdog` stays None unless a caller sets one).
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ class ServingRouter:
         self._fleet_phases: dict[str, dict] = {}
         # optional SLO watchdog (anything with ``tick()``), ticked at
         # the end of every probe sweep; the port's serving/watchdog.py
-        # comes with slice 10b, so nothing sets it yet
+        # comes with slice 10b-2, so nothing sets it yet
         self.watchdog = None
 
     # ---- registry ----------------------------------------------------------
@@ -268,9 +268,22 @@ class ServingRouter:
                 handle.last_seen = time.monotonic()
 
     def _route_span(self, ctx, attempt, t0, replica_id, error="", **attrs):
-        """One routing attempt as a child span of the request's trace in
-        the JAX package; the port records no spans until slice 10b."""
-        del ctx, attempt, t0, replica_id, error, attrs
+        """One routing attempt as a child span of the request's trace:
+        the first attempt is ``route``, every retry ``reroute``, both in
+        the same trace, so a re-sent request stays one trace with its
+        detour visible.  An untraced request skips the tracer."""
+        if not ctx:
+            return
+        from elasticdl_tpu_torch.telemetry import tracing
+
+        tracer = tracing.get_tracer()
+        if tracer is None:
+            return
+        name = tracing.SPAN_SERVING_ROUTE if attempt == 0 else tracing.SPAN_SERVING_REROUTE
+        attrs = dict(attrs, replica_id=int(replica_id), attempt=int(attempt))
+        if error:
+            attrs["error"] = error
+        tracer.record_span(name, t0, time.monotonic(), trace_ctx=ctx, **attrs)
 
     def predict(self, request: msg.PredictRequest) -> msg.PredictResponse:
         tried: set[int] = set()

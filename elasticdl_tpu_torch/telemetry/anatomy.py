@@ -34,9 +34,9 @@ and the ``elasticdl_step_phase_seconds`` histogram
 (``telemetry/master_hooks.py``); and every dispatch emits a
 ``step_anatomy`` event into the telemetry event log, from which
 ``telemetry/report.py::goodput_section`` computes ``e2e_vs_roofline``,
-the phase percentiles, MFU and stragglers.  (The JAX package also
-records sampled ``step_anatomy`` spans; the port's tracing comes with
-slice 10b.)
+the phase percentiles, MFU and stragglers.  With a tracer installed a
+sampled dispatch also records its phases as ``step_anatomy`` spans
+(``telemetry/tracing.py``), one keep-or-drop decision for the group.
 
 Enablement: ``--step_anatomy``, forwarded to workers as
 ``ELASTICDL_TPU_STEP_ANATOMY`` (never argv).  With no recorder installed
@@ -295,7 +295,20 @@ class AnatomyRecorder:
                 slot[1] += 1
                 slot[2][_bucket_index(secs)] += 1
         self._emit_event(phases, subs, wall, steps, records, step)
+        self._emit_spans(intervals, step)
         return phases
+
+    def _emit_spans(self, intervals, step):
+        from elasticdl_tpu_torch.telemetry import tracing
+
+        tracer = tracing.get_tracer()
+        if tracer is None or not tracer.should_sample(tracing.SPAN_STEP_ANATOMY):
+            return
+        for name, t0, t1 in intervals:
+            tracer.record_span(
+                tracing.SPAN_STEP_ANATOMY, t0, t1, phase=name,
+                step=int(step) if step is not None else None,
+            )
 
     def _emit_event(self, phases, subs, wall, steps, records, step):
         from elasticdl_tpu_torch.telemetry import worker_hooks

@@ -23,6 +23,7 @@ one set lookup of the dispatched shape.
 from __future__ import annotations
 
 import threading
+import time
 
 # the exec-counter key workers report compile deltas under (summed by
 # the task dispatcher, mirrored by MasterTelemetry._collect)
@@ -35,11 +36,19 @@ _shapes: set = set()
 
 
 def note_compile(duration_secs: float = 0.0):
-    """One compile (a graph capture) of ``duration_secs``."""
+    """One compile (a graph capture) of ``duration_secs``, and its
+    ``compile`` span when a tracer is installed (on whatever thread
+    captured; lifecycle spans are never sampled away)."""
     global _count, _secs_total
     with _lock:
         _count += 1
         _secs_total += max(0.0, float(duration_secs))
+    from elasticdl_tpu_torch.telemetry import tracing
+
+    tracer = tracing.get_tracer()
+    if tracer is not None:
+        now = time.monotonic()
+        tracer.record_span(tracing.SPAN_COMPILE, now - max(0.0, float(duration_secs)), now)
 
 
 def note_shape(key) -> bool:

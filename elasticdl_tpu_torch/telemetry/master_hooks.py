@@ -11,12 +11,17 @@ staging and RPC totals, the workers' ``time_<bucket>_ms`` buckets) are
 refreshed at scrape time by a collect callback, so the run loop pays
 nothing for ``/metrics`` being up.
 
-The families of the JAX package that wait for slice 10b are not
+It also owns the master's span tracer (``telemetry/tracing.py``): one
+``task_lifecycle`` span per lease, a recovered task's linked into its
+original trace; a ``reform`` trace per re-formation whose context the
+relaunched workers' ``world_join`` spans adopt; and the re-home, slice
+loss, resize, autoscale and live-push spans.
+
+The families of the JAX package that wait for slice 10b-2 are not
 registered here: the memory ledger's ``elasticdl_memory_bytes``, the SLO
-watchdog's ``elasticdl_slo_*``, the TensorBoard mirror, the heartbeat
+watchdog's ``elasticdl_slo_*``, the TensorBoard mirror, and the heartbeat
 fan-in and sweep counters (the port's servicer applies each beat
-inline), and the span tracer (spans are a no-op until then, so the live
-push has no ``live_push`` span).  In watermark-lease mode the stream's
+inline).  In watermark-lease mode the stream's
 gauges (``elasticdl_stream_lag_records``, ``elasticdl_stream_watermark``)
 are refreshed at scrape time, :meth:`MasterTelemetry.stream_tick`
 writes the watermark pair and the lag, and
@@ -26,6 +31,7 @@ writes the watermark pair and the lag, and
 from __future__ import annotations
 
 import os
+import time
 
 from elasticdl_tpu_torch.telemetry.events import (
     EVENT_AUTOSCALE_DECISION,
@@ -51,6 +57,19 @@ from elasticdl_tpu_torch.telemetry.events import (
     EventLog,
 )
 from elasticdl_tpu_torch.telemetry.registry import MetricsRegistry
+from elasticdl_tpu_torch.telemetry.tracing import (
+    SPAN_AUTOSCALE_DECISION,
+    SPAN_LIVE_PUSH,
+    SPAN_MESH_RESIZE,
+    SPAN_REFORM,
+    SPAN_SLICE_LOSS,
+    SPAN_TASK_LIFECYCLE,
+    SPAN_WORKER_REHOME,
+    SPANS_FILENAME,
+    SpanRecorder,
+    gen_trace_id,
+    sample_rate_from_env,
+)
 
 # family names referenced from more than one code path live here, so
 # that each is registered at one call site
@@ -75,7 +94,9 @@ def worker_series_budget() -> int:
 
 
 class MasterTelemetry:
-    def __init__(self, telemetry_dir: str = "", registry=None):
+    def __init__(
+        self, telemetry_dir: str = "", registry=None, trace_sample_rate: float | None = None
+    ):
         self.registry = registry if registry is not None else MetricsRegistry()
         # async: the master emits from the dispatcher's observer calls,
         # under its lock, so a disk write there would queue every
@@ -84,6 +105,24 @@ class MasterTelemetry:
             os.path.join(telemetry_dir, EVENTS_FILENAME) if telemetry_dir else "",
             async_writes=True,
         )
+        # the span tracer buffers in memory (the observer calls run under
+        # the dispatcher's lock); with no directory it writes nothing but
+        # stays usable, so the re-formation path never branches
+        self.tracer = SpanRecorder(
+            os.path.join(telemetry_dir, SPANS_FILENAME) if telemetry_dir else "",
+            role="master",
+            sample_rate=(
+                trace_sample_rate if trace_sample_rate is not None
+                else sample_rate_from_env()
+            ),
+        )
+        # task_id -> its open dispatch (root) span; id(task) -> the newest
+        # root span's context, so a recovered task's next span links into
+        # its original trace (the re-queued Task object survives the
+        # re-lease, so its identity is stable while the task lives)
+        self._task_spans: dict[int, object] = {}
+        self._task_trace_links: dict[int, dict] = {}
+        self._reform_span = None
         r = self.registry
 
         def per_type(name, help_text):
@@ -174,6 +213,7 @@ class MasterTelemetry:
         self._servicer = servicer
         task_dispatcher.add_observer(self)
         servicer.add_version_observer(self.on_version_report)
+        servicer.set_trace_provider(self.trace_for_task)
         # the transport's server seam: the latest attached master wins
         from elasticdl_tpu_torch.rpc import service as rpc_service
 
@@ -190,6 +230,12 @@ class MasterTelemetry:
             )
             self._rpc_latency_children[method] = hist
         hist.observe(seconds)
+
+    def trace_for_task(self, task_id: int) -> dict:
+        """The dispatch span's trace context of an active lease: what the
+        servicer stamps on its TaskResponse."""
+        span = self._task_spans.get(task_id)
+        return span.context if span is not None else {}
 
     def _collect(self, _registry):
         """Scrape-time refresh of the point-in-time values."""
@@ -355,6 +401,22 @@ class MasterTelemetry:
     def on_task_leased(self, task_id, worker_id, task):
         type_name = task.type.name.lower()
         self.registry.counter(_TASKS_DISPATCHED, labels={"type": type_name}).inc()
+        # one task is one trace: its first lease opens a root trace, a
+        # re-lease (a failed report, a lease timeout, a dead worker) a
+        # root span inside the original trace, parented to the previous
+        # attempt's span, so `trace analyze` follows it across the fault
+        link = self._task_trace_links.get(id(task))
+        span = self.tracer.start_span(
+            SPAN_TASK_LIFECYCLE,
+            trace_ctx=link if link is not None else {"trace_id": gen_trace_id(), "span_id": ""},
+            task_id=task_id,
+            worker_id=worker_id,
+            type=type_name,
+            shard=task.shard_name,
+            recovered=link is not None,
+        )
+        self._task_spans[task_id] = span
+        self._task_trace_links[id(task)] = span.context
         self.events.emit(
             EVENT_TASK_DISPATCH,
             task_id=task_id,
@@ -362,11 +424,18 @@ class MasterTelemetry:
             type=type_name,
             shard=task.shard_name,
             records=task.num_records,
+            trace_id=span.trace_id,
         )
 
     def on_task_done(self, task_id, task, worker_id, success, exec_counters=None):
         type_name = task.type.name.lower()
+        span = self._task_spans.pop(task_id, None)
+        if span is not None:
+            span.end(success=bool(success))
         if success:
+            # the trace is complete: a freed Task's identity must never
+            # alias a later task's trace
+            self._task_trace_links.pop(id(task), None)
             self.registry.counter(_TASKS_COMPLETED, labels={"type": type_name}).inc()
             self._records.inc(task.num_records)
             self.events.emit(
@@ -400,6 +469,9 @@ class MasterTelemetry:
             self._rpc_reports_deduped.inc()
 
     def on_task_reclaimed(self, task_id, task):
+        span = self._task_spans.pop(task_id, None)
+        if span is not None:
+            span.end(success=False, reclaimed=True)
         self._tasks_recovered.inc()
         self.events.emit(
             EVENT_TASK_RECOVERED,
@@ -421,6 +493,7 @@ class MasterTelemetry:
     def job_end(self, rc: int):
         self.events.emit(EVENT_JOB_END, rc=rc)
         self.events.flush()
+        self.tracer.flush()
 
     def worker_dead(self, worker_ids, generation: int):
         self._workers_dead.inc(len(worker_ids))
@@ -429,16 +502,35 @@ class MasterTelemetry:
 
     def reform_start(self, generation, dead, reason, old_world_size):
         self._generation.set(generation)
+        # every re-formation is one trace: its root opens here, the fence
+        # and relaunch spans of Master._reform_lockstep are its children,
+        # and the relaunched workers' world_join spans adopt it by env
+        self._reform_span = self.tracer.start_span(
+            SPAN_REFORM,
+            trace_ctx={"trace_id": gen_trace_id(), "span_id": ""},
+            generation=generation,
+            reason=reason,
+            dead_workers=sorted(dead),
+        )
         self.events.emit(
             EVENT_REFORM_START,
             generation=generation,
             dead_workers=sorted(dead),
             reason=reason,
             old_world_size=old_world_size,
+            trace_id=self._reform_span.trace_id,
         )
+
+    def reform_trace_context(self) -> dict:
+        """The open re-formation's trace context ({} outside one)."""
+        span = self._reform_span
+        return span.context if span is not None else {}
 
     def reform_complete(self, generation, old_world_size, new_world_size):
         self._reforms.inc()
+        span, self._reform_span = self._reform_span, None
+        if span is not None:
+            span.end(new_world_size=new_world_size)
         self.events.emit(
             EVENT_REFORM_COMPLETE,
             generation=generation,
@@ -451,6 +543,17 @@ class MasterTelemetry:
         self.events.emit(
             EVENT_REFORM_LATENCY, generation=generation, latency_secs=latency_secs
         )
+        # the re-formation's trace is complete: make its spans durable
+        # even if the job later dies uncleanly
+        self.tracer.flush()
+
+    def reform_failed(self, generation):
+        """The relaunch gave up (the re-formation budget is spent): the
+        re-formation's trace closes with the failure."""
+        span, self._reform_span = self._reform_span, None
+        if span is not None:
+            span.end(failed=True)
+        self.tracer.flush()
 
     def master_restart(self, generation: int):
         """The master process starts restored from its journal; emitted
@@ -472,9 +575,11 @@ class MasterTelemetry:
             stage_lost=stage_lost,
         )
 
-    def worker_rehome(self, worker_id: int, generation: int, kept: int, requeued: int):
+    def worker_rehome(
+        self, worker_id: int, generation: int, kept: int, requeued: int, started_at: float,
+    ):
         """One worker re-homed onto the restarted master, with its lease
-        reconciliation."""
+        reconciliation; its span covers the handshake."""
         self.events.emit(
             EVENT_WORKER_REHOME,
             worker_id=worker_id,
@@ -482,12 +587,18 @@ class MasterTelemetry:
             kept=kept,
             requeued=requeued,
         )
+        self.tracer.record_span(
+            SPAN_WORKER_REHOME, started_at, time.monotonic(), generation=generation,
+            worker_id=worker_id, kept=kept, requeued=requeued,
+        )
 
     def slice_loss(
         self, generation: int, lost_slices: list, dead_workers: list,
-        old_slices: int, new_slices: int, parked: bool,
+        old_slices: int, new_slices: int, parked: bool, started_at: float,
+        trace_ctx: dict | None = None,
     ):
-        """A whole slice's processes died."""
+        """A whole slice's processes died: the span covers the failure's
+        detection to the re-plan, inside the re-formation's trace."""
         self.events.emit(
             EVENT_SLICE_LOSS,
             generation=generation,
@@ -497,10 +608,16 @@ class MasterTelemetry:
             new_slices=new_slices,
             parked=bool(parked),
         )
+        self.tracer.record_span(
+            SPAN_SLICE_LOSS, started_at, time.monotonic(), trace_ctx=trace_ctx,
+            generation=generation, lost_slices=list(lost_slices), new_slices=new_slices,
+            parked=bool(parked),
+        )
 
     def mesh_resize(
         self, generation: int, old_world_size: int, new_world_size: int,
-        old_slices: int, new_slices: int, dcn: dict | None = None,
+        old_slices: int, new_slices: int, dcn: dict | None, started_at: float,
+        trace_ctx: dict | None = None,
     ):
         """The next world was resized (``dcn``: the JAX package's DCN
         plan; the port's world is one flat process group, so empty)."""
@@ -513,10 +630,16 @@ class MasterTelemetry:
             new_slices=new_slices,
             dcn=dict(dcn or {}),
         )
+        self.tracer.record_span(
+            SPAN_MESH_RESIZE, started_at, time.monotonic(), trace_ctx=trace_ctx,
+            generation=generation, old_world_size=old_world_size,
+            new_world_size=new_world_size, old_slices=old_slices, new_slices=new_slices,
+        )
+        self.tracer.flush()
 
     def autoscale_decision(
-        self, generation: int, action: str, from_slices: int, to_slices: int,
-        reason: str, p95_step_ms=None, backlog=None,
+        self, generation: int, started_at: float, action: str, from_slices: int,
+        to_slices: int, reason: str, p95_step_ms=None, backlog=None,
     ):
         """The autoscaler crossed its SLO and asked for a resize."""
         self.events.emit(
@@ -528,6 +651,10 @@ class MasterTelemetry:
             reason=reason,
             p95_step_ms=p95_step_ms,
             backlog=backlog,
+        )
+        self.tracer.record_span(
+            SPAN_AUTOSCALE_DECISION, started_at, time.monotonic(), generation=generation,
+            action=action, from_slices=from_slices, to_slices=to_slices,
         )
 
     def replica_harvest(self, generation, complete: bool, version, sources: int):
@@ -577,8 +704,8 @@ class MasterTelemetry:
     ):
         """One live train-to-serve push: a row of the freshness ledger.
         ``staleness``: the records the served model is behind the source
-        when it goes live.  ``started_at`` times the JAX package's span,
-        which comes with slice 10b."""
+        when it goes live; the span runs from ``started_at`` (the
+        harvest's start) to the swap's answer."""
         self.registry.counter(
             "elasticdl_stream_live_push_total",
             "Live train->serve pushes (replica-ring commit fanned into "
@@ -596,4 +723,8 @@ class MasterTelemetry:
             replica=replica,
             swap_ms=swap_ms,
             reason=reason,
+        )
+        self.tracer.record_span(
+            SPAN_LIVE_PUSH, started_at, time.monotonic(), model_version=model_version,
+            trained_watermark=trained_watermark, accepted=bool(accepted), replica=replica,
         )

@@ -4,7 +4,7 @@ the port uses: the device memory the staging admission control reads
 readings of the master's ``/healthz`` headroom block.
 
 The JAX package's component ledger, its ``memory_sample`` events and the
-``elasticdl_memory_bytes`` family come with slice 10b.
+``elasticdl_memory_bytes`` family come with slice 10b-2.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The run report's sections: the part of ``elasticdl_tpu/telemetry/report.py``
 that the port's runs feed (the report CLI and its other sections come
-with slice 10b).
+with slice 10b-2).
 
 - :func:`goodput_section`: the step anatomy's ledger per generation
   (``telemetry/anatomy.py``'s ``step_anatomy`` events): the phases'
@@ -16,7 +16,11 @@ with slice 10b).
   the freshest shard versions, harvests and restores from peer RAM;
 - :func:`streaming_section`: the watermarks, the lag's percentiles and
   the freshness ledger of the live pushes, and :func:`streaming_lines`,
-  its text as the JAX report CLI renders it.
+  its text as the JAX report CLI renders it;
+- :func:`trace_section`: the causal trace's analysis of a telemetry
+  directory that holds a span log (``telemetry/trace.py``: the
+  re-formation's phases, stragglers, steady state), as the JAX report
+  puts it under a run's ``trace``.
 
 Each reads a list of event records: the JAX package's telemetry event
 log, whose records name themselves under ``"event"``, or the port's chaos
@@ -37,6 +41,7 @@ telemetry log's record wins).
 from __future__ import annotations
 
 import math
+import os
 from collections import defaultdict
 
 
@@ -525,3 +530,16 @@ def streaming_lines(streaming: dict) -> list[str]:
                 )
             )
     return lines
+
+
+def trace_section(telemetry_dir: str) -> dict | None:
+    """``telemetry/trace.py``'s analysis of ``telemetry_dir`` when the
+    run also wrote a span log there, else None: a run's ``trace`` entry
+    in the JAX report."""
+    from elasticdl_tpu_torch.telemetry.trace import analyze_telemetry_dir
+    from elasticdl_tpu_torch.telemetry.tracing import SPANS_FILENAME
+
+    if not os.path.exists(os.path.join(telemetry_dir, SPANS_FILENAME)):
+        return None
+    return analyze_telemetry_dir(telemetry_dir)
+

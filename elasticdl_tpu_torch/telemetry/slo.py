@@ -3,7 +3,7 @@
 (``master/autoscaler.py``) reads.
 
 The rest of the SLO engine (the declarative objectives, the burn-rate
-detectors, the incidents) comes with slice 10b.
+detectors, the incidents) comes with slice 10b-2.
 """
 
 from __future__ import annotations

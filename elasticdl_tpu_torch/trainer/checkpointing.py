@@ -11,7 +11,9 @@ The host snapshot of the weights
 (``parallel/elastic.py::state_checkpoint_parts``: device to host copies,
 flax names and layouts) is taken on the training thread; only the disk
 write moves to a writer thread, which touches numpy arrays and never the
-device.
+device.  The snapshot is the ``checkpoint_save_snapshot`` span (the cost
+the training thread pays), the restore the ``checkpoint_restore_state``
+span (a named term of a re-formation's downtime for ``trace analyze``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ import numpy as np
 from elasticdl_tpu_torch.chaos import hooks as chaos_hooks
 from elasticdl_tpu_torch.embeddings.sharded import sharded_tables
 from elasticdl_tpu_torch.parallel import elastic
+from elasticdl_tpu_torch.telemetry.tracing import (
+    SPAN_CHECKPOINT_RESTORE,
+    SPAN_CHECKPOINT_SAVE,
+    trace_span,
+)
 from elasticdl_tpu_torch.trainer.state import checkpoint_to_state
 from elasticdl_tpu_torch.utils import save_utils
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
@@ -86,10 +93,12 @@ class PeriodicCheckpointer:
             return
         chaos_hooks.notify_checkpoint_save(int(version))
         # host arrays, owned; a process other than 0 writes its table
-        # parts alone
-        dense, parts = elastic.state_checkpoint_parts(
-            trainer.state, materialize_dense=self._process_id == 0
-        )
+        # parts alone.  The span is the training thread's cost; the
+        # disk write runs off the step's path
+        with trace_span(SPAN_CHECKPOINT_SAVE, step=int(version)):
+            dense, parts = elastic.state_checkpoint_parts(
+                trainer.state, materialize_dense=self._process_id == 0
+            )
         self._last_saved_version = version
         self.flush()
         self._writer = threading.Thread(
@@ -178,13 +187,14 @@ def restore_trainer_state(trainer, args) -> int | None:
     )
     if not restore_dir:
         return None
-    # a process holding shards keeps only its rows, part by part
-    dense, parts, extra = save_utils.restore_checkpoint_parts(
-        restore_dir, table_row_ranges=elastic.local_table_row_ranges(trainer.state)
-    )
-    version = int(extra.get("model_version", 0) or 0)
-    restored_step = version if resume else 0
-    apply_restored_values(trainer, dense, parts, restored_step)
+    with trace_span(SPAN_CHECKPOINT_RESTORE, resume=bool(resume)):
+        # a process holding shards keeps only its rows, part by part
+        dense, parts, extra = save_utils.restore_checkpoint_parts(
+            restore_dir, table_row_ranges=elastic.local_table_row_ranges(trainer.state)
+        )
+        version = int(extra.get("model_version", 0) or 0)
+        restored_step = version if resume else 0
+        apply_restored_values(trainer, dense, parts, restored_step)
     chaos_hooks.notify_checkpoint_restore(version)
     logger.info(
         "Restored state at version %d from %s%s",

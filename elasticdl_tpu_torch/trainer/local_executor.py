@@ -32,7 +32,7 @@ from elasticdl_tpu_torch.layers.attention import to_torch_dtype
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.parallel.distributed import SPMDTrainer, trim_pad
 from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
-from elasticdl_tpu_torch.telemetry import worker_hooks
+from elasticdl_tpu_torch.telemetry import tracing, worker_hooks
 from elasticdl_tpu_torch.trainer import metrics as metrics_lib
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -60,6 +60,7 @@ from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.export_utils import export_model
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+from elasticdl_tpu_torch.utils.profiling import StepProfiler
 from elasticdl_tpu_torch.utils.timing_utils import Timing
 from elasticdl_tpu_torch.utils.tree_utils import batch_rows
 
@@ -157,13 +158,21 @@ class LocalExecutor:
         self._timing = Timing(enabled=args.log_level == "DEBUG", logger=logger)
         # per-step samples in the run's event log (--telemetry_dir, or the
         # environment a master exported), and the per-dispatch anatomy
-        worker_hooks.install(
-            args.telemetry_dir or os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, "")
+        telemetry_dir = args.telemetry_dir or os.environ.get(
+            worker_hooks.TELEMETRY_DIR_ENV, ""
         )
+        worker_hooks.install(telemetry_dir)
         anatomy_mod.install_if_enabled(
             args.step_anatomy, model_def=args.model_def, device=self._device
         )
+        # the span tracer on the same directory (sampled step spans, the
+        # trainer build, checkpoint and profile-window spans): the one
+        # process's part of the distributed trace
+        tracing.install(telemetry_dir, sample_rate=args.trace_sample_rate)
         self._last_eval_milestone = 0
+        self._profiler = StepProfiler(
+            args.profile_dir, num_steps=args.profile_steps, device=self._device
+        )
 
     def _reader(self, data_origin: str):
         if not data_origin:
@@ -206,21 +215,22 @@ class LocalExecutor:
         if self._trainer is not None:
             return
         compute_dtype = self._args.compute_dtype
-        self._trainer = SPMDTrainer(
-            self._model,
-            self._spec.loss,
-            self._tx,
-            compute_dtype=(
-                None if compute_dtype == "float32"
-                else to_torch_dtype(compute_dtype)
-            ),
-            device=self._device,
-            device_parse=self._spec.device_parse,
-            remat=bool(self._args.remat),
-            # one process: no rule shards (the JAX executor's call)
-            sharding_rules=self._spec.rules_for(1),
-        )
-        version = restore_trainer_state(self._trainer, self._args)
+        with tracing.trace_span(tracing.SPAN_TRAINER_BUILD):
+            self._trainer = SPMDTrainer(
+                self._model,
+                self._spec.loss,
+                self._tx,
+                compute_dtype=(
+                    None if compute_dtype == "float32"
+                    else to_torch_dtype(compute_dtype)
+                ),
+                device=self._device,
+                device_parse=self._spec.device_parse,
+                remat=bool(self._args.remat),
+                # one process: no rule shards (the JAX executor's call)
+                sharding_rules=self._spec.rules_for(1),
+            )
+            version = restore_trainer_state(self._trainer, self._args)
         if version is not None:
             self._checkpointer.note_restored_version(version)
             if self._args.evaluation_steps:
@@ -258,8 +268,12 @@ class LocalExecutor:
 
     def _pre_batch(self, _features):
         self._ensure_trainer()
-        # one early return when telemetry is off
+        # the profiler counts calls, one a minibatch: the version moves
+        # only at a dispatch, so it repeats inside a stacked group
+        self._profiler.on_step()
+        # one early return each when telemetry is off
         worker_hooks.record_step(self._version, self._args.minibatch_size)
+        tracing.record_step_span(self._version)
 
     def _post_step_hooks(self):
         # milestone-crossing, not exact-multiple, as in the JAX package:
@@ -398,9 +412,15 @@ class LocalExecutor:
             # a pending mark must not leak into a later run in this process
             device_pipeline.clear_boundary_mark()
             prefetcher.close()
-            # an in-flight async checkpoint must not be abandoned by a
-            # mid-training exception, nor may a failed flush replace it
-            self._checkpointer.flush_on_unwind(clean_exit=ok)
+            try:
+                # an in-flight async checkpoint must not be abandoned by a
+                # mid-training exception, nor may a failed flush replace it
+                self._checkpointer.flush_on_unwind(clean_exit=ok)
+            finally:
+                # close (or diagnose) the capture even on an error: a
+                # leaked one poisons a later start_trace
+                self._profiler.stop()
+                tracing.flush()
         logger.info(
             "Training complete: %d records, %d steps", total, self._version
         )

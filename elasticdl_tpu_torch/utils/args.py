@@ -247,7 +247,8 @@ def _add_train_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--trace_sample_rate", type=float, default=None, required=False,
-        help="Fraction of hot-path spans kept in the trace (not ported)",
+        help="Fraction of hot-path spans (train_step, heartbeat) kept in "
+        "the span log, deterministically 1 in N per name (default 0.05)",
     )
     parser.add_argument(
         "--step_anatomy", type=parse_bool, default=None, required=False,
@@ -270,11 +271,12 @@ def _add_train_params(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--profile_dir", default="",
-        help="Capture a profiler trace of a few steps here (not ported)",
+        help="Capture a torch.profiler trace of a few training steps into "
+        "this directory (a Chrome trace per window; CUDA kernels on a card)",
     )
     parser.add_argument(
         "--profile_steps", type=pos_int, default=5,
-        help="How many steps the profiler window covers (not ported)",
+        help="How many steps the profiler window covers",
     )
     parser.add_argument(
         "--get_model_steps",
@@ -670,15 +672,14 @@ _MESH = _comes_with(
     "slice 8, sequence, tensor and pipeline parallelism (the port's "
     "world is one flat process group)"
 )
-_TELEMETRY = _comes_with("slice 10b, tracing, profiling, SLOs and TensorBoard")
+_TELEMETRY = _comes_with(
+    "slice 10b-2, the SLO watchdog, the memory ledger and TensorBoard"
+)
 _K8S = _comes_with("slice 9, Kubernetes submission")
 UNPORTED_FLAGS = {
     "mesh_shape": _MESH,
     "dcn_mesh_shape": _MESH,
     "tensorboard_log_dir": _TELEMETRY,
-    "trace_sample_rate": _TELEMETRY,
-    "profile_dir": _TELEMETRY,
-    "profile_steps": _TELEMETRY,
     "slo_config": _TELEMETRY,
     "instance_backend": _K8S,
     "namespace": _K8S,

@@ -124,7 +124,7 @@ from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
 from elasticdl_tpu_torch.rpc.deadline import HEARTBEAT_INTERVAL_ENV
 from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
-from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
+from elasticdl_tpu_torch.telemetry import compile_tracker, tracing, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -143,6 +143,7 @@ from elasticdl_tpu_torch.utils.constants import JobType, TaskType
 from elasticdl_tpu_torch.utils.export_utils import export_model
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+from elasticdl_tpu_torch.utils.profiling import StepProfiler, apply_profile_command
 from elasticdl_tpu_torch.utils.tensor import ndarray_to_tensor
 from elasticdl_tpu_torch.utils.timing_utils import Timing
 from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
@@ -153,8 +154,9 @@ from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
 # world's restored state to start_state_p{process_id}_g{generation}.npz
 DUMP_STATE_ENV = "ELASTICDL_TPU_DUMP_STATE"
 
-# the beat's cadence; a master with a tight RPC deadline sends a faster
-# one by env (rpc/deadline.py::heartbeat_interval_secs)
+# the beat's cadence; a master with a short liveness timeout or a tight
+# RPC deadline sends a faster one by env
+# (rpc/deadline.py::heartbeat_interval_secs)
 HEARTBEAT_INTERVAL_SECS = 2.0
 
 
@@ -266,6 +268,20 @@ class LockstepWorker:
         )
         anatomy_mod.install_from_env(model_def=args.model_def, device=world.device)
         self._compile_deltas = compile_tracker.ExecCounterReporter()
+        # span tracing (worker/main.py installs it in a worker process;
+        # this covers a world built in process)
+        if tracing.get_tracer() is None:
+            tracing.install_from_env(
+                worker_id=self._worker_id, process_id=self._process_id,
+                generation=self._cluster_version,
+            )
+        # the profiler window, in a directory of this process's own
+        self._profiler = StepProfiler(
+            os.path.join(args.profile_dir, f"process_{self._process_id}")
+            if args.profile_dir else "",
+            num_steps=args.profile_steps,
+            device=world.device,
+        )
         self._checkpointer = PeriodicCheckpointer(
             args.checkpoint_dir,
             args.checkpoint_steps,
@@ -304,19 +320,29 @@ class LockstepWorker:
         process writes its part of a sharded one."""
         return self._is_chief or self._sharded
 
-    def _report_task_result(self, task_id, err_msg="", fail_count=0, include_timing=False):
+    def _report_task_result(
+        self, task_id, err_msg="", fail_count=0, include_timing=False, trace=None
+    ):
         if not self._is_chief:
             return
         counters = {FAIL_COUNT: fail_count} if fail_count else {}
         if include_timing:
             counters.update(self._timing.exec_counters())
         compiles = self._compile_deltas.attach(counters)
+        t0 = time.monotonic()
         self._master.report_task_result(
             msg.ReportTaskResultRequest(
-                task_id=task_id, err_message=err_msg, exec_counters=counters
+                task_id=task_id, err_message=err_msg, exec_counters=counters,
+                trace=dict(trace or {}),
             )
         )
         self._compile_deltas.commit(compiles)
+        tracer = tracing.get_tracer()
+        if tracer is not None:
+            tracer.record_span(
+                tracing.SPAN_REPORT_TASK, t0, time.monotonic(), trace_ctx=trace,
+                task_id=task_id, error=bool(err_msg),
+            )
 
     def _report_version(self):
         if self._is_chief and self._trainer is not None:
@@ -335,24 +361,28 @@ class LockstepWorker:
         if self._trainer is not None:
             return
         compute_dtype = self._args.compute_dtype
-        self._trainer = SPMDTrainer(
-            self._model,
-            self._spec.loss,
-            build_optimizer(self._spec, self._args.learning_rate),
-            compute_dtype=(
-                None if compute_dtype == "float32" else to_torch_dtype(compute_dtype)
-            ),
-            device=self._world.device,
-            device_parse=self._spec.device_parse,
-            remat=bool(self._args.remat),
-            process_group=self._world.group,
-            sharding_rules=self._sharding_rules,
-        )
-        if self._sharded:
-            self._restore_sharded_state()
-        elif self._is_chief:
-            self._restore_state()
-        version = self._trainer.broadcast_state()
+        # a re-formation's phase: on a relaunched world the build (the
+        # state's start and placement) is a named term of the downtime,
+        # with the restore's span inside it
+        with tracing.trace_span(tracing.SPAN_TRAINER_BUILD):
+            self._trainer = SPMDTrainer(
+                self._model,
+                self._spec.loss,
+                build_optimizer(self._spec, self._args.learning_rate),
+                compute_dtype=(
+                    None if compute_dtype == "float32" else to_torch_dtype(compute_dtype)
+                ),
+                device=self._world.device,
+                device_parse=self._spec.device_parse,
+                remat=bool(self._args.remat),
+                process_group=self._world.group,
+                sharding_rules=self._sharding_rules,
+            )
+            if self._sharded:
+                self._restore_sharded_state()
+            elif self._is_chief:
+                self._restore_state()
+            version = self._trainer.broadcast_state()
         self._checkpointer.note_restored_version(version)
         if self._replicator is not None:
             self._replicator.note_restored_version(version)
@@ -463,16 +493,27 @@ class LockstepWorker:
     def _train_task(self, task):
         def _pre(_features):
             self._ensure_trainer()
+            self._profiler.on_step()
             # every process steps through the global batch: records is
             # the global minibatch (one early return when telemetry is off)
             worker_hooks.record_step(self._trainer.step, self._minibatch_size)
+            # a sampled train_step span (the same early return)
+            tracing.record_step_span(self._trainer.step)
             if self._chaos is not None:
                 # per-step arming point: step-scheduled faults fire at
                 # the exact model version the plan names
                 self._chaos.on_step(int(self._trainer.step))
 
-        with self._crash_on_error(task):
-            batches = self._task_batches(task)
+        # the task's span joins the master's dispatch trace (one task is
+        # one trace across master and workers), and parents the fetch and
+        # step spans recorded inside it
+        with tracing.trace_span(
+            tracing.SPAN_TASK_EXECUTE, trace_ctx=task.trace, task_id=task.task_id,
+            shard=task.shard_name,
+        ) as task_span, self._crash_on_error(task):
+            batches = tracing.trace_fetches(
+                self._task_batches(task), trace_ctx=task.trace, span=task_span
+            )
             if self._chaos is not None:
                 batches = self._chaos.wrap_batches(batches)
             run_stacked_steps(
@@ -499,7 +540,7 @@ class LockstepWorker:
         # the JAX package does, a peer's pull between the two reports
         # ends the stream without the last milestone's evaluation)
         self._report_version()
-        self._report_task_result(task.task_id, include_timing=True)
+        self._report_task_result(task.task_id, include_timing=True, trace=task.trace)
         self._timing.report_timing(reset=True)
         self._maybe_checkpoint()
 
@@ -534,7 +575,10 @@ class LockstepWorker:
 
     def _eval_task(self, task):
         all_outputs, all_labels = [], []
-        with self._crash_on_error(task):
+        with tracing.trace_span(
+            tracing.SPAN_TASK_EXECUTE, trace_ctx=task.trace, task_id=task.task_id,
+            shard=task.shard_name, eval=True,
+        ), self._crash_on_error(task):
             for features, labels in self._task_batches(task, Modes.EVALUATION):
                 self._ensure_trainer()
                 n = batch_rows(labels)
@@ -624,6 +668,14 @@ class LockstepWorker:
             replicator.set_peers(resp.replica_peers)
         if resp is not None:
             self._note_master_boot(resp.boot_id)
+            if resp.profile:
+                # an on-demand capture window (request_profile); a window
+                # id seen already is absorbed
+                apply_profile_command(
+                    self._profiler, resp.profile,
+                    telemetry_dir=os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, ""),
+                    tag=f"p{self._process_id}",
+                )
 
     def _note_master_boot(self, boot_id: str):
         """Heartbeat-thread hook: a changed master boot id means the
@@ -707,7 +759,13 @@ class LockstepWorker:
                     # master must see a dead worker
                     time.sleep(interval_secs)
                     continue
+                t0 = time.monotonic()
                 self._heartbeat()
+                tracer = tracing.get_tracer()
+                if tracer is not None:
+                    tracer.record_span(
+                        tracing.SPAN_HEARTBEAT, t0, time.monotonic(), sampled=True
+                    )
                 time.sleep(interval_secs)
 
         threading.Thread(target=beat, name="heartbeat", daemon=True).start()
@@ -719,6 +777,7 @@ class LockstepWorker:
         try:
             seq = 0
             while True:
+                t0 = time.monotonic()
                 task = self._master.get_step_task(
                     msg.GetStepTaskRequest(
                         seq=seq,
@@ -726,6 +785,14 @@ class LockstepWorker:
                         cluster_version=self._cluster_version,
                     )
                 )
+                tracer = tracing.get_tracer()
+                if tracer is not None and task.shard_name:
+                    # the lease joins the task's trace (WAIT polls are not
+                    # leases and record nothing)
+                    tracer.record_span(
+                        tracing.SPAN_GET_TASK, t0, time.monotonic(), trace_ctx=task.trace,
+                        task_id=task.task_id, seq=seq,
+                    )
                 if task.is_wait:
                     time.sleep(wait_sleep_secs)
                     continue
@@ -781,7 +848,10 @@ class LockstepWorker:
                 # failed flush must not replace an exception in flight
                 self._checkpointer.flush_on_unwind(clean_exit=ok)
             finally:
+                # a leaked capture would poison a later window
+                self._profiler.stop()
                 self._stopped = True
+                tracing.flush()
                 if self._replicator is not None:
                     self._replicator.close()
                 if not ok and self._lingers():

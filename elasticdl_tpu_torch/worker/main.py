@@ -158,6 +158,9 @@ def _poll_world_assignment(
                 "cluster_version": resp.cluster_version,
                 "slice_id": resp.slice_id,
                 "num_slices": resp.num_slices,
+                # the re-formation's trace: the activated standby's
+                # world_join span links into it
+                "trace": dict(resp.trace),
             }
         if resp.shutdown:
             return None
@@ -200,6 +203,16 @@ def main(argv=None) -> int:
         if not _standby_wait(args):
             return 0
         activated_at = time.monotonic()
+    # span tracing: nothing unless the master exported the telemetry
+    # directory; a relaunched world's world_join span links into the
+    # master's re-formation trace (a standby's assignment line carries
+    # it, a cold spawn's environment)
+    from elasticdl_tpu_torch.telemetry import tracing
+
+    tracing.install_from_env(
+        worker_id=args.worker_id, process_id=args.process_id,
+        generation=args.cluster_version,
+    )
     # transport-level network chaos (chaos/netem.py): nothing unless the
     # plan holds network faults for this process and generation; armed
     # before the master client is built, so its first call rides the seam
@@ -216,7 +229,10 @@ def main(argv=None) -> int:
             "Worker %d (task stream) connecting to master at %s",
             args.worker_id, args.master_addr,
         )
-        Worker(args, build_master_client(args.master_addr)).run()
+        try:
+            Worker(args, build_master_client(args.master_addr)).run()
+        finally:
+            tracing.flush()
         return 0
     from elasticdl_tpu_torch.parallel import elastic
     from elasticdl_tpu_torch.worker.lockstep import LockstepWorker
@@ -227,8 +243,16 @@ def main(argv=None) -> int:
         args.cluster_version, args.master_addr,
     )
     client = build_master_client(args.master_addr)
-    world = _join_world(args, activated_at)
-    LockstepWorker(args, client, world).run()
+    reform_parent = getattr(args, "trace", None) or tracing.parent_from_env()
+    with tracing.trace_span(
+        tracing.SPAN_WORLD_JOIN, trace_ctx=reform_parent, coordinator=args.coordinator_addr
+    ):
+        world = _join_world(args, activated_at)
+    tracing.flush()
+    try:
+        LockstepWorker(args, client, world).run()
+    finally:
+        tracing.flush()
     # a clean end only: after a failure the peers may be gone, and the
     # process exits with the error instead
     elastic.shutdown_world()

@@ -45,9 +45,15 @@ Telemetry, when the master exported its directory and
 event log and, as totals, on the heartbeat; compile deltas ride the task
 reports.
 
+With a telemetry directory the worker also writes spans
+(``telemetry/tracing.py``): each task's ``task_execute`` in the trace the
+master's dispatch opened, its lease and report calls, the first fetch,
+sampled steps and heartbeats.  ``--profile_dir``, or a heartbeat's
+``request_profile`` command, opens a ``torch.profiler`` window
+(``utils/profiling.py``).
+
 Unlike the JAX worker, this one writes a last checkpoint when its stream
-ends (as the port's lockstep worker and Local executor do).  Left out
-until slice 10b: tracing and profiling.
+ends (as the port's lockstep worker and Local executor do).
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ from elasticdl_tpu_torch.rpc import messages as msg
 from elasticdl_tpu_torch.rpc import stats as rpc_stats
 from elasticdl_tpu_torch.rpc.service import RpcError, StatusCode
 from elasticdl_tpu_torch.telemetry import anatomy as anatomy_mod
-from elasticdl_tpu_torch.telemetry import compile_tracker, worker_hooks
+from elasticdl_tpu_torch.telemetry import compile_tracker, tracing, worker_hooks
 from elasticdl_tpu_torch.trainer import device_pipeline as dp
 from elasticdl_tpu_torch.trainer.checkpointing import (
     PeriodicCheckpointer,
@@ -96,6 +102,7 @@ from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.export_utils import export_model
 from elasticdl_tpu_torch.utils.log_utils import default_logger as logger
 from elasticdl_tpu_torch.utils.model_utils import get_model_spec
+from elasticdl_tpu_torch.utils.profiling import StepProfiler, apply_profile_command
 from elasticdl_tpu_torch.utils.tensor import ndarray_to_tensor
 from elasticdl_tpu_torch.utils.timing_utils import Timing
 from elasticdl_tpu_torch.utils.tree_utils import batch_rows, stack_trees
@@ -176,16 +183,35 @@ class Worker:
         worker_hooks.install_from_env(worker_id=self._worker_id)
         anatomy_mod.install_from_env(model_def=args.model_def, device=self._device)
         self._compile_deltas = compile_tracker.ExecCounterReporter()
+        # span tracing (worker/main.py installs it in a worker process;
+        # this covers an in-process worker); task_id -> the lease's trace
+        # context, so the report joins the trace the master opened
+        if tracing.get_tracer() is None:
+            tracing.install_from_env(worker_id=self._worker_id)
+        self._task_traces: dict[int, dict] = {}
+        # the profiler window of --profile_dir, or one a heartbeat arms
+        self._profiler = StepProfiler(
+            args.profile_dir, num_steps=args.profile_steps, device=self._device
+        )
 
     # ---- master protocol ---------------------------------------------------
 
     def get_task(self, task_type: int = -1) -> msg.TaskResponse:
+        t0 = time.monotonic()
         task = self._master.get_task(
             msg.GetTaskRequest(worker_id=self._worker_id, task_type=task_type)
         )
         if task.shard_name:
             # WAIT polls are not leases
             self._inflight_leases.add(task.task_id)
+        tracer = tracing.get_tracer()
+        if tracer is not None and task.shard_name:
+            # the report and the task_execute span join the dispatch trace
+            self._task_traces[task.task_id] = task.trace
+            tracer.record_span(
+                tracing.SPAN_GET_TASK, t0, time.monotonic(), trace_ctx=task.trace,
+                task_id=task.task_id,
+            )
         return task
 
     def report_task_result(
@@ -197,15 +223,24 @@ class Worker:
             # absorb training's buckets
             counters.update(self._timing.exec_counters())
         compiles = self._compile_deltas.attach(counters)
+        trace = self._task_traces.pop(task_id, None)
+        t0 = time.monotonic()
         self._master.report_task_result(
             msg.ReportTaskResultRequest(
-                task_id=task_id, err_message=err_msg, exec_counters=counters
+                task_id=task_id, err_message=err_msg, exec_counters=counters,
+                trace=dict(trace or {}),
             )
         )
         self._compile_deltas.commit(compiles)
         # only after the report returned: a lease whose report died with
         # the master is still in flight, and is presented on re-homing
         self._inflight_leases.discard(task_id)
+        tracer = tracing.get_tracer()
+        if tracer is not None:
+            tracer.record_span(
+                tracing.SPAN_REPORT_TASK, t0, time.monotonic(), trace_ctx=trace,
+                task_id=task_id, error=bool(err_msg),
+            )
 
     def report_version(self):
         if self._trainer is not None:
@@ -241,20 +276,21 @@ class Worker:
         if self._trainer is not None:
             return
         compute_dtype = self._args.compute_dtype
-        self._trainer = SPMDTrainer(
-            self._model,
-            self._spec.loss,
-            build_optimizer(self._spec, self._args.learning_rate),
-            compute_dtype=(
-                None if compute_dtype == "float32" else to_torch_dtype(compute_dtype)
-            ),
-            device=self._device,
-            device_parse=self._spec.device_parse,
-            remat=bool(self._args.remat),
-            # one process: no rule shards (the JAX executor's call)
-            sharding_rules=self._spec.rules_for(1),
-        )
-        version = restore_trainer_state(self._trainer, self._args)
+        with tracing.trace_span(tracing.SPAN_TRAINER_BUILD):
+            self._trainer = SPMDTrainer(
+                self._model,
+                self._spec.loss,
+                build_optimizer(self._spec, self._args.learning_rate),
+                compute_dtype=(
+                    None if compute_dtype == "float32" else to_torch_dtype(compute_dtype)
+                ),
+                device=self._device,
+                device_parse=self._spec.device_parse,
+                remat=bool(self._args.remat),
+                # one process: no rule shards (the JAX executor's call)
+                sharding_rules=self._spec.rules_for(1),
+            )
+            version = restore_trainer_state(self._trainer, self._args)
         if version is not None:
             self._checkpointer.note_restored_version(version)
 
@@ -279,6 +315,10 @@ class Worker:
             try:
                 self._ensure_trainer()
                 if task_type == int(TaskType.TRAINING):
+                    self._profiler.on_step()
+                    # a sampled train_step span (one early return when
+                    # tracing is off)
+                    tracing.record_step_span(self._trainer.step)
                     with self._timing.record("batch_process"):
                         if staged is not None and attempt == 0:
                             self._dispatch(
@@ -312,6 +352,9 @@ class Worker:
             try:
                 self._ensure_trainer()
                 trainer = self._trainer
+                for _ in range(group.num_steps):
+                    self._profiler.on_step()
+                tracing.record_step_span(trainer.step)
                 with self._timing.record("batch_process"):
                     if staged is not None and attempt == 0:
                         placed = staged.take()
@@ -489,6 +532,7 @@ class Worker:
                 depth=dp.stage_depth(anatomy, self._pipeline_depth),
             )
             task = None
+            span = None  # the open task's task_execute span
             try:
                 while True:
                     kind, payload = stager.next_event(anatomy)
@@ -497,11 +541,26 @@ class Worker:
                     if kind == dp._STAGE_KIND_ERROR:
                         raise payload
                     if kind == dp._STAGE_KIND_MARK:
+                        if span is not None:
+                            span.__exit__(None, None, None)
+                            span = None
                         task = payload.task if payload.kind == dp.TaskMark.START else None
+                        if task is not None:
+                            span = execute_span(task)
+                            span.__enter__()
                         continue
                     handle_staged(task, payload)
             finally:
+                if span is not None:
+                    span.__exit__(None, None, None)
                 stager.close()
+
+        def execute_span(task):
+            # the worker's side of the task's trace
+            return tracing.trace_span(
+                tracing.SPAN_TASK_EXECUTE, trace_ctx=task.trace, task_id=task.task_id,
+                shard=task.shard_name,
+            )
 
         try:
             if self._boundary_fusion:
@@ -513,14 +572,16 @@ class Worker:
                     if item is None:
                         return total
                     _tid, task, batches = item
-                    run_serial(task, batches)
+                    with execute_span(task):
+                        run_serial(task, batches)
                 run_fused(stream)
                 return total
             for _tid, task, batches in prefetcher:
-                if self._device_prefetch and self._trainer is not None:
-                    run_staged(task, batches)
-                else:
-                    run_serial(task, batches)
+                with execute_span(task):
+                    if self._device_prefetch and self._trainer is not None:
+                        run_staged(task, batches)
+                    else:
+                        run_serial(task, batches)
         finally:
             dp.clear_boundary_mark()
             prefetcher.close()
@@ -544,7 +605,7 @@ class Worker:
         """One task's minibatches; ``PreStacked`` groups when
         ``--steps_per_dispatch`` asks for them (training only)."""
         reader = self._task_data_service.data_reader
-        return build_task_batches(
+        batches = build_task_batches(
             reader,
             task,
             self._spec,
@@ -556,6 +617,11 @@ class Worker:
             stack_k=choose_stack_k(self._steps_per_dispatch, mode == Modes.TRAINING),
             dispatch_device=self._device,
         )
+        if mode != Modes.TRAINING:
+            return batches
+        # the first fetch as a data_fetch span; on the prefetcher's
+        # producer thread, so the trace context travels explicitly
+        return tracing.trace_fetches(batches, trace_ctx=task.trace)
 
     def _evaluate_only(self, wait: bool = False) -> bool:
         """Drain evaluation tasks.  ``wait`` (an evaluation-only job): a
@@ -578,6 +644,13 @@ class Worker:
         the task's lease id, just before the task's report: a retried or
         reclaimed task cannot count twice (the master drops reports of
         inactive leases and second reports of one lease)."""
+        with tracing.trace_span(
+            tracing.SPAN_TASK_EXECUTE, trace_ctx=task.trace, task_id=task.task_id,
+            shard=task.shard_name, eval=True,
+        ):
+            self._process_eval_task_inner(task)
+
+    def _process_eval_task_inner(self, task):
         err = ""
         all_outputs, all_labels = [], []
         # in-dataset prefetch: evaluation consumes on this thread
@@ -728,6 +801,14 @@ class Worker:
             if not self._note_master_boot(resp.boot_id):
                 return False
             self._master_cluster_version = int(resp.cluster_version)
+        if resp.profile:
+            # an on-demand capture window (request_profile); a window id
+            # seen already is absorbed
+            apply_profile_command(
+                self._profiler, resp.profile,
+                telemetry_dir=os.environ.get(worker_hooks.TELEMETRY_DIR_ENV, ""),
+                tag=f"w{self._worker_id}",
+            )
         return True
 
     def _install_reconnect_hook(self):
@@ -751,10 +832,16 @@ class Worker:
 
         def beat():
             while not self._stopped:
+                t0 = time.monotonic()
                 try:
                     self._beat()
                 except Exception:  # noqa: BLE001 — the master may be gone
                     pass
+                tracer = tracing.get_tracer()
+                if tracer is not None:
+                    tracer.record_span(
+                        tracing.SPAN_HEARTBEAT, t0, time.monotonic(), sampled=True
+                    )
                 time.sleep(interval_secs)
 
         threading.Thread(target=beat, name="heartbeat", daemon=True).start()
@@ -782,4 +869,7 @@ class Worker:
                 # failed flush must not replace an exception in flight
                 self._checkpointer.flush_on_unwind(clean_exit=ok)
             finally:
+                # a leaked capture would poison a later window
+                self._profiler.stop()
                 self._stopped = True
+                tracing.flush()

@@ -482,6 +482,83 @@ def test_each_phase18a_gate_trips(phase18a, case):
     assert chip_smoke.check_anatomy_lm(row, per_step=0)
 
 
+def test_smoke_phase18a_traces_and_profiles_on_the_cpu(phase18a):
+    """18a's traced window: sampled spans, the profiler window's events,
+    span and torch.profiler trace, ``trace export`` and ``analyze`` on
+    its directory, and its step walls beside prefetch_off's."""
+    chip_smoke, row = phase18a
+    trace = row["trace"]
+    assert chip_smoke.check_trace_dir(trace) == []
+    assert trace["spans"]["trainer_build"] == 1 and trace["spans"]["train_step"] >= 1
+    assert trace["profile_events"] == {"profile_window_open": 1, "profile_window_close": 1}
+    assert len(trace["profile_traces"]) == 1 and trace["profile_traces"][0]["events"] > 0
+    assert set(row["trace_overhead"]) == {"prefetch_off", chip_smoke.TRACED_WINDOW}
+    assert row[chip_smoke.TRACED_WINDOW]["dispatches"] == chip_smoke.LOCAL_STEPS
+    # the tracing-off side of the comparison ran with no tracer at all
+    assert row["prefetch_off"]["spans_written"] == row["prefetch_on"]["spans_written"] == 0
+    assert row[chip_smoke.TRACED_WINDOW]["spans_written"] > 0
+
+
+# each trace gate of phase 18, and a change of the passing row that must trip it
+PHASE18_TRACE_BREAKS = [
+    lambda t: t.update(spans={}),
+    lambda t: t.update(malformed=[("train_step", ["start/end"])]),
+    lambda t: t.update(export_rc=1),
+    lambda t: t.update(chrome_problems=["no traceEvents"]),
+    lambda t: t.update(steady_state={}),
+    lambda t: t["profile_events"].pop("profile_window_close"),
+    lambda t: t["spans"].pop("profile_window"),
+    lambda t: t.update(profile_traces=[]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PHASE18_TRACE_BREAKS)))
+def test_each_phase18_trace_gate_trips(phase18a, case):
+    import copy
+
+    chip_smoke, row = phase18a
+    trace = copy.deepcopy(row["trace"])
+    assert chip_smoke.check_trace_dir(trace) == []
+    PHASE18_TRACE_BREAKS[case](trace)
+    assert chip_smoke.check_trace_dir(trace)
+
+
+def test_the_trace_gate_reads_kernel_names_and_span_records():
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    trace = {
+        "spans": {"profile_window": 1}, "malformed": [], "export_rc": 0, "chrome_problems": [],
+        "steady_state": {0: {"phases": {"device_compute": {}}}},
+        "profile_events": {"profile_window_open": 1, "profile_window_close": 1},
+        "profile_traces": [{"events": 9, "kernel_names": [
+            "void flash_fwd_sm90_kernel<64, 2>(FwdParams)", "void flash_bwd_dq_sm90_kernel<64>()",
+        ]}],
+        "task_traces": 2, "task_traces_without_a_worker": 0,
+    }
+    hopper = chip_smoke.HOPPER_KERNELS[:2]
+    assert chip_smoke.check_trace_dir(trace, kernels=hopper) == []
+    assert chip_smoke.check_trace_dir(trace, kernels=chip_smoke.HOPPER_KERNELS)
+    assert chip_smoke.check_trace_dir(trace, kernels=hopper, world=True) == []
+    trace["task_traces_without_a_worker"] = 1
+    assert chip_smoke.check_trace_dir(trace, world=True)
+    good = {"span": "train_step", "trace_id": "a" * 32, "span_id": "b" * 16,
+            "parent_span_id": "", "role": "worker", "worker_id": 0, "process_id": 0,
+            "generation": 0, "start": 1.0, "end": 1.5}
+    assert chip_smoke._span_problems(good) == []
+    for broken in (dict(good, trace_id="x"), dict(good, parent_span_id="c" * 15),
+                   dict(good, end=0.5), dict(good, role=""), {k: v for k, v in good.items()
+                                                            if k != "generation"}):
+        assert chip_smoke._span_problems(broken)
+    assert chip_smoke._chrome_problems({"traceEvents": [
+        {"ph": "X", "ts": 1.0, "dur": 2.0, "name": "n", "pid": 1, "tid": 0}]}) == []
+    assert chip_smoke._chrome_problems({"traceEvents": [
+        {"ph": "X", "ts": 1.0, "dur": -2.0, "name": "n", "pid": 1, "tid": 0}]})
+    assert chip_smoke._chrome_problems({}) == ["no traceEvents"]
+
+
 def test_phase18a_counts_each_kernels_launches():
     import sys
 

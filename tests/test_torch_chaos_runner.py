@@ -188,7 +188,9 @@ def test_smoke_phase17_chaos_rehearsal_on_the_cpu(phase):
     rows = phase["runs"]
     assert set(rows) == set(WANT_RC)
     for name, row in rows.items():
-        assert chip_smoke.check_chaos_case(name, row, WANT_RC[name]) == [], (name, row)
+        problems = chip_smoke.check_chaos_case(name, row, WANT_RC[name])
+        # the runner's warnings and errors say why a gate failed
+        assert problems == [], (name, problems, row.get("log_tail"))
     assert rows["blackhole_master_link"]["rpc"]["deadline_exceeded"] > 0
     assert rows["preempt_one_worker"]["standby_activated"] == 2
 
@@ -212,7 +214,10 @@ def test_preempt_one_worker_passes_every_invariant_beside_its_baseline(phase):
     # the verdict beside the artifacts, as the JAX runner writes it
     assert run.result["invariants_ok"] and run.result["plan"] == "preempt_one_worker"
     assert statuses(run.result) == statuses(report)
-    assert "trace" not in run.result
+    # and the causal trace's summary (slice 10b-1): the one re-formation's
+    # downtime in named phases
+    gaps = [g for r in run.result["trace"].values() for g in r["reform_downtime"]]
+    assert len(gaps) == 1 and gaps[0]["coverage"] >= chip_smoke.CHAOS_TRACE_COVERAGE, gaps
 
 
 def test_a_double_report_corruption_exits_1_with_exactly_once_failed(phase):
@@ -262,6 +267,8 @@ BREAKS = [
     ("blackhole_master_link", lambda r: r.update(dead_workers=[[0]])),
     ("slow_network_mid_epoch", lambda r: r.update(reforms=1)),
     ("slow_network_mid_epoch", lambda r: r["rpc"].update(deadline_exceeded=1)),
+    ("preempt_one_worker", lambda r: r.update(trace_gaps=[])),
+    ("preempt_one_worker", lambda r: r["trace_gaps"][0].update(coverage=0.5)),
 ]
 
 

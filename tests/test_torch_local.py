@@ -312,7 +312,7 @@ def test_api_refuses_jobs_without_their_data():
 # cannot act on yet
 UNPORTED_VALUES = {
     "mesh_shape": "dp=2", "dcn_mesh_shape": "dp=2", "tensorboard_log_dir": "/tb",
-    "trace_sample_rate": "1.0", "profile_dir": "/p", "profile_steps": "2", "slo_config": "default",
+    "slo_config": "default",
     "instance_backend": "k8s", "namespace": "ns",
     "docker_image": "img", "docker_image_repository": "repo",
     "docker_base_image": "base", "worker_resource_request": "cpu=2",
@@ -446,12 +446,56 @@ def _metrics_host_is_the_bind_address(runs, tmp_path):
     assert host == "127.0.0.1" and health["job_type"] == "training_with_evaluation"
 
 
-# the four telemetry flags slice 10a ports, each shown reaching its feature
+def _trace_sample_rate_reaches_the_tracer(runs, tmp_path):
+    from elasticdl_tpu_torch.telemetry import tracing, worker_hooks
+
+    data = runs["data"]
+    port_le.LocalExecutor(port_args.parse_master_args(_argv(
+        data, "--training_data", data["train"], "--device", "cpu",
+        "--telemetry_dir", str(tmp_path), "--trace_sample_rate", "0.5",
+    )))
+    tracer = tracing.get_tracer()
+    worker_hooks.uninstall()
+    tracing.uninstall()
+    # 1 in 2, deterministically, into the run's span log
+    assert [tracer.record_span("train_step", 0.0, 1.0, sampled=True) for _ in range(4)] == [
+        True, False, True, False,
+    ]
+    tracer.flush()
+    assert len(tracing.read_spans(str(tmp_path / "spans.jsonl"))) == 2
+
+
+def _profiler_window(flag):
+    def case(runs, tmp_path):
+        from elasticdl_tpu_torch.utils import profiling
+
+        data = runs["data"]
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(profiling, "start_trace", lambda d, device=None: calls.append(("start", d)))
+            mp.setattr(profiling, "stop_trace", lambda: calls.append(("stop",)))
+            executor = port_le.LocalExecutor(port_args.parse_master_args(_argv(
+                data, "--training_data", data["train"], "--device", "cpu",
+                "--profile_dir", str(tmp_path), "--profile_steps", "2" if flag == "profile_steps" else "5",
+            )))
+            for _ in range(12):
+                executor._profiler.on_step()
+            executor._profiler.stop()
+        # the flag window opens past step 5 and covers --profile_steps steps
+        assert calls == [("start", str(tmp_path)), ("stop",)]
+        assert executor._profiler._seen == (8 if flag == "profile_steps" else 11)
+    return case
+
+
+# the telemetry flags slices 10a and 10b-1 port, each shown reaching its feature
 TELEMETRY_FLAG_CASES = {
     "telemetry_dir": _telemetry_dir_reaches_the_step_log,
     "step_anatomy": _step_anatomy_installs_the_recorder,
     "metrics_port": _metrics_port_serves_there,
     "metrics_host": _metrics_host_is_the_bind_address,
+    "trace_sample_rate": _trace_sample_rate_reaches_the_tracer,
+    "profile_dir": _profiler_window("profile_dir"),
+    "profile_steps": _profiler_window("profile_steps"),
 }
 
 
@@ -462,12 +506,11 @@ def test_a_ported_telemetry_flag_reaches_its_feature(runs, tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("tensorboard_log_dir", "/tb"), ("trace_sample_rate", "1.0"), ("profile_dir", "/p"),
-    ("profile_steps", "2"), ("slo_config", "default"),
+    ("tensorboard_log_dir", "/tb"), ("slo_config", "default"),
 ])
 def test_the_telemetry_flags_left_name_slice_10b(flag, value):
     args = port_args.parse_master_args(["--model_def", LM_DEF, f"--{flag}", value])
-    with pytest.raises(NotImplementedError, match=f"--{flag}=.*slice 10b"):
+    with pytest.raises(NotImplementedError, match=f"--{flag}=.*slice 10b-2"):
         port_args.check_ported_flags(args)
 
 

@@ -665,6 +665,7 @@ def _task_stream(master, leases=(), generation=0):
     worker._worker_id, worker._master = 7, master
     worker._compile_deltas = ExecCounterReporter()
     worker._inflight_leases = set(leases)
+    worker._task_traces = {}
     worker._master_boot_id, worker._master_cluster_version = "b1", generation
     worker._trainer, worker._stopped = None, False
     worker._rehome_lock = threading.Lock()
@@ -1000,12 +1001,15 @@ def test_a_child_that_exits_after_the_first_reap_keeps_its_exit_code(monkeypatch
     and before the zombie check.  It is reaped there, with its code, and
     not taken for a vanished non-child (-1)."""
     from elasticdl_tpu_torch.master import master as master_mod
+    from elasticdl_tpu_torch.utils.proc import HeldProcess
 
     child = subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"])
+    # unreaped, so its pid is still this child's: exited means a zombie
+    held = HeldProcess(child.pid)
     deadline = time.monotonic() + 30
-    while not master_mod._is_zombie(child.pid) and time.monotonic() < deadline:
+    while not held.exited() and time.monotonic() < deadline:
         time.sleep(0.02)
-    assert master_mod._is_zombie(child.pid)
+    assert held.exited()
     real_waitpid = os.waitpid
     looks = []
 

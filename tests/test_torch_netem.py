@@ -510,29 +510,74 @@ def test_the_blackhole_race_at_the_fixed_two_second_beat():
     assert _worst_race_margin(2.0) < 0.05
 
 
+def _master_envs(*flags, timeout: float | None = RACE_TIMEOUT_SECS) -> dict:
+    from elasticdl_tpu_torch.master.main import worker_envs
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+
+    timeout_flags = () if timeout is None else ("--heartbeat_timeout_secs", str(timeout))
+    return worker_envs(
+        parse_master_args(["--model_def", "m.custom_model", *timeout_flags, *flags])
+    )
+
+
 def test_the_master_paces_the_beat_so_the_deadline_is_counted_first(monkeypatch):
     """The master's worker environment sets the beat's cadence from its
     liveness timeout and its RPC deadline, and at that cadence the
     swallowed beat's deadline is counted well before any eviction; with
-    no deadline, or one as long as the timeout, the beat keeps its 2 s."""
-    from elasticdl_tpu_torch.master.main import worker_envs
+    no deadline, or one as long as the timeout, the beat is a third of
+    the timeout; under the default 30 s timeout it keeps its 2 s."""
     from elasticdl_tpu_torch.rpc.deadline import HEARTBEAT_INTERVAL_ENV
-    from elasticdl_tpu_torch.utils.args import parse_master_args
     from elasticdl_tpu_torch.worker import lockstep
 
-    def envs(*flags):
-        return worker_envs(parse_master_args(
-            ["--model_def", "m.custom_model", "--heartbeat_timeout_secs",
-             str(RACE_TIMEOUT_SECS), *flags]
-        ))
-
+    envs = _master_envs
     interval = float(envs("--rpc_deadline_secs", str(RACE_DEADLINE_SECS))[HEARTBEAT_INTERVAL_ENV])
     assert interval == 1.0
     assert _worst_race_margin(interval) >= RACE_HOST_LAG_SECS
-    assert HEARTBEAT_INTERVAL_ENV not in envs()
-    assert HEARTBEAT_INTERVAL_ENV not in envs("--rpc_deadline_secs", "5.0")
+    assert float(envs()[HEARTBEAT_INTERVAL_ENV]) == RACE_TIMEOUT_SECS / 3
+    assert float(envs("--rpc_deadline_secs", "5.0")[HEARTBEAT_INTERVAL_ENV]) == RACE_TIMEOUT_SECS / 3
+    assert HEARTBEAT_INTERVAL_ENV not in envs(timeout=None)
     # the worker's beat thread takes the cadence from its environment
     monkeypatch.setenv(HEARTBEAT_INTERVAL_ENV, str(interval))
     assert lockstep.heartbeat_interval_from_env() == interval
     monkeypatch.delenv(HEARTBEAT_INTERVAL_ENV)
     assert lockstep.heartbeat_interval_from_env() == lockstep.HEARTBEAT_INTERVAL_SECS == 2.0
+
+
+# ---- a late beat against the eviction of a live worker ----------------------
+
+def _evicts_a_live_worker(interval: float, late: float) -> bool:
+    """A live worker between task pulls beats every ``interval`` s from
+    0 s, and the beat due at ``interval`` comes ``late`` s after it (its
+    process stalled: a host loaded by a job's start); the master polls
+    every ``RACE_POLL_SECS`` from each of several offsets.  Whether any
+    poll, through the real servicer on one scripted clock, finds the
+    worker dead."""
+    for poll_offset in (0.0, 0.1, 0.25, 0.4):
+        now = [0.0]
+        servicer = MasterServicer(
+            32, TaskDispatcher({"s": (0, 64)}, records_per_task=64), clock=lambda: now[0]
+        )
+        beats = [0.0, interval + late] + [interval * (k + 1) + late for k in range(1, 8)]
+        polls = [poll_offset + RACE_POLL_SECS * k for k in range(int(beats[-1] / RACE_POLL_SECS))]
+        for at, kind in sorted([(b, "beat") for b in beats] + [(p, "poll") for p in polls]):
+            now[0] = at
+            if kind == "beat":
+                servicer.heartbeat(msg.HeartbeatRequest(worker_id=1, step=3))
+            elif servicer.dead_workers(RACE_TIMEOUT_SECS):
+                return True
+    return False
+
+
+@pytest.mark.parametrize("late", [0.0, 0.5, 1.2, 1.8])
+def test_a_beat_late_by_under_two_intervals_does_not_evict_a_live_worker(late):
+    """At the lockstep worker's fixed 2 s beat and the chaos runner's 3 s
+    timeout, one beat 1.2 s late (a process stalled at a job's start)
+    evicts a live worker: phase 17's ``preempt_one_worker`` lost a worker
+    so before its planned kill at step 6 (``faults_injected`` FAIL, the
+    trace's re-formations empty).  At the cadence the master sends, a
+    third of the timeout, a beat may run up to two intervals late."""
+    from elasticdl_tpu_torch.rpc.deadline import HEARTBEAT_INTERVAL_ENV
+
+    interval = float(_master_envs()[HEARTBEAT_INTERVAL_ENV])
+    assert not _evicts_a_live_worker(interval, late)
+    assert _evicts_a_live_worker(2.0, late) == (late > RACE_TIMEOUT_SECS - 2.0)

@@ -406,6 +406,13 @@ SERVE_CLI_ROW = {
     "watch": {"replica_versions": [33, 33], "failures": 0, "versions": [32, 33],
               "after_converged": [33]},
     "exit": {"replicas": 2, "gone": True, "rc": 0},
+    # since the frontend runs with --telemetry_dir: one request traced
+    # end to end (the shape a CPU run of the phase records)
+    "traced_request": {
+        "error": "", "trace_id": "a" * 32, "spans": chip_smoke.TRACED_REQUEST_SPANS,
+        "children_of_root": 4, "linked_dispatches": 1,
+        "critical_path": {"requests": 1, "coverage": 1.0},
+    },
 }
 
 
@@ -448,6 +455,12 @@ SERVE_EDITS = {
     "cli_old_version_after_swap": _row_set("cli", ("watch", "after_converged"), [32, 33]),
     "cli_replica_left": _row_set("cli", ("exit", "gone"), False),
     "cli_replicas_uncounted": _row_set("cli", ("exit", "replicas"), 0),
+    "cli_traced_request_failed": _row_set("cli", ("traced_request", "error"), "shed"),
+    "cli_trace_lost_the_replica": _row_set(
+        "cli", ("traced_request", "spans"), ["predict_request@client", "route@router"]
+    ),
+    "cli_trace_unparented": _row_set("cli", ("traced_request", "children_of_root"), 3),
+    "cli_trace_unlinked": _row_set("cli", ("traced_request", "linked_dispatches"), 0),
 }
 
 
@@ -475,6 +488,9 @@ def test_check_serving_refuses(name):
 
 
 def test_the_phase_secs_line_has_each_phase_and_the_total(monkeypatch):
+    # a start whose sums are exact in binary: the process's own start
+    # time could round a phase's difference off its seconds
+    monkeypatch.setattr(chip_smoke, "STARTED_AT", 1000.0)
     now = [chip_smoke.STARTED_AT]
     monkeypatch.setattr(chip_smoke.time, "monotonic", lambda: now[0])
     clock = chip_smoke._PhaseClock()

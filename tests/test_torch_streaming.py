@@ -513,7 +513,8 @@ def test_the_stream_gauges_are_scraped_only_in_watermark_lease_mode():
     _ref, port, srcs = _pair(total=0, initial=192)
     tel = MasterTelemetry("")
     tel.attach(port, SimpleNamespace(
-        add_version_observer=lambda fn: None, live_workers=lambda: [], cluster_version=0,
+        add_version_observer=lambda fn: None, set_trace_provider=lambda fn: None,
+        live_workers=lambda: [], cluster_version=0,
         rpc_stats_totals=lambda: {}, duplicate_eval_drops=0, phase_stats_totals=lambda: {},
         heartbeat_ages=lambda: {}, prefetch_stats_totals=lambda: {}))
     task_id, _ = port.get(0)

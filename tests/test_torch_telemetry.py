@@ -170,12 +170,11 @@ def _drive_master(telemetry_cls, dispatcher_cls, servicer_cls, module, tmp):
     telemetry.reform_latency(1, 1.5)
     telemetry.master_restart(1)
     telemetry.journal_replay(1, 0.01, 3, 1, 0)
-    # the JAX master's span start, which the port's spanless calls lack
-    span_start = (0.0,) if telemetry_cls is JaxTelemetry else ()
-    telemetry.worker_rehome(0, 1, 1, 0, *span_start)
-    telemetry.slice_loss(1, [1], [2, 3], 2, 1, False, *span_start)
-    telemetry.mesh_resize(1, 4, 2, 2, 1, None, *span_start)
-    telemetry.autoscale_decision(1, *span_start, "grow", 1, 2, "backlog 5 >= 4", None, 5)
+    # each with its span's start, as the JAX master passes it
+    telemetry.worker_rehome(0, 1, 1, 0, 0.0)
+    telemetry.slice_loss(1, [1], [2, 3], 2, 1, False, 0.0)
+    telemetry.mesh_resize(1, 4, 2, 2, 1, None, 0.0)
+    telemetry.autoscale_decision(1, 0.0, "grow", 1, 2, "backlog 5 >= 4", None, 5)
     text = telemetry.registry.exposition()
     telemetry.job_end(0)
     return telemetry, text
@@ -219,6 +218,17 @@ def test_master_telemetry_registers_the_jax_families_10a_ports(tmp_path):
         ]
 
     assert records(str(tmp_path / "port")) == records(str(tmp_path / "jax"))
+
+    # and the span log's spans, by name and attributes (not ids or clocks)
+    def spans(tel_dir):
+        return sorted(
+            json.dumps({k: v for k, v in s.items()
+                        if k not in ("time", "start", "end", "trace_id", "span_id",
+                                     "parent_span_id")}, sort_keys=True)
+            for s in events.read_jsonl(os.path.join(tel_dir, "spans.jsonl"))
+        )
+
+    assert spans(str(tmp_path / "port")) == spans(str(tmp_path / "jax"))
 
 
 def _get(port, path):
@@ -378,6 +388,13 @@ def test_smoke_phase18b_rehearsal_on_the_cpu(phase18b):
     assert set(row["first"]) == set(row["second"]) >= set(chip_smoke.TRACKED_PHASES) | {"untracked"}
     assert row["healthz"]["body"]["job_type"] == "training_only"
     assert list(row["goodput_generations"]) == [0]
+    # every span kept, each task's trace across the master and a worker,
+    # each rank's profiler window
+    trace = row["trace"]
+    assert chip_smoke.check_trace_dir(trace, world=True) == []
+    assert trace["task_traces"] == 2 * 1024 // 128 and trace["task_traces_without_a_worker"] == 0
+    assert trace["profile_events"] == {"profile_window_open": 2, "profile_window_close": 2}
+    assert len(trace["profile_traces"]) == 2
 
 
 def test_the_smokes_healthz_keys_are_the_jax_bodys():
